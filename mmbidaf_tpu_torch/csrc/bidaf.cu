@@ -1,0 +1,222 @@
+// K2 — fused BiDAF attention block, one block per batch element.
+//
+// Replaces: mmbidaf_tpu/ops/pallas/bidaf_kernel.py::_bidaf_kernel (entry
+// point bidaf_attention_fused). Contract, all in f32:
+//   S     = c·w_c 1ᵀ + 1 (q·w_q)ᵀ + (c∘w_cq)·qᵀ + bias          [T_c, T_q]
+//   s_row = softmax over T_q of  qm*S + (1-qm)*(-1e30)
+//   s_col = softmax over T_c of  cm*S + (1-cm)*(-1e30)
+//   a = s_row·q;   b = s_row·s_colᵀ·c;   out = [c; a; c∘a; c∘b]   [T_c, 4D]
+// A fully masked q row or c column softmaxes to the uniform distribution,
+// as the -1e30 fill does in the reference.
+//
+// What bounds it on the H100: shared memory, not FLOPs (~0.1 GFLOP per call
+// at the audio tower's T_c=32, T_q=512, D=256). The TPU kernel held q and
+// s_colᵀ·c ([T_q, D] = 512 KB each in f32) in VMEM; a block has 227 KB.
+// Design:
+// - q streams through shared memory in tiles of kTQ rows, twice: once to
+//   build S, once for a = s_row·q. c ([T_c, D] = 32 KB) stays resident.
+// - S ([T_c, T_q] = 64 KB at the bench shape) stays resident, so the
+//   column softmax is local to each column; s_row overwrites S in place
+//   after s_col has been taken from it.
+// - Q2C is reassociated as P = s_row·s_colᵀ ([T_c, T_c]) then b = P·c, so
+//   the [T_q, D] s_colᵀ·c product never exists. This changes the order of
+//   the sums against the reference's s_row·(s_colᵀ·c); the tolerance in
+//   ops/cuda/bidaf_kernel.py says so.
+// - Row strides of the q tile and of S are padded by one float so that
+//   the column walks of the dot products hit 32 distinct banks.
+// 64 blocks (the bench batch) fill half the card; the batch is the only
+// independent axis at this size.
+#include "common.cuh"
+
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTQ = 32;  // q rows per streamed tile
+constexpr int kRC = 32;  // context rows whose C2Q sums one pass keeps in registers
+
+// Shared floats: c, q tile, S/s_row, s_col, P, s0, s1, w_cq (bidaf_kernel.py
+// computes the same size to refuse shapes that do not fit).
+size_t smem_floats(int Tc, int Tq, int D) {
+  return (size_t)Tc * D + (size_t)kTQ * (D + 1) + 2 * (size_t)Tc * (Tq + 1) +
+         (size_t)Tc * Tc + Tc + kTQ + D;
+}
+
+__device__ void load_q_tile(float* q_s, const float* qb, int j0, int nq, int D, int LD) {
+  for (int e = threadIdx.x; e < nq * D; e += blockDim.x) {
+    const int jj = e / D, d = e - jj * D;
+    q_s[jj * LD + d] = qb[(size_t)(j0 + jj) * D + d];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) bidaf_kernel(
+    const float* __restrict__ c, const float* __restrict__ q,           // [B,Tc,D], [B,Tq,D]
+    const float* __restrict__ c_mask, const float* __restrict__ q_mask,  // [B,Tc], [B,Tq]
+    const float* __restrict__ w_c, const float* __restrict__ w_q,
+    const float* __restrict__ w_cq, const float* __restrict__ bias,      // [D] x3, [1]
+    float* __restrict__ out,                                             // [B,Tc,4D]
+    int Tc, int Tq, int D) {
+  extern __shared__ float smem[];
+  const int LD = D + 1, LQ = Tq + 1;
+  float* c_s = smem;               // [Tc][D]
+  float* q_s = c_s + Tc * D;       // [kTQ][LD]
+  float* srow = q_s + kTQ * LD;    // [Tc][LQ]  S, then s_row
+  float* scol = srow + Tc * LQ;    // [Tc][LQ]  s_col
+  float* p_s = scol + Tc * LQ;     // [Tc][Tc]  s_row·s_colᵀ
+  float* s0 = p_s + Tc * Tc;       // [Tc]      c·w_c
+  float* s1 = s0 + Tc;             // [kTQ]     q·w_q of the tile
+  float* wcq_s = s1 + kTQ;         // [D]
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const float* cb = c + (size_t)b * Tc * D;
+  const float* qb = q + (size_t)b * Tq * D;
+  const float* cm = c_mask + (size_t)b * Tc;
+  const float* qm = q_mask + (size_t)b * Tq;
+  const float bias_v = *bias;
+
+  for (int e = tid; e < Tc * D; e += blockDim.x) c_s[e] = cb[e];
+  for (int d = tid; d < D; d += blockDim.x) wcq_s[d] = w_cq[d];
+  __syncthreads();
+  for (int i = warp; i < Tc; i += nwarps) {
+    float s = 0.0f;
+    for (int d = lane; d < D; d += 32) s = fmaf(c_s[i * D + d], w_c[d], s);
+    s = mmb::warp_sum(s);
+    if (lane == 0) s0[i] = s;
+  }
+
+  // 1. S, one q tile at a time.
+  for (int j0 = 0; j0 < Tq; j0 += kTQ) {
+    const int nq = min(kTQ, Tq - j0);
+    __syncthreads();  // the previous tile's readers are done
+    load_q_tile(q_s, qb, j0, nq, D, LD);
+    __syncthreads();
+    for (int jj = warp; jj < nq; jj += nwarps) {
+      float s = 0.0f;
+      for (int d = lane; d < D; d += 32) s = fmaf(q_s[jj * LD + d], w_q[d], s);
+      s = mmb::warp_sum(s);
+      if (lane == 0) s1[jj] = s;
+    }
+    __syncthreads();
+    for (int e = tid; e < Tc * nq; e += blockDim.x) {
+      const int i = e / nq, jj = e - i * nq;
+      const float* ci = c_s + i * D;
+      const float* qj = q_s + jj * LD;
+      float acc = 0.0f;
+      for (int d = 0; d < D; ++d) acc = fmaf(ci[d] * wcq_s[d], qj[d], acc);
+      srow[i * LQ + j0 + jj] = s0[i] + s1[jj] + acc + bias_v;
+    }
+  }
+  __syncthreads();
+
+  // 2. Column softmax over T_c (a thread per column) into s_col ...
+  for (int j = tid; j < Tq; j += blockDim.x) {
+    float mx = -INFINITY;
+    for (int i = 0; i < Tc; ++i) {
+      const float m = cm[i];
+      const float v = m * srow[i * LQ + j] + (1.0f - m) * mmb::kNegInf;
+      scol[i * LQ + j] = v;
+      mx = fmaxf(mx, v);
+    }
+    float sum = 0.0f;
+    for (int i = 0; i < Tc; ++i) {
+      const float e = expf(scol[i * LQ + j] - mx);
+      scol[i * LQ + j] = e;
+      sum += e;
+    }
+    for (int i = 0; i < Tc; ++i) scol[i * LQ + j] = scol[i * LQ + j] / sum;
+  }
+  __syncthreads();
+  // ... then the row softmax over T_q (a warp per row) in place of S.
+  for (int i = warp; i < Tc; i += nwarps) {
+    float* row = srow + i * LQ;
+    float mx = -INFINITY;
+    for (int j = lane; j < Tq; j += 32) {
+      const float m = qm[j];
+      const float v = m * row[j] + (1.0f - m) * mmb::kNegInf;
+      row[j] = v;
+      mx = fmaxf(mx, v);
+    }
+    mx = mmb::warp_max(mx);
+    float sum = 0.0f;
+    for (int j = lane; j < Tq; j += 32) {
+      const float e = expf(row[j] - mx);
+      row[j] = e;
+      sum += e;
+    }
+    sum = mmb::warp_sum(sum);
+    for (int j = lane; j < Tq; j += 32) row[j] = row[j] / sum;
+  }
+  __syncthreads();
+
+  // 3. P = s_row·s_colᵀ.
+  for (int e = tid; e < Tc * Tc; e += blockDim.x) {
+    const int i = e / Tc, k = e - i * Tc;
+    const float* ri = srow + i * LQ;
+    const float* ck = scol + k * LQ;
+    float acc = 0.0f;
+    for (int j = 0; j < Tq; ++j) acc = fmaf(ri[j], ck[j], acc);
+    p_s[e] = acc;
+  }
+
+  // 4. a = s_row·q (q streamed again), b = P·c, and the output rows.
+  for (int d0 = 0; d0 < D; d0 += blockDim.x) {
+    const int d = d0 + tid;
+    for (int i0 = 0; i0 < Tc; i0 += kRC) {
+      float acc[kRC];
+#pragma unroll
+      for (int r = 0; r < kRC; ++r) acc[r] = 0.0f;
+      for (int j0 = 0; j0 < Tq; j0 += kTQ) {
+        const int nq = min(kTQ, Tq - j0);
+        __syncthreads();  // also orders step 3's P before its readers below
+        load_q_tile(q_s, qb, j0, nq, D, LD);
+        __syncthreads();
+        if (d < D) {
+          for (int jj = 0; jj < nq; ++jj) {
+            const float qv = q_s[jj * LD + d];
+#pragma unroll
+            for (int r = 0; r < kRC; ++r)
+              if (i0 + r < Tc) acc[r] = fmaf(srow[(i0 + r) * LQ + j0 + jj], qv, acc[r]);
+          }
+        }
+      }
+      if (d < D) {
+#pragma unroll
+        for (int r = 0; r < kRC; ++r) {
+          const int i = i0 + r;
+          if (i < Tc) {
+            float bsum = 0.0f;
+            for (int k = 0; k < Tc; ++k) bsum = fmaf(p_s[i * Tc + k], c_s[k * D + d], bsum);
+            const float cv = c_s[i * D + d];
+            float* o = out + ((size_t)b * Tc + i) * 4 * D;
+            o[d] = cv;
+            o[D + d] = acc[r];
+            o[2 * D + d] = cv * acc[r];
+            o[3 * D + d] = cv * bsum;
+          }
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
+MMB_API int mmb_bidaf_forward(const void* c, const void* q, const void* c_mask,
+                              const void* q_mask, const void* w_c, const void* w_q,
+                              const void* w_cq, const void* bias, void* out, int B, int Tc,
+                              int Tq, int D, void* stream) {
+  if (B <= 0 || Tc <= 0 || Tq <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * smem_floats(Tc, Tq, D);
+  if (smem > (size_t)mmb::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(bidaf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  bidaf_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(c), static_cast<const float*>(q),
+      static_cast<const float*>(c_mask), static_cast<const float*>(q_mask),
+      static_cast<const float*>(w_c), static_cast<const float*>(w_q),
+      static_cast<const float*>(w_cq), static_cast<const float*>(bias),
+      static_cast<float*>(out), Tc, Tq, D);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,50 @@
+"""Helpers shared by the port's ops: JAX-style dtype promotion for products,
+and seeded parameter construction.
+
+``torch.matmul`` raises on mixed bf16 / f32 operands, where JAX promotes
+them to f32. Under ``compute_dtype="bfloat16"`` the JAX model meets such
+products wherever an f32 kernel output feeds a bf16 weight (e.g. the
+sentence BiLSTM's ``x @ W_x`` and the fusion linear), so every product in
+the port goes through :func:`mm` / :func:`einsum`, which reproduce JAX's
+result dtype.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+from torch import nn
+
+
+def promote(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Cast tensors to their common dtype (JAX's bf16 × f32 → f32 rule)."""
+    dtype = functools.reduce(torch.promote_types, (x.dtype for x in xs))
+    return tuple(x.to(dtype) for x in xs)
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with JAX's dtype promotion."""
+    a, b = promote(a, b)
+    return a @ b
+
+
+def einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with JAX's dtype promotion."""
+    return torch.einsum(eq, *promote(*xs))
+
+
+def uniform_param(shape, bound: float, generator: torch.Generator, device) -> nn.Parameter:
+    """``U(-bound, bound)`` parameter drawn from ``generator`` on ``device``.
+    Inference-only port: parameters carry no gradient."""
+    w = torch.empty(shape, device=device).uniform_(-bound, bound, generator=generator)
+    return nn.Parameter(w, requires_grad=False)
+
+
+def normal_param(shape, std: float, generator: torch.Generator, device) -> nn.Parameter:
+    w = torch.empty(shape, device=device).normal_(0.0, std, generator=generator)
+    return nn.Parameter(w, requires_grad=False)
+
+
+def zeros_param(shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, device=device), requires_grad=False)

@@ -1,0 +1,128 @@
+"""VGG keyframe featurizer, the port of ``mmbidaf_tpu.ops.vgg``.
+
+The conv stack runs NCHW through ``torch.nn.functional.conv2d`` (cuDNN on
+the card) with OIHW weights; the JAX package's convs are XLA convs outside
+any Pallas kernel, so they have no hand kernel here either. Frames arrive
+NHWC as in the JAX package; ``permute`` makes them a channels-last NCHW
+view, which cuDNN takes without a copy. The fc1 input is the NCHW flatten,
+as ``vgg.py`` does for torchvision weight compatibility.
+
+The resize is the JAX package's matmul form: two contractions against
+``resize_matrix`` weights, which reproduce ``jax.image.resize``'s
+antialiased half-pixel bilinear kernel in numpy (``F.interpolate`` is not
+guaranteed to equal it).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mmbidaf_tpu_torch.ops.common import einsum, mm, normal_param, uniform_param, zeros_param
+
+# torchvision vgg16 config "D": numbers = out-channels of 3x3 convs, "M" = maxpool.
+VGG16_SPEC: tuple = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+                     512, 512, 512, "M", 512, 512, 512, "M")
+# Tiny spec for unit tests (2 blocks).
+TINY_SPEC: tuple = (8, "M", 16, "M")
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+class Conv(nn.Module):
+    """``w [O, I, 3, 3]`` (OIHW; the JAX package keeps HWIO), ``b [O]``."""
+
+    def __init__(self, c_in: int, c_out: int, generator: torch.Generator, device):
+        super().__init__()
+        fan_in = 3 * 3 * c_in
+        self.w = normal_param((c_out, c_in, 3, 3), math.sqrt(2.0 / fan_in), generator, device)
+        self.b = zeros_param((c_out,), device)
+
+
+class VGG(nn.Module):
+    """``convs.{i}.{w,b}``, ``fc1_w [flat, fc]``, ``fc1_b``, ``fc2_w``, ``fc2_b``;
+    He-normal convs, uniform fc layers (shapes as ``vgg.py::vgg_init``)."""
+
+    def __init__(self, spec: Sequence, image_size: int, fc_dim: int, in_channels: int,
+                 generator: torch.Generator, device):
+        super().__init__()
+        convs = []
+        c_in, size = in_channels, image_size
+        for item in spec:
+            if item == "M":
+                size //= 2
+                continue
+            convs.append(Conv(c_in, item, generator, device))
+            c_in = item
+        self.convs = nn.ModuleList(convs)
+        flat = size * size * c_in
+        self.fc1_w = uniform_param((flat, fc_dim), 1.0 / math.sqrt(flat), generator, device)
+        self.fc1_b = zeros_param((fc_dim,), device)
+        self.fc2_w = uniform_param((fc_dim, fc_dim), 1.0 / math.sqrt(fc_dim), generator, device)
+        self.fc2_b = zeros_param((fc_dim,), device)
+
+
+def vgg_features(params: VGG, images: torch.Tensor, spec: Sequence = VGG16_SPEC) -> torch.Tensor:
+    """``[N, H, W, 3]`` float images → ``[N, fc_dim]`` fc2-ReLU features."""
+    x = images.permute(0, 3, 1, 2)  # NHWC storage read as channels-last NCHW
+    ci = 0
+    for item in spec:
+        if item == "M":
+            x = F.max_pool2d(x, 2, 2)
+        else:
+            conv = params.convs[ci]
+            x = F.relu(F.conv2d(x, conv.w, conv.b, padding=1), inplace=True)
+            ci += 1
+    x = x.reshape(x.shape[0], -1)  # NCHW flatten order (torchvision classifier)
+    x = torch.relu(mm(x, params.fc1_w) + params.fc1_b)
+    return torch.relu(mm(x, params.fc2_w) + params.fc2_b)
+
+
+def resize_matrix(dst: int, src: int) -> np.ndarray:
+    """``[dst, src]`` separable bilinear resize weights, equal to
+    ``jax.image.resize(eye(src), (dst, src), "bilinear")``: the triangle
+    kernel, widened by ``src/dst`` when downsampling (antialias), half-pixel
+    centres, column sums normalized to one — JAX's ``compute_weight_mat``
+    op for op in float32. ``jax.image.resize`` runs that arithmetic under
+    jit, where XLA's fused multiply-adds move weights by up to 7e-6."""
+    if dst == src:
+        return np.eye(src, dtype=np.float32)
+    f32 = np.float32
+    inv_scale = f32(1.0 / (dst / src))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample_f = (np.arange(dst, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(src, dtype=f32)[:, None]) / kernel_scale
+    weights = np.maximum(f32(0.0), f32(1.0) - np.abs(x))  # [src, dst]
+    total = np.sum(weights, axis=0, keepdims=True, dtype=f32)
+    weights = np.where(
+        np.abs(total) > f32(1000.0 * np.finfo(np.float32).eps),
+        weights / np.where(total != 0, total, f32(1.0)),
+        f32(0.0),
+    )
+    inside = (sample_f >= f32(-0.5)) & (sample_f <= f32(src - 0.5))
+    weights = np.where(inside[None, :], weights, f32(0.0))
+    return np.ascontiguousarray(weights.T.astype(f32))
+
+
+def preprocess_frames(frames_uint8: torch.Tensor, image_size: int,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Raw ``[N, H, W, 3] uint8`` frames → normalized ``[N, S, S, 3]`` in
+    ``dtype``: the separable resize as two contractions (the /255 scale
+    folded into the W-axis matrix), then ImageNet normalization."""
+    _, h, w, _ = frames_uint8.shape
+    dev = frames_uint8.device
+    s = image_size
+    rw = torch.from_numpy(resize_matrix(s, w) / np.float32(255.0)).to(dev, dtype)
+    rh = torch.from_numpy(resize_matrix(s, h)).to(dev, dtype)
+    x = frames_uint8.to(dtype)
+    x = einsum("nhwc,kw->nhkc", x, rw)  # W axis first (smaller temporary)
+    x = einsum("nhkc,sh->nskc", x, rh)
+    mean = torch.from_numpy(IMAGENET_MEAN).to(dev, dtype)
+    std = torch.from_numpy(IMAGENET_STD).to(dev, dtype)
+    return (x - mean) / std

@@ -1,0 +1,171 @@
+"""Serving API of the port: video asset directories in, summary text out.
+
+    s = Summarizer.init_random(cfg, seed=0, device="cuda")
+    s = Summarizer.from_jax_params(params_np, fe_np, word2idx, cfg, device="cuda")
+    summaries = s.summarize_batch([video_dir1, video_dir2])
+    summary = s.summarize(video_dir)
+
+The device side is ``data.frontend.make_end_to_end_decode`` (frontend +
+model + greedy decode); host work is asset decode and summary assembly,
+shared with the JAX package through its JAX-free host modules. Greedy
+decoding on one device only: top-k, beam, the dynamic batcher, bucket
+ladders, long-transcript windows and data parallelism are not ported yet
+and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from mmbidaf_tpu.data.video import audio_frames_valid, load_video_assets
+from mmbidaf_tpu.train.metrics import summary_from_picks
+from mmbidaf_tpu_torch.config import Config
+from mmbidaf_tpu_torch.data.frontend import (
+    Frontend,
+    cast_vgg_weights,
+    frontend_init,
+    make_end_to_end_decode,
+)
+from mmbidaf_tpu_torch.data.text import encode_transcript
+from mmbidaf_tpu_torch.models.mmbidaf import MMBiDAF, mmbidaf_init
+from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
+
+
+def num_audio_samples(cfg: Config) -> int:
+    """Waveform samples needed to fill the ``max_audio_frames`` bucket."""
+    d = cfg.data
+    return d.max_audio_frames * d.hop_length + d.win_length
+
+
+def host_raw_row(video_dir: str, word2idx: dict[str, int], cfg: Config) -> tuple[dict, list[str]]:
+    """Host-decode ONE video's assets into an (unstacked) numpy raw row — the
+    seven arrays ``make_end_to_end_decode`` consumes — plus the transcript
+    sentences for assembling the summary."""
+    d = cfg.data
+    assets = load_video_assets(
+        video_dir, d.max_keyframes, num_audio_samples(cfg),
+        keyframe_policy=d.keyframe_policy, sample_rate=d.sample_rate,
+    )
+    enc = encode_transcript(assets["transcript"], word2idx, d.max_sentences, d.max_words)
+    n_aud = audio_frames_valid(assets["valid_samples"], d.hop_length, d.max_audio_frames)
+    row = {
+        "text_ids": enc["text_ids"],
+        "word_mask": enc["word_mask"],
+        "sent_mask": enc["sent_mask"],
+        "frames": assets["frames"],
+        "img_mask": assets["img_mask"],
+        "waveform": assets["waveform"],
+        "aud_mask": (np.arange(d.max_audio_frames) < n_aud).astype(np.float32),
+    }
+    return row, enc["sentences"]
+
+
+class Summarizer:
+    def __init__(
+        self,
+        model: MMBiDAF,
+        frontend: Frontend,
+        word2idx: dict[str, int],
+        cfg: Config,
+        vgg_spec=VGG16_SPEC,
+        mode: str = "greedy",
+        serve_batch_size: int | None = None,
+        data_parallel: bool = False,
+        serve_buckets=None,
+    ):
+        if mode in ("topk", "beam"):
+            raise NotImplementedError(f"{mode!r} serving is not ported yet")
+        if mode != "greedy":
+            raise ValueError(f"unknown decode mode {mode!r}: expected 'greedy', 'beam', or 'topk'")
+        if data_parallel:
+            raise NotImplementedError("data-parallel serving is not ported yet")
+        if serve_buckets not in (None, False):
+            raise NotImplementedError("bucket-ladder serving is not ported yet")
+        if serve_batch_size is not None and serve_batch_size < 1:
+            raise ValueError(f"serve_batch_size must be >= 1, got {serve_batch_size}")
+        self.device = model.embedding.table.device  # raw batches go where the weights are
+        self.model = model
+        # frozen VGG weights held in the compute dtype
+        self.frontend = cast_vgg_weights(frontend, cfg.model.compute_dtype)
+        self.word2idx = word2idx
+        self.cfg = cfg
+        self.vgg_spec = vgg_spec
+        # Static serving batch: requests are padded up (and chunked) to it.
+        self.serve_batch_size = serve_batch_size
+        self._decode = make_end_to_end_decode(cfg, vgg_spec)
+
+    # -- constructors -------------------------------------------------------
+
+    @classmethod
+    def init_random(cls, cfg: Config, seed: int = 0, vgg_spec=VGG16_SPEC, device="cpu", **kw):
+        """Untrained summarizer with seeded random weights (smoke tests)."""
+        from mmbidaf_tpu.data.synthetic import random_word_vectors
+
+        wv = random_word_vectors(np.random.default_rng(seed), cfg.data.vocab_size,
+                                 cfg.model.emb_dim)
+        word2idx = {f"w{i}": i for i in range(cfg.data.vocab_size)}
+        model = mmbidaf_init(cfg, wv, device, seed=seed)
+        fe = frontend_init(cfg, vgg_spec, device, seed=seed + 1)
+        return cls(model, fe, word2idx, cfg, vgg_spec, **kw)
+
+    @classmethod
+    def from_jax_params(cls, params: dict, fe_params: dict, word2idx: dict[str, int],
+                        cfg: Config, vgg_spec=VGG16_SPEC, device="cpu", **kw):
+        """Serve the JAX package's weights, given as numpy pytrees."""
+        from mmbidaf_tpu_torch.interop.from_jax import frontend_from_jax, model_from_jax
+
+        model = model_from_jax(params, cfg, device)
+        fe = frontend_from_jax(fe_params, cfg, vgg_spec, device)
+        return cls(model, fe, word2idx, cfg, vgg_spec, **kw)
+
+    # -- inference ----------------------------------------------------------
+
+    def _raw_batch(self, video_dirs: Sequence[str]) -> tuple[dict, list[list[str]]]:
+        rows, sentences = [], []
+        for vd in video_dirs:
+            row, sents = host_raw_row(vd, self.word2idx, self.cfg)
+            rows.append(row)
+            sentences.append(sents)
+        raw = {k: torch.from_numpy(np.stack([r[k] for r in rows])).to(self.device)
+               for k in rows[0]}
+        return raw, sentences
+
+    def _decode_batch(self, raw: dict) -> np.ndarray:
+        _, picks = self._decode(self.model, self.frontend, raw)
+        return picks.cpu().numpy()
+
+    def summarize_batch(self, video_dirs: Sequence[str]) -> list[str]:
+        if not video_dirs:
+            return []
+        sb = self.serve_batch_size
+        if sb is None:
+            raw, sentences = self._raw_batch(video_dirs)
+            picks = self._decode_batch(raw)
+            return [summary_from_picks(picks[i], sentences[i]) for i in range(len(video_dirs))]
+        # Static-shape serving: chunks of sb (the tail padded by repeating the
+        # last video, sliced off after). Host decode of chunk i+1 overlaps the
+        # device work of chunk i.
+        chunks = []
+        for start in range(0, len(video_dirs), sb):
+            chunk = list(video_dirs[start:start + sb])
+            chunks.append((chunk + [chunk[-1]] * (sb - len(chunk)), len(chunk)))
+        out: list[str] = []
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            pending = ex.submit(self._raw_batch, chunks[0][0])
+            for i, (_, n_real) in enumerate(chunks):
+                raw, sentences = pending.result()
+                if i + 1 < len(chunks):
+                    pending = ex.submit(self._raw_batch, chunks[i + 1][0])
+                picks = self._decode_batch(raw)
+                out.extend(summary_from_picks(picks[j], sentences[j]) for j in range(n_real))
+        return out
+
+    def summarize(self, video_dir: str) -> str:
+        return self.summarize_batch([video_dir])[0]
+
+    def summarize_long(self, video_dir: str, stride: int | None = None) -> str:
+        raise NotImplementedError("long-transcript windowed serving is not ported yet")
