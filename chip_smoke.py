@@ -5,11 +5,15 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero before the result line:
   1. device: the ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
-  2. build: the three CUDA kernels, with ``nvcc``, from ``mmbidaf_tpu_torch/csrc``;
+  2. build: the CUDA kernels, with ``nvcc`` (one per source, in parallel),
+     from ``mmbidaf_tpu_torch/csrc``;
   3. kernels: each kernel against its plain PyTorch version on the card at the
-     main path's shapes and at a small ragged shape (fully masked rows, a
-     silent audio example), max error against the module's stated bound, and
-     the median time of each (CUDA events);
+     main paths' shapes and at a small ragged shape (fully masked rows, a
+     silent audio example, dropped BiDAF operands cd != c), max error against
+     the module's stated bound, the median time of each and of one PyTorch
+     library call computing the same function where there is one (CUDA
+     events), its bound from the H100's published peaks, and for the
+     backward kernels K6/K8 that two runs agree bit for bit;
   4. the serving slice at the bench configuration (``bench.py::build_bench_config``:
      VGG-16 at 224², hidden 128, vocab 20000, T_s=32 x W=16, 16 keyframes,
      512 audio frames, K=4, bf16, all three kernel flags on):
@@ -17,9 +21,21 @@ Phases, in order; any failure exits non-zero before the result line:
          240x320), checked and timed (videos/s);
      (b) ``Summarizer.summarize_batch`` answering 8 requests on a synthetic
          corpus written by ``examples/make_synthetic_corpus.py``;
-     (c) every kernel's launch counter rose during (a) and (b);
+     (c) K1-K3's launch counters rose during (a) and (b);
      (d) an f32 copy of the (a) batch through the kernels and through the
-         plain versions (TF32 off for both): equal picks, close log-probs.
+         plain versions (TF32 off for both): equal picks, close log-probs;
+  5. the training step at the ``bench_train.py --pallas`` configuration (the
+     bench widths, B=32, f32, drop_prob 0.2, adadelta lr 0.5, clip 5.0,
+     flat updates, EMA 0.999, the LSTM and attention kernel flags on) on one
+     fixed ``synthetic_batch``:
+     (a) TRAIN_STEPS steps of ``make_train_step``: finite loss and grad norm
+         every step, the mean loss of the last 10 below that of the first 10,
+         K5-K8's launch counters rose; the median step time (steps/s,
+         videos/s) beside the card's name and power limit, and a
+         ``torch.profiler`` breakdown of three steps;
+     (b) at drop_prob 0, one step from the same state through the kernels
+         and through the plain versions: loss, grad norm and every
+         parameter after the step within TRAIN_PARITY_ATOL.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The random weights come from seeds.
 """
@@ -29,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -40,7 +57,18 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 64  # the bench batch
+B_TRAIN = 32  # the bench_train.py batch
 FRAME_HW = (240, 320)
+TRAIN_STEPS = 150
+# Kernel path vs plain path after one f32 training step at drop_prob 0
+# (loss, grad norm and every parameter). An adadelta step moves a parameter
+# by at most lr·sqrt(10)·1e-3 = 1.6e-3 and its error is at most lr times the
+# gradient's; measured on an H100: 7.5e-9 on the parameters, 0 on the loss.
+TRAIN_PARITY_ATOL = 1e-5
+# Published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
+# tensor cores (every kernel here computes in f32 FMAs) and HBM3 bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -84,6 +112,52 @@ def bench_config():
     return Config(model=model, data=data)
 
 
+def train_config(drop_prob: float = 0.2, kernels: bool = True):
+    """``bench_train.py --pallas``: the bench widths in f32 with dropout,
+    adadelta and flat updates (``TrainConfig`` defaults: lr 0.5, clip 5.0,
+    EMA 0.999)."""
+    cfg = bench_config()
+    model = dataclasses.replace(cfg.model, compute_dtype="float32", drop_prob=drop_prob,
+                                use_pallas_attention=kernels, use_pallas_lstm=kernels)
+    train = dataclasses.replace(cfg.train, batch_size=B_TRAIN, optimizer="adadelta",
+                                flat_updates=True, remat_towers=False)
+    return dataclasses.replace(cfg, model=model, train=train)
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, float]:
+    """(ms for ``flops`` at the f32 peak, ms for ``nbytes`` at HBM rate)."""
+    return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+
+
+def bound_fields(parts: list[tuple[float, float]]) -> dict:
+    """``bound_ms`` (sum over the main path's calls of the larger of the two
+    times) and which of the two bounds it."""
+    ops = sum(o for o, _ in parts)
+    mem = sum(m for _, m in parts)
+    return {"bound_ms": sum(max(o, m) for o, m in parts),
+            "bound_by": "operations" if ops >= mem else "bytes"}
+
+
+def lstm_library_ms(rows, steps, width, hid, mask, dev, backward: bool) -> float:
+    """One cuDNN ``nn.LSTM`` call (bidirectional, packed sequence; every
+    row has length >= 1) on the same shape: the forward, or with
+    ``backward`` the gradient of its output w.r.t. the input and weights."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    lstm = torch.nn.LSTM(width, hid, batch_first=True, bidirectional=True).to(dev)
+    lengths = mask.sum(1).clamp(min=1).long().cpu()
+    x = torch.randn(rows, steps, width, device=dev, requires_grad=backward)
+    packed = pack_padded_sequence(x, lengths, batch_first=True, enforce_sorted=False)
+    if not backward:
+        with torch.no_grad():
+            return time_ms(lambda: lstm(packed), iters=5)
+    out, _ = lstm(packed)
+    g = torch.randn_like(out.data)
+    inputs = [x, *lstm.parameters()]
+    return time_ms(lambda: torch.autograd.grad(out.data, inputs, g, retain_graph=True), iters=5)
+
+
 def ragged_mask(rng, n: int, t: int, lo: int = 1, empty_row: int | None = None) -> np.ndarray:
     lengths = rng.integers(lo, t + 1, size=n)
     lengths[0] = t
@@ -115,10 +189,50 @@ def raw_batch(cfg, rng) -> dict[str, np.ndarray]:
     }
 
 
+def _leaves(x):
+    return [y for v in x for y in _leaves(v)] if isinstance(x, (tuple, list)) else [x]
+
+
+def compare(name, out, ref, tol, normwise: bool = False) -> float:
+    """Max abs error of ``out`` against ``ref``; fails past ``atol + rtol·|ref|``
+    elementwise, or with ``normwise`` past ``atol + rtol·max|ref|`` of each
+    output (the backward kernels' sums, whose terms cancel). With
+    ``normwise`` each output's error and largest magnitude are printed."""
+    import torch
+
+    err, stats = 0.0, []
+    for i, (o, r) in enumerate(zip(_leaves(out), _leaves(ref), strict=True)):
+        check(o.shape == r.shape and o.dtype == r.dtype,
+              f"{name}: {o.shape}/{o.dtype} vs {r.shape}/{r.dtype}")
+        check(bool(torch.isfinite(o).all()), f"{name}: non-finite kernel output")
+        e = (o - r).abs()
+        scale = r.abs().max() if normwise else r.abs()
+        bnd = tol["atol"] + tol["rtol"] * scale
+        stats.append(f"{e.max().item():.2e}/{r.abs().max().item():.2e}")
+        check(bool((e <= bnd).all()),
+              f"{name}: output {i}: max abs err {e.max().item():.3e} (max |ref| "
+              f"{r.abs().max().item():.3e}) over the bound")
+        err = max(err, e.max().item())
+    if normwise:
+        print(f"    {name}: max abs err / max |ref| per output: {' '.join(stats)}", flush=True)
+    return err
+
+
+def lstm_shapes(cfg, batch: int):
+    """The five BiLSTM towers of one batch (tag, rows, steps, input width),
+    then a small ragged one."""
+    h, d = cfg.model.hidden_size, cfg.data
+    return [("word", batch * d.max_sentences, d.max_words, h),
+            ("sentence", batch, d.max_sentences, 2 * h),
+            ("image", batch, d.max_keyframes, cfg.model.img_feat_dim),
+            ("audio", batch, d.max_audio_frames, cfg.model.audio_feat_dim),
+            ("modeling", batch, d.max_sentences, 2 * h), ("small-ragged", 5, 7, 6)]
+
+
 def phase_kernels(dev, cfg) -> list[dict]:
-    """Each kernel against its plain version: bench shapes plus a small ragged
+    """K1-K3 against their plain versions: bench shapes plus a small ragged
     one. Returns the per-kernel records of the JSON line (launches filled in
-    later from the main path's run)."""
+    later from the serving path's run)."""
     import torch
 
     from mmbidaf_tpu_torch.ops import audio
@@ -129,35 +243,15 @@ def phase_kernels(dev, cfg) -> list[dict]:
     rng = np.random.default_rng(7)
     gen = torch.Generator(device=dev).manual_seed(7)
     h, d = cfg.model.hidden_size, cfg.data
-    T_s, W = d.max_sentences, d.max_words
 
     def t(x):
         return torch.from_numpy(x).to(dev)
 
-    def leaves(x):
-        return [y for v in x for y in leaves(v)] if isinstance(x, tuple) else [x]
-
-    def compare(name, out, ref, tol):
-        err = 0.0
-        for o, r in zip(leaves(out), leaves(ref), strict=True):
-            check(o.shape == r.shape and o.dtype == r.dtype,
-                  f"{name}: {o.shape}/{o.dtype} vs {r.shape}/{r.dtype}")
-            check(bool(torch.isfinite(o).all()), f"{name}: non-finite kernel output")
-            e = (o - r).abs()
-            bound = tol["atol"] + tol["rtol"] * r.abs()
-            check(bool((e <= bound).all()), f"{name}: max abs err {e.max().item():.3e} over the bound")
-            err = max(err, e.max().item())
-        return err
-
     records = []
 
     # K1: the five BiLSTM towers at bench shapes (rows, steps, input width), then small.
-    lstm_shapes = [("word", B * T_s, W, h), ("sentence", B, T_s, 2 * h),
-                   ("image", B, d.max_keyframes, cfg.model.img_feat_dim),
-                   ("audio", B, d.max_audio_frames, cfg.model.audio_feat_dim),
-                   ("modeling", B, T_s, 2 * h), ("small-ragged", 5, 7, 6)]
-    err, ms, plain_ms = 0.0, 0.0, 0.0
-    for tag, rows, steps, width in lstm_shapes:
+    err, ms, plain_ms, lib_ms, parts = 0.0, 0.0, 0.0, 0.0, []
+    for tag, rows, steps, width in lstm_shapes(cfg, B):
         hid = h if tag != "small-ragged" else 8
         p = BiLSTMParams(width, hid, gen, dev)
         x = t(rng.standard_normal((rows, steps, width)).astype(np.float32))
@@ -170,22 +264,28 @@ def phase_kernels(dev, cfg) -> list[dict]:
         if tag != "small-ragged":
             k = time_ms(lambda: lstm_kernel.bilstm_cuda(p, x, m), iters=10)
             pl = time_ms(lambda: lstm_kernel.bilstm_reference(p, x, m), iters=2, reps=3)
-            ms, plain_ms = ms + k, plain_ms + pl
+            lb = lstm_library_ms(rows, steps, width, hid, m, dev, backward=False)
+            ms, plain_ms, lib_ms = ms + k, plain_ms + pl, lib_ms + lb
+            G = 4 * hid  # projection GEMM + recurrence; x, weights, mask in, out and h/c out
+            parts.append(bound(2 * rows * steps * width * 2 * G + 2 * 2 * rows * steps * hid * G,
+                               4 * (rows * steps * (width + 1 + 2 * hid) + 2 * (width + hid + 1) * G
+                                    + 4 * rows * hid)))
             print(f"  K1 bilstm {tag:9s} rows={rows:5d} T={steps:4d} in={width:5d}: "
-                  f"max_abs_err={e:.3e} kernel={k:.4f} ms plain={pl:.4f} ms", flush=True)
+                  f"max_abs_err={e:.3e} kernel={k:.4f} ms plain={pl:.4f} ms cudnn={lb:.4f} ms", flush=True)
         else:
             print(f"  K1 bilstm {tag}: max_abs_err={e:.3e}", flush=True)
     records.append({"name": "bilstm", "route": "cuda", "source": "mmbidaf_tpu_torch/csrc/lstm.cu",
                     "replaces": "mmbidaf_tpu/ops/pallas/lstm_kernel.py:25", "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms})
+                    "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": lib_ms})
     print(f"K1 bilstm: bound {lstm_kernel.TOLERANCE}, max_abs_err={err:.3e}, "
-          f"per batch (5 towers) kernel={ms:.4f} ms plain={plain_ms:.4f} ms", flush=True)
+          f"per batch (5 towers) kernel={ms:.4f} ms plain={plain_ms:.4f} ms cudnn={lib_ms:.4f} ms "
+          f"roofline={records[-1]['bound_ms']:.4f} ms", flush=True)
 
     # K2: image (T_q=16) and audio (T_q=512) attention at bench shapes, then small.
     D = 2 * h
-    err, ms, plain_ms = 0.0, 0.0, 0.0
-    for tag, bb, tc, tq, dd in [("image", B, T_s, d.max_keyframes, D),
-                                ("audio", B, T_s, d.max_audio_frames, D),
+    err, ms, plain_ms, parts = 0.0, 0.0, 0.0, []
+    for tag, bb, tc, tq, dd in [("image", B, d.max_sentences, d.max_keyframes, D),
+                                ("audio", B, d.max_sentences, d.max_audio_frames, D),
                                 ("small-ragged", 3, 7, 45, 20)]:
         p = BiDAFParams(dd, gen, dev)
         with torch.no_grad():
@@ -201,6 +301,8 @@ def phase_kernels(dev, cfg) -> list[dict]:
             k = time_ms(lambda: bidaf_kernel.bidaf_attention_fused(p, c, q, cm, qm), iters=20)
             pl = time_ms(lambda: bidaf_kernel.bidaf_reference(p, c, q, cm, qm), iters=20)
             ms, plain_ms = ms + k, plain_ms + pl
+            parts.append(bound(bb * (4 * tc * tq * dd + 2 * tc * tc * (tq + dd)),
+                               4 * bb * (tc * dd + tq * dd + tc + tq + tc * 4 * dd) + 4 * (3 * dd + 1)))
             print(f"  K2 bidaf {tag:5s} B={bb} T_c={tc} T_q={tq} D={dd}: max_abs_err={e:.3e} "
                   f"kernel={k:.4f} ms plain={pl:.4f} ms", flush=True)
         else:
@@ -214,9 +316,10 @@ def phase_kernels(dev, cfg) -> list[dict]:
         print(f"  K2 bidaf refuses T_q=1024: {e}", flush=True)
     records.append({"name": "bidaf_attention", "route": "cuda", "source": "mmbidaf_tpu_torch/csrc/bidaf.cu",
                     "replaces": "mmbidaf_tpu/ops/pallas/bidaf_kernel.py:31", "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms})
+                    "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": None})
     print(f"K2 bidaf: bound {bidaf_kernel.TOLERANCE}, max_abs_err={err:.3e}, "
-          f"per batch (2 calls) kernel={ms:.4f} ms plain={plain_ms:.4f} ms", flush=True)
+          f"per batch (2 calls) kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+          f"roofline={records[-1]['bound_ms']:.4f} ms", flush=True)
 
     # K3: the bench's MFCC (B=64, T=512, win 400, n_fft 512), then small; one silent example each.
     err = 0.0
@@ -234,16 +337,145 @@ def phase_kernels(dev, cfg) -> list[dict]:
         if tag == "bench":
             ms = time_ms(lambda: melspec_kernel.mfcc_fused(frames, consts), iters=20)
             plain_ms = time_ms(lambda: melspec_kernel.mfcc_reference(frames, consts), iters=20)
+            bins = consts["cos"].shape[1]
+            parts = [bound(2 * bb * steps * (2 * d.win_length * bins + bins * d.n_mels
+                                             + d.n_mels * d.n_mfcc),
+                           4 * (sig.size + sum(v.numel() for v in consts.values())
+                                + bb * steps * d.n_mfcc))]
             print(f"  K3 mfcc B={bb} T={steps}: max_abs_err={e:.3e} kernel={ms:.4f} ms "
                   f"plain={plain_ms:.4f} ms", flush=True)
         else:
             print(f"  K3 mfcc {tag}: max_abs_err={e:.3e}", flush=True)
     records.append({"name": "mfcc", "route": "cuda", "source": "mmbidaf_tpu_torch/csrc/mfcc.cu",
                     "replaces": "mmbidaf_tpu/ops/pallas/melspec_kernel.py:87", "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms})
+                    "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": None})
     print(f"K3 mfcc: bound {melspec_kernel.TOLERANCE}, max_abs_err={err:.3e}, "
-          f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms", flush=True)
+          f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms roofline={records[-1]['bound_ms']:.4f} ms",
+          flush=True)
     return records
+
+
+def phase_train_kernels(dev, cfg) -> list[dict]:
+    """K5-K8 against their plain versions at the training path's shapes
+    (bench widths, B=32: five towers, two attention blocks with dropped
+    operands), plus a small ragged shape; K6 and K8 run twice and must
+    agree bit for bit. Returns the records of the JSON line."""
+    import torch
+
+    from mmbidaf_tpu_torch.ops.common import dropout_mask
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+    from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
+    from mmbidaf_tpu_torch.ops.lstm import BiLSTMParams
+
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    h, d = cfg.model.hidden_size, cfg.data
+
+    def t(x):
+        return torch.from_numpy(x).to(dev)
+
+    def normal(*shape):
+        return t(rng.standard_normal(shape).astype(np.float32))
+
+    # K5 / K6 on the gates of random BiLSTM layers.
+    rec5 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "parts": []}
+    rec6 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "parts": []}
+    for tag, rows, steps, width in lstm_shapes(cfg, B_TRAIN):
+        hid = h if tag != "small-ragged" else 8
+        G = 4 * hid
+        p = BiLSTMParams(width, hid, gen, dev)
+        m = t(ragged_mask(rng, rows, steps, lo=0, empty_row=1))
+        with torch.no_grad():
+            gates = lk._projection(p, normal(rows, steps, width)).contiguous()
+        w_h = torch.stack([p.fwd.w_h, p.bwd.w_h]).contiguous()
+        fwd = lk.bilstm_train_forward(gates, m, w_h)
+        e5 = compare(f"bilstm_train[{tag}]", fwd, lk.bilstm_train_forward_reference(gates, m, w_h),
+                     lk.TOLERANCE)
+        check(not fwd[0][1].any() and not fwd[3][:, :, 1].any(), f"K5[{tag}]: masked row not zero")
+        _, _, _, h_seq, c_seq = fwd
+        dout, dh, dc = normal(rows, steps, 2 * hid), normal(rows, 2 * hid), normal(rows, 2 * hid)
+        bwd_args = (gates, m, w_h, h_seq, c_seq, dout, dh, dc)
+        bwd = lk.bilstm_bptt(*bwd_args)
+        e6 = compare(f"bilstm_bptt[{tag}]", bwd, lk.bilstm_bptt_reference(*bwd_args), lk.BPTT_TOLERANCE,
+                     normwise=True)
+        again = lk.bilstm_bptt(*bwd_args)
+        check(all(torch.equal(a, b) for a, b in zip(bwd, again)), f"K6[{tag}]: two runs differ")
+        rec5["err"], rec6["err"] = max(rec5["err"], e5), max(rec6["err"], e6)
+        if tag == "small-ragged":
+            print(f"  K5/K6 {tag}: max_abs_err K5={e5:.3e} K6={e6:.3e}; K6 deterministic", flush=True)
+            continue
+        k5 = time_ms(lambda: lk.bilstm_train_forward(gates, m, w_h), iters=10)
+        k6 = time_ms(lambda: lk.bilstm_bptt(*bwd_args), iters=10)
+        p5 = time_ms(lambda: lk.bilstm_train_forward_reference(gates, m, w_h), iters=1, reps=3)
+        p6 = time_ms(lambda: lk.bilstm_bptt_reference(*bwd_args), iters=1, reps=3)
+        l5 = lstm_library_ms(rows, steps, width, hid, m, dev, backward=False)
+        l6 = lstm_library_ms(rows, steps, width, hid, m, dev, backward=True)
+        n, rec = rows * steps, 2 * 2 * rows * steps * hid * G  # the recurrent product, both directions
+        rec5["parts"].append(bound(rec, 4 * (n * (2 * G + 1 + 2 * hid + 4 * hid) + 2 * hid * G + 4 * rows * hid)))
+        rec6["parts"].append(bound(3 * rec, 4 * (n * (2 * G + 1 + 4 * hid + 2 * hid + 2 * G)
+                                                 + 2 * 2 * hid * G + 4 * rows * hid)))
+        for r, k, pl, lb in ((rec5, k5, p5, l5), (rec6, k6, p6, l6)):
+            r["ms"], r["plain"], r["lib"] = r["ms"] + k, r["plain"] + pl, r["lib"] + lb
+        print(f"  K5/K6 {tag:9s} rows={rows:5d} T={steps:4d}: max_abs_err K5={e5:.3e} K6={e6:.3e}; "
+              f"K5 {k5:.4f} ms (plain {p5:.2f}, cudnn fwd {l5:.4f}); "
+              f"K6 {k6:.4f} ms (plain {p6:.2f}, cudnn bwd {l6:.4f}); K6 deterministic", flush=True)
+
+    # K7 / K8 with dropped operands (drop 0.2, as in training).
+    rec7 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "parts": []}
+    rec8 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "parts": []}
+    D = 2 * h
+    for tag, bb, tc, tq, dd in [("image", B_TRAIN, d.max_sentences, d.max_keyframes, D),
+                                ("audio", B_TRAIN, d.max_sentences, d.max_audio_frames, D),
+                                ("small-ragged", 3, 7, 45, 20)]:
+        c, q = normal(bb, tc, dd), normal(bb, tq, dd)
+        cd = c * dropout_mask(c.shape, 0.2, gen, dev)
+        qd = q * dropout_mask(q.shape, 0.2, gen, dev)
+        cm = t(ragged_mask(rng, bb, tc, lo=0, empty_row=1))
+        qm = t(ragged_mask(rng, bb, tq, lo=0, empty_row=2))
+        w = [normal(dd) * 0.1 for _ in range(3)]
+        ops = (c, q, cd, qd, cm, qm, *w, torch.tensor(0.25, device=dev))
+        e7 = compare(f"bidaf_dropout[{tag}]", bk.bidaf_dropout_forward(*ops),
+                     bk.bidaf_dropout_reference(*ops), bk.TOLERANCE)
+        g = normal(bb, tc, 4 * dd)
+        bwd = bk.bidaf_dropout_backward(*ops, g)
+        e8 = compare(f"bidaf_dropout_backward[{tag}]", bwd,
+                     bk.bidaf_dropout_backward_reference(*ops, g), bk.BACKWARD_TOLERANCE,
+                     normwise=True)
+        again = bk.bidaf_dropout_backward(*ops, g)
+        check(all(torch.equal(a, b) for a, b in zip(bwd, again)), f"K8[{tag}]: two runs differ")
+        rec7["err"], rec8["err"] = max(rec7["err"], e7), max(rec8["err"], e8)
+        if tag == "small-ragged":
+            print(f"  K7/K8 {tag}: max_abs_err K7={e7:.3e} K8={e8:.3e}; K8 deterministic", flush=True)
+            continue
+        k7 = time_ms(lambda: bk.bidaf_dropout_forward(*ops), iters=20)
+        k8 = time_ms(lambda: bk.bidaf_dropout_backward(*ops, g), iters=20)
+        p7 = time_ms(lambda: bk.bidaf_dropout_reference(*ops), iters=20)
+        p8 = time_ms(lambda: bk.bidaf_dropout_backward_reference(*ops, g), iters=20)
+        seq = bb * (2 * tc * dd + 2 * tq * dd + tc + tq) + 3 * dd + 1  # c, q, cd, qd, masks, params
+        rec7["parts"].append(bound(bb * (4 * tc * tq * dd + 2 * tc * tc * (tq + dd)),
+                                   4 * (seq + bb * tc * 4 * dd)))
+        rec8["parts"].append(bound(bb * (12 * tc * tq * dd + 6 * tc * tc * tq + 6 * tc * tc * dd),
+                                   4 * (seq + bb * tc * 4 * dd + bb * (2 * tc * dd + 2 * tq * dd)
+                                        + 3 * dd + 1)))
+        for r, k, pl in ((rec7, k7, p7), (rec8, k8, p8)):
+            r["ms"], r["plain"] = r["ms"] + k, r["plain"] + pl
+        print(f"  K7/K8 {tag:5s} B={bb} T_c={tc} T_q={tq} D={dd}: max_abs_err K7={e7:.3e} "
+              f"K8={e8:.3e}; K7 {k7:.4f} ms (plain {p7:.4f}); K8 {k8:.4f} ms (plain {p8:.4f}); "
+              f"K8 deterministic", flush=True)
+
+    def record(name, src, replaces, r, lib):
+        out = {"name": name, "route": "cuda", "source": f"mmbidaf_tpu_torch/csrc/{src}",
+               "replaces": f"mmbidaf_tpu/ops/pallas/{replaces}", "max_abs_err": r["err"],
+               "ms": r["ms"], "plain_ms": r["plain"], **bound_fields(r["parts"]),
+               "library_ms": lib}
+        print(f"{name}: max_abs_err={r['err']:.3e} kernel={r['ms']:.4f} ms plain={r['plain']:.4f} ms "
+              f"library={lib} roofline={out['bound_ms']:.4f} ms ({out['bound_by']})", flush=True)
+        return out
+
+    return [record("bilstm_train_forward", "lstm.cu", "lstm_kernel.py:228", rec5, rec5["lib"]),
+            record("bilstm_bptt", "lstm_bwd.cu", "lstm_kernel.py:256", rec6, rec6["lib"]),
+            record("bidaf_dropout_forward", "bidaf.cu", "bidaf_kernel.py:154", rec7, None),
+            record("bidaf_dropout_backward", "bidaf_bwd.cu", "bidaf_kernel.py:189", rec8, None)]
 
 
 def check_decode(lp, picks, raw, cfg, tag: str) -> None:
@@ -256,6 +488,100 @@ def check_decode(lp, picks, raw, cfg, tag: str) -> None:
     for b in range(B):
         check(all(sm[b, p] == 1 for p in picks[b]), f"{tag}: row {b} picked a padded sentence")
         check(len(set(picks[b].tolist())) == K, f"{tag}: row {b} repeated a pick")
+
+
+def train_state(cfg, dev, seed: int):
+    """A ``TrainState`` at ``cfg`` from ``seed`` and one fixed synthetic batch."""
+    import torch
+
+    from mmbidaf_tpu_torch.data.synthetic import random_word_vectors, synthetic_batch
+    from mmbidaf_tpu_torch.models.mmbidaf import mmbidaf_init
+    from mmbidaf_tpu_torch.train.loop import init_train_state
+
+    rng = np.random.default_rng(seed)
+    wv = random_word_vectors(rng, cfg.data.vocab_size, cfg.model.emb_dim)
+    state = init_train_state(mmbidaf_init(cfg, wv, dev, seed=seed), cfg, seed=seed + 1)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in synthetic_batch(rng, cfg, batch_size=B_TRAIN).items()}
+    return state, batch
+
+
+def phase_train(dev, card: str, records: list[dict]) -> None:
+    """Phase 5: the training step at the bench_train configuration."""
+    import torch
+
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel
+    from mmbidaf_tpu_torch.train.loop import make_train_step
+
+    cfg = train_config()
+    t0 = time.perf_counter()
+    state, batch = train_state(cfg, dev, seed=0)
+    train_step = make_train_step(cfg)
+    torch.cuda.synchronize()
+    print(f"train: bench_train config (f32, drop 0.2, adadelta, B={B_TRAIN}), random weights "
+          f"from seed 0, init {time.perf_counter() - t0:.2f} s", flush=True)
+    counters = (lstm_kernel.bilstm_train_forward, lstm_kernel.bilstm_bptt,
+                bidaf_kernel.bidaf_dropout_forward, bidaf_kernel.bidaf_dropout_backward)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        check(math.isfinite(loss) and math.isfinite(gnorm), f"train step {i}: loss {loss}, grad norm {gnorm}")
+        losses.append(loss)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"(5a) launches during {TRAIN_STEPS} steps: {launches}", flush=True)
+    for rec, fn in zip(records, counters):
+        check(fn.launches > 0, f"{fn.__name__} was never launched on the training path")
+        rec["launches"] = fn.launches
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    print(f"(5a) loss: first {losses[0]:.6f}, mean of steps 1-10 {first:.6f}, "
+          f"mean of the last 10 {last:.6f}; last grad norm {gnorm:.6f}", flush=True)
+    check(last < first, f"training: the loss did not fall ({first:.6f} -> {last:.6f})")
+    t_step = statistics.median(step_s[1:])
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"(5a) median step {t_step * 1e3:.2f} ms over {TRAIN_STEPS - 1} -> {1.0 / t_step:.3f} steps/s, "
+          f"{B_TRAIN / t_step:.2f} videos/s on {card}; peak memory {peak_gb:.2f} GB", flush=True)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        state, metrics = train_step(state, batch)  # the first window pays CUPTI's start-up
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 3e3
+    # idle share against the unprofiled median step: the profiler slows the host
+    print(f"(5a) torch.profiler over 3 steps: device kernel time {dev_ms:.2f} ms a step, "
+          f"device idle {max(0.0, 1 - dev_ms / (t_step * 1e3)):.1%} of the median step; "
+          f"kernels by device time:", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"    {e.self_device_time_total / 3e3:9.3f} ms/step  x{e.count // 3:<5d} {e.key[:90]}", flush=True)
+
+    # (b) drop_prob 0, f32: one step through the kernels and through the plain versions.
+    results = []
+    for kernels in (True, False):
+        cfg0 = train_config(drop_prob=0.0, kernels=kernels)
+        st, b0 = train_state(cfg0, dev, seed=3)
+        st, m = make_train_step(cfg0)(st, b0)
+        results.append((float(m["loss"]), float(m["grad_norm"]),
+                        dict(st.params.named_parameters()), dict(st.ema_params.named_parameters())))
+    (lk, gk, pk, ek), (lp, gp, pp, ep) = results
+    dp = max((pk[n] - pp[n]).abs().max().item() for n in pk)
+    de = max((ek[n] - ep[n]).abs().max().item() for n in ek)
+    print(f"(5b) f32 drop 0, one step: loss kernels {lk:.7f} plain {lp:.7f}; grad norm {gk:.7f} vs {gp:.7f}; "
+          f"max param diff {dp:.3e}, max EMA diff {de:.3e} (bound {TRAIN_PARITY_ATOL})", flush=True)
+    check(abs(lk - lp) <= TRAIN_PARITY_ATOL and abs(gk - gp) <= TRAIN_PARITY_ATOL * max(1.0, gp),
+          "(5b) kernel and plain loss / grad norm differ")
+    check(dp <= TRAIN_PARITY_ATOL and de <= TRAIN_PARITY_ATOL, "(5b) kernel and plain parameters differ")
 
 
 def main() -> None:
@@ -289,6 +615,7 @@ def main() -> None:
     # 3. kernels against their plain versions
     cfg = bench_config()
     records = phase_kernels(dev, cfg)
+    train_records = phase_train_kernels(dev, cfg)
 
     # 4. the slice at the bench config
     t0 = time.perf_counter()
@@ -356,11 +683,15 @@ def main() -> None:
     check(dmax <= 1e-3, f"f32: kernel vs plain log-probs differ by {dmax:.3e} > 1e-3")
     print(f"(d) f32 B={B}: picks equal; log-prob max abs diff {dmax:.3e} (bound 1e-3)", flush=True)
 
-    leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
-    check(not leaked, f"jax was imported: {leaked[:5]}")
+    # 5. the training step
+    phase_train(dev, card, train_records)
+
+    leaked = sorted(m for m in sys.modules if m in ("jax", "mmbidaf_tpu")
+                    or m.startswith(("jax.", "jaxlib", "mmbidaf_tpu.")))
+    check(not leaked, f"jax or the JAX package was imported: {leaked[:5]}")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": records}), flush=True)
+    print(json.dumps({"kernels": records + train_records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -1,17 +1,22 @@
-"""mmbidaf_tpu_torch — the PyTorch / CUDA port of ``mmbidaf_tpu``'s serving path.
+"""mmbidaf_tpu_torch — the PyTorch / CUDA port of ``mmbidaf_tpu``.
 
-The JAX package ``mmbidaf_tpu`` stays the reference. This package ports its
-main serving program — raw video batch → VGG + MFCC frontend → trimodal
-BiDAF model → greedy sentence-pointer decode — to PyTorch, with the three
-Pallas kernels of that path rewritten as hand-written CUDA C++ kernels for
+The JAX package ``mmbidaf_tpu`` stays the reference. This package ports two
+of its programs to PyTorch on one NVIDIA GPU: the serving program — raw
+video batch → VGG + MFCC frontend → trimodal BiDAF model → greedy
+sentence-pointer decode — and the training step on feature batches
+(``train/loop.py``, ``python -m mmbidaf_tpu_torch.train.cli``). The Pallas
+kernels of those paths are rewritten as hand-written CUDA C++ kernels for
 Hopper (``sm_90a``) under ``csrc/``.
 
 Layout mirrors the JAX package: ``ops/`` (plain functions on tensors),
 ``ops/cuda/`` (kernel wrappers, each beside its plain PyTorch version),
 ``models/`` (``nn.Module`` parameter containers whose names follow the JAX
-pytree paths), ``data/frontend.py``, ``serving.py`` and ``interop/from_jax.py``.
-Host-side, JAX-free modules of ``mmbidaf_tpu`` (config, data decoding, text,
-vocab, metrics) are imported as they are. Nothing here imports ``jax``.
+pytree paths), ``data/``, ``train/``, ``serving.py`` and
+``interop/from_jax.py``. The port keeps its own copies of the JAX package's
+host-side modules (config, data decoding, text, vocab, synthetic data,
+metrics): it imports neither ``jax`` nor any module of ``mmbidaf_tpu``.
+Entry points run on the card (``device="cuda"``) unless the caller asks for
+the CPU, and raise where there is no card.
 """
 
 from __future__ import annotations

@@ -1,13 +1,19 @@
-// K2 — fused BiDAF attention block, one block per batch element.
+// K2 — fused BiDAF attention block, one block per batch element — and K7,
+// the same block for training with dropped operands in the similarity.
 //
-// Replaces: mmbidaf_tpu/ops/pallas/bidaf_kernel.py::_bidaf_kernel (entry
-// point bidaf_attention_fused). Contract, all in f32:
+// Replaces: mmbidaf_tpu/ops/pallas/bidaf_kernel.py::_bidaf_kernel (K2, entry
+// point bidaf_attention_fused) and ::_bidaf_drop_kernel (K7, entry
+// bidaf_attention_fused_dropout, also reached through
+// bidaf_attention_fused_trainable with cd = c, qd = q). Contract, all in f32:
 //   S     = c·w_c 1ᵀ + 1 (q·w_q)ᵀ + (c∘w_cq)·qᵀ + bias          [T_c, T_q]
 //   s_row = softmax over T_q of  qm*S + (1-qm)*(-1e30)
 //   s_col = softmax over T_c of  cm*S + (1-cm)*(-1e30)
 //   a = s_row·q;   b = s_row·s_colᵀ·c;   out = [c; a; c∘a; c∘b]   [T_c, 4D]
 // A fully masked q row or c column softmaxes to the uniform distribution,
-// as the -1e30 fill does in the reference.
+// as the -1e30 fill does in the reference. K7 (kDrop) forms S from the
+// dropped cd, qd (c·w_c, q·w_q and (c∘w_cq)·qᵀ all take the dropped
+// operands) and everything after S from the undropped c, q: cd is loaded
+// into c's shared buffer for S, then c replaces it.
 //
 // What bounds it on the H100: shared memory, not FLOPs (~0.1 GFLOP per call
 // at the audio tower's T_c=32, T_q=512, D=256). The TPU kernel held q and
@@ -50,8 +56,10 @@ __device__ void load_q_tile(float* q_s, const float* qb, int j0, int nq, int D, 
   }
 }
 
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads) bidaf_kernel(
     const float* __restrict__ c, const float* __restrict__ q,           // [B,Tc,D], [B,Tq,D]
+    const float* __restrict__ cd, const float* __restrict__ qd,         // dropped (kDrop only)
     const float* __restrict__ c_mask, const float* __restrict__ q_mask,  // [B,Tc], [B,Tq]
     const float* __restrict__ w_c, const float* __restrict__ w_q,
     const float* __restrict__ w_cq, const float* __restrict__ bias,      // [D] x3, [1]
@@ -71,11 +79,14 @@ __global__ void __launch_bounds__(kThreads) bidaf_kernel(
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
   const float* cb = c + (size_t)b * Tc * D;
   const float* qb = q + (size_t)b * Tq * D;
+  // the operands of S: the dropped ones under kDrop
+  const float* cs = kDrop ? cd + (size_t)b * Tc * D : cb;
+  const float* qs = kDrop ? qd + (size_t)b * Tq * D : qb;
   const float* cm = c_mask + (size_t)b * Tc;
   const float* qm = q_mask + (size_t)b * Tq;
   const float bias_v = *bias;
 
-  for (int e = tid; e < Tc * D; e += blockDim.x) c_s[e] = cb[e];
+  for (int e = tid; e < Tc * D; e += blockDim.x) c_s[e] = cs[e];
   for (int d = tid; d < D; d += blockDim.x) wcq_s[d] = w_cq[d];
   __syncthreads();
   for (int i = warp; i < Tc; i += nwarps) {
@@ -89,7 +100,7 @@ __global__ void __launch_bounds__(kThreads) bidaf_kernel(
   for (int j0 = 0; j0 < Tq; j0 += kTQ) {
     const int nq = min(kTQ, Tq - j0);
     __syncthreads();  // the previous tile's readers are done
-    load_q_tile(q_s, qb, j0, nq, D, LD);
+    load_q_tile(q_s, qs, j0, nq, D, LD);
     __syncthreads();
     for (int jj = warp; jj < nq; jj += nwarps) {
       float s = 0.0f;
@@ -108,6 +119,10 @@ __global__ void __launch_bounds__(kThreads) bidaf_kernel(
     }
   }
   __syncthreads();
+  if (kDrop) {  // the undropped c for everything after S
+    for (int e = tid; e < Tc * D; e += blockDim.x) c_s[e] = cb[e];
+    __syncthreads();
+  }
 
   // 2. Column softmax over T_c (a thread per column) into s_col ...
   for (int j = tid; j < Tq; j += blockDim.x) {
@@ -200,23 +215,44 @@ __global__ void __launch_bounds__(kThreads) bidaf_kernel(
   }
 }
 
-}  // namespace
-
-MMB_API int mmb_bidaf_forward(const void* c, const void* q, const void* c_mask,
-                              const void* q_mask, const void* w_c, const void* w_q,
-                              const void* w_cq, const void* bias, void* out, int B, int Tc,
-                              int Tq, int D, void* stream) {
+template <bool kDrop>
+int bidaf_forward(const void* c, const void* q, const void* cd, const void* qd,
+                  const void* c_mask, const void* q_mask, const void* w_c, const void* w_q,
+                  const void* w_cq, const void* bias, void* out, int B, int Tc, int Tq, int D,
+                  void* stream) {
   if (B <= 0 || Tc <= 0 || Tq <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * smem_floats(Tc, Tq, D);
   if (smem > (size_t)mmb::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(bidaf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(bidaf_kernel<kDrop>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  bidaf_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  bidaf_kernel<kDrop><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(c), static_cast<const float*>(q),
+      static_cast<const float*>(cd), static_cast<const float*>(qd),
       static_cast<const float*>(c_mask), static_cast<const float*>(q_mask),
       static_cast<const float*>(w_c), static_cast<const float*>(w_q),
       static_cast<const float*>(w_cq), static_cast<const float*>(bias),
       static_cast<float*>(out), Tc, Tq, D);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K2: inference.
+MMB_API int mmb_bidaf_forward(const void* c, const void* q, const void* c_mask,
+                              const void* q_mask, const void* w_c, const void* w_q,
+                              const void* w_cq, const void* bias, void* out, int B, int Tc,
+                              int Tq, int D, void* stream) {
+  return bidaf_forward<false>(c, q, nullptr, nullptr, c_mask, q_mask, w_c, w_q, w_cq, bias, out,
+                              B, Tc, Tq, D, stream);
+}
+
+// K7: training, S from the dropped cd / qd.
+MMB_API int mmb_bidaf_forward_dropout(const void* c, const void* q, const void* cd,
+                                      const void* qd, const void* c_mask, const void* q_mask,
+                                      const void* w_c, const void* w_q, const void* w_cq,
+                                      const void* bias, void* out, int B, int Tc, int Tq, int D,
+                                      void* stream) {
+  return bidaf_forward<true>(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, out, B, Tc, Tq,
+                             D, stream);
 }

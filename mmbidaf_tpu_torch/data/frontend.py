@@ -70,7 +70,7 @@ class Frontend(nn.Module):
         return {k: getattr(self, f"audio_{k}") for k in ("cos", "sin", "mel_fb", "dct")}
 
 
-def frontend_init(cfg: Config, vgg_spec=vgg_ops.VGG16_SPEC, device="cpu", seed: int = 1) -> Frontend:
+def frontend_init(cfg: Config, vgg_spec=vgg_ops.VGG16_SPEC, device="cuda", seed: int = 1) -> Frontend:
     """Random VGG weights (torch.Generator, seeded) + the audio constants."""
     dev = resolve_device(device)
     return Frontend(cfg, vgg_spec, torch.Generator(device=dev).manual_seed(seed), dev)

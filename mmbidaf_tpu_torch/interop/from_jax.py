@@ -9,7 +9,9 @@ of the same dotted path (``word_lstm.fwd.w_x``; stacked BiLSTMs
 ``word_lstm.layers.0.fwd.w_x``). The one layout change: VGG conv weights go
 from HWIO to the OIHW that ``conv2d`` takes. The audio constants are not
 copied: the port rebuilds them with its own numpy code, and loading
-refuses a frontend whose constants differ from those.
+refuses a frontend whose constants differ from those. A training state
+crosses with ``train_state_from_jax``: params and EMA shadow, with a fresh
+optimizer state on the port's side (as the JAX side starts one too).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from mmbidaf_tpu_torch.config import Config
 from mmbidaf_tpu_torch.data.frontend import Frontend, frontend_init
 from mmbidaf_tpu_torch.models.mmbidaf import MMBiDAF, mmbidaf_init
 from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
+from mmbidaf_tpu_torch.train.loop import TrainState, init_train_state
 
 
 def flatten_pytree(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
@@ -50,14 +53,14 @@ def load_pytree(module: torch.nn.Module, tree: Any) -> None:
                            strict=True)
 
 
-def model_from_jax(params: dict, cfg: Config, device="cpu") -> MMBiDAF:
+def model_from_jax(params: dict, cfg: Config, device="cuda") -> MMBiDAF:
     """The port's model holding the JAX model's weights."""
     model = mmbidaf_init(cfg, params["embedding"]["table"], device)
     load_pytree(model, params)
     return model
 
 
-def frontend_from_jax(fe_params: dict, cfg: Config, vgg_spec=VGG16_SPEC, device="cpu") -> Frontend:
+def frontend_from_jax(fe_params: dict, cfg: Config, vgg_spec=VGG16_SPEC, device="cuda") -> Frontend:
     """The port's frontend holding the JAX frontend's VGG weights (HWIO →
     OIHW); its audio constants must equal the port's own."""
     fe = frontend_init(cfg, vgg_spec, device)
@@ -75,3 +78,13 @@ def frontend_from_jax(fe_params: dict, cfg: Config, vgg_spec=VGG16_SPEC, device=
         tree["vgg"] = vgg
     load_pytree(fe, tree)
     return fe
+
+
+def train_state_from_jax(params: dict, ema_params: dict, cfg: Config, device="cuda",
+                         seed: int = 0) -> TrainState:
+    """A ``TrainState`` holding the JAX run's params and EMA shadow (numpy
+    pytrees), with a fresh optimizer state and step 0, and a dropout
+    generator seeded with ``seed``."""
+    state = init_train_state(model_from_jax(params, cfg, device), cfg, seed)
+    load_pytree(state.ema_params, ema_params)
+    return state

@@ -1,5 +1,5 @@
 """Text embedding, as ``mmbidaf_tpu.models.embedding``: frozen GloVe lookup →
-linear projection (no bias) → highway."""
+(training: dropout) → linear projection (no bias) → highway."""
 
 from __future__ import annotations
 
@@ -27,7 +27,13 @@ class Embedding(nn.Module):
         self.highway = Highway(num_highway_layers, hidden_size, generator, device)
 
 
-def embedding_apply(params: Embedding, token_ids: torch.Tensor) -> torch.Tensor:
-    """``token_ids [...]`` → embeddings ``[..., hidden]`` (inference: no dropout)."""
-    emb = params.table[token_ids.long()]
+def embedding_apply(params: Embedding, token_ids: torch.Tensor,
+                    drop_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``token_ids [...]`` → embeddings ``[..., hidden]``. ``drop_mask``
+    (``ops.common.dropout_mask`` of shape ``[..., emb_dim]``, training) drops
+    the raw GloVe rows before the projection, as the reference's
+    ``Embedding.forward``. The table is frozen: no gradient reaches it."""
+    emb = params.table.detach()[token_ids.long()]
+    if drop_mask is not None:
+        emb = emb * drop_mask.to(emb.dtype)
     return highway_apply(params.highway, mm(emb, params.proj_w))

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mmbidaf_tpu_torch import resolve_device
 from mmbidaf_tpu_torch.ops.common import mm
 
 # ---------------------------------------------------------------------------
@@ -90,9 +91,10 @@ def dct_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 def make_audio_frontend_consts(
     sample_rate: int, n_fft: int, win_length: int, n_mels: int, n_mfcc: int,
-    fmin: float = 0.0, fmax: float | None = None, device="cpu",
+    fmin: float = 0.0, fmax: float | None = None, device="cuda",
 ) -> dict[str, torch.Tensor]:
-    """All constant matrices of the frontend, as f32 tensors on ``device``.
+    """All constant matrices of the frontend, as f32 tensors on ``device``
+    (the card unless the caller asks for the CPU).
     The Hann window and the win_length → n_fft zero pad are folded into the
     DFT bases, so the power spectrum is exactly two GEMMs."""
     window = hann_window(win_length)
@@ -103,7 +105,8 @@ def make_audio_frontend_consts(
         "mel_fb": mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax),
         "dct": dct_matrix(n_mels, n_mfcc),
     }
-    return {k: torch.from_numpy(v).to(device) for k, v in consts.items()}
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(v).to(dev) for k, v in consts.items()}
 
 
 # ---------------------------------------------------------------------------

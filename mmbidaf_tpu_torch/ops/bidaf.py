@@ -1,5 +1,5 @@
 """BiDAF attention, as ``mmbidaf_tpu.ops.bidaf`` (the plain path used when
-``use_pallas_attention`` is off; the hand kernel is ``ops/cuda/bidaf_kernel.py``).
+``use_pallas_attention`` is off; the hand kernels are ``ops/cuda/bidaf_kernel.py``).
 
 For context ``c [B, T_c, D]`` and query ``q [B, T_q, D]``:
 
@@ -8,6 +8,11 @@ For context ``c [B, T_c, D]`` and query ``q [B, T_q, D]``:
     s2 = softmax_col(S masked by c_mask)            # over T_c
     a  = s1·q,   b = s1·s2ᵀ·c                       # C2Q, product-form Q2C
     G  = [c; a; c∘a; c∘b]  ∈ [B, T_c, 4D]
+
+Training dropout hits c and q only inside the similarity, as in the JAX
+package (``similarity_matrix`` drops its own copies): the caller passes
+scaled keep masks (``ops.common.dropout_mask``), drawn before any
+checkpointed region, and the outputs use the undropped c and q.
 """
 
 from __future__ import annotations
@@ -42,12 +47,22 @@ def similarity_matrix(params, c: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return s0 + s1 + s2 + params.bias
 
 
-def bidaf_apply(params, c: torch.Tensor, q: torch.Tensor,
-                c_mask: torch.Tensor, q_mask: torch.Tensor) -> torch.Tensor:
-    """Full BiDAF block → ``G [B, T_c, 4D]`` (inference: no dropout)."""
-    S = similarity_matrix(params, c, q)
+def attend(S: torch.Tensor, c: torch.Tensor, q: torch.Tensor,
+           c_mask: torch.Tensor, q_mask: torch.Tensor) -> torch.Tensor:
+    """Both masked softmaxes of ``S``, C2Q and Q2C → ``G [B, T_c, 4D]``."""
     s_row = masked_softmax(S, q_mask[:, None, :], dim=2)
     s_col = masked_softmax(S, c_mask[:, :, None], dim=1)
     a = einsum("bcq,bqd->bcd", s_row, q)
     b = einsum("bcq,bkq,bkd->bcd", s_row, s_col, c)
     return torch.cat([c, a, c * a, c * b], dim=-1)
+
+
+def bidaf_apply(params, c: torch.Tensor, q: torch.Tensor,
+                c_mask: torch.Tensor, q_mask: torch.Tensor,
+                c_drop: torch.Tensor | None = None,
+                q_drop: torch.Tensor | None = None) -> torch.Tensor:
+    """Full BiDAF block → ``G [B, T_c, 4D]``. ``c_drop`` / ``q_drop`` are
+    scaled keep masks applied to c and q inside the similarity only."""
+    cd = c if c_drop is None else c * c_drop.to(c.dtype)
+    qd = q if q_drop is None else q * q_drop.to(q.dtype)
+    return attend(similarity_matrix(params, cd, qd), c, q, c_mask, q_mask)

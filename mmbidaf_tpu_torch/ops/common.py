@@ -1,5 +1,5 @@
 """Helpers shared by the port's ops: JAX-style dtype promotion for products,
-and seeded parameter construction.
+seeded parameter construction, and dropout masks from an explicit generator.
 
 ``torch.matmul`` raises on mixed bf16 / f32 operands, where JAX promotes
 them to f32. Under ``compute_dtype="bfloat16"`` the JAX model meets such
@@ -36,7 +36,8 @@ def einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
 
 def uniform_param(shape, bound: float, generator: torch.Generator, device) -> nn.Parameter:
     """``U(-bound, bound)`` parameter drawn from ``generator`` on ``device``.
-    Inference-only port: parameters carry no gradient."""
+    Parameters are made without gradients; ``train.loop.init_train_state``
+    turns them on for the trainable ones."""
     w = torch.empty(shape, device=device).uniform_(-bound, bound, generator=generator)
     return nn.Parameter(w, requires_grad=False)
 
@@ -48,3 +49,13 @@ def normal_param(shape, std: float, generator: torch.Generator, device) -> nn.Pa
 
 def zeros_param(shape, device) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, device=device), requires_grad=False)
+
+
+def dropout_mask(shape, drop_prob: float, generator: torch.Generator, device) -> torch.Tensor:
+    """Scaled keep mask ``bernoulli(1 - drop_prob) / (1 - drop_prob)`` of
+    ``shape`` drawn from ``generator``: multiplying by it is inverted
+    dropout. The JAX package draws its masks from ``jax.random``; the two
+    streams differ, so tests compare statistics or inject masks."""
+    keep = 1.0 - drop_prob
+    u = torch.rand(shape, generator=generator, device=device)
+    return (u < keep).float() / keep

@@ -1,17 +1,42 @@
-"""K2: the fused BiDAF attention kernel (``csrc/bidaf.cu``) and its plain version.
+"""K2, K7 and K8: the fused BiDAF attention kernels (``csrc/bidaf.cu``,
+``csrc/bidaf_bwd.cu``) and their plain versions.
 
-Port of ``mmbidaf_tpu/ops/pallas/bidaf_kernel.py::bidaf_attention_fused``
+K2 is the port of ``mmbidaf_tpu/ops/pallas/bidaf_kernel.py::bidaf_attention_fused``
 (inference path, no dropout). Inputs are cast to f32 as on the TPU
 (``bidaf_kernel.py:117-125``); the output is f32 ``[B, T_c, 4D]``.
 
-``bidaf_attention_fused`` is the wrapper: on a CPU tensor it runs
-:func:`bidaf_reference`, on a CUDA tensor it launches the kernel or raises —
-also for shapes whose resident S does not fit a block's shared memory.
-Tolerance of kernel vs plain on the card: the kernel forms Q2C as
+K7 and K8 are the training pair, the port of
+``bidaf_attention_fused_dropout`` and its custom VJP: the forward forms S
+from the dropped ``cd``/``qd`` and everything after S from the undropped
+``c``/``q``; the backward recomputes S and both softmaxes and returns
+``d_c, d_q, d_cd, d_qd`` and the parameter grads summed over the batch (per
+block partials reduced in order, no atomics). :class:`BiDAFDropoutFn` ties
+them into one ``torch.autograd.Function``; the dropout masks are drawn
+outside (``cd = c·m/keep``) and autograd adds ``d_cd·m/keep`` to ``d_c``.
+``bidaf_attention_fused_trainable`` is the ``cd = c, qd = q`` case.
+
+Each wrapper (``bidaf_attention_fused`` K2, ``bidaf_dropout_forward`` K7,
+``bidaf_dropout_backward`` K8) runs its plain version on a CPU tensor and
+launches its kernel on a CUDA tensor, or raises — also for shapes whose
+resident operands do not fit a block's shared memory. ``<wrapper>.launches``
+counts launches.
+
+Tolerances of kernel vs plain on the card: K2/K7 form Q2C as
 ``(s_row·s_colᵀ)·c`` where the plain version contracts ``s_row, s_col, c``
-in einsum's order, and sums every product in its own order. On outputs up
-to ~12 in magnitude (unit-normal c and q, D=256) the largest error measured
-on an H100 was 5.2e-6, so ``atol = 5e-5, rtol = 1e-5``.
+in einsum's order, and sum every product in their own order. On outputs up
+to ~12 in magnitude (unit-normal c and q, D=256) the largest error
+measured on an H100 was 5.2e-6 (K2) and 4.3e-6 (K7), so
+``atol = 5e-5, rtol = 1e-5``. K8 reassociates ``qc = s_colᵀ·c`` and
+``d_qc = s_rowᵀ·d_b`` through ``[T_c, T_c]`` products and sums the parameter
+grads over B·T_c or B·T_q products, so it is held normwise: each output
+within ``atol + rtol·max|ref|`` of that output. dbias is a sum of terms
+that cancel to ~0 (each softmax's gradient sums to zero), so only the atol
+bounds it. With unit-normal c, q and cotangent at the bench_train shapes
+(B=32, T_q=16 and 512) the largest errors measured on an H100 were 1.7e-5
+on d_c/d_q/d_cd/d_qd up to 36, 4.7e-4 on the parameter grads up to 1140
+(4e-7 of their scale) and 7.4e-5 on dbias, so ``BACKWARD_TOLERANCE``
+(``atol = 5e-4, rtol = 2e-6``, normwise) leaves a 5x margin on the
+parameter grads and 6x on dbias.
 """
 
 from __future__ import annotations
@@ -20,10 +45,13 @@ import types
 
 import torch
 
-from mmbidaf_tpu_torch.ops.bidaf import bidaf_apply
+from mmbidaf_tpu_torch.ops.bidaf import attend, bidaf_apply, similarity_matrix
 from mmbidaf_tpu_torch.ops.cuda import build
+from mmbidaf_tpu_torch.ops.masked import NEG_INF
 
 TOLERANCE = {"atol": 5e-5, "rtol": 1e-5}
+# K8 vs its plain version on the card, per output: |err| <= atol + rtol·max|ref|.
+BACKWARD_TOLERANCE = {"atol": 5e-4, "rtol": 2e-6}
 
 # Shared-memory layout of csrc/bidaf.cu (kTQ q rows per streamed tile).
 _TQ = 32
@@ -31,9 +59,24 @@ SMEM_LIMIT_BYTES = 232448  # Hopper's opt-in limit per block (227 KB)
 
 
 def bidaf_smem_bytes(T_c: int, T_q: int, D: int) -> int:
-    """Bytes of shared memory the kernel needs: c, a q tile (rows padded by
+    """Bytes of shared memory K2 and K7 need: c, a q tile (rows padded by
     one), S and s_col (rows padded by one), P, and three small vectors."""
     return 4 * (T_c * D + _TQ * (D + 1) + 2 * T_c * (T_q + 1) + T_c * T_c + T_c + _TQ + D)
+
+
+def bidaf_bwd_smem_bytes(T_c: int, T_q: int, D: int) -> int:
+    """Bytes of shared memory K8 needs: c, cd and d_a, a q tile (rows padded
+    by one), E and P, and small vectors (``csrc/bidaf_bwd.cu::smem_floats``);
+    s_row, s_col and dS live in a global scratch."""
+    return 4 * (3 * T_c * D + _TQ * (D + 1) + 2 * T_c * T_c + 3 * T_c + _TQ + D + T_q)
+
+
+def _refuse_smem(fn: str, need: int, T_c: int, T_q: int, D: int) -> None:
+    if need > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"{fn}: T_c={T_c}, T_q={T_q}, D={D} needs {need} bytes of "
+            f"shared memory, over the {SMEM_LIMIT_BYTES} a block has"
+        )
 
 
 def _f32_params(params) -> types.SimpleNamespace:
@@ -55,12 +98,7 @@ def bidaf_attention_fused(params, c, q, c_mask, q_mask) -> torch.Tensor:
         raise ValueError(f"bidaf_attention_fused: unsupported device {c.device}")
     B, T_c, D = c.shape
     T_q = q.shape[1]
-    need = bidaf_smem_bytes(T_c, T_q, D)
-    if need > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"bidaf_attention_fused: T_c={T_c}, T_q={T_q}, D={D} needs {need} bytes of "
-            f"shared memory, over the {SMEM_LIMIT_BYTES} a block has"
-        )
+    _refuse_smem("bidaf_attention_fused", bidaf_smem_bytes(T_c, T_q, D), T_c, T_q, D)
     dev = c.device
     p = _f32_params(params)
     args = {
@@ -87,3 +125,145 @@ def bidaf_attention_fused(params, c, q, c_mask, q_mask) -> torch.Tensor:
 
 
 bidaf_attention_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8: the training pair. Operands are f32 tensors; ``p`` is the
+# (w_c, w_q, w_cq, bias) tuple with a scalar bias.
+# ---------------------------------------------------------------------------
+
+
+def bidaf_dropout_reference(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias):
+    """Plain version of K7: S from ``cd``/``qd``, the rest from ``c``/``q``."""
+    p = types.SimpleNamespace(w_c=w_c, w_q=w_q, w_cq=w_cq, bias=bias)
+    return attend(similarity_matrix(p, cd, qd), c, q, c_mask, q_mask)
+
+
+def bidaf_dropout_backward_reference(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, g):
+    """Plain version of K8, the TPU kernel's arithmetic (``_bidaf_drop_bwd_kernel``)
+    batched: → ``(d_c, d_q, d_cd, d_qd, dw_c, dw_q, dw_cq, dbias)``."""
+    D = c.shape[-1]
+    T = lambda x: x.transpose(1, 2)  # noqa: E731
+    cw = cd * w_cq
+    S = (cd @ w_c)[:, :, None] + (qd @ w_q)[:, None, :] + cw @ T(qd) + bias
+    qm, cm = q_mask[:, None, :], c_mask[:, :, None]
+    s_row = torch.softmax(qm * S + (1.0 - qm) * NEG_INF, dim=2)
+    s_col = torch.softmax(cm * S + (1.0 - cm) * NEG_INF, dim=1)
+    a = s_row @ q
+    qc = T(s_col) @ c
+    b = s_row @ qc
+    g0, g1, g2, g3 = (g[..., k * D:(k + 1) * D] for k in range(4))
+    d_c = g0 + g2 * a + g3 * b
+    d_a = g1 + g2 * c
+    d_b = g3 * c
+    d_s_row = d_b @ T(qc) + d_a @ T(q)
+    d_qc = T(s_row) @ d_b
+    d_s_col = c @ T(d_qc)
+    d_c = d_c + s_col @ d_qc
+    d_q = T(s_row) @ d_a
+    dS = qm * (s_row * (d_s_row - (d_s_row * s_row).sum(dim=2, keepdim=True)))
+    dS = dS + cm * (s_col * (d_s_col - (d_s_col * s_col).sum(dim=1, keepdim=True)))
+    d_s0 = dS.sum(dim=2, keepdim=True)
+    d_s1 = dS.sum(dim=1)[:, :, None]
+    dSq = dS @ qd
+    d_cd = d_s0 * w_c + dSq * w_cq
+    d_qd = d_s1 * w_q + T(dS) @ cw
+    return (d_c, d_q, d_cd, d_qd, (cd * d_s0).sum(dim=(0, 1)), (qd * d_s1).sum(dim=(0, 1)),
+            (dSq * cd).sum(dim=(0, 1)), dS.sum())
+
+
+def _check_drop_operands(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias):
+    B, T_c, D = c.shape
+    T_q = q.shape[1]
+    dev = c.device
+    for name, t, shape in (("c", c, (B, T_c, D)), ("q", q, (B, T_q, D)), ("cd", cd, (B, T_c, D)),
+                           ("qd", qd, (B, T_q, D)), ("c_mask", c_mask, (B, T_c)),
+                           ("q_mask", q_mask, (B, T_q)), ("w_c", w_c, (D,)), ("w_q", w_q, (D,)),
+                           ("w_cq", w_cq, (D,)), ("bias", bias, ())):
+        build.check_tensor(t, name, shape, dev)
+    return B, T_c, T_q, D, dev
+
+
+def bidaf_dropout_forward(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias) -> torch.Tensor:
+    """K7 (contract of :func:`bidaf_dropout_reference`) → f32 ``[B, T_c, 4D]``.
+    ``bidaf_dropout_forward.launches`` counts kernel launches."""
+    if c.device.type == "cpu":
+        return bidaf_dropout_reference(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias)
+    if c.device.type != "cuda":
+        raise ValueError(f"bidaf_dropout_forward: unsupported device {c.device}")
+    ops = (c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias)
+    B, T_c, T_q, D, dev = _check_drop_operands(*ops)
+    _refuse_smem("bidaf_dropout_forward", bidaf_smem_bytes(T_c, T_q, D), T_c, T_q, D)
+    out = torch.empty(B, T_c, 4 * D, device=dev)
+    lib = build.library()
+    rc = lib.mmb_bidaf_forward_dropout(*(t.data_ptr() for t in ops), out.data_ptr(),
+                                       B, T_c, T_q, D, torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch(lib, rc, "mmb_bidaf_forward_dropout")
+    bidaf_dropout_forward.launches += 1
+    return out
+
+
+bidaf_dropout_forward.launches = 0
+
+
+def bidaf_dropout_backward(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, g):
+    """K8 (contract of :func:`bidaf_dropout_backward_reference`).
+    ``bidaf_dropout_backward.launches`` counts calls that launched it."""
+    if c.device.type == "cpu":
+        return bidaf_dropout_backward_reference(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq,
+                                                bias, g)
+    if c.device.type != "cuda":
+        raise ValueError(f"bidaf_dropout_backward: unsupported device {c.device}")
+    ops = (c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias)
+    B, T_c, T_q, D, dev = _check_drop_operands(*ops)
+    build.check_tensor(g, "g", (B, T_c, 4 * D), dev)
+    _refuse_smem("bidaf_dropout_backward", bidaf_bwd_smem_bytes(T_c, T_q, D), T_c, T_q, D)
+    d_c, d_cd = torch.empty_like(c), torch.empty_like(c)
+    d_q, d_qd = torch.empty_like(q), torch.empty_like(q)
+    scratch = torch.empty(3, B, T_c, T_q, device=dev)
+    partial = torch.empty(B, 3 * D + 1, device=dev)
+    d_params = torch.empty(3 * D + 1, device=dev)
+    lib = build.library()
+    rc = lib.mmb_bidaf_backward(
+        *(t.data_ptr() for t in ops), g.data_ptr(), d_c.data_ptr(), d_q.data_ptr(),
+        d_cd.data_ptr(), d_qd.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
+        d_params.data_ptr(), B, T_c, T_q, D, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check_launch(lib, rc, "mmb_bidaf_backward")
+    bidaf_dropout_backward.launches += 1
+    return (d_c, d_q, d_cd, d_qd, d_params[:D], d_params[D:2 * D], d_params[2 * D:3 * D],
+            d_params[3 * D])
+
+
+bidaf_dropout_backward.launches = 0
+
+
+class BiDAFDropoutFn(torch.autograd.Function):
+    """The BiDAF block with similarity-only dropout operands: K7 forward, K8
+    backward. All inputs f32 and contiguous; ``bias`` is a 0-d tensor."""
+
+    @staticmethod
+    def forward(ctx, c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias):
+        ops = (c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias)
+        ctx.save_for_backward(*ops)
+        return bidaf_dropout_forward(*ops)
+
+    @staticmethod
+    def backward(ctx, g):
+        d_c, d_q, d_cd, d_qd, dw_c, dw_q, dw_cq, dbias = bidaf_dropout_backward(
+            *ctx.saved_tensors, g.contiguous())
+        return d_c, d_q, d_cd, d_qd, None, None, dw_c, dw_q, dw_cq, dbias
+
+
+def bidaf_attention_fused_dropout(params, c, q, cd, qd, c_mask, q_mask) -> torch.Tensor:
+    """The BiDAF block for training with dropped similarity operands ``cd``,
+    ``qd`` (``bidaf_attention_fused_dropout``'s contract) → f32 ``[B, T_c, 4D]``;
+    gradients reach ``c, q, cd, qd`` and the parameters through K8."""
+    f = lambda x: x.float().contiguous()  # noqa: E731
+    return BiDAFDropoutFn.apply(f(c), f(q), f(cd), f(qd), f(c_mask), f(q_mask), f(params.w_c),
+                                f(params.w_q), f(params.w_cq), f(params.bias).reshape(()))
+
+
+def bidaf_attention_fused_trainable(params, c, q, c_mask, q_mask) -> torch.Tensor:
+    """The dropout-free training block: the ``cd = c, qd = q`` case."""
+    return bidaf_attention_fused_dropout(params, c, q, c, q, c_mask, q_mask)

@@ -1,12 +1,13 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-All sources under ``mmbidaf_tpu_torch/csrc`` compile in one ``nvcc`` call
-into one shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds), for ``sm_90a`` only. The library is built at first
-use into ``mmbidaf_tpu_torch/_build/`` (git-ignored), under a name keyed by
-a hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. ptxas's register / shared-memory report
-is kept beside it as ``<name>.log``.
+The sources under ``mmbidaf_tpu_torch/csrc`` compile into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), for ``sm_90a`` only: one ``nvcc -c`` per source, all started
+together, then one link. The library is built at first use into
+``mmbidaf_tpu_torch/_build/`` (git-ignored), under a name keyed by a hash of
+the sources and flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is. ptxas's register / shared-memory report is kept beside
+it as ``<name>.log``.
 
 Each C entry point launches on the stream it is given (PyTorch's current
 stream) and returns ``cudaGetLastError()``; pointers and the stream pass as
@@ -26,11 +27,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("lstm.cu", "bidaf.cu", "mfcc.cu")
+SOURCES = ("lstm.cu", "lstm_bwd.cu", "bidaf.cu", "bidaf_bwd.cu", "mfcc.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -39,8 +40,20 @@ P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     # gates, mask, w_h, out, h_last, c_last, B, T, H, stream
     "mmb_bilstm_forward": (P, P, P, P, P, P, I, I, I, P),
+    # gates, mask, w_h, out, h_last, c_last, h_seq, c_seq, B, T, H, stream
+    "mmb_bilstm_forward_train": (P, P, P, P, P, P, P, P, I, I, I, P),
+    # gates, mask, w_h, w_hT, h_seq, c_seq, dout, dh_last, dc_last, dgates,
+    # dwh_partial, dw_h, num_splits, B, T, H, stream
+    "mmb_bilstm_backward": (P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
+    "mmb_lstm_dwh_split": (),
     # c, q, c_mask, q_mask, w_c, w_q, w_cq, bias, out, B, T_c, T_q, D, stream
     "mmb_bidaf_forward": (P, P, P, P, P, P, P, P, P, I, I, I, I, P),
+    # c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, out, B, T_c, T_q, D, stream
+    "mmb_bidaf_forward_dropout": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
+    # c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, g, d_c, d_q, d_cd,
+    # d_qd, scratch, partial, d_params, B, T_c, T_q, D, stream
+    "mmb_bidaf_backward": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
+                           I, I, I, I, P),
     # frames, stride_b, stride_t, cos, sin, mel, dct, logmel, tile_max, out,
     # B, T, win, bins, n_mels, n_mfcc, stream
     "mmb_mfcc_forward": (P, LL, LL, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
@@ -59,9 +72,14 @@ def nvcc_path() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def nvcc_command(out: str | os.PathLike, nvcc: str = "nvcc") -> list[str]:
-    """The one ``nvcc`` command line that builds the library at ``out``."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *(str(CSRC / s) for s in SOURCES)]
+def compile_command(source: str, out: str | os.PathLike, nvcc: str = "nvcc") -> list[str]:
+    """The ``nvcc`` command line that compiles ``csrc/<source>`` to the object ``out``."""
+    return [nvcc, *NVCC_FLAGS, "-c", "-o", str(out), str(CSRC / source)]
+
+
+def link_command(objects, out: str | os.PathLike, nvcc: str = "nvcc") -> list[str]:
+    """The ``nvcc`` command line that links the objects into the library ``out``."""
+    return [nvcc, "-shared", "-o", str(out), *(str(o) for o in objects)]
 
 
 def source_hash() -> str:
@@ -76,6 +94,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmmbidaf_kernels_{source_hash()}.so"
 
 
+def _run(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
+    """Run the commands all at once; ``(cmd, returncode, output)`` of each."""
+    try:
+        procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)) for c in cmds]
+    except FileNotFoundError as e:
+        raise RuntimeError(f"nvcc not found ({cmds[0][0]}): the CUDA kernels cannot be built") from e
+    logs = [(c, p.communicate()[0]) for c, p in procs]
+    return [(c, p.returncode, log) for (c, log), (_, p) in zip(logs, procs)]
+
+
 def build() -> Path:
     """Compile the library unless a build of these exact sources exists.
     Raises ``RuntimeError`` with the compiler's output if ``nvcc`` fails."""
@@ -83,19 +112,23 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = nvcc_command(tmp, nvcc_path())
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError(f"nvcc not found ({cmd[0]}): the CUDA kernels cannot be built") from e
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+        results = _run([compile_command(s, o, nvcc) for s, o in zip(SOURCES, objects)])
+        if all(rc == 0 for _, rc, _ in results):
+            results += _run([link_command(objects, tmp, nvcc)])
+        out.with_suffix(".log").write_text("".join(f"$ {' '.join(c)}\n{log}" for c, _, log in results))
+        for cmd, rc, log in results:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        for o in objects:
+            o.unlink(missing_ok=True)
     return out
 
 

@@ -1,20 +1,44 @@
-"""K1: the BiLSTM recurrence kernel (``csrc/lstm.cu``) and its plain version.
+"""K1, K5 and K6: the BiLSTM recurrence kernels (``csrc/lstm.cu``,
+``csrc/lstm_bwd.cu``) and their plain versions.
 
-Port of ``mmbidaf_tpu/ops/pallas/lstm_kernel.py::bilstm_pallas``. As on the
-TPU, the input projection ``x @ W_x + b`` is one GEMM outside the kernel
-(here for both directions at once), rounded in the operands' dtype and then
-cast to f32; the kernel runs the recurrence of both directions in f32 and
-writes the ``[B, T, 2h]`` output and the carried ``h``/``c`` directly.
+K1 is the port of ``mmbidaf_tpu/ops/pallas/lstm_kernel.py::bilstm_pallas``.
+As on the TPU, the input projection ``x @ W_x + b`` is one GEMM outside the
+kernel (here for both directions at once), rounded in the operands' dtype
+and then cast to f32; the kernel runs the recurrence of both directions in
+f32 and writes the ``[B, T, 2h]`` output and the carried ``h``/``c``
+directly.
 
-``bilstm_cuda`` is the wrapper: on a CPU tensor it runs
-:func:`bilstm_reference`, on a CUDA tensor it launches the kernel or raises.
-Tolerance of kernel vs plain on the card: the kernel sums ``h @ W_h`` in
-its own order and uses CUDA's ``expf``/``tanhf``, so outputs differ by f32
-rounding that the recurrence carries forward. Outputs are below 1 in
-magnitude (``|h|, |c|`` stay small by construction); the largest error
-measured at the five bench-shape towers (up to 512 steps) on an H100 was
-2.4e-7, so ``atol = 1e-5`` leaves a 40x margin and still catches a wrong
-gate, step or mask.
+K5 and K6 are the training pair, the port of ``bilstm_pallas_trainable``:
+K5 is K1's recurrence that also writes the carried ``h_seq``/``c_seq``
+``[2, T, rows, h]`` (per direction, in processing order) as the BPTT
+residuals; K6 walks the steps backwards from those residuals and the
+saved f32 gates, seeded with the cotangents of ``(h_last, c_last)``, and
+returns ``dgates`` in the gates' layout and ``dW_h`` (summed over rows and
+steps by a second hand-written pass, without atomics).
+:class:`BiLSTMTrainableFn` ties them into one ``torch.autograd.Function``
+per layer; ``dx``, ``dW_x`` and ``db`` come from autograd through the
+projection, the plain GEMMs they are on the TPU too. The TPU recomputes
+the gates in its backward; the Function keeps the f32 gates it was given.
+
+Each wrapper (``bilstm_cuda`` K1, ``bilstm_train_forward`` K5,
+``bilstm_bptt`` K6) runs its plain version on a CPU tensor and launches its
+kernel on a CUDA tensor, or raises; ``<wrapper>.launches`` counts launches.
+
+Tolerances of kernel vs plain on the card (``TOLERANCE``, ``BPTT_TOLERANCE``):
+the kernels sum ``h @ W_h`` in their own order and use CUDA's
+``expf``/``tanhf``, so outputs differ by f32 rounding that the recurrence
+carries forward. K1/K5 outputs are below 1 in magnitude (``|h|, |c|`` stay
+small by construction); the largest error measured at the five bench-shape
+towers (up to 512 steps) on an H100 was 2.4e-7 (K1) and 3.6e-7 (K5), so
+``atol = 1e-5`` leaves a 30x margin and still catches a wrong gate, step or
+mask. K6's ``dgates`` carry the same rounding back through up to 512 steps,
+and ``dW_h`` sums ~16k products per entry in another order than the plain
+version's per-step matmuls, so K6 is held normwise: each output within
+``atol + rtol·max|ref|`` of that output. With unit-normal cotangents at the
+bench_train shapes (B=32) the largest errors measured on an H100 were
+5.4e-7 on dgates up to 3.4 and 1.3e-5 on dW_h up to 13 (1.0e-6 of its
+scale), so ``BPTT_TOLERANCE`` (``atol = 1e-5, rtol = 5e-6``, normwise) leaves
+a 5x margin on dW_h and 50x on dgates.
 """
 
 from __future__ import annotations
@@ -26,6 +50,8 @@ from mmbidaf_tpu_torch.ops.cuda import build
 from mmbidaf_tpu_torch.ops.lstm import lstm_cell
 
 TOLERANCE = {"atol": 1e-5, "rtol": 0.0}
+# K6 vs its plain version on the card, per output: |err| <= atol + rtol·max|ref|.
+BPTT_TOLERANCE = {"atol": 1e-5, "rtol": 5e-6}
 
 
 def _projection(params, x: torch.Tensor) -> torch.Tensor:
@@ -37,32 +63,39 @@ def _projection(params, x: torch.Tensor) -> torch.Tensor:
     return (mm(x, w_x) + b).float()
 
 
-def lstm_recurrence_reference(gates: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor,
-                              reverse: bool):
-    """Plain version of one direction of the kernel: f32 ``gates [B, T, 4h]``,
-    ``mask [B, T]``, ``w_h [h, 4h]`` → ``(out [B, T, h], h_last, c_last)``."""
+def bilstm_train_forward_reference(gates: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor):
+    """Plain version of the recurrence of both directions (K1's, and K5's
+    with the residuals): f32 ``gates [B, T, 8H]`` (fwd | bwd), ``mask
+    [B, T]``, ``w_h [2, H, 4H]`` → ``(out [B, T, 2H], h_last, c_last [B, 2H],
+    h_seq, c_seq [2, T, B, H])``; ``h_seq[d, t]`` is the carried state after
+    processing step ``t`` (position ``T-1-t`` in the reverse direction)."""
     B, T, _ = gates.shape
-    h = gates.new_zeros(B, w_h.shape[0])
-    c = torch.zeros_like(h)
-    out = gates.new_zeros(B, T, w_h.shape[0])
-    for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        h_new, c_new = lstm_cell(gates[:, t], h, c, w_h)
-        m = mask[:, t, None]
-        h = m * h_new + (1.0 - m) * h
-        c = m * c_new + (1.0 - m) * c
-        out[:, t] = h_new * m
-    return out, h, c
+    H = w_h.shape[1]
+    out = gates.new_zeros(B, T, 2 * H)
+    h_seq = gates.new_zeros(2, T, B, H)
+    c_seq = gates.new_zeros(2, T, B, H)
+    for d in (0, 1):
+        h = gates.new_zeros(B, H)
+        c = torch.zeros_like(h)
+        g_d = gates[..., d * 4 * H:(d + 1) * 4 * H]
+        for t in range(T):
+            tt = T - 1 - t if d else t
+            h_new, c_new = lstm_cell(g_d[:, tt], h, c, w_h[d])
+            m = mask[:, tt, None]
+            h = m * h_new + (1.0 - m) * h
+            c = m * c_new + (1.0 - m) * c
+            out[:, tt, d * H:(d + 1) * H] = h_new * m
+            h_seq[d, t], c_seq[d, t] = h, c
+    return out, h_seq[:, -1].transpose(0, 1).reshape(B, 2 * H), \
+        c_seq[:, -1].transpose(0, 1).reshape(B, 2 * H), h_seq, c_seq
 
 
 def bilstm_reference(params, x: torch.Tensor, mask: torch.Tensor):
-    """Plain PyTorch version of the kernel path: ``(out [B, T, 2h],
+    """Plain PyTorch version of K1's path: ``(out [B, T, 2h],
     (h_last, c_last) [B, 2h])`` in f32."""
-    gates = _projection(params, x)
-    m = mask.float()
-    H = params.fwd.w_h.shape[0]
-    out_f, h_f, c_f = lstm_recurrence_reference(gates[..., :4 * H], m, params.fwd.w_h.float(), False)
-    out_b, h_b, c_b = lstm_recurrence_reference(gates[..., 4 * H:], m, params.bwd.w_h.float(), True)
-    return torch.cat([out_f, out_b], -1), (torch.cat([h_f, h_b], -1), torch.cat([c_f, c_b], -1))
+    w_h = torch.stack([params.fwd.w_h, params.bwd.w_h]).float()
+    out, h_last, c_last, _, _ = bilstm_train_forward_reference(_projection(params, x), mask.float(), w_h)
+    return out, (h_last, c_last)
 
 
 def bilstm_cuda(params, x: torch.Tensor, mask: torch.Tensor):
@@ -96,3 +129,138 @@ def bilstm_cuda(params, x: torch.Tensor, mask: torch.Tensor):
 
 
 bilstm_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6: the training pair.
+# ---------------------------------------------------------------------------
+
+
+def bilstm_bptt_reference(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last):
+    """Plain version of K6, step for step the TPU kernel's
+    (``_lstm_bwd_kernel``): → ``(dgates [B, T, 8H], dw_h [2, H, 4H])``."""
+    B, T, _ = gates.shape
+    H = w_h.shape[1]
+    dgates = torch.zeros_like(gates)
+    dw_h = torch.zeros_like(w_h)
+    for d in (0, 1):
+        sl = slice(d * H, (d + 1) * H)
+        dh, dc = dh_last[:, sl], dc_last[:, sl]
+        for s in range(T - 1, -1, -1):
+            tt = T - 1 - s if d else s
+            h_prev = h_seq[d, s - 1] if s > 0 else gates.new_zeros(B, H)
+            c_prev = c_seq[d, s - 1] if s > 0 else gates.new_zeros(B, H)
+            z = gates[:, tt, d * 4 * H:(d + 1) * 4 * H] + h_prev @ w_h[d]
+            i, f, g, o = z.chunk(4, dim=-1)
+            i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+            tanh_c = torch.tanh(f * c_prev + i * g)
+            m = mask[:, tt, None]
+            dh_new = m * (dout[:, tt, sl] + dh)
+            dc_new = dh_new * o * (1.0 - tanh_c * tanh_c) + m * dc
+            dz = torch.cat([dc_new * g * i * (1.0 - i), dc_new * c_prev * f * (1.0 - f),
+                            dc_new * i * (1.0 - g * g), dh_new * tanh_c * o * (1.0 - o)], dim=-1)
+            dgates[:, tt, d * 4 * H:(d + 1) * 4 * H] = dz
+            dh = (1.0 - m) * dh + dz @ w_h[d].T
+            dc = f * dc_new + (1.0 - m) * dc
+            dw_h[d] += h_prev.T @ dz
+    return dgates, dw_h
+
+
+def _check_train_operands(gates, mask, w_h):
+    B, T, _ = gates.shape
+    H = w_h.shape[1]
+    dev = gates.device
+    build.check_tensor(gates, "gates", (B, T, 4 * H * 2), dev)
+    build.check_tensor(mask, "mask", (B, T), dev)
+    build.check_tensor(w_h, "w_h", (2, H, 4 * H), dev)
+    return B, T, H, dev
+
+
+def bilstm_train_forward(gates: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor):
+    """K5: the training recurrence (contract of
+    :func:`bilstm_train_forward_reference`). ``bilstm_train_forward.launches``
+    counts kernel launches."""
+    if gates.device.type == "cpu":
+        return bilstm_train_forward_reference(gates, mask, w_h)
+    if gates.device.type != "cuda":
+        raise ValueError(f"bilstm_train_forward: unsupported device {gates.device}")
+    B, T, H, dev = _check_train_operands(gates, mask, w_h)
+    out = torch.empty(B, T, 2 * H, device=dev)
+    h_last = torch.empty(B, 2 * H, device=dev)
+    c_last = torch.empty(B, 2 * H, device=dev)
+    h_seq = torch.empty(2, T, B, H, device=dev)
+    c_seq = torch.empty(2, T, B, H, device=dev)
+    lib = build.library()
+    rc = lib.mmb_bilstm_forward_train(
+        gates.data_ptr(), mask.data_ptr(), w_h.data_ptr(), out.data_ptr(), h_last.data_ptr(),
+        c_last.data_ptr(), h_seq.data_ptr(), c_seq.data_ptr(), B, T, H,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check_launch(lib, rc, "mmb_bilstm_forward_train")
+    bilstm_train_forward.launches += 1
+    return out, h_last, c_last, h_seq, c_seq
+
+
+bilstm_train_forward.launches = 0
+
+
+def bilstm_bptt(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last):
+    """K6: backward through time (contract of :func:`bilstm_bptt_reference`).
+    ``bilstm_bptt.launches`` counts calls that launched the kernels (the walk,
+    the dW_h partial product and its sum)."""
+    if gates.device.type == "cpu":
+        return bilstm_bptt_reference(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last)
+    if gates.device.type != "cuda":
+        raise ValueError(f"bilstm_bptt: unsupported device {gates.device}")
+    B, T, H, dev = _check_train_operands(gates, mask, w_h)
+    for name, t, shape in (("h_seq", h_seq, (2, T, B, H)), ("c_seq", c_seq, (2, T, B, H)),
+                           ("dout", dout, (B, T, 2 * H)), ("dh_last", dh_last, (B, 2 * H)),
+                           ("dc_last", dc_last, (B, 2 * H))):
+        build.check_tensor(t, name, shape, dev)
+    lib = build.library()
+    num_splits = max(1, -(-((T - 1) * B) // lib.mmb_lstm_dwh_split()))
+    w_hT = w_h.transpose(1, 2).contiguous()  # a copy, so both W_h walks read coalesced
+    dgates = torch.empty_like(gates)
+    partial = torch.empty(num_splits, 2, H, 4 * H, device=dev)
+    dw_h = torch.empty(2, H, 4 * H, device=dev)
+    rc = lib.mmb_bilstm_backward(
+        gates.data_ptr(), mask.data_ptr(), w_h.data_ptr(), w_hT.data_ptr(), h_seq.data_ptr(),
+        c_seq.data_ptr(), dout.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(),
+        dgates.data_ptr(), partial.data_ptr(), dw_h.data_ptr(), num_splits, B, T, H,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check_launch(lib, rc, "mmb_bilstm_backward")
+    bilstm_bptt.launches += 1
+    return dgates, dw_h
+
+
+bilstm_bptt.launches = 0
+
+
+class BiLSTMTrainableFn(torch.autograd.Function):
+    """One BiLSTM layer's recurrence with its BPTT backward: K5 forward, K6
+    backward. Inputs f32 ``gates [B, T, 8H]``, ``mask [B, T]``,
+    ``w_h [2, H, 4H]``; outputs ``(out [B, T, 2H], h_last, c_last [B, 2H])``."""
+
+    @staticmethod
+    def forward(ctx, gates, mask, w_h):
+        out, h_last, c_last, h_seq, c_seq = bilstm_train_forward(gates, mask, w_h)
+        ctx.save_for_backward(gates, mask, w_h, h_seq, c_seq)
+        return out, h_last, c_last
+
+    @staticmethod
+    def backward(ctx, dout, dh_last, dc_last):
+        gates, mask, w_h, h_seq, c_seq = ctx.saved_tensors
+        dgates, dw_h = bilstm_bptt(gates, mask, w_h, h_seq, c_seq, dout.contiguous(),
+                                   dh_last.contiguous(), dc_last.contiguous())
+        return dgates, None, dw_h
+
+
+def bilstm_cuda_trainable(params, x: torch.Tensor, mask: torch.Tensor):
+    """One BiLSTM layer for training (``bilstm_pallas_trainable``'s contract):
+    the input projection by autograd-tracked GEMM, the recurrence and its
+    backward through K5 / K6 → ``(out [B, T, 2h], (h_last, c_last))`` in f32."""
+    gates = _projection(params, x).contiguous()
+    w_h = torch.stack([params.fwd.w_h, params.bwd.w_h]).float().contiguous()
+    out, h_last, c_last = BiLSTMTrainableFn.apply(gates, mask.float().contiguous(), w_h)
+    return out, (h_last, c_last)

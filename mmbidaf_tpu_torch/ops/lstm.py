@@ -117,9 +117,9 @@ def bilstm_apply(params: nn.Module, x: torch.Tensor, mask: torch.Tensor):
 
 def stacked_bilstm_apply(params: nn.Module, x: torch.Tensor, mask: torch.Tensor,
                          bilstm_fn=None):
-    """Run a (possibly stacked) BiLSTM. ``bilstm_fn`` runs one layer — the
-    hand kernel's wrapper on the kernel path. Inference only: no
-    inter-layer dropout."""
+    """Run a (possibly stacked) BiLSTM. ``bilstm_fn`` runs one layer — a
+    hand kernel's wrapper on the kernel path. No inter-layer dropout: the
+    JAX model calls its stacked towers without it, in training too."""
     fn = bilstm_fn if bilstm_fn is not None else bilstm_apply
     if not hasattr(params, "layers"):
         return fn(params, x, mask)

@@ -7,7 +7,7 @@
 
 The device side is ``data.frontend.make_end_to_end_decode`` (frontend +
 model + greedy decode); host work is asset decode and summary assembly,
-shared with the JAX package through its JAX-free host modules. Greedy
+through the port's own copies of the JAX package's host modules. Greedy
 decoding on one device only: top-k, beam, the dynamic batcher, bucket
 ladders, long-transcript windows and data parallelism are not ported yet
 and raise ``NotImplementedError``.
@@ -21,8 +21,6 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from mmbidaf_tpu.data.video import audio_frames_valid, load_video_assets
-from mmbidaf_tpu.train.metrics import summary_from_picks
 from mmbidaf_tpu_torch.config import Config
 from mmbidaf_tpu_torch.data.frontend import (
     Frontend,
@@ -30,9 +28,12 @@ from mmbidaf_tpu_torch.data.frontend import (
     frontend_init,
     make_end_to_end_decode,
 )
+from mmbidaf_tpu_torch.data.synthetic import random_word_vectors
 from mmbidaf_tpu_torch.data.text import encode_transcript
+from mmbidaf_tpu_torch.data.video import audio_frames_valid, load_video_assets
 from mmbidaf_tpu_torch.models.mmbidaf import MMBiDAF, mmbidaf_init
 from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
+from mmbidaf_tpu_torch.train.metrics import summary_from_picks
 
 
 def num_audio_samples(cfg: Config) -> int:
@@ -101,10 +102,8 @@ class Summarizer:
     # -- constructors -------------------------------------------------------
 
     @classmethod
-    def init_random(cls, cfg: Config, seed: int = 0, vgg_spec=VGG16_SPEC, device="cpu", **kw):
+    def init_random(cls, cfg: Config, seed: int = 0, vgg_spec=VGG16_SPEC, device="cuda", **kw):
         """Untrained summarizer with seeded random weights (smoke tests)."""
-        from mmbidaf_tpu.data.synthetic import random_word_vectors
-
         wv = random_word_vectors(np.random.default_rng(seed), cfg.data.vocab_size,
                                  cfg.model.emb_dim)
         word2idx = {f"w{i}": i for i in range(cfg.data.vocab_size)}
@@ -114,7 +113,7 @@ class Summarizer:
 
     @classmethod
     def from_jax_params(cls, params: dict, fe_params: dict, word2idx: dict[str, int],
-                        cfg: Config, vgg_spec=VGG16_SPEC, device="cpu", **kw):
+                        cfg: Config, vgg_spec=VGG16_SPEC, device="cuda", **kw):
         """Serve the JAX package's weights, given as numpy pytrees."""
         from mmbidaf_tpu_torch.interop.from_jax import frontend_from_jax, model_from_jax
 

@@ -1,16 +1,23 @@
 """The port on the card against the JAX package on the host CPU, at the bench
 configuration's full widths (VGG-16 at 224², hidden 128, vocab 20000,
-T_s=32 x W=16, 16 keyframes, 512 audio frames) with B=2, f32.
+T_s=32 x W=16, 16 keyframes, 512 audio frames) with B=2, f32 — the serving
+program and one training step — and every kernel against its plain version
+at shapes the main paths do not reach (partial blocks and tiles, widths
+past a block's threads).
 
 Needs an NVIDIA GPU with ``nvcc`` (the CUDA kernels are built on first use);
 skipped elsewhere. Run on such a host with
 ``python -m pytest tests/test_torch_cuda.py -q``.
 
 The JAX side runs its plain (scan) path, which equals its Pallas path in
-f32; the port runs its three CUDA kernels. TF32 is off on the card. Bounds:
+f32; the port runs its CUDA kernels. TF32 is off on the card. Bounds:
 picks equal; log-probs within 1e-4 (measured 4.8e-7 on an H100); VGG
 features within 1e-4 (measured 4.7e-6 on values up to ~2); MFCCs within
 5e-4 (measured 3.8e-5 on values up to ~100) — f32 sums in different orders.
+One training step (drop_prob 0, adadelta): loss within 1e-5 and every
+parameter and EMA leaf within 1e-5 after the step (an adadelta step moves a
+parameter by at most lr·sqrt(10) ≈ 1.6e-3, and its error is at most lr
+times the gradient's).
 """
 
 
@@ -31,6 +38,14 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+def _assert_normwise(out, ref, tol, name=""):
+    """Each output within ``atol + rtol·max|ref|`` (the backward kernels'
+    stated bound)."""
+    for i, (o, r) in enumerate(zip(out, ref)):
+        err = (o - r).abs().max().item()
+        assert err <= tol["atol"] + tol["rtol"] * r.abs().max().item(), (name, i, err)
 
 
 def _bench_f32_config(kernels: bool) -> Config:
@@ -162,3 +177,152 @@ def test_mfcc_kernel_generic_shapes(cuda_device, n_fft, win, T):
     out = melspec_kernel.mfcc_fused(frames, consts)
     torch.testing.assert_close(out, melspec_kernel.mfcc_reference(frames, consts),
                                **melspec_kernel.TOLERANCE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,steps,in_dim,hidden", [
+    (1030, 3, 8, 256),  # 16-row blocks with a partial last block; 4H=1024 > 512 threads
+    (7, 40, 5, 32),     # 4-row blocks, a partial block, 4H=128 < a warp-multiple cap
+])
+def test_train_lstm_kernels_generic_shapes(cuda_device, rows, steps, in_dim, hidden):
+    """K5 and K6 against their plain versions; K6 twice gives the same bits."""
+    from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
+    from mmbidaf_tpu_torch.ops.lstm import BiLSTMParams
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    p = BiLSTMParams(in_dim, hidden, gen, cuda_device)
+    x = torch.randn(rows, steps, in_dim, device=cuda_device, generator=gen)
+    lengths = torch.randint(0, steps + 1, (rows,), device=cuda_device, generator=gen)
+    mask = (torch.arange(steps, device=cuda_device)[None] < lengths[:, None]).float()
+    gates = lk._projection(p, x).contiguous()
+    w_h = torch.stack([p.fwd.w_h, p.bwd.w_h]).contiguous()
+    fwd = lk.bilstm_train_forward(gates, mask, w_h)
+    for o, r in zip(fwd, lk.bilstm_train_forward_reference(gates, mask, w_h)):
+        torch.testing.assert_close(o, r, **lk.TOLERANCE)
+    args = (gates, mask, w_h, fwd[3], fwd[4],
+            torch.randn(rows, steps, 2 * hidden, device=cuda_device, generator=gen),
+            torch.randn(rows, 2 * hidden, device=cuda_device, generator=gen),
+            torch.randn(rows, 2 * hidden, device=cuda_device, generator=gen))
+    bwd = lk.bilstm_bptt(*args)
+    _assert_normwise(bwd, lk.bilstm_bptt_reference(*args), lk.BPTT_TOLERANCE, "K6")
+    assert all(torch.equal(a, b) for a, b in zip(bwd, lk.bilstm_bptt(*args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T_c,T_q,D", [
+    (2, 33, 100, 320),  # two register chunks of context rows; D > 256 threads; a partial tile
+    (3, 5, 33, 40),     # a partial q tile
+])
+def test_bidaf_dropout_kernels_generic_shapes(cuda_device, B, T_c, T_q, D):
+    """K7 and K8 against their plain versions with cd != c and fully masked
+    rows; K8 twice gives the same bits."""
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    rand = lambda *s: torch.randn(*s, device=cuda_device, generator=gen)  # noqa: E731
+    c, q = rand(B, T_c, D), rand(B, T_q, D)
+    cd = c * (torch.rand(c.shape, device=cuda_device, generator=gen) > 0.2).float() / 0.8
+    qd = q * (torch.rand(q.shape, device=cuda_device, generator=gen) > 0.2).float() / 0.8
+    c_mask = (torch.rand(B, T_c, device=cuda_device, generator=gen) > 0.3).float()
+    q_mask = (torch.rand(B, T_q, device=cuda_device, generator=gen) > 0.3).float()
+    q_mask[0] = 0.0
+    c_mask[1] = 0.0
+    ops = (c, q, cd, qd, c_mask, q_mask, rand(D) * 0.1, rand(D) * 0.1, rand(D) * 0.1,
+           torch.tensor(-0.3, device=cuda_device))
+    torch.testing.assert_close(bk.bidaf_dropout_forward(*ops), bk.bidaf_dropout_reference(*ops),
+                               **bk.TOLERANCE)
+    g = rand(B, T_c, 4 * D)
+    bwd = bk.bidaf_dropout_backward(*ops, g)
+    _assert_normwise(bwd, bk.bidaf_dropout_backward_reference(*ops, g), bk.BACKWARD_TOLERANCE, "K8")
+    assert all(torch.equal(a, b) for a, b in zip(bwd, bk.bidaf_dropout_backward(*ops, g)))
+
+
+@pytest.mark.cuda
+def test_bench_width_train_step_parity_with_jax(cuda_device):
+    """One training step of the port on the card (f32, drop_prob 0, the
+    K5-K8 kernels) against JAX's ``make_train_step`` on the host CPU, same
+    weights and batch, bench widths, B=2."""
+    import dataclasses
+
+    from mmbidaf_tpu.data.synthetic import random_word_vectors, synthetic_batch
+    from mmbidaf_tpu.models.mmbidaf import mmbidaf_init as j_init
+    from mmbidaf_tpu.train.loop import init_train_state as j_init_state
+    from mmbidaf_tpu.train.loop import make_train_step as j_make_step
+    from mmbidaf_tpu_torch.config import config_from_dict
+    from mmbidaf_tpu_torch.interop.from_jax import train_state_from_jax
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel
+    from mmbidaf_tpu_torch.train.loop import make_train_step
+
+    j_cfg = _bench_f32_config(kernels=False)
+    cfg = config_from_dict(dataclasses.asdict(_bench_f32_config(kernels=True)))
+    rng = np.random.default_rng(0)
+    wv = random_word_vectors(rng, j_cfg.data.vocab_size, j_cfg.model.emb_dim)
+    params = j_init(jax.random.key(0), j_cfg, jnp.asarray(wv))
+    batch = synthetic_batch(rng, j_cfg, batch_size=2)
+    j_state = j_init_state(jax.random.key(1), params, j_cfg)
+    np_params = jax.tree.map(np.asarray, params)
+    state = train_state_from_jax(np_params, np_params, cfg, cuda_device)
+    j_state, j_m = j_make_step(j_cfg)(j_state, {k: jnp.asarray(v) for k, v in batch.items()})
+    counts = [f.launches for f in (lstm_kernel.bilstm_train_forward, lstm_kernel.bilstm_bptt,
+                                   bidaf_kernel.bidaf_dropout_forward,
+                                   bidaf_kernel.bidaf_dropout_backward)]
+    state, m = make_train_step(cfg)(state, {k: torch.from_numpy(v).to(cuda_device)
+                                            for k, v in batch.items()})
+    after = [f.launches for f in (lstm_kernel.bilstm_train_forward, lstm_kernel.bilstm_bptt,
+                                  bidaf_kernel.bidaf_dropout_forward,
+                                  bidaf_kernel.bidaf_dropout_backward)]
+    assert [a - b for a, b in zip(after, counts)] == [5, 5, 2, 2]  # the kernels ran
+    np.testing.assert_allclose(float(m["loss"]), float(j_m["loss"]), atol=1e-5)
+    np.testing.assert_allclose(float(m["grad_norm"]), float(j_m["grad_norm"]), rtol=1e-4)
+    for tree, module in ((j_state.params, state.params), (j_state.ema_params, state.ema_params)):
+        ours = {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+        from mmbidaf_tpu_torch.interop.from_jax import flatten_pytree
+
+        for k, v in flatten_pytree(jax.tree.map(np.asarray, tree)).items():
+            np.testing.assert_allclose(ours[k], v, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train,model", [
+    ({"remat_towers": True, "grad_accum_steps": 2}, {}),
+    ({}, {"compute_dtype": "bfloat16"}),
+], ids=["remat_accum", "bf16"])
+def test_train_step_options_through_the_kernels(cuda_device, train, model):
+    """The step options chip_smoke.py does not drive, at small widths: one
+    drop-0 step through K5-K8 against one through the plain versions. f32
+    (remat + accumulation): loss and parameters within 1e-5. bf16: the
+    plain path keeps the LSTM state in bf16 where the kernels keep f32, so
+    the losses agree to bf16 rounding (5e-2) and every gradient step is
+    finite."""
+    import dataclasses
+
+    from mmbidaf_tpu_torch.config import tiny_test_config
+    from mmbidaf_tpu_torch.data.synthetic import random_word_vectors, synthetic_batch
+    from mmbidaf_tpu_torch.models.mmbidaf import mmbidaf_init
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel
+    from mmbidaf_tpu_torch.train.loop import init_train_state, make_train_step
+
+    results = []
+    for kernels in (True, False):
+        cfg = tiny_test_config()
+        cfg = dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, **train),
+            model=dataclasses.replace(cfg.model, use_pallas_lstm=kernels,
+                                      use_pallas_attention=kernels, **model))
+        rng = np.random.default_rng(8)
+        wv = random_word_vectors(rng, cfg.data.vocab_size, cfg.model.emb_dim)
+        state = init_train_state(mmbidaf_init(cfg, wv, cuda_device, seed=8), cfg)
+        batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in synthetic_batch(rng, cfg, 4).items()}
+        before = lstm_kernel.bilstm_bptt.launches + bidaf_kernel.bidaf_dropout_backward.launches
+        state, m = make_train_step(cfg)(state, batch)
+        ran = lstm_kernel.bilstm_bptt.launches + bidaf_kernel.bidaf_dropout_backward.launches - before
+        assert (ran > 0) == kernels
+        results.append((float(m["loss"]), {n: p.detach().cpu() for n, p in state.params.named_parameters()}))
+    (lk, pk), (lp, pp) = results
+    assert np.isfinite(lk) and all(bool(torch.isfinite(v).all()) for v in pk.values())
+    if model.get("compute_dtype") == "bfloat16":
+        assert abs(lk - lp) <= 5e-2
+        return
+    assert abs(lk - lp) <= 1e-5
+    for n in pk:
+        torch.testing.assert_close(pk[n], pp[n], atol=1e-5, rtol=0.0, msg=n)

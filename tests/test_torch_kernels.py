@@ -118,7 +118,7 @@ def test_mfcc_wrapper_matches_pallas(rng):
     """Strided frames straight from the waveform, and a silent example:
     all-zero frames give max -100 dB and an all-zero MFCC."""
     n_fft, win, hop, T = 64, 48, 16, 37
-    consts = t_audio.make_audio_frontend_consts(16000, n_fft, win, 12, 8)
+    consts = t_audio.make_audio_frontend_consts(16000, n_fft, win, 12, 8, device="cpu")
     sig = rng.standard_normal((3, (T - 1) * hop + win)).astype(np.float32)
     sig[1] = 0.0
     frames = t_audio.frame_signal(_t(sig), win, hop, T)
@@ -136,15 +136,22 @@ def test_mfcc_fused_fits_is_the_jax_bound(T, win, bins, n_mels):
 
 
 def test_nvcc_command_targets_sm90a(tmp_path):
-    """The build line names sm_90a (wgmma/setmaxnreg exist only there) and
-    every source; nvcc is not run here."""
-    cmd = build.nvcc_command(tmp_path / "lib.so")
-    i = cmd.index("-gencode")
-    assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
-    for flag in ("-shared", "-O3", "-std=c++17"):
-        assert flag in cmd
-    assert cmd[cmd.index("-Xcompiler") + 1] == "-fPIC"
-    assert all(str(build.CSRC / s) in cmd for s in build.SOURCES)
+    """Every source compiles for sm_90a (wgmma/setmaxnreg exist only there),
+    one nvcc per source, and one link makes the shared library; nvcc is not
+    run here."""
+    objects = []
+    for src in build.SOURCES:
+        cmd = build.compile_command(src, tmp_path / f"{src}.o")
+        i = cmd.index("-gencode")
+        assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
+        for flag in ("-c", "-O3", "-std=c++17"):
+            assert flag in cmd
+        assert cmd[cmd.index("-Xcompiler") + 1] == "-fPIC"
+        assert cmd[-1] == str(build.CSRC / src)
+        objects.append(cmd[cmd.index("-o") + 1])
+    link = build.link_command(objects, tmp_path / "lib.so")
+    assert "-shared" in link and link[-len(objects):] == objects
+    assert {"lstm_bwd.cu", "bidaf_bwd.cu"} <= set(build.SOURCES)
     assert build.library_path().parent == build.BUILD_DIR
     assert build.library_path().name.endswith(".so")
 
@@ -169,16 +176,20 @@ def test_cuda_requests_raise_without_a_card():
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter imports the whole port without pulling in jax."""
-    mods = [
-        "mmbidaf_tpu_torch", "mmbidaf_tpu_torch.serving", "mmbidaf_tpu_torch.data.frontend",
-        "mmbidaf_tpu_torch.models.mmbidaf", "mmbidaf_tpu_torch.interop.from_jax",
-        "mmbidaf_tpu_torch.ops.cuda.lstm_kernel", "mmbidaf_tpu_torch.ops.cuda.bidaf_kernel",
-        "mmbidaf_tpu_torch.ops.cuda.melspec_kernel", "mmbidaf_tpu_torch.ops.cuda.build",
-    ]
+    """A fresh interpreter imports every module of the port; neither jax nor
+    any module of the JAX package ``mmbidaf_tpu`` comes with it."""
+    import pkgutil
+
+    import mmbidaf_tpu_torch
+
+    mods = sorted(m.name for m in pkgutil.walk_packages(mmbidaf_tpu_torch.__path__,
+                                                        "mmbidaf_tpu_torch."))
+    assert {"mmbidaf_tpu_torch.serving", "mmbidaf_tpu_torch.train.loop",
+            "mmbidaf_tpu_torch.data.containers", "mmbidaf_tpu_torch.ops.cuda.build"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'mmbidaf_tpu')\n"
+            "             or m.startswith(('jax.', 'jaxlib', 'mmbidaf_tpu.')))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     repo = Path(__file__).resolve().parents[1]

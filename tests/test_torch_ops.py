@@ -149,7 +149,7 @@ def test_bidaf_similarity_and_block(rng):
 
 @pytest.mark.parametrize("shape", [(16000, 64, 48, 12, 8), (16000, 512, 400, 64, 40)])
 def test_audio_consts_bitwise_equal(shape):
-    ours = {k: v.numpy() for k, v in t_audio.make_audio_frontend_consts(*shape).items()}
+    ours = {k: v.numpy() for k, v in t_audio.make_audio_frontend_consts(*shape, device="cpu").items()}
     ref = j_audio.make_audio_frontend_consts(*shape)
     assert set(ours) == set(ref)
     for k in ours:
@@ -163,7 +163,7 @@ def test_waveform_to_features(rng, feature):
     reference, DCT (or log-mel) — the unfused path. MFCCs reach ~100 in
     magnitude, so the bound is relative: ``rtol=2e-5, atol=2e-4``."""
     n_fft, win, hop, T = 64, 48, 16, 20
-    consts_t = t_audio.make_audio_frontend_consts(16000, n_fft, win, 12, 8)
+    consts_t = t_audio.make_audio_frontend_consts(16000, n_fft, win, 12, 8, device="cpu")
     consts_j = {k: jnp.asarray(v.numpy()) for k, v in consts_t.items()}
     sig = rng.standard_normal((3, T * hop + win)).astype(np.float32)
     sig[1] = 0.0  # silent example: every dB value is the -100 reference
@@ -178,7 +178,7 @@ def test_waveform_to_features(rng, feature):
 
 
 def test_waveform_to_features_unported_paths_raise(rng):
-    consts = t_audio.make_audio_frontend_consts(16000, 64, 48, 12, 8)
+    consts = t_audio.make_audio_frontend_consts(16000, 64, 48, 12, 8, device="cpu")
     sig = _t(rng.standard_normal((1, 400)).astype(np.float32))
     with pytest.raises(NotImplementedError):
         t_audio.waveform_to_features(sig, consts, 48, 16, 10, fft="stockham")
@@ -217,7 +217,7 @@ def test_vgg_features_carried_weights(rng):
 
     cfg = tiny_test_config()
     fe = j_frontend_init(jax.random.key(5), cfg, vgg_spec=j_vgg.TINY_SPEC)
-    port = frontend_from_jax(_np(fe), cfg, t_vgg.TINY_SPEC)
+    port = frontend_from_jax(_np(fe), cfg, t_vgg.TINY_SPEC, device="cpu")
     images = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
     ours = t_vgg.vgg_features(port.vgg, _t(images), t_vgg.TINY_SPEC)
     ref = j_vgg.vgg_features(fe["vgg"], jnp.asarray(images), j_vgg.TINY_SPEC)
@@ -282,7 +282,7 @@ def test_vgg_frame_chunks_match_one_pass(rng):
     cfg = tiny_test_config()
     raw = {"frames": _t((rng.random((2, 6, 12, 16, 3)) * 255).astype(np.uint8)),
            "img_mask": torch.ones(2, 6)}
-    fe = frontend_init(cfg, t_vgg.TINY_SPEC)
+    fe = frontend_init(cfg, t_vgg.TINY_SPEC, device="cpu")
     one = apply_frontend(fe, raw, cfg, t_vgg.TINY_SPEC)["images"]
     chunked_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, vgg_frame_chunk=5))
     chunked = apply_frontend(fe, raw, chunked_cfg, t_vgg.TINY_SPEC)["images"]
@@ -307,6 +307,6 @@ def test_from_jax_refuses_mismatched_weights():
     fe = _np(j_frontend_init(jax.random.key(9), cfg, vgg_spec=j_vgg.TINY_SPEC))
     bad = dict(fe, audio_consts=dict(fe["audio_consts"], dct=fe["audio_consts"]["dct"] * 2))
     with pytest.raises(ValueError, match="dct"):
-        frontend_from_jax(bad, cfg, t_vgg.TINY_SPEC)
+        frontend_from_jax(bad, cfg, t_vgg.TINY_SPEC, device="cpu")
     with pytest.raises(ValueError, match="use_images"):
-        frontend_from_jax({"audio_consts": fe["audio_consts"]}, cfg, t_vgg.TINY_SPEC)
+        frontend_from_jax({"audio_consts": fe["audio_consts"]}, cfg, t_vgg.TINY_SPEC, device="cpu")

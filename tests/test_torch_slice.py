@@ -80,8 +80,9 @@ def _run_both(cfg, jax_weights, raw):
     params, fe = jax_weights
     j_lp, j_picks = j_end_to_end(cfg, vgg_spec=J_TINY)(
         params, fe, {k: jnp.asarray(v) for k, v in raw.items()})
-    model = model_from_jax(_np(params), cfg)
-    front = cast_vgg_weights(frontend_from_jax(_np(fe), cfg, TINY_SPEC), cfg.model.compute_dtype)
+    model = model_from_jax(_np(params), cfg, device="cpu")
+    front = cast_vgg_weights(frontend_from_jax(_np(fe), cfg, TINY_SPEC, device="cpu"),
+                             cfg.model.compute_dtype)
     lp, picks = make_end_to_end_decode(cfg, TINY_SPEC)(
         model, front, {k: torch.from_numpy(v) for k, v in raw.items()})
     return (np.asarray(j_lp), np.asarray(j_picks)), (lp.numpy(), picks.numpy())
@@ -125,7 +126,7 @@ def test_model_configs_match_jax(model_kw):
     batch.pop("targets"), batch.pop("target_mask")
     j_lp, j_picks = j_decode(params, {k: jnp.asarray(v) for k, v in batch.items()}, cfg)
     with torch.inference_mode():
-        lp, picks = mmbidaf_decode(model_from_jax(_np(params), cfg),
+        lp, picks = mmbidaf_decode(model_from_jax(_np(params), cfg, device="cpu"),
                                    {k: torch.from_numpy(v) for k, v in batch.items()}, cfg)
     np.testing.assert_array_equal(picks.numpy(), np.asarray(j_picks))
     np.testing.assert_allclose(lp.numpy(), np.asarray(j_lp), atol=1e-5, rtol=1e-5)
@@ -151,7 +152,7 @@ def test_summarizer_matches_jax(corpus):
     cfg = _cfg()
     js = JaxSummarizer.init_random(cfg, seed=0, vgg_spec=J_TINY, serve_batch_size=2)
     ts = Summarizer.from_jax_params(_np(js.params), _np(js.fe_params), js.word2idx, cfg,
-                                    vgg_spec=TINY_SPEC, serve_batch_size=2)
+                                    vgg_spec=TINY_SPEC, device="cpu", serve_batch_size=2)
     ours = ts.summarize_batch(corpus)
     assert ours == js.summarize_batch(corpus)
     assert len(ours) == 3 and all(isinstance(s, str) and s for s in ours)
@@ -166,10 +167,10 @@ def test_unported_paths_raise(corpus):
     for kw in ({"mode": "topk"}, {"mode": "beam"}, {"data_parallel": True},
                {"serve_buckets": True}):
         with pytest.raises(NotImplementedError):
-            Summarizer.init_random(cfg, vgg_spec=TINY_SPEC, **kw)
+            Summarizer.init_random(cfg, vgg_spec=TINY_SPEC, device="cpu", **kw)
     with pytest.raises(ValueError):
-        Summarizer.init_random(cfg, vgg_spec=TINY_SPEC, mode="greddy")
-    s = Summarizer.init_random(cfg, vgg_spec=TINY_SPEC)
+        Summarizer.init_random(cfg, vgg_spec=TINY_SPEC, device="cpu", mode="greddy")
+    s = Summarizer.init_random(cfg, vgg_spec=TINY_SPEC, device="cpu")
     with pytest.raises(NotImplementedError):
         s.summarize_long(corpus[0])
     with pytest.raises(NotImplementedError):
