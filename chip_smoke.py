@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero before the result line:
      the module's stated bound, the median time of each and of one PyTorch
      library call computing the same function where there is one (CUDA
      events), its bound from the H100's published peaks, and for the
-     backward kernels K6/K8 that two runs agree bit for bit;
+     backward kernels K6/K8 and the blockwise BiDAF K9 that two runs agree
+     bit for bit; K4 (tiled mel, both modes) at the long-audio and log-mel
+     shapes, K9 at the long-audio attention shape, and K2's wrapper routing
+     a T_q=1024 block to K9;
   4. the serving slice at the bench configuration (``bench.py::build_bench_config``:
      VGG-16 at 224², hidden 128, vocab 20000, T_s=32 x W=16, 16 keyframes,
      512 audio frames, K=4, bf16, all three kernel flags on):
@@ -35,13 +38,27 @@ Phases, in order; any failure exits non-zero before the result line:
          ``torch.profiler`` breakdown of three steps;
      (b) at drop_prob 0, one step from the same state through the kernels
          and through the plain versions: loss, grad norm and every
-         parameter after the step within TRAIN_PARITY_ATOL.
+         parameter after the step within TRAIN_PARITY_ATOL;
+  6. long-video serving at the long-audio configuration
+     (``examples/configs/config6_sp_long_audio.json`` on one device: 4096
+     audio frames, vocab 50000, bf16, the three kernel flags on):
+     (a) ``make_end_to_end_decode`` on a seeded raw batch of B=16, checked
+         and timed; K1, K2, K4 and K9 ran, K3 did not;
+     (b) ``Summarizer.summarize_long`` answering 2 requests with 41 s of
+         audio and 80 transcript sentences (four windows), and
+         ``summarize`` 1 more;
+     (c) an f32 copy of the (a) batch at B=2 through the kernels and
+         through the plain versions: equal picks, close log-probs;
+     (d) the log-mel configuration (the bench config with
+         ``audio_features="logmel"``): one B=64 batch through K4's log mode,
+         and f32 kernels vs plain at B=2: equal picks.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The random weights come from seeds.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import importlib.util
 import json
@@ -58,6 +75,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B = 64  # the bench batch
 B_TRAIN = 32  # the bench_train.py batch
+B_LONG = 16  # the long-audio serving batch
 FRAME_HW = (240, 320)
 TRAIN_STEPS = 150
 # Kernel path vs plain path after one f32 training step at drop_prob 0
@@ -112,6 +130,25 @@ def bench_config():
     return Config(model=model, data=data)
 
 
+def long_config():
+    """The long-audio serving model (``config6_sp_long_audio.json``) on one
+    device: the sequence-parallel layout off, the three kernel flags on."""
+    from mmbidaf_tpu_torch.config import config_from_json
+
+    cfg = config_from_json(os.path.join(ROOT, "examples", "configs", "config6_sp_long_audio.json"))
+    model = dataclasses.replace(cfg.model, use_pallas_attention=True, use_pallas_lstm=True,
+                                use_pallas_melspec=True)
+    mesh = dataclasses.replace(cfg.mesh, sp_audio=False, num_seq=1)
+    return dataclasses.replace(cfg, model=model, mesh=mesh)
+
+
+def logmel_config():
+    """The bench configuration with log-mel audio features (64 mels)."""
+    cfg = bench_config()
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, audio_features="logmel"),
+                               model=dataclasses.replace(cfg.model, audio_feat_dim=cfg.data.n_mels))
+
+
 def train_config(drop_prob: float = 0.2, kernels: bool = True):
     """``bench_train.py --pallas``: the bench widths in f32 with dropout,
     adadelta and flat updates (``TrainConfig`` defaults: lr 0.5, clip 5.0,
@@ -136,6 +173,15 @@ def bound_fields(parts: list[tuple[float, float]]) -> dict:
     mem = sum(m for _, m in parts)
     return {"bound_ms": sum(max(o, m) for o, m in parts),
             "bound_by": "operations" if ops >= mem else "bytes"}
+
+
+def spectrum_flops(frames: int, n_fft: int, win_length: int, mel_fb) -> float:
+    """The least operations of ``frames`` windowed power spectra and their mel
+    product (K3's and K4's common work): the window, a real ``n_fft``-point
+    FFT (2.5·N·log2 N), |·|² over the bins, and the mel product over the
+    filterbank's nonzeros (each bin lies in at most two triangles)."""
+    nnz = int((mel_fb != 0).sum())
+    return frames * (win_length + 2.5 * n_fft * math.log2(n_fft) + 3 * (n_fft // 2 + 1) + 2 * nnz)
 
 
 def lstm_library_ms(rows, steps, width, hid, mask, dev, backward: bool) -> float:
@@ -166,25 +212,25 @@ def ragged_mask(rng, n: int, t: int, lo: int = 1, empty_row: int | None = None) 
     return (np.arange(t)[None] < lengths[:, None]).astype(np.float32)
 
 
-def raw_batch(cfg, rng) -> dict[str, np.ndarray]:
+def raw_batch(cfg, rng, batch: int = B) -> dict[str, np.ndarray]:
     """The layout of ``bench.py::make_raw_batch``: ragged transcripts, random
     uint8 keyframes, a noise waveform (one silent track)."""
     d, m = cfg.data, cfg.model
     T_s, W = d.max_sentences, d.max_words
-    sent_mask = ragged_mask(rng, B, T_s, lo=max(m.max_decode_steps, 2))
-    word_mask = (np.arange(W)[None, None] < rng.integers(1, W + 1, size=(B, T_s))[:, :, None])
+    sent_mask = ragged_mask(rng, batch, T_s, lo=max(m.max_decode_steps, 2))
+    word_mask = (np.arange(W)[None, None] < rng.integers(1, W + 1, size=(batch, T_s))[:, :, None])
     word_mask = word_mask.astype(np.float32) * sent_mask[:, :, None]
-    text_ids = np.where(word_mask > 0, rng.integers(2, d.vocab_size, size=(B, T_s, W)), 0)
+    text_ids = np.where(word_mask > 0, rng.integers(2, d.vocab_size, size=(batch, T_s, W)), 0)
     n_samples = d.max_audio_frames * d.hop_length + d.win_length
-    waveform = (rng.standard_normal((B, n_samples)) * 0.1).astype(np.float32)
+    waveform = (rng.standard_normal((batch, n_samples)) * 0.1).astype(np.float32)
     waveform[1] = 0.0
     return {
         "text_ids": text_ids.astype(np.int32),
         "word_mask": word_mask,
         "sent_mask": sent_mask,
-        "img_mask": ragged_mask(rng, B, d.max_keyframes),
-        "aud_mask": ragged_mask(rng, B, d.max_audio_frames),
-        "frames": (rng.random((B, d.max_keyframes, *FRAME_HW, 3)) * 255).astype(np.uint8),
+        "img_mask": ragged_mask(rng, batch, d.max_keyframes),
+        "aud_mask": ragged_mask(rng, batch, d.max_audio_frames),
+        "frames": (rng.random((batch, d.max_keyframes, *FRAME_HW, 3)) * 255).astype(np.uint8),
         "waveform": waveform,
     }
 
@@ -307,13 +353,17 @@ def phase_kernels(dev, cfg) -> list[dict]:
                   f"kernel={k:.4f} ms plain={pl:.4f} ms", flush=True)
         else:
             print(f"  K2 bidaf {tag}: max_abs_err={e:.3e}", flush=True)
-    try:
-        big = torch.zeros(1, 32, D, device=dev)
-        bidaf_kernel.bidaf_attention_fused(BiDAFParams(D, gen, dev), big, torch.zeros(1, 1024, D, device=dev),
-                                           torch.ones(1, 32, device=dev), torch.ones(1, 1024, device=dev))
-        fail("bidaf: a T_q=1024 shape past the shared-memory bound was not refused")
-    except ValueError as e:
-        print(f"  K2 bidaf refuses T_q=1024: {e}", flush=True)
+    # past K2's shared-memory bound the wrapper launches K9 (same function)
+    p = BiDAFParams(D, gen, dev)
+    c, q = t(rng.standard_normal((2, 32, D)).astype(np.float32)), t(rng.standard_normal((2, 1024, D)).astype(np.float32))
+    cm, qm = t(ragged_mask(rng, 2, 32)), t(ragged_mask(rng, 2, 1024))
+    k2, k9 = bidaf_kernel.bidaf_attention_fused.launches, bidaf_kernel.bidaf_attention_tiled.launches
+    e = compare("bidaf[T_q=1024]", bidaf_kernel.bidaf_attention_fused(p, c, q, cm, qm),
+                bidaf_kernel.bidaf_reference(p, c, q, cm, qm), bidaf_kernel.TOLERANCE)
+    check(bidaf_kernel.bidaf_attention_fused.launches == k2
+          and bidaf_kernel.bidaf_attention_tiled.launches == k9 + 1,
+          "bidaf: T_q=1024 was not routed from K2 to K9")
+    print(f"  K2 bidaf routes T_q=1024 to K9: max_abs_err={e:.3e}", flush=True)
     records.append({"name": "bidaf_attention", "route": "cuda", "source": "mmbidaf_tpu_torch/csrc/bidaf.cu",
                     "replaces": "mmbidaf_tpu/ops/pallas/bidaf_kernel.py:31", "max_abs_err": err,
                     "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": None})
@@ -337,9 +387,9 @@ def phase_kernels(dev, cfg) -> list[dict]:
         if tag == "bench":
             ms = time_ms(lambda: melspec_kernel.mfcc_fused(frames, consts), iters=20)
             plain_ms = time_ms(lambda: melspec_kernel.mfcc_reference(frames, consts), iters=20)
-            bins = consts["cos"].shape[1]
-            parts = [bound(2 * bb * steps * (2 * d.win_length * bins + bins * d.n_mels
-                                             + d.n_mels * d.n_mfcc),
+            # the dB, tile max and DCT on top of the mel spectrum
+            parts = [bound(spectrum_flops(bb * steps, d.n_fft, d.win_length, consts["mel_fb"])
+                           + bb * steps * (2 * d.n_mels + 2 * d.n_mels * d.n_mfcc),
                            4 * (sig.size + sum(v.numel() for v in consts.values())
                                 + bb * steps * d.n_mfcc))]
             print(f"  K3 mfcc B={bb} T={steps}: max_abs_err={e:.3e} kernel={ms:.4f} ms "
@@ -353,6 +403,97 @@ def phase_kernels(dev, cfg) -> list[dict]:
           f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms roofline={records[-1]['bound_ms']:.4f} ms",
           flush=True)
     return records
+
+
+def phase_long_kernels(dev) -> list[dict]:
+    """K4 and K9 against their plain versions: the long-audio configuration's
+    shapes (K4 raw mel at B=16 x 4096 frames, K9 at T_c=32, T_q=4096, D=256),
+    the log-mel bench shape (K4 log at B=64 x 512 frames), and small ragged
+    shapes (a silent example; partial c and q blocks with fully masked rows).
+    K9 runs twice and must agree bit for bit. Returns the records of the
+    JSON line (launches filled in by phase 6)."""
+    import torch
+
+    from mmbidaf_tpu_torch.ops import audio
+    from mmbidaf_tpu_torch.ops.bidaf import BiDAFParams
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel as mk
+
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    d = long_config().data
+
+    def t(x):
+        return torch.from_numpy(x).to(dev)
+
+    consts = audio.make_audio_frontend_consts(d.sample_rate, d.n_fft, d.win_length, d.n_mels,
+                                              d.n_mfcc, d.fmin, d.fmax, device=dev)
+    bins = consts["cos"].shape[1]
+    err, ms, plain_ms, parts = 0.0, 0.0, 0.0, []
+    for tag, bb, steps, log in [("long-audio", B_LONG, d.max_audio_frames, False),
+                                ("logmel", B, bench_config().data.max_audio_frames, True),
+                                ("small-ragged", 3, 37, True),
+                                ("small-ragged", 3, 37, False)]:
+        sig = rng.standard_normal((bb, (steps - 1) * d.hop_length + d.win_length)).astype(np.float32) * 0.1
+        sig[1] = 0.0
+        frames = audio.frame_signal(t(sig), d.win_length, d.hop_length, steps)
+        out = mk.log_mel_fused(frames, consts, log=log)
+        name = f"log_mel[{tag}, log={log}]"
+        e = compare(name, out, mk.log_mel_reference(frames, consts, log=log),
+                    mk.LOG_MEL_TOLERANCE[log], normwise=not log)
+        silent = math.log(1e-6) if log else 0.0
+        check(bool((out[1] - silent).abs().max() <= 1e-5), f"{name}: the silent example is not {silent}")
+        err = max(err, e)
+        if tag == "small-ragged":
+            print(f"  K4 {name}: max_abs_err={e:.3e}", flush=True)
+            continue
+        k = time_ms(lambda: mk.log_mel_fused(frames, consts, log=log), iters=10)
+        pl = time_ms(lambda: mk.log_mel_reference(frames, consts, log=log), iters=10)
+        ms, plain_ms = ms + k, plain_ms + pl
+        n = bb * steps
+        parts.append(bound(spectrum_flops(n, d.n_fft, d.win_length, consts["mel_fb"]) + n * d.n_mels * log,
+                           4 * (sig.size + 2 * d.win_length * bins + bins * d.n_mels + n * d.n_mels)))
+        print(f"  K4 {name} B={bb} T={steps}: max_abs_err={e:.3e} kernel={k:.4f} ms "
+              f"plain={pl:.4f} ms bound={max(parts[-1]):.4f} ms", flush=True)
+    rec4 = {"name": "log_mel", "route": "cuda", "source": "mmbidaf_tpu_torch/csrc/mfcc.cu",
+            "replaces": "mmbidaf_tpu/ops/pallas/melspec_kernel.py:24", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": None}
+    print(f"K4 log_mel: bounds {mk.LOG_MEL_TOLERANCE}, max_abs_err={err:.3e}, long-audio + logmel "
+          f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms roofline={rec4['bound_ms']:.4f} ms", flush=True)
+
+    D = 2 * long_config().model.hidden_size
+    err, ms, plain_ms, parts = 0.0, 0.0, 0.0, []
+    for tag, bb, tc, tq, dd, blocks in [("long-audio", B_LONG, 32, d.max_audio_frames, D, (128, 128)),
+                                        ("small-ragged", 3, 7, 45, 20, (4, 16))]:
+        p = BiDAFParams(dd, gen, dev)
+        with torch.no_grad():
+            p.bias.fill_(0.25)
+        c = t(rng.standard_normal((bb, tc, dd)).astype(np.float32))
+        q = t(rng.standard_normal((bb, tq, dd)).astype(np.float32))
+        cm = t(ragged_mask(rng, bb, tc, lo=0, empty_row=1))
+        qm = t(ragged_mask(rng, bb, tq, lo=0, empty_row=2))
+        run = lambda: bk.bidaf_attention_tiled(p, c, q, cm, qm, *blocks)  # noqa: E731
+        out = run()
+        e = compare(f"bidaf_tiled[{tag}]", out, bk.bidaf_tiled_reference(p, c, q, cm, qm), bk.TOLERANCE)
+        check(torch.equal(out, run()), f"K9[{tag}]: two runs differ")
+        err = max(err, e)
+        if tag == "small-ragged":
+            print(f"  K9 bidaf_tiled {tag} blocks {blocks}: max_abs_err={e:.3e}; deterministic", flush=True)
+            continue
+        k = time_ms(run, iters=20)
+        pl = time_ms(lambda: bk.bidaf_tiled_reference(p, c, q, cm, qm), iters=20)
+        ms, plain_ms = ms + k, plain_ms + pl
+        parts.append(bound(bb * (4 * tc * tq * dd + 2 * tc * tc * (tq + dd)),
+                           4 * bb * (tc * dd + tq * dd + tc + tq + tc * 4 * dd) + 4 * (3 * dd + 1)))
+        print(f"  K9 bidaf_tiled {tag} B={bb} T_c={tc} T_q={tq} D={dd}: max_abs_err={e:.3e} "
+              f"kernel={k:.4f} ms plain={pl:.4f} ms; deterministic", flush=True)
+    rec9 = {"name": "bidaf_attention_tiled", "route": "cuda",
+            "source": "mmbidaf_tpu_torch/csrc/bidaf_tiled.cu",
+            "replaces": "mmbidaf_tpu/ops/pallas/bidaf_tiled_kernel.py:37", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": None}
+    print(f"K9 bidaf_tiled: bound {bk.TOLERANCE}, max_abs_err={err:.3e}, kernel={ms:.4f} ms "
+          f"plain={plain_ms:.4f} ms roofline={rec9['bound_ms']:.4f} ms", flush=True)
+    return [rec4, rec9]
 
 
 def phase_train_kernels(dev, cfg) -> list[dict]:
@@ -480,14 +621,198 @@ def phase_train_kernels(dev, cfg) -> list[dict]:
 
 def check_decode(lp, picks, raw, cfg, tag: str) -> None:
     K, T_s = cfg.model.max_decode_steps, cfg.data.max_sentences
-    check(tuple(lp.shape) == (B, K, T_s) and tuple(picks.shape) == (B, K),
+    sm = raw["sent_mask"]
+    n = sm.shape[0]
+    check(tuple(lp.shape) == (n, K, T_s) and tuple(picks.shape) == (n, K),
           f"{tag}: shapes {lp.shape} {picks.shape}")
     check(bool(np.isfinite(lp).all()), f"{tag}: non-finite log-probs")
     check(bool(((picks >= 0) & (picks < T_s)).all()), f"{tag}: picks out of range")
-    sm = raw["sent_mask"]
-    for b in range(B):
+    for b in range(n):
         check(all(sm[b, p] == 1 for p in picks[b]), f"{tag}: row {b} picked a padded sentence")
         check(len(set(picks[b].tolist())) == K, f"{tag}: row {b} repeated a pick")
+
+
+def f32_kernels_vs_plain(cfg, s, raw, raw_np, tag: str) -> None:
+    """An f32 copy of ``cfg`` through the kernels and through the plain
+    versions (TF32 off for both) on the served weights and the same batch:
+    valid and equal picks, log-probs within 1e-3."""
+    from mmbidaf_tpu_torch.data.frontend import make_end_to_end_decode
+
+    cfg_k = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+    cfg_p = dataclasses.replace(cfg_k, model=dataclasses.replace(
+        cfg_k.model, use_pallas_lstm=False, use_pallas_attention=False, use_pallas_melspec=False))
+    fe32 = s.frontend
+    fe32.vgg.float()  # in place: the served bf16 VGG weights, exactly, in f32
+    lp_k, picks_k = make_end_to_end_decode(cfg_k)(s.model, fe32, raw)
+    lp_p, picks_p = make_end_to_end_decode(cfg_p)(s.model, fe32, raw)
+    lp_k, lp_p = lp_k.cpu().numpy(), lp_p.cpu().numpy()
+    check_decode(lp_k, picks_k.cpu().numpy(), raw_np, cfg, f"{tag} f32 kernels")
+    check(bool((picks_k == picks_p).all()), f"{tag} f32: kernel and plain picks differ")
+    valid = lp_p > -1e29
+    dmax = float(np.abs(lp_k - lp_p)[valid].max())
+    check(dmax <= 1e-3, f"{tag} f32: kernel vs plain log-probs differ by {dmax:.3e} > 1e-3")
+    print(f"{tag} f32 B={len(picks_k)}: picks equal; log-prob max abs diff {dmax:.3e} (bound 1e-3)",
+          flush=True)
+
+
+def load_corpus_module():
+    spec = importlib.util.spec_from_file_location(
+        "make_synthetic_corpus", os.path.join(ROOT, "examples", "make_synthetic_corpus.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def timed_batches(fn, n: int = 5) -> float:
+    """Median wall time of ``n`` calls, each ending in a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def profile_kernels(fn, arg, t_ref: float, tag: str, unit: str, groups: dict | None = None):
+    """``torch.profiler`` over 3 calls ``arg = fn(arg)`` after a warm-up
+    window (which pays CUPTI's start-up): device kernel time per call, the
+    device's idle share of ``t_ref`` (the unprofiled median, seconds: the
+    profiler slows the host), the top kernels by device time, and the
+    device time of the kernels whose names contain each of ``groups``'
+    substrings. Returns the last ``arg``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        arg = fn(arg)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            arg = fn(arg)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 3e3
+    print(f"{tag} torch.profiler over 3 calls: device kernel time {dev_ms:.2f} ms a {unit}, "
+          f"device idle {max(0.0, 1 - dev_ms / (t_ref * 1e3)):.1%} of the median {unit}; "
+          f"kernels by device time:", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"    {e.self_device_time_total / 3e3:9.3f} ms/{unit}  x{e.count // 3:<5d} {e.key[:90]}",
+              flush=True)
+    for name, sub in (groups or {}).items():
+        ms = sum(e.self_device_time_total for e in kernels if sub in e.key) / 3e3
+        print(f"{tag} {name} (kernels named *{sub}*): {ms:.3f} ms a {unit}, "
+              f"{ms / dev_ms:.1%} of the device time", flush=True)
+    return arg
+
+
+def phase_long(dev, card: str, long_records: list[dict]) -> None:
+    """Phase 6: long-video serving at the long-audio configuration, then the
+    log-mel configuration. K4's and K9's launches are counted over (a), (b)
+    and the B=64 batch of (d)."""
+    import torch
+
+    from mmbidaf_tpu_torch.data.frontend import apply_frontend, make_end_to_end_decode
+    from mmbidaf_tpu_torch.data.text import sent_tokenize
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+    from mmbidaf_tpu_torch.ops.lstm import stacked_bilstm_apply
+    from mmbidaf_tpu_torch.serving import Summarizer
+
+    cfg = long_config()
+    d = cfg.data
+    t0 = time.perf_counter()
+    s = Summarizer.init_random(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"long: config6 on one device ({d.max_audio_frames} audio frames, vocab {d.vocab_size}, "
+          f"{cfg.model.compute_dtype}), random weights from seed 0, init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    raw_np = raw_batch(cfg, np.random.default_rng(1), B_LONG)
+    raw = {k: torch.from_numpy(v).to(dev) for k, v in raw_np.items()}
+    end_to_end = make_end_to_end_decode(cfg)
+    counters = {"K1": lstm_kernel.bilstm_cuda, "K2": bidaf_kernel.bidaf_attention_fused,
+                "K3": melspec_kernel.mfcc_fused, "K4": melspec_kernel.log_mel_fused,
+                "K9": bidaf_kernel.bidaf_attention_tiled}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    # (a) the end-to-end program at B=16, 4096 audio frames
+    lp, picks = end_to_end(s.model, s.frontend, raw)
+    torch.cuda.synchronize()
+    check_decode(lp.cpu().numpy(), picks.cpu().numpy(), raw_np, cfg, "long-audio bf16")
+    t_batch = timed_batches(lambda: end_to_end(s.model, s.frontend, raw))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"(6a) end-to-end B={B_LONG}, {d.max_audio_frames} audio frames: median batch "
+          f"{t_batch * 1e3:.2f} ms over 5 -> {B_LONG / t_batch:.3f} videos/s on {card}; "
+          f"peak memory {peak_gb:.2f} GB", flush=True)
+    # (b) windowed long transcripts through the serving API, then one plain request
+    with tempfile.TemporaryDirectory() as tmp:
+        load_corpus_module().make_corpus(tmp, videos=2, sentences=80, frames=16, seconds=41.0,
+                                         seed=1)
+        dirs = sorted(os.path.join(tmp, v) for v in os.listdir(tmp))
+        with open(os.path.join(dirs[0], "transcript.txt")) as f:
+            n_sents = len(sent_tokenize(f.read()))
+        check(n_sents > d.max_sentences, f"the long transcript has only {n_sents} sentences")
+        t0 = time.perf_counter()
+        longs = [s.summarize_long(v) for v in dirs]
+        dt_long = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        short = s.summarize(dirs[0])
+        dt_short = time.perf_counter() - t0
+    check(all(isinstance(x, str) and x for x in longs + [short]), "long-video summaries: empty")
+    print(f"(6b) summarize_long: 2 requests of {n_sents} sentences (windows of {d.max_sentences}, "
+          f"stride {d.max_sentences // 2}) answered in {dt_long:.2f} s; summarize: 1 request in "
+          f"{dt_short:.2f} s; first: {longs[0][:80]!r}", flush=True)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"(6a-b) launches: {launches}", flush=True)
+    for k in ("K1", "K2", "K4", "K9"):
+        check(launches[k] > 0, f"{k} was never launched on the long-audio path")
+    check(launches["K3"] == 0, "K3 ran on the long-audio path (4096 frames exceed its bound)")
+    rec4, rec9 = long_records
+    rec4["launches"], rec9["launches"] = launches["K4"], launches["K9"]
+    # where the time of (a) goes: the frontend alone, the audio tower's
+    # BiLSTM alone (4096 steps, bf16 as in the model), and a profile
+    with torch.inference_mode():
+        t_front = timed_batches(lambda: apply_frontend(s.frontend, raw, cfg))
+        feats = apply_frontend(s.frontend, raw, cfg)
+        aud = copy.deepcopy(s.model.aud_lstm).to(torch.bfloat16)
+        x, m = feats["audio"].bfloat16(), feats["aud_mask"].bfloat16()
+        t_aud = time_ms(lambda: stacked_bilstm_apply(aud, x, m, bilstm_fn=lstm_kernel.bilstm_cuda),
+                        iters=2, reps=3)
+    print(f"(6a) frontend alone (VGG-16 on {B_LONG * d.max_keyframes} keyframes, K4 and dB/DCT on "
+          f"{B_LONG}x{d.max_audio_frames} frames): median {t_front * 1e3:.2f} ms; model + decode "
+          f"{(t_batch - t_front) * 1e3:.2f} ms; the audio BiLSTM alone (K1, {d.max_audio_frames} "
+          f"steps): {t_aud:.2f} ms", flush=True)
+    profile_kernels(lambda _: end_to_end(s.model, s.frontend, raw), None, t_batch, "(6a)", "batch",
+                    {"K1 bilstm": "bilstm_kernel", "K2 bidaf": "bidaf_kernel",
+                     "K4 log_mel": "logmel_tile_kernel", "K9 bidaf_tiled": "tiled_"})
+    # (c) f32 at B=2: kernels vs plain versions
+    f32_kernels_vs_plain(cfg, s, {k: v[:2] for k, v in raw.items()},
+                         {k: v[:2] for k, v in raw_np.items()}, "(6c) long-audio")
+    del s
+
+    # (d) the log-mel configuration: one B=64 batch through K4's log mode
+    lm = logmel_config()
+    s = Summarizer.init_random(lm, seed=0, device=dev)
+    raw_np = raw_batch(lm, np.random.default_rng(2))
+    raw = {k: torch.from_numpy(v).to(dev) for k, v in raw_np.items()}
+    k4 = melspec_kernel.log_mel_fused
+    k4.launches = 0
+    end_to_end = make_end_to_end_decode(lm)
+    lp, picks = end_to_end(s.model, s.frontend, raw)
+    torch.cuda.synchronize()
+    check_decode(lp.cpu().numpy(), picks.cpu().numpy(), raw_np, lm, "logmel bf16")
+    # only the log mode runs on this configuration (logmel, not MFCC)
+    check(k4.launches > 0, "K4's log mode was never launched on the log-mel path")
+    launched = k4.launches
+    rec4["launches"] += launched
+    t_batch = timed_batches(lambda: end_to_end(s.model, s.frontend, raw), n=3)
+    print(f"(6d) logmel B={B}: K4 log launches {launched}; median batch "
+          f"{t_batch * 1e3:.2f} ms over 3 -> {B / t_batch:.2f} videos/s on {card}", flush=True)
+    f32_kernels_vs_plain(lm, s, {k: v[:2] for k, v in raw.items()},
+                         {k: v[:2] for k, v in raw_np.items()}, "(6d) logmel")
 
 
 def train_state(cfg, dev, seed: int):
@@ -547,24 +872,7 @@ def phase_train(dev, card: str, records: list[dict]) -> None:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"(5a) median step {t_step * 1e3:.2f} ms over {TRAIN_STEPS - 1} -> {1.0 / t_step:.3f} steps/s, "
           f"{B_TRAIN / t_step:.2f} videos/s on {card}; peak memory {peak_gb:.2f} GB", flush=True)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        state, metrics = train_step(state, batch)  # the first window pays CUPTI's start-up
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            state, metrics = train_step(state, batch)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 3e3
-    # idle share against the unprofiled median step: the profiler slows the host
-    print(f"(5a) torch.profiler over 3 steps: device kernel time {dev_ms:.2f} ms a step, "
-          f"device idle {max(0.0, 1 - dev_ms / (t_step * 1e3)):.1%} of the median step; "
-          f"kernels by device time:", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"    {e.self_device_time_total / 3e3:9.3f} ms/step  x{e.count // 3:<5d} {e.key[:90]}", flush=True)
+    profile_kernels(lambda st: train_step(st, batch)[0], state, t_step, "(5a)", "step")
 
     # (b) drop_prob 0, f32: one step through the kernels and through the plain versions.
     results = []
@@ -616,6 +924,7 @@ def main() -> None:
     cfg = bench_config()
     records = phase_kernels(dev, cfg)
     train_records = phase_train_kernels(dev, cfg)
+    long_records = phase_long_kernels(dev)
 
     # 4. the slice at the bench config
     t0 = time.perf_counter()
@@ -627,10 +936,6 @@ def main() -> None:
     raw_np = raw_batch(cfg, rng)
     raw = {k: torch.from_numpy(v).to(dev) for k, v in raw_np.items()}
     end_to_end = make_end_to_end_decode(cfg)
-    spec = importlib.util.spec_from_file_location(
-        "make_synthetic_corpus", os.path.join(ROOT, "examples", "make_synthetic_corpus.py"))
-    corpus_mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(corpus_mod)
 
     counters = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused)
     for fn in counters:
@@ -640,19 +945,13 @@ def main() -> None:
     lp, picks = end_to_end(s.model, s.frontend, raw)
     torch.cuda.synchronize()
     check_decode(lp.cpu().numpy(), picks.cpu().numpy(), raw_np, cfg, "end-to-end bf16")
-    batch_s = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        end_to_end(s.model, s.frontend, raw)
-        torch.cuda.synchronize()
-        batch_s.append(time.perf_counter() - t0)
-    t_batch = statistics.median(batch_s)
+    t_batch = timed_batches(lambda: end_to_end(s.model, s.frontend, raw))
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"(a) end-to-end B={B}: median batch {t_batch * 1e3:.2f} ms over 5 -> "
           f"{B / t_batch:.2f} videos/s on {card}; peak memory {peak_gb:.2f} GB", flush=True)
     # (b) 8 requests through the serving API
     with tempfile.TemporaryDirectory() as tmp:
-        corpus_mod.make_corpus(tmp, videos=8, sentences=12, frames=10, seconds=4.0, seed=0)
+        load_corpus_module().make_corpus(tmp, videos=8, sentences=12, frames=10, seconds=4.0, seed=0)
         dirs = sorted(os.path.join(tmp, v) for v in os.listdir(tmp))
         t0 = time.perf_counter()
         summaries = s.summarize_batch(dirs)
@@ -668,30 +967,21 @@ def main() -> None:
         rec["launches"] = fn.launches
 
     # (d) f32: kernels vs plain versions, same weights, same batch
-    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32"))
-    plain = dataclasses.replace(cfg32, model=dataclasses.replace(
-        cfg32.model, use_pallas_lstm=False, use_pallas_attention=False, use_pallas_melspec=False))
-    fe32 = s.frontend
-    fe32.vgg.float()  # in place: the served bf16 VGG weights, exactly, in f32
-    lp_k, picks_k = make_end_to_end_decode(cfg32)(s.model, fe32, raw)
-    lp_p, picks_p = make_end_to_end_decode(plain)(s.model, fe32, raw)
-    lp_k, lp_p = lp_k.cpu().numpy(), lp_p.cpu().numpy()
-    check_decode(lp_k, picks_k.cpu().numpy(), raw_np, cfg, "end-to-end f32 kernels")
-    check(bool((picks_k == picks_p).all()), "f32: kernel and plain picks differ")
-    valid = lp_p > -1e29
-    dmax = float(np.abs(lp_k - lp_p)[valid].max())
-    check(dmax <= 1e-3, f"f32: kernel vs plain log-probs differ by {dmax:.3e} > 1e-3")
-    print(f"(d) f32 B={B}: picks equal; log-prob max abs diff {dmax:.3e} (bound 1e-3)", flush=True)
+    f32_kernels_vs_plain(cfg, s, raw, raw_np, "(d) bench")
+    del s
 
     # 5. the training step
     phase_train(dev, card, train_records)
+
+    # 6. long-video serving
+    phase_long(dev, card, long_records)
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "mmbidaf_tpu")
                     or m.startswith(("jax.", "jaxlib", "mmbidaf_tpu.")))
     check(not leaked, f"jax or the JAX package was imported: {leaked[:5]}")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": records + train_records}), flush=True)
+    print(json.dumps({"kernels": records + train_records + long_records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -8,7 +8,10 @@ and area normalization; MFCC is DCT-II (ortho) over power-dB mel with the
 dB reference at each example's maximum, as in the JAX package.
 
 The fused path (``fused=True``, ``ModelConfig.use_pallas_melspec``) goes
-through the hand-written MFCC kernel (``ops/cuda/melspec_kernel.py``).
+through the hand-written kernels of ``ops/cuda/melspec_kernel.py``: the
+whole-example MFCC kernel K3 while ``mfcc_fused_fits`` holds, else (the
+4096-frame long-audio configuration) the tiled mel kernel K4 with the dB and
+DCT tail here; ``audio_features="logmel"`` takes K4's log mode.
 """
 
 from __future__ import annotations
@@ -171,8 +174,8 @@ def waveform_to_features(
     fft: str = "matmul",
 ) -> torch.Tensor:
     """``[B, N] → [B, T, n_feat]``. ``fused=True`` takes the hand-written
-    whole-example MFCC kernel while ``mfcc_fused_fits`` holds — the same
-    dispatch as the JAX package."""
+    kernels with the JAX package's dispatch: ``logmel`` → K4 (log); MFCC →
+    K3 while ``mfcc_fused_fits`` holds, else K4's raw mel, then dB and DCT."""
     if fft == "stockham":
         raise NotImplementedError("the Stockham FFT path is not ported yet (audio_fft='stockham')")
     if fft != "matmul":
@@ -181,19 +184,18 @@ def waveform_to_features(
         raise ValueError(f"unknown feature {feature!r}")
     frames = frame_signal(signal, win_length, hop_length, num_frames)
     if fused:
-        from mmbidaf_tpu_torch.ops.cuda.melspec_kernel import mfcc_fused, mfcc_fused_fits
+        from mmbidaf_tpu_torch.ops.cuda.melspec_kernel import (
+            log_mel_fused,
+            mfcc_fused,
+            mfcc_fused_fits,
+        )
 
         if feature == "logmel":
-            raise NotImplementedError(
-                "the fused log-mel kernel (log_mel_fused) is not ported yet"
-            )
-        if not mfcc_fused_fits(num_frames, win_length,
-                               consts["cos"].shape[1], consts["mel_fb"].shape[1]):
-            raise NotImplementedError(
-                f"{num_frames} audio frames exceed the whole-example MFCC bound; the "
-                "tiled log_mel_fused fallback is not ported yet"
-            )
-        return mfcc_fused(frames, consts)
+            return log_mel_fused(frames, consts, log=True)
+        if mfcc_fused_fits(num_frames, win_length,
+                           consts["cos"].shape[1], consts["mel_fb"].shape[1]):
+            return mfcc_fused(frames, consts)
+        return mm(power_to_db(log_mel_fused(frames, consts, log=False)), consts["dct"])
     if feature == "mfcc":
         return mfcc(frames, consts)
     return log_mel(frames, consts)

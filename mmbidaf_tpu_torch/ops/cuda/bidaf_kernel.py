@@ -1,9 +1,14 @@
-"""K2, K7 and K8: the fused BiDAF attention kernels (``csrc/bidaf.cu``,
-``csrc/bidaf_bwd.cu``) and their plain versions.
+"""K2, K9, K7 and K8: the BiDAF attention kernels (``csrc/bidaf.cu``,
+``csrc/bidaf_tiled.cu``, ``csrc/bidaf_bwd.cu``) and their plain versions.
 
 K2 is the port of ``mmbidaf_tpu/ops/pallas/bidaf_kernel.py::bidaf_attention_fused``
 (inference path, no dropout). Inputs are cast to f32 as on the TPU
-(``bidaf_kernel.py:117-125``); the output is f32 ``[B, T_c, 4D]``.
+(``bidaf_kernel.py:117-125``); the output is f32 ``[B, T_c, 4D]``. K2 keeps
+S ``[T_c, T_q]`` resident in shared memory, so its wrapper routes shapes
+past that bound (T_q ≥ 1024 at T_c=32, D=256: the 4096-frame audio tower)
+to K9, the port of ``bidaf_tiled_kernel.py::bidaf_attention_tiled``: the
+same function, split over q blocks across the card and combined in a fixed
+order (:func:`bidaf_route`). Both are hand kernels; neither falls back.
 
 K7 and K8 are the training pair, the port of
 ``bidaf_attention_fused_dropout`` and its custom VJP: the forward forms S
@@ -15,18 +20,20 @@ them into one ``torch.autograd.Function``; the dropout masks are drawn
 outside (``cd = c·m/keep``) and autograd adds ``d_cd·m/keep`` to ``d_c``.
 ``bidaf_attention_fused_trainable`` is the ``cd = c, qd = q`` case.
 
-Each wrapper (``bidaf_attention_fused`` K2, ``bidaf_dropout_forward`` K7,
-``bidaf_dropout_backward`` K8) runs its plain version on a CPU tensor and
-launches its kernel on a CUDA tensor, or raises — also for shapes whose
-resident operands do not fit a block's shared memory. ``<wrapper>.launches``
+Each wrapper (``bidaf_attention_fused`` K2, ``bidaf_attention_tiled`` K9,
+``bidaf_dropout_forward`` K7, ``bidaf_dropout_backward`` K8) runs its plain
+version on a CPU tensor and launches its kernel on a CUDA tensor, or raises
+— K7/K8 also for shapes whose resident operands do not fit a block's
+shared memory (training at long T_q is not ported). ``<wrapper>.launches``
 counts launches.
 
-Tolerances of kernel vs plain on the card: K2/K7 form Q2C as
+Tolerances of kernel vs plain on the card: K2/K7/K9 form Q2C as
 ``(s_row·s_colᵀ)·c`` where the plain version contracts ``s_row, s_col, c``
 in einsum's order, and sum every product in their own order. On outputs up
 to ~12 in magnitude (unit-normal c and q, D=256) the largest error
-measured on an H100 was 5.2e-6 (K2) and 4.3e-6 (K7), so
-``atol = 5e-5, rtol = 1e-5``. K8 reassociates ``qc = s_colᵀ·c`` and
+measured on an H100 was 5.2e-6 (K2), 4.3e-6 (K7) and, with its row
+softmax combined from per-block maxima and sums, 7.9e-6 (K9 at T_q=4096),
+so ``atol = 5e-5, rtol = 1e-5``. K8 reassociates ``qc = s_colᵀ·c`` and
 ``d_qc = s_rowᵀ·d_b`` through ``[T_c, T_c]`` products and sums the parameter
 grads over B·T_c or B·T_q products, so it is held normwise: each output
 within ``atol + rtol·max|ref|`` of that output. dbias is a sum of terms
@@ -53,7 +60,8 @@ TOLERANCE = {"atol": 5e-5, "rtol": 1e-5}
 # K8 vs its plain version on the card, per output: |err| <= atol + rtol·max|ref|.
 BACKWARD_TOLERANCE = {"atol": 5e-4, "rtol": 2e-6}
 
-# Shared-memory layout of csrc/bidaf.cu (kTQ q rows per streamed tile).
+# Shared-memory layouts of csrc/bidaf.cu and csrc/bidaf_tiled.cu (kTQ q rows
+# per streamed tile in both).
 _TQ = 32
 SMEM_LIMIT_BYTES = 232448  # Hopper's opt-in limit per block (227 KB)
 
@@ -69,6 +77,32 @@ def bidaf_bwd_smem_bytes(T_c: int, T_q: int, D: int) -> int:
     by one), E and P, and small vectors (``csrc/bidaf_bwd.cu::smem_floats``);
     s_row, s_col and dS live in a global scratch."""
     return 4 * (3 * T_c * D + _TQ * (D + 1) + 2 * T_c * T_c + 3 * T_c + _TQ + D + T_q)
+
+
+def tiled_smem_bytes(T_c: int, tc: int, tq: int, D: int) -> int:
+    """Bytes of shared memory K9's first pass needs (``csrc/bidaf_tiled.cu::
+    smem_floats``): a c tile of ``tc`` rows, a q tile (rows padded by one),
+    the block's S and s_col columns ``[T_c, tq]`` (rows padded by one), and
+    three small vectors."""
+    return 4 * (tc * D + _TQ * (D + 1) + 2 * T_c * (tq + 1) + T_c + tq + D)
+
+
+def tiled_blocks(T_c: int, T_q: int, D: int, tc_blk: int = 128,
+                 tq_blk: int = 128) -> tuple[int, int]:
+    """K9's (c tile, q block): the requested sizes clamped to the sequence
+    lengths, then the q block halved (down to 8 columns) until the first
+    pass's operands fit a block. Raises past that."""
+    tc, tq = min(tc_blk, T_c), min(tq_blk, T_q)
+    while tiled_smem_bytes(T_c, tc, tq, D) > SMEM_LIMIT_BYTES and tq > 8:
+        tq = max(8, tq // 2)
+    _refuse_smem("bidaf_attention_tiled", tiled_smem_bytes(T_c, tc, tq, D), T_c, T_q, D)
+    return tc, tq
+
+
+def bidaf_route(T_c: int, T_q: int, D: int) -> str:
+    """The hand kernel ``bidaf_attention_fused`` launches on the card: ``"K2"``
+    while its resident operands fit a block's shared memory, else ``"K9"``."""
+    return "K2" if bidaf_smem_bytes(T_c, T_q, D) <= SMEM_LIMIT_BYTES else "K9"
 
 
 def _refuse_smem(fn: str, need: int, T_c: int, T_q: int, D: int) -> None:
@@ -89,17 +123,15 @@ def bidaf_reference(params, c, q, c_mask, q_mask) -> torch.Tensor:
     return bidaf_apply(_f32_params(params), c.float(), q.float(), c_mask.float(), q_mask.float())
 
 
-def bidaf_attention_fused(params, c, q, c_mask, q_mask) -> torch.Tensor:
-    """The whole BiDAF block through the hand kernel → f32 ``[B, T_c, 4D]``.
-    ``bidaf_attention_fused.launches`` counts kernel launches."""
-    if c.device.type == "cpu":
-        return bidaf_reference(params, c, q, c_mask, q_mask)
-    if c.device.type != "cuda":
-        raise ValueError(f"bidaf_attention_fused: unsupported device {c.device}")
+# K9 computes K2's function; its plain version is K2's.
+bidaf_tiled_reference = bidaf_reference
+
+
+def _operands(params, c, q, c_mask, q_mask) -> list[torch.Tensor]:
+    """K2's / K9's operands as checked contiguous f32 tensors, in the C
+    entry points' order (c, q, c_mask, q_mask, w_c, w_q, w_cq, bias)."""
     B, T_c, D = c.shape
     T_q = q.shape[1]
-    _refuse_smem("bidaf_attention_fused", bidaf_smem_bytes(T_c, T_q, D), T_c, T_q, D)
-    dev = c.device
     p = _f32_params(params)
     args = {
         "c": (c.float().contiguous(), (B, T_c, D)),
@@ -112,12 +144,28 @@ def bidaf_attention_fused(params, c, q, c_mask, q_mask) -> torch.Tensor:
         "bias": (p.bias.reshape(1).contiguous(), (1,)),
     }
     for name, (t, shape) in args.items():
-        build.check_tensor(t, name, shape, dev)
-    out = torch.empty(B, T_c, 4 * D, device=dev)
+        build.check_tensor(t, name, shape, c.device)
+    return [t for t, _ in args.values()]
+
+
+def bidaf_attention_fused(params, c, q, c_mask, q_mask) -> torch.Tensor:
+    """The whole BiDAF block through a hand kernel → f32 ``[B, T_c, 4D]``:
+    K2, or K9 where :func:`bidaf_route` says so.
+    ``bidaf_attention_fused.launches`` counts K2's launches."""
+    if c.device.type == "cpu":
+        return bidaf_reference(params, c, q, c_mask, q_mask)
+    if c.device.type != "cuda":
+        raise ValueError(f"bidaf_attention_fused: unsupported device {c.device}")
+    B, T_c, D = c.shape
+    T_q = q.shape[1]
+    if bidaf_route(T_c, T_q, D) == "K9":
+        return bidaf_attention_tiled(params, c, q, c_mask, q_mask)
+    ops = _operands(params, c, q, c_mask, q_mask)
+    out = torch.empty(B, T_c, 4 * D, device=c.device)
     lib = build.library()
     rc = lib.mmb_bidaf_forward(
-        *(t.data_ptr() for t, _ in args.values()), out.data_ptr(),
-        B, T_c, T_q, D, torch.cuda.current_stream(dev).cuda_stream,
+        *(t.data_ptr() for t in ops), out.data_ptr(),
+        B, T_c, T_q, D, torch.cuda.current_stream(c.device).cuda_stream,
     )
     build.check_launch(lib, rc, "mmb_bidaf_forward")
     bidaf_attention_fused.launches += 1
@@ -125,6 +173,41 @@ def bidaf_attention_fused(params, c, q, c_mask, q_mask) -> torch.Tensor:
 
 
 bidaf_attention_fused.launches = 0
+
+
+def bidaf_attention_tiled(params, c, q, c_mask, q_mask, tc_blk: int = 128,
+                          tq_blk: int = 128) -> torch.Tensor:
+    """K9: the BiDAF block blockwise over q blocks → f32 ``[B, T_c, 4D]``,
+    K2's function for any T_q (block sizes: :func:`tiled_blocks`; the last
+    blocks are masked, not padded). ``bidaf_attention_tiled.launches``
+    counts kernel launches (one per call; the kernel runs as two passes)."""
+    if c.device.type == "cpu":
+        return bidaf_tiled_reference(params, c, q, c_mask, q_mask)
+    if c.device.type != "cuda":
+        raise ValueError(f"bidaf_attention_tiled: unsupported device {c.device}")
+    B, T_c, D = c.shape
+    T_q = q.shape[1]
+    tc, tq = tiled_blocks(T_c, T_q, D, tc_blk, tq_blk)
+    ops = _operands(params, c, q, c_mask, q_mask)
+    dev = c.device
+    nqb = -(-T_q // tq)
+    out = torch.empty(B, T_c, 4 * D, device=dev)
+    row_max = torch.empty(B, nqb, T_c, device=dev)
+    row_sum = torch.empty(B, nqb, T_c, device=dev)
+    p_part = torch.empty(B, nqb, T_c, T_c, device=dev)
+    a_part = torch.empty(B, nqb, T_c, D, device=dev)
+    lib = build.library()
+    rc = lib.mmb_bidaf_tiled_forward(
+        *(t.data_ptr() for t in ops), out.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
+        p_part.data_ptr(), a_part.data_ptr(), B, T_c, T_q, D, tc, tq,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check_launch(lib, rc, "mmb_bidaf_tiled_forward")
+    bidaf_attention_tiled.launches += 1
+    return out
+
+
+bidaf_attention_tiled.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("lstm.cu", "lstm_bwd.cu", "bidaf.cu", "bidaf_bwd.cu", "mfcc.cu")
+SOURCES = ("lstm.cu", "lstm_bwd.cu", "bidaf.cu", "bidaf_bwd.cu", "bidaf_tiled.cu", "mfcc.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,6 +57,11 @@ SIGNATURES = {
     # frames, stride_b, stride_t, cos, sin, mel, dct, logmel, tile_max, out,
     # B, T, win, bins, n_mels, n_mfcc, stream
     "mmb_mfcc_forward": (P, LL, LL, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    # frames, stride_b, stride_t, cos, sin, mel, out, B, T, win, bins, n_mels, log, stream
+    "mmb_log_mel_forward": (P, LL, LL, P, P, P, P, I, I, I, I, I, I, P),
+    # c, q, c_mask, q_mask, w_c, w_q, w_cq, bias, out, row_max, row_sum, p_part,
+    # a_part, B, T_c, T_q, D, tc_blk, tq_blk, stream
+    "mmb_bidaf_tiled_forward": (P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
 }
 
 _lock = threading.Lock()

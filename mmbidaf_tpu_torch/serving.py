@@ -4,13 +4,15 @@
     s = Summarizer.from_jax_params(params_np, fe_np, word2idx, cfg, device="cuda")
     summaries = s.summarize_batch([video_dir1, video_dir2])
     summary = s.summarize(video_dir)
+    summary = s.summarize_long(video_dir)   # transcripts past max_sentences
 
 The device side is ``data.frontend.make_end_to_end_decode`` (frontend +
 model + greedy decode); host work is asset decode and summary assembly,
-through the port's own copies of the JAX package's host modules. Greedy
-decoding on one device only: top-k, beam, the dynamic batcher, bucket
-ladders, long-transcript windows and data parallelism are not ported yet
-and raise ``NotImplementedError``.
+through the port's own copies of the JAX package's host modules.
+``summarize_long`` featurizes a video's media once and decodes overlapping
+transcript windows against it. Greedy decoding on one device only: top-k,
+beam, the dynamic batcher, bucket ladders and data parallelism are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,16 +26,54 @@ import torch
 from mmbidaf_tpu_torch.config import Config
 from mmbidaf_tpu_torch.data.frontend import (
     Frontend,
+    apply_frontend,
     cast_vgg_weights,
     frontend_init,
     make_end_to_end_decode,
 )
 from mmbidaf_tpu_torch.data.synthetic import random_word_vectors
-from mmbidaf_tpu_torch.data.text import encode_transcript
+from mmbidaf_tpu_torch.data.text import encode_sentences, encode_transcript, sent_tokenize
 from mmbidaf_tpu_torch.data.video import audio_frames_valid, load_video_assets
 from mmbidaf_tpu_torch.models.mmbidaf import MMBiDAF, mmbidaf_init
 from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
 from mmbidaf_tpu_torch.train.metrics import summary_from_picks
+
+
+def transcript_windows(n_sents: int, window: int, stride: int) -> list[int]:
+    """Window start indices covering ``n_sents`` sentences: strided starts
+    plus a tail window so the last sentences are never dropped."""
+    if n_sents <= window:
+        return [0]
+    starts = list(range(0, n_sents - window, stride))
+    starts.append(n_sents - window)
+    return starts
+
+
+def merge_window_picks(picks: np.ndarray, scores: np.ndarray, starts: Sequence[int],
+                       window_lens: Sequence[int], k: int) -> list[int]:
+    """Merge per-window pointer picks ``[W, K]`` (window-local indices, with
+    per-pick ``scores``) into one global selection: picks on padded slots
+    are dropped, a sentence picked by overlapping windows keeps its best
+    score, and the top ``k`` return in transcript order."""
+    best: dict[int, float] = {}
+    for w, start in enumerate(starts):
+        for j in range(picks.shape[1]):
+            local = int(picks[w, j])
+            if local >= window_lens[w]:
+                continue
+            g = start + local
+            s = float(scores[w, j])
+            if g not in best or s > best[g]:
+                best[g] = s
+    top = sorted(best, key=lambda g: -best[g])[:k]
+    return sorted(top)
+
+
+def picks_scores(log_p: np.ndarray, picks: np.ndarray) -> np.ndarray:
+    """Per-pick merge scores ``[B, K]``: each pick's own log-prob from the
+    per-step ``log_p [B, K, T_s]`` (beam decoding, whose totals would be
+    broadcast here, is not ported)."""
+    return np.take_along_axis(log_p, picks[:, :, None], axis=2)[:, :, 0]
 
 
 def num_audio_samples(cfg: Config) -> int:
@@ -123,19 +163,27 @@ class Summarizer:
 
     # -- inference ----------------------------------------------------------
 
+    def _stack_rows(self, rows: Sequence[dict]) -> dict:
+        """Stack per-video rows (numpy arrays, or tensors already on the card)
+        into one batch on the model's device."""
+        return {k: torch.stack([torch.as_tensor(r[k]) for r in rows]).to(self.device)
+                for k in rows[0]}
+
     def _raw_batch(self, video_dirs: Sequence[str]) -> tuple[dict, list[list[str]]]:
         rows, sentences = [], []
         for vd in video_dirs:
             row, sents = host_raw_row(vd, self.word2idx, self.cfg)
             rows.append(row)
             sentences.append(sents)
-        raw = {k: torch.from_numpy(np.stack([r[k] for r in rows])).to(self.device)
-               for k in rows[0]}
-        return raw, sentences
+        return self._stack_rows(rows), sentences
 
-    def _decode_batch(self, raw: dict) -> np.ndarray:
-        _, picks = self._decode(self.model, self.frontend, raw)
-        return picks.cpu().numpy()
+    def _decode_batch(self, raw: dict, with_scores: bool = False):
+        """Picks ``[B, K]``, and with ``with_scores`` each pick's log-prob."""
+        log_p, picks = self._decode(self.model, self.frontend, raw)
+        picks = picks.cpu().numpy()
+        if not with_scores:
+            return picks
+        return picks, picks_scores(log_p.cpu().numpy(), picks)
 
     def summarize_batch(self, video_dirs: Sequence[str]) -> list[str]:
         if not video_dirs:
@@ -167,4 +215,55 @@ class Summarizer:
         return self.summarize_batch([video_dir])[0]
 
     def summarize_long(self, video_dir: str, stride: int | None = None) -> str:
-        raise NotImplementedError("long-transcript windowed serving is not ported yet")
+        """Summarize a video whose transcript exceeds the ``max_sentences``
+        bucket (``summarize`` would cut it): overlapping windows of
+        ``max_sentences`` sentences (``stride`` defaults to half a window)
+        are decoded against the video's whole keyframe and audio context,
+        featurized once at B=1, and their picks merged by log-prob. Window
+        batches are padded and chunked to ``serve_batch_size`` when set."""
+        d, m = self.cfg.data, self.cfg.model
+        assets = load_video_assets(
+            video_dir, d.max_keyframes, num_audio_samples(self.cfg),
+            keyframe_policy=d.keyframe_policy, sample_rate=d.sample_rate,
+        )
+        sentences = sent_tokenize(assets["transcript"])
+        n_aud = audio_frames_valid(assets["valid_samples"], d.hop_length, d.max_audio_frames)
+        media = {
+            "frames": assets["frames"],
+            "img_mask": assets["img_mask"],
+            "waveform": assets["waveform"],
+            "aud_mask": (np.arange(d.max_audio_frames) < n_aud).astype(np.float32),
+        }
+
+        def window_row(sents, media_row):
+            enc = encode_sentences(sents, self.word2idx, d.max_sentences, d.max_words)
+            return {"text_ids": enc["text_ids"], "word_mask": enc["word_mask"],
+                    "sent_mask": enc["sent_mask"], **media_row}
+
+        if len(sentences) <= d.max_sentences:
+            # one window over the assets already loaded
+            picks = self._decode_batch(self._stack_rows([window_row(sentences, media)]))
+            return summary_from_picks(picks[0], sentences)
+
+        # Featurize the media once: every window shares the video's context,
+        # which stays on the card as features.
+        with torch.inference_mode():
+            feat = apply_frontend(self.frontend, self._stack_rows([media]), self.cfg,
+                                  self.vgg_spec)
+        media = {k: v[0] for k, v in feat.items()}
+        stride = stride or max(d.max_sentences // 2, 1)
+        starts = transcript_windows(len(sentences), d.max_sentences, stride)
+        rows = [window_row(sentences[st:st + d.max_sentences], media) for st in starts]
+        sb = self.serve_batch_size or len(rows)
+        picks_l, scores_l = [], []
+        for i in range(0, len(rows), sb):
+            chunk = rows[i:i + sb]
+            n_real = len(chunk)
+            p, sc = self._decode_batch(self._stack_rows(chunk + [chunk[-1]] * (sb - n_real)),
+                                       with_scores=True)
+            picks_l.append(p[:n_real])
+            scores_l.append(sc[:n_real])
+        window_lens = [min(d.max_sentences, len(sentences) - st) for st in starts]
+        chosen = merge_window_picks(np.concatenate(picks_l), np.concatenate(scores_l), starts,
+                                    window_lens, m.max_decode_steps)
+        return " ".join(sentences[g] for g in chosen)

@@ -1,9 +1,11 @@
 """The port on the card against the JAX package on the host CPU, at the bench
 configuration's full widths (VGG-16 at 224², hidden 128, vocab 20000,
 T_s=32 x W=16, 16 keyframes, 512 audio frames) with B=2, f32 — the serving
-program and one training step — and every kernel against its plain version
-at shapes the main paths do not reach (partial blocks and tiles, widths
-past a block's threads).
+program and one training step — and at the long-audio serving
+configuration (``examples/configs/config6_sp_long_audio.json``: 4096 audio
+frames, vocab 50000, one device), and every kernel against its plain
+version at shapes the main paths do not reach (partial blocks and tiles,
+widths past a block's threads).
 
 Needs an NVIDIA GPU with ``nvcc`` (the CUDA kernels are built on first use);
 skipped elsewhere. Run on such a host with
@@ -177,6 +179,139 @@ def test_mfcc_kernel_generic_shapes(cuda_device, n_fft, win, T):
     out = melspec_kernel.mfcc_fused(frames, consts)
     torch.testing.assert_close(out, melspec_kernel.mfcc_reference(frames, consts),
                                **melspec_kernel.TOLERANCE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("log", [True, False], ids=["log", "raw_mel"])
+@pytest.mark.parametrize("n_fft,win,n_mels,T", [
+    (1024, 1024, 80, 45),  # 513 bins > 512 threads; 80 mels > a warp; a partial frame tile
+    (64, 48, 12, 1),       # a one-frame example
+])
+def test_log_mel_kernel_generic_shapes(cuda_device, log, n_fft, win, n_mels, T):
+    """K4 against its plain version, with a silent example and leading dims
+    other than [B, T] (a flat frame list)."""
+    from mmbidaf_tpu_torch.ops import audio
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel as mk
+
+    consts = audio.make_audio_frontend_consts(16000, n_fft, win, n_mels, 13, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    sig = torch.randn(3, (T - 1) * 160 + win, device=cuda_device, generator=gen) * 0.1
+    sig[1] = 0.0
+    frames = audio.frame_signal(sig, win, 160, T)
+    before = mk.log_mel_fused.launches
+    out = mk.log_mel_fused(frames, consts, log=log)
+    ref = mk.log_mel_reference(frames, consts, log=log)
+    tol = mk.LOG_MEL_TOLERANCE[log]
+    if log:
+        torch.testing.assert_close(out, ref, **tol)
+    else:
+        _assert_normwise([out], [ref], tol, "K4")
+    flat = mk.log_mel_fused(frames.reshape(-1, win), consts, log=log)
+    assert torch.equal(flat, out.reshape(-1, n_mels))
+    assert mk.log_mel_fused.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T_c,T_q,D,tc_blk,tq_blk", [
+    (2, 40, 300, 256, 16, 128),  # T_c > tc_blk (a partial c tile); T_q not a block multiple
+    (3, 7, 45, 20, 128, 8),      # small blocks, a partial last q block
+    (2, 64, 4096, 384, 128, 128),  # D > 256 threads; 32 q blocks
+])
+def test_bidaf_tiled_kernel_generic_shapes(cuda_device, B, T_c, T_q, D, tc_blk, tq_blk):
+    """K9 against its plain version with fully masked rows and an
+    all-masked example; two runs give the same bits."""
+    from mmbidaf_tpu_torch.ops.bidaf import BiDAFParams
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    p = BiDAFParams(D, gen, cuda_device)
+    c = torch.randn(B, T_c, D, device=cuda_device, generator=gen)
+    q = torch.randn(B, T_q, D, device=cuda_device, generator=gen)
+    c_mask = (torch.rand(B, T_c, device=cuda_device, generator=gen) > 0.3).float()
+    q_mask = (torch.rand(B, T_q, device=cuda_device, generator=gen) > 0.3).float()
+    q_mask[0, : T_q // 2] = 0.0
+    c_mask[-1] = 0.0  # the last example is all masked
+    q_mask[-1] = 0.0
+    out = bk.bidaf_attention_tiled(p, c, q, c_mask, q_mask, tc_blk=tc_blk, tq_blk=tq_blk)
+    torch.testing.assert_close(out, bk.bidaf_tiled_reference(p, c, q, c_mask, q_mask),
+                               **bk.TOLERANCE)
+    again = bk.bidaf_attention_tiled(p, c, q, c_mask, q_mask, tc_blk=tc_blk, tq_blk=tq_blk)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_bidaf_fused_routes_long_queries_to_k9(cuda_device):
+    """``bidaf_attention_fused`` past K2's shared-memory bound launches K9
+    and still computes K2's function."""
+    from mmbidaf_tpu_torch.ops.bidaf import BiDAFParams
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    p = BiDAFParams(256, gen, cuda_device)
+    c = torch.randn(2, 32, 256, device=cuda_device, generator=gen)
+    q = torch.randn(2, 1024, 256, device=cuda_device, generator=gen)
+    masks = torch.ones(2, 32, device=cuda_device), torch.ones(2, 1024, device=cuda_device)
+    k2, k9 = bk.bidaf_attention_fused.launches, bk.bidaf_attention_tiled.launches
+    out = bk.bidaf_attention_fused(p, c, q, *masks)
+    assert bk.bidaf_attention_fused.launches == k2 and bk.bidaf_attention_tiled.launches == k9 + 1
+    torch.testing.assert_close(out, bk.bidaf_reference(p, c, q, *masks), **bk.TOLERANCE)
+
+
+@pytest.mark.cuda
+def test_long_audio_parity_with_jax(cuda_device):
+    """The long-audio serving configuration (config6 on one device: 4096
+    audio frames through K4's raw-mel branch, the audio attention through
+    K9) at B=2, f32: the port on the card against JAX's plain path on the
+    host CPU."""
+    import dataclasses
+    import json
+    from pathlib import Path
+
+    from mmbidaf_tpu.config import config_from_dict as j_config_from_dict
+    from mmbidaf_tpu.data.frontend import frontend_init as j_frontend_init
+    from mmbidaf_tpu.data.frontend import make_end_to_end_decode as j_end_to_end
+    from mmbidaf_tpu.data.synthetic import random_word_vectors, synthetic_batch
+    from mmbidaf_tpu.models.mmbidaf import mmbidaf_init as j_init
+    from mmbidaf_tpu_torch.config import config_from_dict
+    from mmbidaf_tpu_torch.data.frontend import make_end_to_end_decode
+    from mmbidaf_tpu_torch.interop.from_jax import frontend_from_jax, model_from_jax
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+    from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
+
+    spec = json.loads((Path(__file__).resolve().parents[1] / "examples" / "configs"
+                       / "config6_sp_long_audio.json").read_text())
+    spec["mesh"] = {**spec["mesh"], "sp_audio": False, "num_seq": 1}
+
+    def flags(cfg, on):
+        return dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype="float32", use_pallas_attention=on, use_pallas_lstm=on,
+            use_pallas_melspec=on))
+
+    j_cfg, cfg = flags(j_config_from_dict(spec), False), flags(config_from_dict(spec), True)
+    d = cfg.data
+    assert d.max_audio_frames == 4096
+    rng = np.random.default_rng(0)
+    wv = random_word_vectors(rng, d.vocab_size, cfg.model.emb_dim)
+    params = j_init(jax.random.key(0), j_cfg, jnp.asarray(wv))
+    fe = j_frontend_init(jax.random.key(1), j_cfg)
+    base = synthetic_batch(rng, j_cfg, batch_size=2)
+    raw = {k: base[k] for k in ("text_ids", "word_mask", "sent_mask", "img_mask", "aud_mask")}
+    raw["frames"] = (rng.random((2, d.max_keyframes, 240, 320, 3)) * 255).astype(np.uint8)
+    raw["waveform"] = (rng.standard_normal((2, d.max_audio_frames * d.hop_length + d.win_length))
+                       * 0.1).astype(np.float32)
+    j_lp, j_picks = (np.asarray(a) for a in j_end_to_end(j_cfg)(
+        params, fe, {k: jnp.asarray(v) for k, v in raw.items()}))
+    model = model_from_jax(jax.tree.map(np.asarray, params), cfg, cuda_device)
+    front = frontend_from_jax(jax.tree.map(np.asarray, fe), cfg, VGG16_SPEC, cuda_device)
+    fns = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused,
+           bidaf_kernel.bidaf_attention_tiled, melspec_kernel.log_mel_fused,
+           melspec_kernel.mfcc_fused)
+    counts = [f.launches for f in fns]
+    lp, picks = make_end_to_end_decode(cfg)(
+        model, front, {k: torch.from_numpy(v).to(cuda_device) for k, v in raw.items()})
+    assert [f.launches - n for f, n in zip(fns, counts)] == [5, 1, 1, 1, 0]  # the kernels ran
+    np.testing.assert_array_equal(picks.cpu().numpy(), j_picks)
+    np.testing.assert_allclose(lp.cpu().numpy(), j_lp, atol=1e-4, rtol=1e-6)
 
 
 @pytest.mark.cuda

@@ -182,8 +182,10 @@ def test_waveform_to_features_unported_paths_raise(rng):
     sig = _t(rng.standard_normal((1, 400)).astype(np.float32))
     with pytest.raises(NotImplementedError):
         t_audio.waveform_to_features(sig, consts, 48, 16, 10, fft="stockham")
-    with pytest.raises(NotImplementedError):
-        t_audio.waveform_to_features(sig, consts, 48, 16, 10, feature="logmel", fused=True)
+    # the fused log-mel path is ported (K4): it computes the unfused chain
+    fused = t_audio.waveform_to_features(sig, consts, 48, 16, 10, feature="logmel", fused=True)
+    plain = t_audio.waveform_to_features(sig, consts, 48, 16, 10, feature="logmel")
+    np.testing.assert_allclose(fused.numpy(), plain.numpy(), atol=2e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("dst,src", [(224, 240), (224, 320), (5, 13), (17, 9), (6, 6)])

@@ -172,8 +172,6 @@ def test_unported_paths_raise(corpus):
         Summarizer.init_random(cfg, vgg_spec=TINY_SPEC, device="cpu", mode="greddy")
     s = Summarizer.init_random(cfg, vgg_spec=TINY_SPEC, device="cpu")
     with pytest.raises(NotImplementedError):
-        s.summarize_long(corpus[0])
-    with pytest.raises(NotImplementedError):
         mmbidaf_decode(s.model, {}, cfg, mode="beam")
     with pytest.raises(NotImplementedError):
         make_end_to_end_decode(dataclasses.replace(
