@@ -51,13 +51,31 @@ Phases, in order; any failure exits non-zero before the result line:
          through the plain versions: equal picks, close log-probs;
      (d) the log-mel configuration (the bench config with
          ``audio_features="logmel"``): one B=64 batch through K4's log mode,
-         and f32 kernels vs plain at B=2: equal picks.
+         and f32 kernels vs plain at B=2: equal picks;
+  7. the Winograd VGG frontend and the kernel-parity tool:
+     (a) ``mmbidaf_tpu_torch.tools.kernel_parity`` in-process at batch 32:
+         every kernel against its plain version at serving shapes, K11-K14
+         at VGG-16's conv1_2, conv3_2 and conv5_x; every row must pass
+         (K10-K13's launches are counted over this run, their path);
+     (b) K10-K14 alone at the shapes their paths use (K10 and K11-K13 the
+         tool's, K14 VGG-16's twelve C_in >= 32 convs at 256 frames): CUDA-event
+         time, the plain version's, cuDNN's conv + bias + ReLU (K11-K14), the
+         bound and the max error;
+     (c) the bench config with ``use_winograd_conv=True``:
+         ``make_end_to_end_decode`` on a seeded raw batch of B=16 (256
+         keyframes), checked and timed; K14 runs 12 times a VGG pass and the
+         direct conv only for the stem; the frontend alone and a profile;
+     (d) ``Summarizer.summarize_batch`` answering 4 requests under it;
+     (e) an f32 copy of a B=2 batch through the kernels and through the
+         plain versions (K14's too): equal picks, close log-probs; and, for
+         information, the bf16 distance between Winograd and direct features.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The random weights come from seeds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import importlib.util
@@ -83,9 +101,12 @@ TRAIN_STEPS = 150
 # by at most lr·sqrt(10)·1e-3 = 1.6e-3 and its error is at most lr times the
 # gradient's; measured on an H100: 7.5e-9 on the parameters, 0 on the loss.
 TRAIN_PARITY_ATOL = 1e-5
+B_WINO = 16  # the Winograd serving batch (256 keyframes)
 # Published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
-# tensor cores (every kernel here computes in f32 FMAs) and HBM3 bandwidth.
+# tensor cores, bf16 on the tensor cores (dense), and HBM3 bandwidth. A
+# bound counts operations at the peak of the units their operands are for.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -161,9 +182,10 @@ def train_config(drop_prob: float = 0.2, kernels: bool = True):
     return dataclasses.replace(cfg, model=model, train=train)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, float]:
-    """(ms for ``flops`` at the f32 peak, ms for ``nbytes`` at HBM rate)."""
-    return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, float]:
+    """(ms for ``flops`` at ``peak`` (default the f32 one), ms for ``nbytes``
+    at HBM rate)."""
+    return flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
 
 
 def bound_fields(parts: list[tuple[float, float]]) -> dict:
@@ -182,6 +204,19 @@ def spectrum_flops(frames: int, n_fft: int, win_length: int, mel_fb) -> float:
     filterbank's nonzeros (each bin lies in at most two triangles)."""
     nnz = int((mel_fb != 0).sum())
     return frames * (win_length + 2.5 * n_fft * math.log2(n_fft) + 3 * (n_fft // 2 + 1) + 2 * nnz)
+
+
+def resize_flops(frames: int, h: int, w: int, s: int) -> float:
+    """The least operations of ``frames`` u8 ``h x w x 3`` frames resized to
+    ``s x s`` and normalized (K10's work): the two contractions over the
+    banded bilinear matrices' nonzeros (at most three taps a row when
+    downscaling by less than 2x), and one subtract per output (the /255 and
+    1/std scales fold into the W-axis matrix)."""
+    from mmbidaf_tpu_torch.ops.vgg import resize_matrix
+
+    nnz_h = int((resize_matrix(s, h) != 0).sum())
+    nnz_w = int((resize_matrix(s, w) != 0).sum())
+    return frames * (2 * nnz_h * 3 * w + 2 * nnz_w * 3 * s + 3 * s * s)
 
 
 def lstm_library_ms(rows, steps, width, hid, mask, dev, backward: bool) -> float:
@@ -251,6 +286,7 @@ def compare(name, out, ref, tol, normwise: bool = False) -> float:
         check(o.shape == r.shape and o.dtype == r.dtype,
               f"{name}: {o.shape}/{o.dtype} vs {r.shape}/{r.dtype}")
         check(bool(torch.isfinite(o).all()), f"{name}: non-finite kernel output")
+        o, r = o.float(), r.float()  # bf16 outputs are compared in f32
         e = (o - r).abs()
         scale = r.abs().max() if normwise else r.abs()
         bnd = tol["atol"] + tol["rtol"] * scale
@@ -644,7 +680,8 @@ def f32_kernels_vs_plain(cfg, s, raw, raw_np, tag: str) -> None:
     fe32 = s.frontend
     fe32.vgg.float()  # in place: the served bf16 VGG weights, exactly, in f32
     lp_k, picks_k = make_end_to_end_decode(cfg_k)(s.model, fe32, raw)
-    lp_p, picks_p = make_end_to_end_decode(cfg_p)(s.model, fe32, raw)
+    with plain_winograd():
+        lp_p, picks_p = make_end_to_end_decode(cfg_p)(s.model, fe32, raw)
     lp_k, lp_p = lp_k.cpu().numpy(), lp_p.cpu().numpy()
     check_decode(lp_k, picks_k.cpu().numpy(), raw_np, cfg, f"{tag} f32 kernels")
     check(bool((picks_k == picks_p).all()), f"{tag} f32: kernel and plain picks differ")
@@ -653,6 +690,38 @@ def f32_kernels_vs_plain(cfg, s, raw, raw_np, tag: str) -> None:
     check(dmax <= 1e-3, f"{tag} f32: kernel vs plain log-probs differ by {dmax:.3e} > 1e-3")
     print(f"{tag} f32 B={len(picks_k)}: picks equal; log-prob max abs diff {dmax:.3e} (bound 1e-3)",
           flush=True)
+
+
+@contextlib.contextmanager
+def plain_winograd():
+    """K14's plain version in place of its wrapper while the block runs (the
+    Winograd route has no kernel flag to turn off)."""
+    from mmbidaf_tpu_torch.ops.cuda import winograd_kernel
+
+    fused = winograd_kernel.winograd_conv3x3_fused
+    winograd_kernel.winograd_conv3x3_fused = winograd_kernel.winograd_reference
+    try:
+        yield
+    finally:
+        winograd_kernel.winograd_conv3x3_fused = fused
+
+
+@contextlib.contextmanager
+def count_direct_convs(counts: list):
+    """Append the C_in of every ``F.conv2d`` call while the block runs."""
+    import torch.nn.functional as F
+
+    conv2d = F.conv2d
+
+    def counted(x, w, *args, **kwargs):
+        counts.append(w.shape[1])
+        return conv2d(x, w, *args, **kwargs)
+
+    F.conv2d = counted
+    try:
+        yield
+    finally:
+        F.conv2d = conv2d
 
 
 def load_corpus_module():
@@ -813,6 +882,227 @@ def phase_long(dev, card: str, long_records: list[dict]) -> None:
           f"{t_batch * 1e3:.2f} ms over 3 -> {B / t_batch:.2f} videos/s on {card}", flush=True)
     f32_kernels_vs_plain(lm, s, {k: v[:2] for k, v in raw.items()},
                          {k: v[:2] for k, v in raw_np.items()}, "(6d) logmel")
+
+
+def winograd_config():
+    """The bench configuration with the Winograd VGG frontend
+    (``use_winograd_conv=True``)."""
+    cfg = bench_config()
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, use_winograd_conv=True))
+
+
+def vgg_conv_layers(spec, size: int) -> list[tuple[int, int, int]]:
+    """(spatial size, C_in, C_out) of each 3x3 conv of ``spec`` on ``size``² frames."""
+    layers, c_in = [], 3
+    for item in spec:
+        if item == "M":
+            size //= 2
+        else:
+            layers.append((size, c_in, item))
+            c_in = item
+    return layers
+
+
+def conv_library_ms(x, w, b) -> float:
+    """One cuDNN conv with bias, then ReLU, on the channels-last view of the
+    NHWC ``x`` (HWIO ``w``), in its dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return time_ms(lambda: F.relu(F.conv2d(xc, wc, b, padding=1), inplace=True), iters=3)
+
+
+def phase_parity_tool(dev) -> dict:
+    """Phase 7a: the kernel-parity tool at batch 32; K10-K13's launches over it."""
+    from mmbidaf_tpu_torch.ops.cuda import conv_kernel, preprocess_kernel
+    from mmbidaf_tpu_torch.tools import kernel_parity
+
+    counters = {"K10": preprocess_kernel.preprocess_frames_fused, "K11": conv_kernel.conv3x3_same,
+                "K12": conv_kernel.conv3x3_same_acc, "K13": conv_kernel.conv3x3_same_db}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    report = kernel_parity.run(dev, 32)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"(7a) kernel_parity batch 32: {report['n_rows'] - report['n_fail']}/{report['n_rows']} rows "
+          f"pass in {time.perf_counter() - t0:.1f} s; launches over it: {launches}", flush=True)
+    check(report["n_fail"] == 0, "(7a) a kernel-parity row failed")
+    covered = {k for r in report["results"] for k in r["kernels"]}
+    check(covered == set(kernel_parity.KERNELS), f"(7a) the tool covers {sorted(covered)}")
+    for k, n in launches.items():
+        check(n > 0, f"(7a) {k} was never launched by the kernel-parity tool")
+    return launches
+
+
+def phase_vgg_kernels(dev, tool_launches: dict) -> list[dict]:
+    """Phase 7b: K10-K14 against their plain versions, timed, at the shapes
+    their paths use. Returns their records (K14's launches filled in by 7c-d)."""
+    import torch
+
+    from mmbidaf_tpu_torch.ops.cuda import conv_kernel as ck
+    from mmbidaf_tpu_torch.ops.cuda import preprocess_kernel as pk
+    from mmbidaf_tpu_torch.ops.cuda import winograd_kernel as wk
+    from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
+    from mmbidaf_tpu_torch.tools import kernel_parity
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    records = []
+
+    def record(name, src, replaces, err, ms, plain, lib, parts, launches):
+        rec = {"name": name, "route": "cuda", "source": f"mmbidaf_tpu_torch/csrc/{src}",
+               "replaces": f"mmbidaf_tpu/ops/pallas/{replaces}", "launches": launches,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain, **bound_fields(parts),
+               "library_ms": lib}
+        print(f"{name}: max_abs_err={err:.3e} kernel={ms:.4f} ms plain={plain:.4f} ms "
+              f"library={lib if lib is None else round(lib, 4)} ms bound={rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}); launches {launches}", flush=True)
+        records.append(rec)
+
+    # K10 at the tool's shape: 64 frames of 240x320 -> 224, f32 out.
+    n, h, w, s = 64, *FRAME_HW, 224
+    fr = torch.randint(0, 256, (n, h, w, 3), device=dev, generator=gen, dtype=torch.uint8)
+    err = compare("preprocess[64x240x320->224]", pk.preprocess_frames_fused(fr, s),
+                  pk.preprocess_reference(fr, s), pk.TOLERANCE[torch.float32])
+    ms = time_ms(lambda: pk.preprocess_frames_fused(fr, s), iters=10)
+    plain = time_ms(lambda: pk.preprocess_reference(fr, s), iters=10)
+    record("preprocess_frames_fused", "preprocess.cu", "preprocess_kernel.py:39", err, ms, plain, None,
+           [bound(resize_flops(n, h, w, s), n * (h * w * 3 + s * s * 3 * 4))], tool_launches["K10"])
+    del fr
+
+    # K11-K13 at the tool's VGG-16 layers (N=8, bf16), beside cuDNN.
+    rec = {k: {"err": 0.0, "ms": 0.0} for k in ("K11", "K12", "K13")}
+    plain = lib = 0.0
+    parts = []
+    nb = 32 // 4
+    for layer, size, c_in, c_out in kernel_parity.CONV_LAYERS:
+        x, wt, b = (t.to(dev) for t in kernel_parity.conv_operands(
+            np.random.default_rng(size), "cpu", nb, size, c_in, c_out))
+        ref = ck.conv3x3_reference(x, wt, b)
+        line = []
+        for k, fn in (("K11", ck.conv3x3_same), ("K12", ck.conv3x3_same_acc),
+                      ("K13", ck.conv3x3_same_db)):
+            e = compare(f"{fn.__name__}[{layer}]", fn(x, wt, b), ref, ck.TOLERANCE[x.dtype])
+            t = time_ms(lambda: fn(x, wt, b), iters=3)
+            rec[k]["err"], rec[k]["ms"] = max(rec[k]["err"], e), rec[k]["ms"] + t
+            line.append(f"{k} {t:.4f} ms (err {e:.2e})")
+        p = time_ms(lambda: ck.conv3x3_reference(x, wt, b), iters=3)
+        lb = conv_library_ms(x, wt, b)
+        plain, lib = plain + p, lib + lb
+        parts.append(bound(2 * nb * size * size * 9 * c_in * c_out,
+                           2 * (nb * size * size * (c_in + c_out) + 9 * c_in * c_out + c_out),
+                           PEAK_BF16_FLOPS))
+        print(f"  K11-K13 {layer} N={nb} {size}² {c_in}->{c_out} bf16: {'; '.join(line)}; plain {p:.4f} ms; "
+              f"cuDNN {lb:.4f} ms; bound {max(parts[-1]):.4f} ms", flush=True)
+    for k, name, body in (("K11", "conv3x3_same", 32), ("K12", "conv3x3_same_acc", 124),
+                          ("K13", "conv3x3_same_db", 208)):
+        record(name, "conv3x3.cu", f"conv_kernel.py:{body}", rec[k]["err"], rec[k]["ms"], plain, lib,
+               parts, tool_launches[k])
+
+    # K14 at the Winograd serving path's twelve convs: B_WINO videos x 16 keyframes.
+    nf = B_WINO * bench_config().data.max_keyframes
+    err = ms = plain = lib = 0.0
+    parts = []
+    for size, c_in, c_out in vgg_conv_layers(VGG16_SPEC, 224):
+        if c_in < 32:
+            continue
+        x = torch.randn(nf, size, size, c_in, device=dev, generator=gen).bfloat16()
+        wt = (torch.randn(3, 3, c_in, c_out, device=dev, generator=gen)
+              * math.sqrt(2.0 / (9 * c_in))).bfloat16()
+        b = (torch.randn(c_out, device=dev, generator=gen) * 0.1).bfloat16()
+        e = compare(f"winograd[{size}² {c_in}->{c_out}]", wk.winograd_conv3x3_fused(x, wt, b, relu=True),
+                    wk.winograd_reference(x, wt, b, relu=True), wk.TOLERANCE[x.dtype])
+        k = time_ms(lambda: wk.winograd_conv3x3_fused(x, wt, b, relu=True), iters=2, reps=3)
+        p = time_ms(lambda: wk.winograd_reference(x, wt, b, relu=True), iters=1, reps=3)
+        lb = conv_library_ms(x, wt, b)
+        err, ms, plain, lib = max(err, e), ms + k, plain + p, lib + lb
+        parts.append(bound(2 * nf * size * size * 9 * c_in * c_out * 16 / 36,
+                           2 * (nf * size * size * (c_in + c_out) + 16 * c_in * c_out + c_out),
+                           PEAK_BF16_FLOPS))
+        print(f"  K14 N={nf} {size}² {c_in}->{c_out} bf16: max_abs_err={e:.3e} kernel={k:.3f} ms "
+              f"plain={p:.3f} ms cuDNN={lb:.3f} ms bound={max(parts[-1]):.4f} ms", flush=True)
+        del x
+    record("winograd_conv3x3_fused", "winograd.cu", "winograd_kernel.py:46", err, ms, plain, lib, parts, 0)
+    return records
+
+
+def phase_winograd(dev, card: str, rec14: dict) -> None:
+    """Phase 7c-e: serving at the bench config with the Winograd frontend."""
+    import torch
+
+    from mmbidaf_tpu_torch.data.frontend import apply_frontend, make_end_to_end_decode
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel, winograd_kernel
+    from mmbidaf_tpu_torch.serving import Summarizer
+
+    cfg = winograd_config()
+    d = cfg.data
+    t0 = time.perf_counter()
+    s = Summarizer.init_random(cfg, seed=0, device=dev, serve_batch_size=4)
+    torch.cuda.synchronize()
+    print(f"winograd: bench config with use_winograd_conv=True, random weights from seed 0, init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    raw_np = raw_batch(cfg, np.random.default_rng(4), B_WINO)
+    raw = {k: torch.from_numpy(v).to(dev) for k, v in raw_np.items()}
+    end_to_end = make_end_to_end_decode(cfg)
+    counters = {"K1": lstm_kernel.bilstm_cuda, "K2": bidaf_kernel.bidaf_attention_fused,
+                "K3": melspec_kernel.mfcc_fused, "K14": winograd_kernel.winograd_conv3x3_fused}
+    for fn in counters.values():
+        fn.launches = 0
+    direct = []
+    # (c) one batch: K14 for the twelve C_in >= 32 convs, the direct conv for the stem
+    with count_direct_convs(direct):
+        lp, picks = end_to_end(s.model, s.frontend, raw)
+        torch.cuda.synchronize()
+    check_decode(lp.cpu().numpy(), picks.cpu().numpy(), raw_np, cfg, "winograd bf16")
+    first = {k: fn.launches for k, fn in counters.items()}
+    print(f"(7c) one B={B_WINO} batch: launches {first}; direct convs by C_in {direct}", flush=True)
+    check(first["K14"] == 12, f"(7c) K14 ran {first['K14']} times in one VGG-16 pass, not 12")
+    check(direct == [3], f"(7c) the direct conv ran for C_in {direct}, not only the stem")
+    for k in ("K1", "K2", "K3"):
+        check(first[k] > 0, f"(7c) {k} was never launched on the Winograd serving path")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_batch = timed_batches(lambda: end_to_end(s.model, s.frontend, raw))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"(7c) end-to-end B={B_WINO} (256 keyframes), Winograd VGG: median batch "
+          f"{t_batch * 1e3:.2f} ms over 5 -> {B_WINO / t_batch:.3f} videos/s on {card}; "
+          f"peak memory {peak_gb:.2f} GB", flush=True)
+    with torch.inference_mode():
+        t_front = timed_batches(lambda: apply_frontend(s.frontend, raw, cfg))
+        direct_cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, use_winograd_conv=False))
+        t_direct = timed_batches(lambda: apply_frontend(s.frontend, raw, direct_cfg))
+    print(f"(7c) frontend alone (VGG-16 on {B_WINO * d.max_keyframes} keyframes + MFCC): Winograd "
+          f"{t_front * 1e3:.2f} ms, direct cuDNN {t_direct * 1e3:.2f} ms; model + decode "
+          f"{(t_batch - t_front) * 1e3:.2f} ms", flush=True)
+    profile_kernels(lambda _: end_to_end(s.model, s.frontend, raw), None, t_batch, "(7c)", "batch",
+                    {"K14 winograd": "winograd_kernel", "K1 bilstm": "bilstm_kernel",
+                     "max-pool": "max_pool"})
+    # (d) 4 requests through the serving API
+    with tempfile.TemporaryDirectory() as tmp:
+        load_corpus_module().make_corpus(tmp, videos=4, sentences=12, frames=10, seconds=4.0, seed=3)
+        dirs = sorted(os.path.join(tmp, v) for v in os.listdir(tmp))
+        t0 = time.perf_counter()
+        summaries = s.summarize_batch(dirs)
+        dt = time.perf_counter() - t0
+    check(len(summaries) == 4 and all(isinstance(x, str) and x for x in summaries),
+          "(7d) summarize_batch: empty or missing summaries")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"(7d) summarize_batch: 4 requests answered in {dt:.2f} s; first: {summaries[0][:80]!r}; "
+          f"launches over (7c)-(7d): {launches}", flush=True)
+    check(launches["K14"] > first["K14"], "(7d) K14 was not launched by summarize_batch")
+    rec14["launches"] = launches["K14"]
+    # (e) for information: bf16 Winograd vs direct features; then f32 kernels vs plain at B=2
+    two = {k: v[:2] for k, v in raw.items()}
+    with torch.inference_mode():
+        fw = apply_frontend(s.frontend, two, cfg)["images"]
+        fd = apply_frontend(s.frontend, two, direct_cfg)["images"]
+    dist = (fw - fd).abs().max().item()
+    print(f"(7e) bf16 VGG features, Winograd vs direct, B=2: max abs diff {dist:.3e}, "
+          f"{dist / fd.abs().max().item():.3e} of max |direct|", flush=True)
+    k14 = winograd_kernel.winograd_conv3x3_fused.launches
+    f32_kernels_vs_plain(cfg, s, two, {k: v[:2] for k, v in raw_np.items()}, "(7e) winograd")
+    check(winograd_kernel.winograd_conv3x3_fused.launches == k14 + 12,
+          "(7e) the f32 kernel path did not run K14 twelve times")
 
 
 def train_state(cfg, dev, seed: int):
@@ -976,12 +1266,17 @@ def main() -> None:
     # 6. long-video serving
     phase_long(dev, card, long_records)
 
+    # 7. the kernel-parity tool, K10-K14 alone, and Winograd serving
+    tool_launches = phase_parity_tool(dev)
+    vgg_records = phase_vgg_kernels(dev, tool_launches)
+    phase_winograd(dev, card, vgg_records[-1])
+
     leaked = sorted(m for m in sys.modules if m in ("jax", "mmbidaf_tpu")
                     or m.startswith(("jax.", "jaxlib", "mmbidaf_tpu.")))
     check(not leaked, f"jax or the JAX package was imported: {leaked[:5]}")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": records + train_records + long_records}), flush=True)
+    print(json.dumps({"kernels": records + train_records + long_records + vgg_records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -2,11 +2,39 @@
 // mmbidaf_tpu_torch/ops/cuda/build.py into one library with a C interface).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define MMB_API extern "C" __attribute__((visibility("default")))
 
 namespace mmb {
+
+// Element types of the kernels that take the compute dtype (f32 or bf16) or
+// raw u8 frames: widen to f32, store an f32 value as T (round to nearest
+// even, as torch's .to(bfloat16)), and round an f32 value to T and back.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(unsigned char v) { return static_cast<float>(v); }
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  T t;
+  store_f32(&t, v);
+  return to_f32(t);
+}
+
+// Four consecutive values from a 4-element-aligned address, widened to f32.
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(q[0]), b = __bfloat1622float2(q[1]);
+  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+}
 
 // The reference's masked-softmax fill: mask*x + (1-mask)*(-1e30), not -inf.
 constexpr float kNegInf = -1e30f;

@@ -1,8 +1,9 @@
 """Raw inputs → model features on the device, and the end-to-end serving
 program — the port of ``mmbidaf_tpu.data.frontend``.
 
-Keyframes: matmul-form bilinear resize + VGG in the compute dtype, features
-cast back to f32 and masked. Audio: framing (a strided view) → MFCC, through
+Keyframes: matmul-form bilinear resize + VGG in the compute dtype (its
+C_in >= 32 convs through the Winograd kernel K14 under
+``use_winograd_conv``), features cast back to f32 and masked. Audio: framing (a strided view) → MFCC, through
 the hand kernel when ``use_pallas_melspec`` is on. Text passes through.
 """
 
@@ -119,7 +120,7 @@ def apply_frontend(fe: Frontend, raw: Mapping[str, torch.Tensor], cfg: Config,
         feats = torch.cat([
             vgg_ops.vgg_features(
                 vgg, vgg_ops.preprocess_frames(flat[i:i + step], d.image_size, compute_dtype),
-                vgg_spec,
+                vgg_spec, winograd=m.use_winograd_conv,
             )
             for i in range(0, flat.shape[0], step)
         ])

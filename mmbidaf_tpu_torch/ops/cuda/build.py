@@ -27,7 +27,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("lstm.cu", "lstm_bwd.cu", "bidaf.cu", "bidaf_bwd.cu", "bidaf_tiled.cu", "mfcc.cu")
+SOURCES = ("lstm.cu", "lstm_bwd.cu", "bidaf.cu", "bidaf_bwd.cu", "bidaf_tiled.cu", "mfcc.cu",
+           "winograd.cu", "conv3x3.cu", "preprocess.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -62,6 +63,12 @@ SIGNATURES = {
     # c, q, c_mask, q_mask, w_c, w_q, w_cq, bias, out, row_max, row_sum, p_part,
     # a_part, B, T_c, T_q, D, tc_blk, tq_blk, stream
     "mmb_bidaf_tiled_forward": (P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    # x, u, bias, out, N, H, W, C, K, relu, bf16, stream
+    "mmb_winograd_conv3x3": (P, P, P, P, I, I, I, I, I, I, I, P),
+    # x, w, bias, out, N, H, W, Cin, Cout, relu, bf16, schedule, stream
+    "mmb_conv3x3": (P, P, P, P, I, I, I, I, I, I, I, I, P),
+    # frames, rh, rw3, bias, out, N, H, W, S, bf16, stream
+    "mmb_preprocess_frames": (P, P, P, P, P, I, I, I, I, I, P),
 }
 
 _lock = threading.Lock()
@@ -153,13 +160,14 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def check_tensor(t, name: str, shape: tuple, device) -> None:
+def check_tensor(t, name: str, shape: tuple, device, dtype=None) -> None:
     """Validate a kernel operand before its pointer goes to C: a contiguous
-    f32 tensor of ``shape`` on ``device``."""
+    tensor of ``dtype`` (f32 when not given) and ``shape`` on ``device``."""
     import torch
 
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous f32 tensor on {device}, got "
+    dtype = torch.float32 if dtype is None else dtype
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous {dtype} tensor on {device}, got "
                          f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: need shape {tuple(shape)}, got {tuple(t.shape)}")

@@ -1,11 +1,17 @@
 """VGG keyframe featurizer, the port of ``mmbidaf_tpu.ops.vgg``.
 
 The conv stack runs NCHW through ``torch.nn.functional.conv2d`` (cuDNN on
-the card) with OIHW weights; the JAX package's convs are XLA convs outside
-any Pallas kernel, so they have no hand kernel here either. Frames arrive
-NHWC as in the JAX package; ``permute`` makes them a channels-last NCHW
-view, which cuDNN takes without a copy. The fc1 input is the NCHW flatten,
-as ``vgg.py`` does for torchvision weight compatibility.
+the card) with OIHW weights; the JAX package's direct convs are XLA convs
+outside any Pallas kernel, so they have no hand kernel here either. Frames
+arrive NHWC as in the JAX package; ``permute`` makes them a channels-last
+NCHW view, which cuDNN takes without a copy. With ``winograd=True`` every
+conv with C_in >= 32 runs Winograd F(2x2,3x3) through K14
+(``ops/cuda/winograd_kernel.py``), as the JAX package's ``vgg_features``
+runs ``ops/winograd.py`` there; the 3-channel stem stays on the direct conv.
+K14 reads and writes NHWC, which is the channels-last storage the stack
+keeps, so no layout copy comes between it and the convs and pools around
+it. The fc1 input is the NCHW flatten, as ``vgg.py`` does for torchvision
+weight compatibility.
 
 The resize is the JAX package's matmul form: two contractions against
 ``resize_matrix`` weights, which reproduce ``jax.image.resize``'s
@@ -24,12 +30,30 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmbidaf_tpu_torch.ops.common import einsum, mm, normal_param, uniform_param, zeros_param
+from mmbidaf_tpu_torch.ops.cuda import winograd_kernel
 
 # torchvision vgg16 config "D": numbers = out-channels of 3x3 convs, "M" = maxpool.
 VGG16_SPEC: tuple = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
                      512, 512, 512, "M", 512, 512, 512, "M")
+# torchvision vgg19 config "E" (one extra conv per 256/512 block).
+VGG19_SPEC: tuple = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+                     512, 512, 512, 512, "M", 512, 512, 512, 512, "M")
 # Tiny spec for unit tests (2 blocks).
 TINY_SPEC: tuple = (8, "M", 16, "M")
+
+# ModelConfig.vgg_variant values.
+VARIANTS: tuple = ("tiny", "vgg16", "vgg19")
+
+
+def spec_for_variant(name: str) -> tuple:
+    """``ModelConfig.vgg_variant`` → conv spec (the fc layers are the same
+    for every variant)."""
+    specs = {"tiny": TINY_SPEC, "vgg16": VGG16_SPEC, "vgg19": VGG19_SPEC}
+    try:
+        return specs[name]
+    except KeyError:
+        raise ValueError(f"unknown vgg_variant {name!r}: expected one of {VARIANTS}") from None
+
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -68,8 +92,10 @@ class VGG(nn.Module):
         self.fc2_b = zeros_param((fc_dim,), device)
 
 
-def vgg_features(params: VGG, images: torch.Tensor, spec: Sequence = VGG16_SPEC) -> torch.Tensor:
-    """``[N, H, W, 3]`` float images → ``[N, fc_dim]`` fc2-ReLU features."""
+def vgg_features(params: VGG, images: torch.Tensor, spec: Sequence = VGG16_SPEC,
+                 winograd: bool = False) -> torch.Tensor:
+    """``[N, H, W, 3]`` float images → ``[N, fc_dim]`` fc2-ReLU features;
+    ``winograd`` sends every conv with C_in >= 32 to K14."""
     x = images.permute(0, 3, 1, 2)  # NHWC storage read as channels-last NCHW
     ci = 0
     for item in spec:
@@ -77,7 +103,14 @@ def vgg_features(params: VGG, images: torch.Tensor, spec: Sequence = VGG16_SPEC)
             x = F.max_pool2d(x, 2, 2)
         else:
             conv = params.convs[ci]
-            x = F.relu(F.conv2d(x, conv.w, conv.b, padding=1), inplace=True)
+            if winograd and conv.w.shape[1] >= 32:
+                # OIHW → HWIO view; NHWC in and out, a no-op .contiguous()
+                # on the channels-last activations
+                x = winograd_kernel.winograd_conv3x3_fused(
+                    x.permute(0, 2, 3, 1).contiguous(), conv.w.permute(2, 3, 1, 0), conv.b,
+                    relu=True).permute(0, 3, 1, 2)
+            else:
+                x = F.relu(F.conv2d(x, conv.w, conv.b, padding=1), inplace=True)
             ci += 1
     x = x.reshape(x.shape[0], -1)  # NCHW flatten order (torchvision classifier)
     x = torch.relu(mm(x, params.fc1_w) + params.fc1_b)

@@ -3,9 +3,10 @@ configuration's full widths (VGG-16 at 224², hidden 128, vocab 20000,
 T_s=32 x W=16, 16 keyframes, 512 audio frames) with B=2, f32 — the serving
 program and one training step — and at the long-audio serving
 configuration (``examples/configs/config6_sp_long_audio.json``: 4096 audio
-frames, vocab 50000, one device), and every kernel against its plain
-version at shapes the main paths do not reach (partial blocks and tiles,
-widths past a block's threads).
+frames, vocab 50000, one device) and with ``use_winograd_conv`` (K14), and
+every kernel against its plain version at shapes the main paths do not
+reach (partial blocks and tiles, widths past a block's threads, odd image
+sizes, channel counts off the block sizes).
 
 Needs an NVIDIA GPU with ``nvcc`` (the CUDA kernels are built on first use);
 skipped elsewhere. Run on such a host with
@@ -461,3 +462,121 @@ def test_train_step_options_through_the_kernels(cuda_device, train, model):
     assert abs(lk - lp) <= 1e-5
     for n in pk:
         torch.testing.assert_close(pk[n], pp[n], atol=1e-5, rtol=0.0, msg=n)
+
+
+def _conv_args(dev, gen, N, H, W, Cin, Cout, dtype):
+    x = torch.randn(N, H, W, Cin, device=dev, generator=gen).to(dtype)
+    w = (torch.randn(3, 3, Cin, Cout, device=dev, generator=gen) * (2.0 / (9 * Cin)) ** 0.5).to(dtype)
+    return x, w, (torch.randn(Cout, device=dev, generator=gen) * 0.1).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,H,W,Cin,Cout", [
+    (2, 13, 21, 64, 72),  # odd H and W: partial pixel tiles; Cout past one 64-channel block
+    (3, 7, 9, 6, 10),     # one input-channel chunk, partly empty; Cout below a block
+])
+def test_conv3x3_kernels_generic_shapes(cuda_device, dtype, N, H, W, Cin, Cout):
+    """K11, K12 and K13 against their plain version; each call is one launch."""
+    from mmbidaf_tpu_torch.ops.cuda import conv_kernel as ck
+
+    x, w, b = _conv_args(cuda_device, torch.Generator(device=cuda_device).manual_seed(9),
+                         N, H, W, Cin, Cout, dtype)
+    ref = ck.conv3x3_reference(x, w, b)
+    for fn in (ck.conv3x3_same, ck.conv3x3_same_acc, ck.conv3x3_same_db):
+        before = fn.launches
+        out = fn(x, w, b)
+        assert fn.launches == before + 1 and out.dtype == dtype
+        torch.testing.assert_close(out.float(), ref.float(), **ck.TOLERANCE[dtype], msg=fn.__name__)
+    no_relu = ck.conv3x3_same_acc(x, w, b, relu=False)
+    torch.testing.assert_close(no_relu.float(), ck.conv3x3_reference(x, w, b, relu=False).float(),
+                               **ck.TOLERANCE[dtype])
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="even Cin"):
+            ck.conv3x3_same_db(x[..., :5].contiguous(), w[:, :, :5].contiguous(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N,H,W,C,K,relu", [
+    (2, 13, 21, 64, 72, True),  # odd H and W (a partial last tile), K past one 32-channel block
+    (3, 7, 5, 96, 40, False),   # a tile group spanning images; no ReLU
+    (1, 1, 1, 3, 5, True),      # one pixel: a single tile, mostly halo
+])
+def test_winograd_kernel_generic_shapes(cuda_device, dtype, N, H, W, C, K, relu):
+    """K14 against its plain version (V and U rounded to the dtype on both
+    sides), and within conv tolerance of the direct conv in f32."""
+    from mmbidaf_tpu_torch.ops.cuda import conv_kernel as ck
+    from mmbidaf_tpu_torch.ops.cuda import winograd_kernel as wk
+
+    x, w, b = _conv_args(cuda_device, torch.Generator(device=cuda_device).manual_seed(10),
+                         N, H, W, C, K, dtype)
+    before = wk.winograd_conv3x3_fused.launches
+    out = wk.winograd_conv3x3_fused(x, w, b, relu=relu)
+    assert wk.winograd_conv3x3_fused.launches == before + 1 and out.dtype == dtype
+    torch.testing.assert_close(out.float(), wk.winograd_reference(x, w, b, relu=relu).float(),
+                               **wk.TOLERANCE[dtype])
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ck.conv3x3_reference(x, w, b, relu=relu), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,h,w,s", [(3, 37, 53, 24), (2, 20, 30, 33), (1, 16, 16, 16)])
+def test_preprocess_kernel_generic_shapes(cuda_device, dtype, n, h, w, s):
+    """K10 against its plain version: odd downscales (a partial last block of
+    output rows), an upscale, and the identity resize."""
+    from mmbidaf_tpu_torch.ops.cuda import preprocess_kernel as pk
+
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randint(0, 256, (n, h, w, 3), device=cuda_device, generator=gen, dtype=torch.uint8)
+    before = pk.preprocess_frames_fused.launches
+    out = pk.preprocess_frames_fused(x, s, dtype)
+    assert pk.preprocess_frames_fused.launches == before + 1
+    assert out.dtype == dtype and out.shape == (n, s, s, 3)
+    torch.testing.assert_close(out.float(), pk.preprocess_reference(x, s, dtype).float(),
+                               **pk.TOLERANCE[dtype])
+
+
+@pytest.mark.cuda
+def test_bench_width_winograd_parity_with_jax(cuda_device):
+    """The bench configuration with ``use_winograd_conv=True`` at B=2, f32:
+    the port on the card (K14 for the twelve C_in >= 32 convs, K1-K3)
+    against the JAX package's XLA Winograd on the host CPU."""
+    import dataclasses
+
+    from mmbidaf_tpu.data.frontend import frontend_init as j_frontend_init
+    from mmbidaf_tpu.data.frontend import make_end_to_end_decode as j_end_to_end
+    from mmbidaf_tpu.data.synthetic import random_word_vectors, synthetic_batch
+    from mmbidaf_tpu.models.mmbidaf import mmbidaf_init as j_init
+    from mmbidaf_tpu_torch.config import config_from_dict
+    from mmbidaf_tpu_torch.data.frontend import make_end_to_end_decode
+    from mmbidaf_tpu_torch.interop.from_jax import frontend_from_jax, model_from_jax
+    from mmbidaf_tpu_torch.ops.cuda import winograd_kernel
+    from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
+
+    def winograd(cfg):
+        return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, use_winograd_conv=True))
+
+    j_cfg = winograd(_bench_f32_config(kernels=False))
+    cfg = config_from_dict(dataclasses.asdict(winograd(_bench_f32_config(kernels=True))))
+    d = cfg.data
+    rng = np.random.default_rng(0)
+    wv = random_word_vectors(rng, d.vocab_size, cfg.model.emb_dim)
+    params = j_init(jax.random.key(0), j_cfg, jnp.asarray(wv))
+    fe = j_frontend_init(jax.random.key(1), j_cfg)
+    base = synthetic_batch(rng, j_cfg, batch_size=2)
+    raw = {k: base[k] for k in ("text_ids", "word_mask", "sent_mask", "img_mask", "aud_mask")}
+    raw["frames"] = (rng.random((2, d.max_keyframes, 240, 320, 3)) * 255).astype(np.uint8)
+    raw["waveform"] = (rng.standard_normal((2, d.max_audio_frames * d.hop_length + d.win_length))
+                       * 0.1).astype(np.float32)
+    j_lp, j_picks = (np.asarray(a) for a in j_end_to_end(j_cfg)(
+        params, fe, {k: jnp.asarray(v) for k, v in raw.items()}))
+    model = model_from_jax(jax.tree.map(np.asarray, params), cfg, cuda_device)
+    front = frontend_from_jax(jax.tree.map(np.asarray, fe), cfg, VGG16_SPEC, cuda_device)
+    before = winograd_kernel.winograd_conv3x3_fused.launches
+    lp, picks = make_end_to_end_decode(cfg)(
+        model, front, {k: torch.from_numpy(v).to(cuda_device) for k, v in raw.items()})
+    assert winograd_kernel.winograd_conv3x3_fused.launches - before == 12  # one VGG-16 pass
+    np.testing.assert_array_equal(picks.cpu().numpy(), j_picks)
+    np.testing.assert_allclose(lp.cpu().numpy(), j_lp, atol=1e-4, rtol=1e-6)

@@ -151,7 +151,8 @@ def test_nvcc_command_targets_sm90a(tmp_path):
         objects.append(cmd[cmd.index("-o") + 1])
     link = build.link_command(objects, tmp_path / "lib.so")
     assert "-shared" in link and link[-len(objects):] == objects
-    assert {"lstm_bwd.cu", "bidaf_bwd.cu"} <= set(build.SOURCES)
+    assert {"lstm_bwd.cu", "bidaf_bwd.cu", "winograd.cu", "conv3x3.cu", "preprocess.cu"} <= set(
+        build.SOURCES)
     assert build.library_path().parent == build.BUILD_DIR
     assert build.library_path().name.endswith(".so")
 
@@ -173,6 +174,20 @@ def test_cuda_requests_raise_without_a_card():
         mmbidaf_init(cfg, np.zeros((cfg.data.vocab_size, cfg.model.emb_dim), np.float32), "cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Summarizer.init_random(cfg, device="cuda:0")
+    from mmbidaf_tpu_torch.ops.cuda import conv_kernel, preprocess_kernel, winograd_kernel
+    from mmbidaf_tpu_torch.tools import kernel_parity
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kernel_parity.main([])  # the tool's default device is the card
+    # a tensor on neither the CPU nor the card reaches no plain version
+    x, w, b = (torch.empty(s, device="meta") for s in ((1, 5, 5, 64), (3, 3, 64, 8), (8,)))
+    for fn in (conv_kernel.conv3x3_same, conv_kernel.conv3x3_same_acc,
+               conv_kernel.conv3x3_same_db, winograd_kernel.winograd_conv3x3_fused):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(x, w, b)
+    with pytest.raises(ValueError, match="unsupported device"):
+        preprocess_kernel.preprocess_frames_fused(
+            torch.empty(1, 6, 6, 3, dtype=torch.uint8, device="meta"), 4)
 
 
 def test_port_imports_no_jax():

@@ -1,0 +1,268 @@
+"""The port's VGG frontend under ``use_winograd_conv`` and the kernels K10-K14
+on the CPU, against the JAX package with the same numpy-seeded inputs and
+weights (``interop/from_jax.py``); the Pallas kernels run in interpret mode,
+as ``tests/test_pallas_kernels.py`` runs them. On a CPU tensor each kernel
+wrapper runs its plain version (the CUDA kernels are held against those on
+the card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``).
+
+Tolerances. f32 on both sides with sums in different orders (XLA's vs
+PyTorch's): ``atol=2e-5`` on conv outputs of O(1), as the JAX package holds
+its own Winograd and conv kernels against ``lax.conv``. bf16 outputs are
+roundings of f32 values that agree to ~1e-6, so they can land one bf16 ulp
+apart: ``rtol=2**-7`` (an ulp is at most 2⁻⁷ of the value). The preprocess
+kernel's resize weights come from ``jax.image.resize`` on the JAX side and
+from the port's numpy ``resize_matrix`` (they differ by up to 7e-6), so
+``atol=1e-4`` as the JAX package's own test. End to end in f32: picks
+equal, log-probs within 1e-4.
+"""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mmbidaf_tpu.config import tiny_test_config
+from mmbidaf_tpu.ops import vgg as j_vgg
+from mmbidaf_tpu.ops.winograd import winograd_conv3x3 as j_winograd
+from mmbidaf_tpu_torch.interop.from_jax import load_pytree
+from mmbidaf_tpu_torch.ops import vgg as t_vgg
+from mmbidaf_tpu_torch.ops import winograd as t_winograd
+from mmbidaf_tpu_torch.ops.cuda import conv_kernel, preprocess_kernel, winograd_kernel
+
+SPEC = (32, 32, "M", 64, "M")  # conv2 and conv3 have C_in >= 32: the Winograd route
+BF16_ULP = 2.0 ** -7
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _conv_inputs(rng, N, H, W, Cin, Cout, w_scale=0.2):
+    x = rng.standard_normal((N, H, W, Cin)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, Cin, Cout)) * w_scale).astype(np.float32)
+    b = rng.standard_normal(Cout).astype(np.float32)
+    return x, w, b
+
+
+def _lax_conv(x, w, b, relu):
+    y = jax.lax.conv_general_dilated(jnp.asarray(x), jnp.asarray(w), (1, 1), "SAME",
+                                     dimension_numbers=("NHWC", "HWIO", "NHWC")) + b
+    return np.asarray(jnp.maximum(y, 0.0) if relu else y)
+
+
+@pytest.mark.parametrize("N,H,W,Cin,Cout", [(2, 8, 8, 5, 7), (3, 9, 11, 4, 6), (5, 14, 14, 32, 16)])
+def test_winograd_conv_matches_jax(rng, N, H, W, Cin, Cout):
+    """The port's ``ops/winograd.py`` against JAX's ``winograd_conv3x3``,
+    odd H/W included, and against ``lax.conv``."""
+    x, w, b = _conv_inputs(rng, N, H, W, Cin, Cout)
+    ours = t_winograd.winograd_conv3x3(_t(x), _t(w), _t(b)).numpy()
+    np.testing.assert_allclose(ours, np.asarray(j_winograd(jnp.asarray(x), jnp.asarray(w),
+                                                           jnp.asarray(b))), atol=2e-5)
+    np.testing.assert_allclose(ours, _lax_conv(x, w, b, relu=False), atol=2e-5)
+
+
+def test_winograd_conv_bf16_matches_jax(rng):
+    """bf16: V and U rounded to bf16, products summed in f32 (not a bf16
+    matmul that rounds its output), one cast — JAX's numerics."""
+    x, w, b = _conv_inputs(rng, 2, 9, 11, 32, 16)
+    xb, wb, bb = (jnp.asarray(a, jnp.bfloat16) for a in (x, w, b))
+    ref = np.asarray(j_winograd(xb, wb, bb).astype(jnp.float32))
+    ours = t_winograd.winograd_conv3x3(*(_t(a).bfloat16() for a in (x, w, b)))
+    assert ours.dtype == torch.bfloat16
+    np.testing.assert_allclose(ours.float().numpy(), ref, rtol=BF16_ULP, atol=1e-5)
+
+
+@pytest.mark.parametrize("N,H,W,Cin,Cout,kblk", [
+    (2, 8, 8, 128, 128, 128), (1, 14, 14, 128, 256, 128), (2, 13, 9, 128, 128, 128)])
+def test_k14_plain_matches_pallas(rng, N, H, W, Cin, Cout, kblk):
+    """K14's wrapper on the CPU (its plain version) against the Pallas
+    Winograd kernel in interpret mode, bias and ReLU fused."""
+    from mmbidaf_tpu.ops.pallas.winograd_kernel import winograd_conv3x3_fused as j_fused
+
+    x, w, b = _conv_inputs(rng, N, H, W, Cin, Cout, w_scale=0.1)
+    before = winograd_kernel.winograd_conv3x3_fused.launches
+    ours = winograd_kernel.winograd_conv3x3_fused(_t(x), _t(w), _t(b), relu=True).numpy()
+    ref = j_fused(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), relu=True, k_block=kblk,
+                  interpret=True)
+    np.testing.assert_allclose(ours, np.asarray(ref), atol=2e-5)
+    assert winograd_kernel.winograd_conv3x3_fused.launches == before  # the plain path is no launch
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("conv3x3_same", (2, 8, 16, 5, 7)), ("conv3x3_same_acc", (2, 8, 16, 5, 7)),
+    ("conv3x3_same_db", (2, 12, 16, 5, 7))])
+def test_k11_k13_plain_match_pallas(rng, name, shape):
+    """K11, K12 and K13's wrappers on the CPU against the three Pallas conv
+    kernels in interpret mode (SAME 3x3 + bias + ReLU)."""
+    from mmbidaf_tpu.ops.pallas import conv_kernel as j_conv
+
+    x, w, b = _conv_inputs(rng, *shape)
+    ours = getattr(conv_kernel, name)(_t(x), _t(w), _t(b)).numpy()
+    ref = getattr(j_conv, name)(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), tile_h=4,
+                                interpret=True)
+    np.testing.assert_allclose(ours, np.asarray(ref), atol=2e-5)
+    np.testing.assert_allclose(ours, _lax_conv(x, w, b, relu=True), atol=2e-5)
+
+
+@pytest.mark.parametrize("n,h,w,s", [(3, 48, 64, 32), (2, 32, 20, 32)])
+def test_k10_plain_matches_pallas(rng, n, h, w, s):
+    """K10's wrapper on the CPU against the Pallas preprocess kernel in
+    interpret mode: f32, and bf16 (computed in f32, one cast)."""
+    from mmbidaf_tpu.ops.pallas.preprocess_kernel import preprocess_frames_fused as j_pre
+
+    x = rng.integers(0, 256, (n, h, w, 3)).astype(np.uint8)
+    ours = preprocess_kernel.preprocess_frames_fused(_t(x), s, torch.float32)
+    ref = j_pre(jnp.asarray(x), s, dtype=jnp.float32, interpret=True)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4)
+    ours = preprocess_kernel.preprocess_frames_fused(_t(x), s, torch.bfloat16)
+    ref = j_pre(jnp.asarray(x), s, dtype=jnp.bfloat16, interpret=True)
+    assert ours.dtype == torch.bfloat16 and ours.shape == (n, s, s, 3)
+    np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               rtol=BF16_ULP, atol=1e-4)
+
+
+def _vgg_pair(spec, image_size=32, fc_dim=64, seed=8):
+    jp = j_vgg.vgg_init(jax.random.key(seed), spec, image_size=image_size, fc_dim=fc_dim)
+    port = t_vgg.VGG(spec, image_size, fc_dim, 3, torch.Generator().manual_seed(0), "cpu")
+    tree = jax.tree.map(np.asarray, jp)
+    tree["convs"] = [{"w": c["w"].transpose(3, 2, 0, 1), "b": c["b"]} for c in tree["convs"]]
+    load_pytree(port, tree)
+    return jp, port
+
+
+def test_vgg_features_winograd_matches_jax(rng):
+    """``vgg_features(winograd=True)`` against JAX's, f32: the Winograd convs
+    and the direct stem, pools, the NCHW flatten and the fc layers."""
+    jp, port = _vgg_pair(SPEC)
+    imgs = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
+    ref = j_vgg.vgg_features(jp, jnp.asarray(imgs), SPEC, winograd=True)
+    ours = t_vgg.vgg_features(port, _t(imgs), SPEC, winograd=True)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-5)
+
+
+def _spy(monkeypatch):
+    """Record the C_in of every conv taken by K14's wrapper and by the
+    direct ``F.conv2d`` route."""
+    calls = {"winograd": [], "direct": []}
+    wino, conv2d = winograd_kernel.winograd_conv3x3_fused, torch.nn.functional.conv2d
+
+    def spy_wino(x, w, b=None, relu=False):
+        calls["winograd"].append(x.shape[-1])
+        return wino(x, w, b, relu)
+
+    def spy_conv2d(x, w, *a, **k):
+        calls["direct"].append(w.shape[1])
+        return conv2d(x, w, *a, **k)
+
+    monkeypatch.setattr(winograd_kernel, "winograd_conv3x3_fused", spy_wino)
+    monkeypatch.setattr(torch.nn.functional, "conv2d", spy_conv2d)
+    return calls
+
+
+def _cfg(winograd: bool, dtype="float32"):
+    cfg = tiny_test_config()
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, img_feat_dim=32, audio_feat_dim=cfg.data.n_mfcc, compute_dtype=dtype,
+        use_pallas_lstm=True, use_pallas_attention=True, use_pallas_melspec=True,
+        use_winograd_conv=winograd))
+
+
+@pytest.mark.parametrize("winograd", [True, False], ids=["winograd", "direct"])
+def test_frontend_takes_the_winograd_route_for_cin_32_up(monkeypatch, rng, winograd):
+    """``apply_frontend`` under ``use_winograd_conv`` sends exactly the
+    C_in >= 32 convs to K14 and the 3-channel stem to the direct conv; with
+    the flag off every conv is direct. (A frontend that ignored the flag
+    ran direct convs where the JAX package runs Winograd.)"""
+    from mmbidaf_tpu_torch.data.frontend import apply_frontend, frontend_init
+
+    cfg = _cfg(winograd)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, use_audio=False))
+    fe = frontend_init(cfg, SPEC, device="cpu")
+    calls = _spy(monkeypatch)
+    raw = {"frames": _t((rng.random((2, cfg.data.max_keyframes, 12, 16, 3)) * 255).astype(np.uint8)),
+           "img_mask": torch.ones(2, cfg.data.max_keyframes)}
+    with torch.inference_mode():
+        out = apply_frontend(fe, raw, cfg, SPEC)
+    assert out["images"].shape == (2, cfg.data.max_keyframes, cfg.model.img_feat_dim)
+    if winograd:
+        assert calls == {"winograd": [32, 32], "direct": [3]}
+    else:
+        assert calls == {"winograd": [], "direct": [3, 32, 32]}
+
+
+def test_end_to_end_winograd_matches_jax():
+    """The slice end to end with ``use_winograd_conv=True``: the port's
+    ``make_end_to_end_decode`` against JAX's on the same weights and raw
+    batch, f32, kernel flags on: picks equal, log-probs within 1e-4."""
+    from mmbidaf_tpu.data.frontend import frontend_init as j_frontend_init
+    from mmbidaf_tpu.data.frontend import make_end_to_end_decode as j_end_to_end
+    from mmbidaf_tpu.data.synthetic import random_word_vectors, synthetic_batch
+    from mmbidaf_tpu.models.mmbidaf import mmbidaf_init as j_init
+    from mmbidaf_tpu_torch.data.frontend import make_end_to_end_decode
+    from mmbidaf_tpu_torch.interop.from_jax import frontend_from_jax, model_from_jax
+
+    cfg = _cfg(winograd=True)
+    d = cfg.data
+    rng = np.random.default_rng(11)
+    wv = random_word_vectors(rng, d.vocab_size, cfg.model.emb_dim)
+    params = j_init(jax.random.key(0), cfg, jnp.asarray(wv))
+    fe = j_frontend_init(jax.random.key(1), cfg, vgg_spec=SPEC)
+    base = synthetic_batch(rng, cfg, batch_size=3)
+    raw = {k: base[k] for k in ("text_ids", "word_mask", "sent_mask", "img_mask", "aud_mask")}
+    raw["frames"] = (rng.random((3, d.max_keyframes, 12, 16, 3)) * 255).astype(np.uint8)
+    raw["waveform"] = (rng.standard_normal((3, d.max_audio_frames * d.hop_length + d.win_length))
+                       * 0.1).astype(np.float32)
+    j_lp, j_picks = j_end_to_end(cfg, vgg_spec=SPEC)(
+        params, fe, {k: jnp.asarray(v) for k, v in raw.items()})
+    np_tree = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    model = model_from_jax(np_tree(params), cfg, device="cpu")
+    front = frontend_from_jax(np_tree(fe), cfg, SPEC, device="cpu")
+    lp, picks = make_end_to_end_decode(cfg, SPEC)(model, front,
+                                                  {k: _t(v) for k, v in raw.items()})
+    np.testing.assert_array_equal(picks.numpy(), np.asarray(j_picks))
+    np.testing.assert_allclose(lp.numpy(), np.asarray(j_lp), atol=1e-4, rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", [*j_vgg.VARIANTS, "vgg11"])
+def test_spec_for_variant_matches_jax(name):
+    assert t_vgg.VARIANTS == j_vgg.VARIANTS
+    if name not in j_vgg.VARIANTS:
+        for fn in (t_vgg.spec_for_variant, j_vgg.spec_for_variant):
+            with pytest.raises(ValueError, match="unknown vgg_variant"):
+                fn(name)
+        return
+    assert t_vgg.spec_for_variant(name) == j_vgg.spec_for_variant(name)
+
+
+def test_kernel_parity_tool_cpu_dry_run(tmp_path):
+    """``python -m mmbidaf_tpu_torch.tools.kernel_parity --device cpu``:
+    every row passes (each wrapper runs its plain version on the CPU) and
+    the report covers K1-K14."""
+    from mmbidaf_tpu_torch.tools import kernel_parity
+
+    out = tmp_path / "parity.json"
+    assert kernel_parity.main(["--device", "cpu", "--batch", "2", "--out", str(out)]) == 0
+    report = json.loads(out.read_text())
+    assert report["device"] == "cpu" and report["n_fail"] == 0
+    assert report["n_rows"] == len(report["results"]) == 26
+    assert all(r["ok"] for r in report["results"])
+    assert sorted({k for r in report["results"] for k in r["kernels"]},
+                  key=lambda k: int(k[1:])) == list(kernel_parity.KERNELS)
+
+
+def test_kernel_parity_tool_fails_a_wrong_kernel(monkeypatch):
+    """A row whose kernel disagrees with its plain version fails, and the
+    tool exits non-zero."""
+    from mmbidaf_tpu_torch.tools import kernel_parity
+
+    def wrong(x, w, b, relu=True):
+        return conv_kernel.conv3x3_reference(x, w, b, relu) + 0.5
+
+    monkeypatch.setattr(conv_kernel, "conv3x3_same_acc", wrong)
+    monkeypatch.setattr(kernel_parity, "CONV_LAYERS", (("small", 8, 4, 6),))
+    assert kernel_parity.main(["--device", "cpu", "--batch", "1"]) == 1
