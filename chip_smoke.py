@@ -60,7 +60,9 @@ Phases, in order; any failure exits non-zero before the result line:
      (b) K10-K14 alone at the shapes their paths use (K10 and K11-K13 the
          tool's, K14 VGG-16's twelve C_in >= 32 convs at 256 frames): CUDA-event
          time, the plain version's, cuDNN's conv + bias + ReLU (K11-K14), the
-         bound and the max error;
+         bound and the max error; per layer, K11's and K14's achieved TFLOP/s
+         and share of the bound; ptxas's registers, spills and shared memory
+         for their tensor-core bodies, from the build log;
      (c) the bench config with ``use_winograd_conv=True``:
          ``make_end_to_end_decode`` on a seeded raw batch of B=16 (256
          keyframes), checked and timed; K14 runs 12 times a VGG pass and the
@@ -914,6 +916,32 @@ def conv_library_ms(x, w, b) -> float:
     return time_ms(lambda: F.relu(F.conv2d(xc, wc, b, padding=1), inplace=True), iters=3)
 
 
+def achieved(flops: float, ms: float, part: tuple[float, float]) -> str:
+    """The achieved rate of ``flops`` in ``ms`` and the share of the bound
+    ``part`` (its larger time over ``ms``)."""
+    return f"({flops / ms / 1e9:.1f} TFLOP/s, {max(part) / ms:.1%} of the bound)"
+
+
+def print_tensor_core_resources() -> None:
+    """ptxas's registers, spills and static shared memory for the tensor-core
+    bodies of K14 and K11 (from the build log), and the dynamic shared
+    memory a block of each asks for."""
+    from mmbidaf_tpu_torch.ops.cuda import build
+
+    log = build.library_path().with_suffix(".log")
+    check(log.exists(), f"(7b) no build log at {log}")
+    res = build.ptxas_resources(log.read_text())
+    lib = build.library()
+    for label, key, smem in (("K14 bf16", "winograd_mma_kernel", lib.mmb_winograd_mma_smem_bytes()),
+                             ("K11 bf16", "conv3x3_im2col_mma_kernel", lib.mmb_conv3x3_mma_smem_bytes())):
+        found = [r for name, r in res.items() if key in name]
+        check(len(found) == 1, f"(7b) ptxas reported {len(found)} kernels named {key}")
+        r = found[0]
+        print(f"  {label} ({key}): {r['registers']} registers, spill stores {r['spill_stores']} B, "
+              f"spill loads {r['spill_loads']} B, static smem {r['smem']} B, dynamic smem {smem} B",
+              flush=True)
+
+
 def phase_parity_tool(dev) -> dict:
     """Phase 7a: the kernel-parity tool at batch 32; K10-K13's launches over it."""
     from mmbidaf_tpu_torch.ops.cuda import conv_kernel, preprocess_kernel
@@ -949,6 +977,7 @@ def phase_vgg_kernels(dev, tool_launches: dict) -> list[dict]:
 
     gen = torch.Generator(device=dev).manual_seed(17)
     records = []
+    print_tensor_core_resources()
 
     def record(name, src, replaces, err, ms, plain, lib, parts, launches):
         rec = {"name": name, "route": "cuda", "source": f"mmbidaf_tpu_torch/csrc/{src}",
@@ -980,6 +1009,9 @@ def phase_vgg_kernels(dev, tool_launches: dict) -> list[dict]:
         x, wt, b = (t.to(dev) for t in kernel_parity.conv_operands(
             np.random.default_rng(size), "cpu", nb, size, c_in, c_out))
         ref = ck.conv3x3_reference(x, wt, b)
+        flops = 2 * nb * size * size * 9 * c_in * c_out
+        parts.append(bound(flops, 2 * (nb * size * size * (c_in + c_out) + 9 * c_in * c_out + c_out),
+                           PEAK_BF16_FLOPS))
         line = []
         for k, fn in (("K11", ck.conv3x3_same), ("K12", ck.conv3x3_same_acc),
                       ("K13", ck.conv3x3_same_db)):
@@ -987,12 +1019,11 @@ def phase_vgg_kernels(dev, tool_launches: dict) -> list[dict]:
             t = time_ms(lambda: fn(x, wt, b), iters=3)
             rec[k]["err"], rec[k]["ms"] = max(rec[k]["err"], e), rec[k]["ms"] + t
             line.append(f"{k} {t:.4f} ms (err {e:.2e})")
+            if k == "K11":
+                line[-1] += f" {achieved(flops, t, parts[-1])}"
         p = time_ms(lambda: ck.conv3x3_reference(x, wt, b), iters=3)
         lb = conv_library_ms(x, wt, b)
         plain, lib = plain + p, lib + lb
-        parts.append(bound(2 * nb * size * size * 9 * c_in * c_out,
-                           2 * (nb * size * size * (c_in + c_out) + 9 * c_in * c_out + c_out),
-                           PEAK_BF16_FLOPS))
         print(f"  K11-K13 {layer} N={nb} {size}² {c_in}->{c_out} bf16: {'; '.join(line)}; plain {p:.4f} ms; "
               f"cuDNN {lb:.4f} ms; bound {max(parts[-1]):.4f} ms", flush=True)
     for k, name, body in (("K11", "conv3x3_same", 32), ("K12", "conv3x3_same_acc", 124),
@@ -1017,11 +1048,12 @@ def phase_vgg_kernels(dev, tool_launches: dict) -> list[dict]:
         p = time_ms(lambda: wk.winograd_reference(x, wt, b, relu=True), iters=1, reps=3)
         lb = conv_library_ms(x, wt, b)
         err, ms, plain, lib = max(err, e), ms + k, plain + p, lib + lb
-        parts.append(bound(2 * nf * size * size * 9 * c_in * c_out * 16 / 36,
-                           2 * (nf * size * size * (c_in + c_out) + 16 * c_in * c_out + c_out),
+        flops = 2 * nf * size * size * 9 * c_in * c_out * 16 / 36
+        parts.append(bound(flops, 2 * (nf * size * size * (c_in + c_out) + 16 * c_in * c_out + c_out),
                            PEAK_BF16_FLOPS))
         print(f"  K14 N={nf} {size}² {c_in}->{c_out} bf16: max_abs_err={e:.3e} kernel={k:.3f} ms "
-              f"plain={p:.3f} ms cuDNN={lb:.3f} ms bound={max(parts[-1]):.4f} ms", flush=True)
+              f"{achieved(flops, k, parts[-1])} plain={p:.3f} ms cuDNN={lb:.3f} ms "
+              f"bound={max(parts[-1]):.4f} ms", flush=True)
         del x
     record("winograd_conv3x3_fused", "winograd.cu", "winograd_kernel.py:46", err, ms, plain, lib, parts, 0)
     return records
@@ -1075,7 +1107,7 @@ def phase_winograd(dev, card: str, rec14: dict) -> None:
           f"{t_front * 1e3:.2f} ms, direct cuDNN {t_direct * 1e3:.2f} ms; model + decode "
           f"{(t_batch - t_front) * 1e3:.2f} ms", flush=True)
     profile_kernels(lambda _: end_to_end(s.model, s.frontend, raw), None, t_batch, "(7c)", "batch",
-                    {"K14 winograd": "winograd_kernel", "K1 bilstm": "bilstm_kernel",
+                    {"K14 winograd": "winograd_mma_kernel", "K1 bilstm": "bilstm_kernel",
                      "max-pool": "max_pool"})
     # (d) 4 requests through the serving API
     with tempfile.TemporaryDirectory() as tmp:

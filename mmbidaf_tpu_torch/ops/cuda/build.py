@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("lstm.cu", "lstm_bwd.cu", "bidaf.cu", "bidaf_bwd.cu", "bidaf_tiled.cu", "mfcc.cu",
            "winograd.cu", "conv3x3.cu", "preprocess.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "mma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -67,6 +68,9 @@ SIGNATURES = {
     "mmb_winograd_conv3x3": (P, P, P, P, I, I, I, I, I, I, I, P),
     # x, w, bias, out, N, H, W, Cin, Cout, relu, bf16, schedule, stream
     "mmb_conv3x3": (P, P, P, P, I, I, I, I, I, I, I, I, P),
+    # () -> dynamic shared memory of a block of K14's / K11's tensor-core body, in bytes
+    "mmb_winograd_mma_smem_bytes": (),
+    "mmb_conv3x3_mma_smem_bytes": (),
     # frames, rh, rw3, bias, out, N, H, W, S, bf16, stream
     "mmb_preprocess_frames": (P, P, P, P, P, I, I, I, I, I, P),
 }
@@ -158,6 +162,26 @@ def library() -> ctypes.CDLL:
             lib.mmb_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def ptxas_resources(log: str) -> dict[str, dict[str, int]]:
+    """ptxas's report (``-Xptxas -v``) from a build log, by mangled kernel
+    name: ``registers``, ``spill_stores`` and ``spill_loads`` (bytes), and
+    ``smem`` (static shared memory, bytes; dynamic shared memory is not in
+    it)."""
+    out: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        if m := re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line):
+            cur = out.setdefault(m.group(1), {"registers": 0, "spill_stores": 0, "spill_loads": 0,
+                                              "smem": 0})
+        elif cur is not None and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(m.group(1))
+            if sm := re.search(r"(\d+) bytes smem", line):
+                cur["smem"] = int(sm.group(1))
+    return out
 
 
 def check_tensor(t, name: str, shape: tuple, device, dtype=None) -> None:

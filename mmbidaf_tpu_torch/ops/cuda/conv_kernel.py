@@ -9,11 +9,16 @@ The three compute one function — a 3x3 / stride-1 / SAME conv plus bias
 plus ReLU, ``x [N, H, W, Cin]`` (f32 or bf16, contiguous NHWC), ``w [3, 3,
 Cin, Cout]`` (HWIO), ``b [Cout]`` → ``[N, H, W, Cout]`` in ``x``'s dtype,
 with the weights and bias rounded to that dtype and f32 accumulation — and
-differ only in how the TPU moved data. Here they are three schedules of one
-CUDA implicit-GEMM block (an 8x16 pixel tile x 64 output channels, a loop
-over input-channel chunks of 16). The TPU's ``H % tile_h`` and ``W % 8``
-rules are not carried over: the block masks the image edge. K13 copies
-4-byte granules with ``cp.async``, so in bf16 it needs even Cin and Cout.
+differ only in how the TPU moved data. Here they are schedules of one CUDA
+implicit GEMM (an 8x16 pixel tile x 64 output channels, a loop over
+input-channel chunks of 16). K11 in bf16 is its own kernel on the tensor
+cores: the chunk's im2col patch matrix and weights are brought into shared
+memory by ``cp.async`` in 16-byte granules (two stages in flight) and
+multiplied with ``mma.sync`` (bf16 operands, f32 accumulators). K11 in f32,
+K12 and K13 run f32 FMAs on the CUDA cores. The TPU's ``H % tile_h`` and
+``W % 8`` rules are not carried over: the block masks the image edge. K13
+copies 4-byte granules with ``cp.async``, so in bf16 it needs even Cin and
+Cout. ``csrc/conv3x3.cu``'s header gives the design and what bounds it.
 
 :func:`conv3x3_reference` is the plain version of all three: ``F.conv2d``
 in f32 on the same rounded operands, plus bias, ReLU, one cast. Each
@@ -22,12 +27,14 @@ or raises; ``<wrapper>.launches`` counts its launches.
 
 Tolerance of kernel vs plain on the card (``TOLERANCE``, by dtype, with
 TF32 off): the kernels sum the 9·Cin products of an output in their own
-order. At VGG-16's layer shapes (up to 4608 products, outputs up to ~10) f32
+order (K11 in bf16 in the tensor cores' order, with their rounding of the
+partial sums). At VGG-16's layer shapes (up to 4608 products, outputs up to ~10) f32
 sums in different orders differ by a few ulps of the partial sums, so
 ``atol = 1e-4, rtol = 1e-5``; in bf16 both sides round such f32 values to
 bf16, which can land one ulp (at most 2⁻⁷ of the value) apart. Measured on
-an H100 in bf16 at conv1_2, conv3_2 and conv5_x (8 frames): one ulp at
-most (3.1e-2 on values up to 7.9).
+an H100 in bf16 at conv1_2, conv3_2 and conv5_x (8 frames): one ulp at most
+(3.1e-2 on values up to 7.9), for K11's tensor-core body as for the scalar
+ones.
 """
 
 from __future__ import annotations
@@ -94,7 +101,7 @@ def _conv(fn, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool) -> 
 
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool = True) -> torch.Tensor:
     """K11: the im2col schedule (a patch matrix per input-channel chunk in
-    shared memory, then one product)."""
+    shared memory, then one product; on the tensor cores in bf16)."""
     return _conv(conv3x3_same, x, w, b, relu)
 
 

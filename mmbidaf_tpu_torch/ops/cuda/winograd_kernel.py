@@ -14,21 +14,30 @@ its space-to-depth copy and its padding of the tile count are not carried
 over: the kernel takes any N, H, W, C and K, masks the image edge, and
 writes NHWC once.
 
+In bf16 (the serving path) the 16 transform-point products run on the
+tensor cores: a block of 16 warps takes 32 output tiles x 64 output
+channels, forms V once per 32-channel chunk on the CUDA cores and stores it
+as bf16, and warp w multiplies V[w] by U[w] with ``mma.sync`` (bf16
+operands, f32 accumulators), the next chunk's patches and U brought in by
+``cp.async`` meanwhile. In f32 (the parity runs) the kernel keeps its first
+scalar body of f32 FMAs on the CUDA cores. ``csrc/winograd.cu``'s header
+gives the design and what bounds it.
+
 ``winograd_conv3x3_fused`` is the wrapper: on a CPU tensor it runs the plain
 version, on a CUDA tensor it launches the kernel or raises;
 ``winograd_conv3x3_fused.launches`` counts launches.
 
 Tolerance of kernel vs plain on the card (``TOLERANCE``, by dtype): both
 form V and U with the same f32 operations and the same roundings, so they
-differ only in the order of the f32 sums over C (the kernel sums in chunks
-of 16 channels). In f32 that moves an output of VGG-16's layers (sums of up
+differ only in the order of the f32 sums over C (the kernel sums in chunks,
+the tensor cores in their own order and with their own rounding of the
+partial sums). In f32 that moves an output of VGG-16's layers (sums of up
 to 4608 products, values up to ~10) by a few ulps of the partial sums, so
 ``atol = 2e-4, rtol = 1e-5``. In bf16 both round f32 values that agree that
 closely, which can land one bf16 ulp apart: ``rtol = 2⁻⁷`` (an ulp is at
 most 2⁻⁷ of the value) plus the f32 term, ``atol = 2e-4``. Measured on an
-H100 in bf16 at VGG-16's twelve C_in >= 32 convs on 256 frames: no output
-differed; at conv5_x in the kernel-parity tool, one ulp (1.6e-2 on values
-up to 7.4).
+H100 in bf16 at VGG-16's twelve C_in >= 32 convs on 256 frames: one ulp at
+most (3.1e-2 on values up to ~8).
 """
 
 from __future__ import annotations

@@ -475,6 +475,10 @@ def _conv_args(dev, gen, N, H, W, Cin, Cout, dtype):
 @pytest.mark.parametrize("N,H,W,Cin,Cout", [
     (2, 13, 21, 64, 72),  # odd H and W: partial pixel tiles; Cout past one 64-channel block
     (3, 7, 9, 6, 10),     # one input-channel chunk, partly empty; Cout below a block
+    (2, 9, 17, 40, 72),   # Cin not a multiple of the 16-channel chunk
+    (1, 10, 12, 24, 200), # Cout past three blocks, ragged
+    (2, 6, 11, 14, 18),   # Cin and Cout not multiples of 8: the elementwise loaders
+    (4, 14, 14, 512, 512),  # a VGG-16 conv5 layer
 ])
 def test_conv3x3_kernels_generic_shapes(cuda_device, dtype, N, H, W, Cin, Cout):
     """K11, K12 and K13 against their plain version; each call is one launch."""
@@ -499,9 +503,14 @@ def test_conv3x3_kernels_generic_shapes(cuda_device, dtype, N, H, W, Cin, Cout):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("N,H,W,C,K,relu", [
-    (2, 13, 21, 64, 72, True),  # odd H and W (a partial last tile), K past one 32-channel block
+    (2, 13, 21, 64, 72, True),  # odd H and W (a partial last tile), K past one block (32 f32, 64 bf16)
     (3, 7, 5, 96, 40, False),   # a tile group spanning images; no ReLU
     (1, 1, 1, 3, 5, True),      # one pixel: a single tile, mostly halo
+    (2, 9, 11, 40, 72, True),   # C not a multiple of the 32-channel chunk; K past a 64 block
+    (1, 6, 10, 48, 200, True),  # K past three blocks, ragged
+    (2, 5, 7, 20, 12, True),    # C and K not multiples of 8: the elementwise loaders
+    (11, 3, 5, 16, 24, True),   # 6 tiles an image: a tile group spans six images
+    (4, 14, 14, 512, 512, True),  # a VGG-16 conv5 layer
 ])
 def test_winograd_kernel_generic_shapes(cuda_device, dtype, N, H, W, C, K, relu):
     """K14 against its plain version (V and U rounded to the dtype on both

@@ -157,6 +157,35 @@ def test_nvcc_command_targets_sm90a(tmp_path):
     assert build.library_path().name.endswith(".so")
 
 
+def test_build_lists_every_source_and_header():
+    """Every ``*.cu`` under ``csrc/`` is compiled and every ``*.cuh`` is in
+    the build hash: a header left out would let an edit to it load a stale
+    library."""
+    assert sorted(build.SOURCES) == sorted(p.name for p in build.CSRC.glob("*.cu"))
+    assert sorted(build.HEADERS) == sorted(p.name for p in build.CSRC.glob("*.cuh"))
+
+
+def test_ptxas_resources_reads_the_build_log():
+    """The registers, spills and static shared memory that ptxas reports for
+    each kernel, as the build log keeps them."""
+    log = """$ nvcc -Xptxas -v -c winograd.cu
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN2tc19winograd_mma_kernelEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN2tc19winograd_mma_kernelEv
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 416 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z4stemv' for 'sm_90a'
+ptxas info    : Function properties for _Z4stemv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 1024 bytes smem, 400 bytes cmem[0]
+"""
+    assert build.ptxas_resources(log) == {
+        "_ZN2tc19winograd_mma_kernelEv": {"registers": 128, "spill_stores": 8, "spill_loads": 12,
+                                          "smem": 0},
+        "_Z4stemv": {"registers": 40, "spill_stores": 0, "spill_loads": 0, "smem": 1024},
+    }
+
+
 def test_cuda_requests_raise_without_a_card():
     """Asking for the card on a host without one raises; nothing falls back
     to the CPU."""
