@@ -4,7 +4,10 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero before the result line:
-  1. device: the ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
+  1. device: the ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``,
+     and cuDNN's TF32 flag, which must be its default (on): the script does
+     not switch it off, so its f32 phases run the convs as a user's process
+     does (``vgg_features`` and the conv plain version pin full f32 themselves);
   2. build: the CUDA kernels, with ``nvcc`` (one per source, in parallel),
      from ``mmbidaf_tpu_torch/csrc``;
   3. kernels: each kernel against its plain PyTorch version on the card at the
@@ -26,7 +29,7 @@ Phases, in order; any failure exits non-zero before the result line:
          corpus written by ``examples/make_synthetic_corpus.py``;
      (c) K1-K3's launch counters rose during (a) and (b);
      (d) an f32 copy of the (a) batch through the kernels and through the
-         plain versions (TF32 off for both): equal picks, close log-probs;
+         plain versions (full f32 convs for both): equal picks, close log-probs;
   5. the training step at the ``bench_train.py --pallas`` configuration (the
      bench widths, B=32, f32, drop_prob 0.2, adadelta lr 0.5, clip 5.0,
      flat updates, EMA 0.999, the LSTM and attention kernel flags on) on one
@@ -60,9 +63,12 @@ Phases, in order; any failure exits non-zero before the result line:
      (b) K10-K14 alone at the shapes their paths use (K10 and K11-K13 the
          tool's, K14 VGG-16's twelve C_in >= 32 convs at 256 frames): CUDA-event
          time, the plain version's, cuDNN's conv + bias + ReLU (K11-K14), the
-         bound and the max error; per layer, K11's and K14's achieved TFLOP/s
-         and share of the bound; ptxas's registers, spills and shared memory
-         for their tensor-core bodies, from the build log;
+         bound and the max error; per layer, K11-K14's achieved TFLOP/s
+         and share of the bound, and the route K13 took (TMA or cp.async);
+         K11-K13's and cuDNN's device time per call from ``torch.profiler``
+         (no host launch overhead in it);
+         ptxas's registers, spills and shared memory for the tensor-core
+         bodies of K11-K14, from the build log;
      (c) the bench config with ``use_winograd_conv=True``:
          ``make_end_to_end_decode`` on a seeded raw batch of B=16 (256
          keyframes), checked and timed; K14 runs 12 times a VGG pass and the
@@ -223,22 +229,28 @@ def resize_flops(frames: int, h: int, w: int, s: int) -> float:
 
 def lstm_library_ms(rows, steps, width, hid, mask, dev, backward: bool) -> float:
     """One cuDNN ``nn.LSTM`` call (bidirectional, packed sequence; every
-    row has length >= 1) on the same shape: the forward, or with
-    ``backward`` the gradient of its output w.r.t. the input and weights."""
+    row has length >= 1) on the same shape, in full f32 as the kernels (the
+    process leaves cuDNN's TF32 flag on): the forward, or with ``backward``
+    the gradient of its output w.r.t. the input and weights."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence
 
-    lstm = torch.nn.LSTM(width, hid, batch_first=True, bidirectional=True).to(dev)
-    lengths = mask.sum(1).clamp(min=1).long().cpu()
-    x = torch.randn(rows, steps, width, device=dev, requires_grad=backward)
-    packed = pack_padded_sequence(x, lengths, batch_first=True, enforce_sorted=False)
-    if not backward:
-        with torch.no_grad():
-            return time_ms(lambda: lstm(packed), iters=5)
-    out, _ = lstm(packed)
-    g = torch.randn_like(out.data)
-    inputs = [x, *lstm.parameters()]
-    return time_ms(lambda: torch.autograd.grad(out.data, inputs, g, retain_graph=True), iters=5)
+    rnn = torch.backends.cudnn.rnn
+    precision, rnn.fp32_precision = rnn.fp32_precision, "ieee"
+    try:
+        lstm = torch.nn.LSTM(width, hid, batch_first=True, bidirectional=True).to(dev)
+        lengths = mask.sum(1).clamp(min=1).long().cpu()
+        x = torch.randn(rows, steps, width, device=dev, requires_grad=backward)
+        packed = pack_padded_sequence(x, lengths, batch_first=True, enforce_sorted=False)
+        if not backward:
+            with torch.no_grad():
+                return time_ms(lambda: lstm(packed), iters=5)
+        out, _ = lstm(packed)
+        g = torch.randn_like(out.data)
+        inputs = [x, *lstm.parameters()]
+        return time_ms(lambda: torch.autograd.grad(out.data, inputs, g, retain_graph=True), iters=5)
+    finally:
+        rnn.fp32_precision = precision
 
 
 def ragged_mask(rng, n: int, t: int, lo: int = 1, empty_row: int | None = None) -> np.ndarray:
@@ -672,7 +684,7 @@ def check_decode(lp, picks, raw, cfg, tag: str) -> None:
 
 def f32_kernels_vs_plain(cfg, s, raw, raw_np, tag: str) -> None:
     """An f32 copy of ``cfg`` through the kernels and through the plain
-    versions (TF32 off for both) on the served weights and the same batch:
+    versions (full f32 convs for both) on the served weights and the same batch:
     valid and equal picks, log-probs within 1e-3."""
     from mmbidaf_tpu_torch.data.frontend import make_end_to_end_decode
 
@@ -905,15 +917,38 @@ def vgg_conv_layers(spec, size: int) -> list[tuple[int, int, int]]:
     return layers
 
 
-def conv_library_ms(x, w, b) -> float:
-    """One cuDNN conv with bias, then ReLU, on the channels-last view of the
-    NHWC ``x`` (HWIO ``w``), in its dtype."""
+def conv_library_call(x, w, b):
+    """A callable: one cuDNN conv with bias, then ReLU, on the channels-last
+    view of the NHWC ``x`` (HWIO ``w``), in its dtype."""
     import torch
     import torch.nn.functional as F
 
     xc = x.permute(0, 3, 1, 2)
     wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    return time_ms(lambda: F.relu(F.conv2d(xc, wc, b, padding=1), inplace=True), iters=3)
+    return lambda: F.relu(F.conv2d(xc, wc, b, padding=1), inplace=True)
+
+
+def conv_library_ms(x, w, b) -> float:
+    return time_ms(conv_library_call(x, w, b), iters=3)
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time of one call of ``fn``: the time of all its CUDA kernels
+    under ``torch.profiler`` over ``calls`` back-to-back calls, per call. It
+    leaves out the host's launch overhead, which the CUDA-event time of a
+    call of tens of microseconds can be made of."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / calls / 1e3
 
 
 def achieved(flops: float, ms: float, part: tuple[float, float]) -> str:
@@ -924,7 +959,7 @@ def achieved(flops: float, ms: float, part: tuple[float, float]) -> str:
 
 def print_tensor_core_resources() -> None:
     """ptxas's registers, spills and static shared memory for the tensor-core
-    bodies of K14 and K11 (from the build log), and the dynamic shared
+    bodies of K14 and K11-K13 (from the build log), and the dynamic shared
     memory a block of each asks for."""
     from mmbidaf_tpu_torch.ops.cuda import build
 
@@ -933,7 +968,9 @@ def print_tensor_core_resources() -> None:
     res = build.ptxas_resources(log.read_text())
     lib = build.library()
     for label, key, smem in (("K14 bf16", "winograd_mma_kernel", lib.mmb_winograd_mma_smem_bytes()),
-                             ("K11 bf16", "conv3x3_im2col_mma_kernel", lib.mmb_conv3x3_mma_smem_bytes())):
+                             ("K11 bf16", "conv3x3_im2col_mma_kernel", lib.mmb_conv3x3_mma_smem_bytes()),
+                             ("K12 bf16", "conv3x3_taps_mma_kernel", lib.mmb_conv3x3_taps_smem_bytes()),
+                             ("K13 bf16", "conv3x3_ring_mma_kernel", lib.mmb_conv3x3_ring_smem_bytes())):
         found = [r for name, r in res.items() if key in name]
         check(len(found) == 1, f"(7b) ptxas reported {len(found)} kernels named {key}")
         r = found[0]
@@ -1002,6 +1039,7 @@ def phase_vgg_kernels(dev, tool_launches: dict) -> list[dict]:
 
     # K11-K13 at the tool's VGG-16 layers (N=8, bf16), beside cuDNN.
     rec = {k: {"err": 0.0, "ms": 0.0} for k in ("K11", "K12", "K13")}
+    device = dict.fromkeys(("K11", "K12", "K13", "cuDNN"), 0.0)
     plain = lib = 0.0
     parts = []
     nb = 32 // 4
@@ -1018,14 +1056,23 @@ def phase_vgg_kernels(dev, tool_launches: dict) -> list[dict]:
             e = compare(f"{fn.__name__}[{layer}]", fn(x, wt, b), ref, ck.TOLERANCE[x.dtype])
             t = time_ms(lambda: fn(x, wt, b), iters=3)
             rec[k]["err"], rec[k]["ms"] = max(rec[k]["err"], e), rec[k]["ms"] + t
-            line.append(f"{k} {t:.4f} ms (err {e:.2e})")
-            if k == "K11":
-                line[-1] += f" {achieved(flops, t, parts[-1])}"
+            line.append(f"{k} {t:.4f} ms (err {e:.2e}) {achieved(flops, t, parts[-1])}")
+        route = ck.conv3x3_same_db.route
+        check(route == "tma", f"(7b) K13 took the {route} route at {layer}, not TMA")
         p = time_ms(lambda: ck.conv3x3_reference(x, wt, b), iters=3)
         lb = conv_library_ms(x, wt, b)
         plain, lib = plain + p, lib + lb
-        print(f"  K11-K13 {layer} N={nb} {size}² {c_in}->{c_out} bf16: {'; '.join(line)}; plain {p:.4f} ms; "
-              f"cuDNN {lb:.4f} ms; bound {max(parts[-1]):.4f} ms", flush=True)
+        print(f"  K11-K13 {layer} N={nb} {size}² {c_in}->{c_out} bf16: {'; '.join(line)}; K13 route {route}; "
+              f"plain {p:.4f} ms; cuDNN {lb:.4f} ms; bound {max(parts[-1]):.4f} ms", flush=True)
+        line = []
+        for k, fn in (("K11", ck.conv3x3_same), ("K12", ck.conv3x3_same_acc),
+                      ("K13", ck.conv3x3_same_db), ("cuDNN", conv_library_call(x, wt, b))):
+            d = device_ms(fn if k == "cuDNN" else lambda: fn(x, wt, b))
+            device[k] += d
+            line.append(f"{k} {d:.4f} ms {achieved(flops, d, parts[-1])}")
+        print(f"  K11-K13 {layer} device time (torch.profiler, 10 calls): {'; '.join(line)}", flush=True)
+    print(f"  K11-K13 device time over the three layers: "
+          f"{'; '.join(f'{k} {d:.4f} ms' for k, d in device.items())}", flush=True)
     for k, name, body in (("K11", "conv3x3_same", 32), ("K12", "conv3x3_same_acc", 124),
                           ("K13", "conv3x3_same_db", 208)):
         record(name, "conv3x3.cu", f"conv_kernel.py:{body}", rec[k]["err"], rec[k]["ms"], plain, lib,
@@ -1224,17 +1271,20 @@ def main() -> None:
     from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, build, lstm_kernel, melspec_kernel
     from mmbidaf_tpu_torch.serving import Summarizer
 
-    # 1. device. TF32 is off for both products and convolutions: every f32
-    # comparison below is held at f32.
+    # 1. device. TF32 is off for products (its default) and left at its
+    # default, on, for cuDNN: the f32 convs pin full f32 themselves, so every
+    # f32 comparison below is held at f32 as a user's process would run it.
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
     card = smi[0].strip()
     name = torch.cuda.get_device_name(0)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
     print(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda}); "
-          f"matmul.allow_tf32=False cudnn.allow_tf32=False", flush=True)
+          f"matmul.allow_tf32=False cudnn.allow_tf32={cudnn_tf32} "
+          f"(cudnn.conv.fp32_precision={torch.backends.cudnn.conv.fp32_precision})", flush=True)
+    check(cudnn_tf32, "cuDNN's TF32 flag is not its default (on)")
 
     # 2. build
     t0 = time.perf_counter()

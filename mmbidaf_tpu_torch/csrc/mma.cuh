@@ -1,4 +1,4 @@
-// Tensor-core helpers of the bf16 kernels (K11 in conv3x3.cu, K14 in
+// Tensor-core helpers of the bf16 kernels (K11-K13 in conv3x3.cu, K14 in
 // winograd.cu): warp-level mma.sync on bf16 operands with f32 accumulators,
 // ldmatrix to bring its fragments out of shared memory, and 16-byte cp.async
 // copies with zero fill. Inline PTX, so the build needs no include path

@@ -11,6 +11,7 @@ result dtype.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -32,6 +33,32 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` with JAX's dtype promotion."""
     return torch.einsum(eq, *promote(*xs))
+
+
+@contextlib.contextmanager
+def full_f32_convs(dtype: torch.dtype):
+    """For an f32 ``dtype``: cuDNN runs the block's convolutions in full f32,
+    whatever the process's TF32 flags, and its own setting is restored on
+    exit; cuDNN stays on and no other flag changes. Other dtypes: a no-op.
+
+    ``torch.backends.cudnn.allow_tf32`` defaults to True, so a bare f32
+    ``F.conv2d`` on the card runs in TF32 (about three decimal digits) where
+    the JAX reference computes in f32. ``torch.backends.cudnn.flags(
+    allow_tf32=False)`` is no cure: its other arguments take their defaults
+    too, ``enabled=False`` first, so cuDNN would be off inside it. The
+    per-operator setting ``cudnn.conv.fp32_precision`` touches the
+    convolutions alone, and reading it never trips the legacy flag's
+    mixed-API error."""
+    if dtype != torch.float32:
+        yield
+        return
+    conv = torch.backends.cudnn.conv
+    before = conv.fp32_precision
+    conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision = before
 
 
 def uniform_param(shape, bound: float, generator: torch.Generator, device) -> nn.Parameter:

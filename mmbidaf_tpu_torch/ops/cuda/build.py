@@ -30,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("lstm.cu", "lstm_bwd.cu", "bidaf.cu", "bidaf_bwd.cu", "bidaf_tiled.cu", "mfcc.cu",
            "winograd.cu", "conv3x3.cu", "preprocess.cu")
-HEADERS = ("common.cuh", "mma.cuh")
+HEADERS = ("common.cuh", "mma.cuh", "tma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -68,9 +68,14 @@ SIGNATURES = {
     "mmb_winograd_conv3x3": (P, P, P, P, I, I, I, I, I, I, I, P),
     # x, w, bias, out, N, H, W, Cin, Cout, relu, bf16, schedule, stream
     "mmb_conv3x3": (P, P, P, P, I, I, I, I, I, I, I, I, P),
-    # () -> dynamic shared memory of a block of K14's / K11's tensor-core body, in bytes
+    # x, w, Cin, Cout -> 1 if K13 in bf16 takes its TMA route for these operands
+    "mmb_conv3x3_tma_route": (P, P, I, I),
+    # () -> dynamic shared memory of a block of K14's / K11's / K12's / K13's
+    # tensor-core body, in bytes
     "mmb_winograd_mma_smem_bytes": (),
     "mmb_conv3x3_mma_smem_bytes": (),
+    "mmb_conv3x3_taps_smem_bytes": (),
+    "mmb_conv3x3_ring_smem_bytes": (),
     # frames, rh, rw3, bias, out, N, H, W, S, bf16, stream
     "mmb_preprocess_frames": (P, P, P, P, P, I, I, I, I, I, P),
 }

@@ -2,7 +2,9 @@
 
 The conv stack runs NCHW through ``torch.nn.functional.conv2d`` (cuDNN on
 the card) with OIHW weights; the JAX package's direct convs are XLA convs
-outside any Pallas kernel, so they have no hand kernel here either. Frames
+outside any Pallas kernel, so they have no hand kernel here either. f32
+convs run in full f32 whatever the process's TF32 flag
+(``ops.common.full_f32_convs``), as the JAX reference computes them. Frames
 arrive NHWC as in the JAX package; ``permute`` makes them a channels-last
 NCHW view, which cuDNN takes without a copy. With ``winograd=True`` every
 conv with C_in >= 32 runs Winograd F(2x2,3x3) through K14
@@ -29,7 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mmbidaf_tpu_torch.ops.common import einsum, mm, normal_param, uniform_param, zeros_param
+from mmbidaf_tpu_torch.ops.common import (einsum, full_f32_convs, mm, normal_param, uniform_param,
+                                          zeros_param)
 from mmbidaf_tpu_torch.ops.cuda import winograd_kernel
 
 # torchvision vgg16 config "D": numbers = out-channels of 3x3 convs, "M" = maxpool.
@@ -110,7 +113,9 @@ def vgg_features(params: VGG, images: torch.Tensor, spec: Sequence = VGG16_SPEC,
                     x.permute(0, 2, 3, 1).contiguous(), conv.w.permute(2, 3, 1, 0), conv.b,
                     relu=True).permute(0, 3, 1, 2)
             else:
-                x = F.relu(F.conv2d(x, conv.w, conv.b, padding=1), inplace=True)
+                with full_f32_convs(x.dtype):
+                    x = F.conv2d(x, conv.w, conv.b, padding=1)
+                x = F.relu(x, inplace=True)
             ci += 1
     x = x.reshape(x.shape[0], -1)  # NCHW flatten order (torchvision classifier)
     x = torch.relu(mm(x, params.fc1_w) + params.fc1_b)

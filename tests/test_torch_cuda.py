@@ -470,6 +470,16 @@ def _conv_args(dev, gen, N, H, W, Cin, Cout, dtype):
     return x, w, (torch.randn(Cout, device=dev, generator=gen) * 0.1).to(dtype)
 
 
+def _k13_route(dtype, x, w):
+    """The route K13 should take: TMA where both operands have C % 8 == 0
+    and 16-byte aligned data, else cp.async; the scalar body in f32."""
+    if dtype == torch.float32:
+        return "scalar"
+    ok = (x.shape[-1] % 8 == 0 and w.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0
+          and w.data_ptr() % 16 == 0)
+    return "tma" if ok else "cp.async"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("N,H,W,Cin,Cout", [
@@ -479,9 +489,12 @@ def _conv_args(dev, gen, N, H, W, Cin, Cout, dtype):
     (1, 10, 12, 24, 200), # Cout past three blocks, ragged
     (2, 6, 11, 14, 18),   # Cin and Cout not multiples of 8: the elementwise loaders
     (4, 14, 14, 512, 512),  # a VGG-16 conv5 layer
+    (3, 5, 9, 16, 24),    # W < 16 and H < 8: K13's TMA box runs past the image on every side
 ])
 def test_conv3x3_kernels_generic_shapes(cuda_device, dtype, N, H, W, Cin, Cout):
-    """K11, K12 and K13 against their plain version; each call is one launch."""
+    """K11, K12 and K13 against their plain version; each call is one
+    launch; K13 takes the route its shape allows; K12 and K13 give the same
+    bits twice."""
     from mmbidaf_tpu_torch.ops.cuda import conv_kernel as ck
 
     x, w, b = _conv_args(cuda_device, torch.Generator(device=cuda_device).manual_seed(9),
@@ -492,12 +505,53 @@ def test_conv3x3_kernels_generic_shapes(cuda_device, dtype, N, H, W, Cin, Cout):
         out = fn(x, w, b)
         assert fn.launches == before + 1 and out.dtype == dtype
         torch.testing.assert_close(out.float(), ref.float(), **ck.TOLERANCE[dtype], msg=fn.__name__)
+        if fn is not ck.conv3x3_same:
+            assert torch.equal(fn(x, w, b), out), fn.__name__
+    assert ck.conv3x3_same_db.route == _k13_route(dtype, x, w)
     no_relu = ck.conv3x3_same_acc(x, w, b, relu=False)
     torch.testing.assert_close(no_relu.float(), ck.conv3x3_reference(x, w, b, relu=False).float(),
                                **ck.TOLERANCE[dtype])
-    if dtype == torch.bfloat16:
-        with pytest.raises(ValueError, match="even Cin"):
-            ck.conv3x3_same_db(x[..., :5].contiguous(), w[:, :, :5].contiguous(), b)
+    if dtype == torch.bfloat16:  # odd Cin and Cout: K13 in bf16 takes them (the cp.async route)
+        x5, w5, b7 = x[..., :5].contiguous(), w[:, :, :5, :7].contiguous(), b[:7].contiguous()
+        torch.testing.assert_close(ck.conv3x3_same_db(x5, w5, b7).float(),
+                                   ck.conv3x3_reference(x5, w5, b7).float(), **ck.TOLERANCE[dtype])
+        assert ck.conv3x3_same_db.route == "cp.async"
+
+
+def _offset_by_one(t):
+    """``t``'s values in a contiguous tensor whose data starts one element
+    into its storage (a pointer 2 bytes off 16-byte alignment in bf16)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,N,H,W,Cin,Cout,route", [
+    ("aligned", 2, 11, 19, 48, 40, "tma"),       # C % 8 == 0: TMA, ragged Cin chunk and Cout block
+    ("odd_c", 2, 11, 19, 13, 20, "cp.async"),    # Cin off 8: element loads of x, cp.async of w
+    ("odd_k", 2, 11, 19, 48, 20, "cp.async"),    # Cout off 8: cp.async of x, element loads of w
+    ("x_offset", 2, 11, 19, 48, 40, "cp.async"),  # x one element into its storage
+    ("w_offset", 2, 11, 19, 48, 40, "cp.async"),  # w one element into its storage
+])
+def test_conv3x3_k13_routes(cuda_device, case, N, H, W, Cin, Cout, route):
+    """K13's TMA and cp.async routes (and K11's and K12's element loaders at
+    the same shapes) against the plain version, in bf16."""
+    from mmbidaf_tpu_torch.ops.cuda import conv_kernel as ck
+
+    x, w, b = _conv_args(cuda_device, torch.Generator(device=cuda_device).manual_seed(12),
+                         N, H, W, Cin, Cout, torch.bfloat16)
+    if case == "x_offset":
+        x = _offset_by_one(x)
+    if case == "w_offset":
+        w = _offset_by_one(w)
+    ref = ck.conv3x3_reference(x, w, b).float()
+    for fn in (ck.conv3x3_same, ck.conv3x3_same_acc, ck.conv3x3_same_db):
+        torch.testing.assert_close(fn(x, w, b).float(), ref, **ck.TOLERANCE[torch.bfloat16],
+                                   msg=fn.__name__)
+    assert ck.conv3x3_same_db.route == route
 
 
 @pytest.mark.cuda
@@ -545,6 +599,34 @@ def test_preprocess_kernel_generic_shapes(cuda_device, dtype, n, h, w, s):
     assert out.dtype == dtype and out.shape == (n, s, s, 3)
     torch.testing.assert_close(out.float(), pk.preprocess_reference(x, s, dtype).float(),
                                **pk.TOLERANCE[dtype])
+
+
+@pytest.mark.cuda
+def test_vgg_features_f32_ignore_the_tf32_flag(cuda_device):
+    """f32 ``vgg_features`` at 224² with the process's cuDNN TF32 flag on
+    (its default) equal the same call with TF32 forced off, within the
+    features' 1e-4 bound: the direct convs pin full f32 themselves. The
+    process's cuDNN flags are as they were afterwards."""
+    from mmbidaf_tpu_torch.ops.vgg import VGG, VGG16_SPEC, vgg_features
+
+    cudnn = torch.backends.cudnn
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    params = VGG(VGG16_SPEC, 224, 4096, 3, gen, cuda_device)
+    imgs = torch.randn(2, 224, 224, 3, device=cuda_device, generator=gen)
+    prior = cudnn.allow_tf32
+    try:
+        cudnn.allow_tf32 = True
+        before = (cudnn.enabled, cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32)
+        with torch.no_grad():
+            free = vgg_features(params, imgs)
+        assert (cudnn.enabled, cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32) == before
+        cudnn.allow_tf32 = False
+        with torch.no_grad():
+            pinned = vgg_features(params, imgs)
+    finally:
+        cudnn.allow_tf32 = prior
+    assert free.shape == (2, 4096) and bool(torch.isfinite(free).all())
+    torch.testing.assert_close(free, pinned, atol=1e-4, rtol=0.0)
 
 
 @pytest.mark.cuda

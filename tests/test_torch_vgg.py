@@ -145,6 +145,51 @@ def test_vgg_features_winograd_matches_jax(rng):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-5)
 
 
+def _cudnn_flags():
+    c = torch.backends.cudnn
+    return (c.enabled, c.benchmark, c.deterministic, c.allow_tf32, c.conv.fp32_precision)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_direct_convs_pin_full_f32_with_cudnn_on(monkeypatch, rng, dtype):
+    """Every f32 direct conv of ``vgg_features``, and the conv of K11-K13's
+    plain version (f32 whatever its input), runs with cuDNN on and its conv
+    precision at full f32 ("ieee"), not TF32, though the process's flag
+    allows TF32; bf16 convs leave the flags as they are. Afterwards every
+    flag is as it was, non-default ``benchmark`` and ``deterministic``
+    included. (``torch.backends.cudnn.flags(allow_tf32=False)`` would have
+    turned cuDNN off inside: its ``enabled`` defaults to False.)"""
+    cudnn = torch.backends.cudnn
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy(*a, **k):
+        seen.append((cudnn.enabled, cudnn.conv.fp32_precision))
+        return conv2d(*a, **k)
+
+    _, port = _vgg_pair(SPEC)
+    port.to(dtype)
+    imgs = _t(rng.standard_normal((2, 32, 32, 3)).astype(np.float32)).to(dtype)
+    x, w, b = (_t(a).to(dtype) for a in _conv_inputs(rng, 2, 6, 7, 5, 4))
+    prior = (cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32)
+    try:
+        cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32 = True, True, True
+        before = _cudnn_flags()
+        assert before[-1] == "tf32"
+        monkeypatch.setattr(torch.nn.functional, "conv2d", spy)
+        t_vgg.vgg_features(port, imgs, SPEC)
+        n_vgg = len(seen)
+        conv_kernel.conv3x3_reference(x, w, b)
+        after = _cudnn_flags()
+    finally:
+        cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32 = prior
+    assert after == before
+    assert n_vgg == 3 and len(seen) == 4
+    vgg_precision = "ieee" if dtype == torch.float32 else "tf32"
+    assert seen[:n_vgg] == [(True, vgg_precision)] * n_vgg
+    assert seen[n_vgg:] == [(True, "ieee")]
+
+
 def _spy(monkeypatch):
     """Record the C_in of every conv taken by K14's wrapper and by the
     direct ``F.conv2d`` route."""
