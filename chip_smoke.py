@@ -227,30 +227,55 @@ def resize_flops(frames: int, h: int, w: int, s: int) -> float:
     return frames * (2 * nnz_h * 3 * w + 2 * nnz_w * 3 * s + 3 * s * s)
 
 
-def lstm_library_ms(rows, steps, width, hid, mask, dev, backward: bool) -> float:
-    """One cuDNN ``nn.LSTM`` call (bidirectional, packed sequence; every
-    row has length >= 1) on the same shape, in full f32 as the kernels (the
-    process leaves cuDNN's TF32 flag on): the forward, or with ``backward``
-    the gradient of its output w.r.t. the input and weights."""
+@contextlib.contextmanager
+def cudnn_rnn_full_f32():
+    """cuDNN's LSTM in full f32, as the kernels (the process leaves cuDNN's
+    TF32 flag on)."""
     import torch
-    from torch.nn.utils.rnn import pack_padded_sequence
 
     rnn = torch.backends.cudnn.rnn
     precision, rnn.fp32_precision = rnn.fp32_precision, "ieee"
     try:
-        lstm = torch.nn.LSTM(width, hid, batch_first=True, bidirectional=True).to(dev)
-        lengths = mask.sum(1).clamp(min=1).long().cpu()
-        x = torch.randn(rows, steps, width, device=dev, requires_grad=backward)
-        packed = pack_padded_sequence(x, lengths, batch_first=True, enforce_sorted=False)
-        if not backward:
-            with torch.no_grad():
-                return time_ms(lambda: lstm(packed), iters=5)
-        out, _ = lstm(packed)
-        g = torch.randn_like(out.data)
-        inputs = [x, *lstm.parameters()]
-        return time_ms(lambda: torch.autograd.grad(out.data, inputs, g, retain_graph=True), iters=5)
+        yield
     finally:
         rnn.fp32_precision = precision
+
+
+def lstm_library_call(rows, steps, width, hid, mask, dev, backward: bool):
+    """One cuDNN ``nn.LSTM`` call (bidirectional, packed sequence; every row
+    has length >= 1) on the same shape, to be run under
+    ``cudnn_rnn_full_f32``: the forward, or with ``backward`` the gradient
+    of its output w.r.t. the input and weights (which also computes the
+    ``dx``/``dW_x``/``db`` products that K6 leaves outside, see
+    ``lstm_input_grads_call``)."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    lstm = torch.nn.LSTM(width, hid, batch_first=True, bidirectional=True).to(dev)
+    lengths = mask.sum(1).clamp(min=1).long().cpu()
+    x = torch.randn(rows, steps, width, device=dev, requires_grad=backward)
+    packed = pack_padded_sequence(x, lengths, batch_first=True, enforce_sorted=False)
+    if not backward:
+        def forward():
+            with torch.no_grad():
+                return lstm(packed)
+        return forward
+    out, _ = lstm(packed)
+    g = torch.randn_like(out.data)
+    inputs = [x, *lstm.parameters()]
+    return lambda: torch.autograd.grad(out.data, inputs, g, retain_graph=True)
+
+
+def lstm_input_grads_call(rows, steps, width, hid, dev):
+    """The products that cuDNN's backward call computes beside the BPTT and
+    that the port leaves to autograd through the projection: dx = dgates ·
+    W_xᵀ, dW_x = xᵀ · dgates, db = Σ dgates, both directions at once."""
+    import torch
+
+    x = torch.randn(rows * steps, width, device=dev)
+    w_x = torch.randn(width, 8 * hid, device=dev)
+    dg = torch.randn(rows * steps, 8 * hid, device=dev)
+    return lambda: (dg @ w_x.T, x.T @ dg, dg.sum(0))
 
 
 def ragged_mask(rng, n: int, t: int, lo: int = 1, empty_row: int | None = None) -> np.ndarray:
@@ -360,7 +385,8 @@ def phase_kernels(dev, cfg) -> list[dict]:
         if tag != "small-ragged":
             k = time_ms(lambda: lstm_kernel.bilstm_cuda(p, x, m), iters=10)
             pl = time_ms(lambda: lstm_kernel.bilstm_reference(p, x, m), iters=2, reps=3)
-            lb = lstm_library_ms(rows, steps, width, hid, m, dev, backward=False)
+            with cudnn_rnn_full_f32():
+                lb = time_ms(lstm_library_call(rows, steps, width, hid, m, dev, backward=False), iters=5)
             ms, plain_ms, lib_ms = ms + k, plain_ms + pl, lib_ms + lb
             G = 4 * hid  # projection GEMM + recurrence; x, weights, mask in, out and h/c out
             parts.append(bound(2 * rows * steps * width * 2 * G + 2 * 2 * rows * steps * hid * G,
@@ -569,8 +595,10 @@ def phase_train_kernels(dev, cfg) -> list[dict]:
         return t(rng.standard_normal(shape).astype(np.float32))
 
     # K5 / K6 on the gates of random BiLSTM layers.
-    rec5 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "parts": []}
-    rec6 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "parts": []}
+    rec5 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "dev": 0.0, "lib_dev": 0.0, "parts": []}
+    rec6 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "dev": 0.0, "lib_dev": 0.0, "parts": []}
+    gemm = {"ms": 0.0, "dev": 0.0}
+    plans = {}
     for tag, rows, steps, width in lstm_shapes(cfg, B_TRAIN):
         hid = h if tag != "small-ragged" else 8
         G = 4 * hid
@@ -583,33 +611,58 @@ def phase_train_kernels(dev, cfg) -> list[dict]:
         e5 = compare(f"bilstm_train[{tag}]", fwd, lk.bilstm_train_forward_reference(gates, m, w_h),
                      lk.TOLERANCE)
         check(not fwd[0][1].any() and not fwd[3][:, :, 1].any(), f"K5[{tag}]: masked row not zero")
+        again = lk.bilstm_train_forward(gates, m, w_h)
+        check(all(torch.equal(a, b) for a, b in zip(fwd, again)), f"K5[{tag}]: two runs differ")
         _, _, _, h_seq, c_seq = fwd
         dout, dh, dc = normal(rows, steps, 2 * hid), normal(rows, 2 * hid), normal(rows, 2 * hid)
         bwd_args = (gates, m, w_h, h_seq, c_seq, dout, dh, dc)
         bwd = lk.bilstm_bptt(*bwd_args)
         e6 = compare(f"bilstm_bptt[{tag}]", bwd, lk.bilstm_bptt_reference(*bwd_args), lk.BPTT_TOLERANCE,
                      normwise=True)
+        check(not bwd[0][1].any(), f"K6[{tag}]: dgates of the empty row not zero")
         again = lk.bilstm_bptt(*bwd_args)
         check(all(torch.equal(a, b) for a, b in zip(bwd, again)), f"K6[{tag}]: two runs differ")
         rec5["err"], rec6["err"] = max(rec5["err"], e5), max(rec6["err"], e6)
+        plan = lk.cluster_plan(rows, hid)
+        plans[tag] = plan
+        plan_s = f"cluster plan C={plan.C} R={plan.R} U={plan.U} blocks={plan.blocks}"
         if tag == "small-ragged":
-            print(f"  K5/K6 {tag}: max_abs_err K5={e5:.3e} K6={e6:.3e}; K6 deterministic", flush=True)
+            print(f"  K5/K6 {tag}: {plan_s}; max_abs_err K5={e5:.3e} K6={e6:.3e}; "
+                  f"K5 and K6 deterministic", flush=True)
             continue
         k5 = time_ms(lambda: lk.bilstm_train_forward(gates, m, w_h), iters=10)
         k6 = time_ms(lambda: lk.bilstm_bptt(*bwd_args), iters=10)
+        d5 = device_ms(lambda: lk.bilstm_train_forward(gates, m, w_h))
+        d6 = device_ms(lambda: lk.bilstm_bptt(*bwd_args))
         p5 = time_ms(lambda: lk.bilstm_train_forward_reference(gates, m, w_h), iters=1, reps=3)
         p6 = time_ms(lambda: lk.bilstm_bptt_reference(*bwd_args), iters=1, reps=3)
-        l5 = lstm_library_ms(rows, steps, width, hid, m, dev, backward=False)
-        l6 = lstm_library_ms(rows, steps, width, hid, m, dev, backward=True)
+        with cudnn_rnn_full_f32():
+            lib_fwd = lstm_library_call(rows, steps, width, hid, m, dev, backward=False)
+            lib_bwd = lstm_library_call(rows, steps, width, hid, m, dev, backward=True)
+            l5, l6 = time_ms(lib_fwd, iters=5), time_ms(lib_bwd, iters=5)
+            ld5, ld6 = device_ms(lib_fwd), device_ms(lib_bwd)
+        grads = lstm_input_grads_call(rows, steps, width, hid, dev)
+        gm, gd = time_ms(grads, iters=10), device_ms(grads)
         n, rec = rows * steps, 2 * 2 * rows * steps * hid * G  # the recurrent product, both directions
         rec5["parts"].append(bound(rec, 4 * (n * (2 * G + 1 + 2 * hid + 4 * hid) + 2 * hid * G + 4 * rows * hid)))
         rec6["parts"].append(bound(3 * rec, 4 * (n * (2 * G + 1 + 4 * hid + 2 * hid + 2 * G)
                                                  + 2 * 2 * hid * G + 4 * rows * hid)))
-        for r, k, pl, lb in ((rec5, k5, p5, l5), (rec6, k6, p6, l6)):
-            r["ms"], r["plain"], r["lib"] = r["ms"] + k, r["plain"] + pl, r["lib"] + lb
-        print(f"  K5/K6 {tag:9s} rows={rows:5d} T={steps:4d}: max_abs_err K5={e5:.3e} K6={e6:.3e}; "
-              f"K5 {k5:.4f} ms (plain {p5:.2f}, cudnn fwd {l5:.4f}); "
-              f"K6 {k6:.4f} ms (plain {p6:.2f}, cudnn bwd {l6:.4f}); K6 deterministic", flush=True)
+        for r, k, kd, pl, lb, lbd in ((rec5, k5, d5, p5, l5, ld5), (rec6, k6, d6, p6, l6, ld6)):
+            r["ms"], r["dev"], r["plain"] = r["ms"] + k, r["dev"] + kd, r["plain"] + pl
+            r["lib"], r["lib_dev"] = r["lib"] + lb, r["lib_dev"] + lbd
+        gemm["ms"], gemm["dev"] = gemm["ms"] + gm, gemm["dev"] + gd
+        print(f"  K5/K6 {tag:9s} rows={rows:5d} T={steps:4d}: {plan_s}; max_abs_err K5={e5:.3e} "
+              f"K6={e6:.3e}; K5 {k5:.4f} ms (device {d5:.4f}; plain {p5:.2f}; cudnn fwd {l5:.4f}, "
+              f"device {ld5:.4f}); K6 {k6:.4f} ms (device {d6:.4f}; plain {p6:.2f}; cudnn bwd "
+              f"{l6:.4f}, device {ld6:.4f}); dx/dW_x/db GEMMs {gm:.4f} ms (device {gd:.4f}); "
+              f"K6 + GEMMs on the device {d6 + gd:.4f} vs cudnn bwd {ld6:.4f}; "
+              f"K5 and K6 deterministic", flush=True)
+    print(f"  K5/K6 five towers: K5 {rec5['ms']:.4f} ms (device {rec5['dev']:.4f}) vs cudnn fwd "
+          f"{rec5['lib']:.4f} (device {rec5['lib_dev']:.4f}); K6 {rec6['ms']:.4f} ms (device "
+          f"{rec6['dev']:.4f}) vs cudnn bwd {rec6['lib']:.4f} (device {rec6['lib_dev']:.4f}); the "
+          f"dx/dW_x/db GEMMs {gemm['ms']:.4f} ms (device {gemm['dev']:.4f}): K6 + GEMMs on the "
+          f"device {rec6['dev'] + gemm['dev']:.4f} vs cudnn bwd {rec6['lib_dev']:.4f}", flush=True)
+    print_lstm_resources(plans)
 
     # K7 / K8 with dropped operands (drop 0.2, as in training).
     rec7 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "parts": []}
@@ -659,6 +712,8 @@ def phase_train_kernels(dev, cfg) -> list[dict]:
                "replaces": f"mmbidaf_tpu/ops/pallas/{replaces}", "max_abs_err": r["err"],
                "ms": r["ms"], "plain_ms": r["plain"], **bound_fields(r["parts"]),
                "library_ms": lib}
+        if "dev" in r:  # K5 / K6: device times beside the CUDA-event ones
+            out.update(device_ms=r["dev"], library_device_ms=r["lib_dev"])
         print(f"{name}: max_abs_err={r['err']:.3e} kernel={r['ms']:.4f} ms plain={r['plain']:.4f} ms "
               f"library={lib} roofline={out['bound_ms']:.4f} ms ({out['bound_by']})", flush=True)
         return out
@@ -979,6 +1034,30 @@ def print_tensor_core_resources() -> None:
               flush=True)
 
 
+def print_lstm_resources(plans: dict) -> None:
+    """ptxas's registers, spills and static shared memory for K5's and K6's
+    kernels (from the build log), and each tower's dynamic shared memory a
+    block under its cluster plan."""
+    from mmbidaf_tpu_torch.ops.cuda import build
+
+    log = build.library_path().with_suffix(".log")
+    check(log.exists(), f"(3) no build log at {log}")
+    res = build.ptxas_resources(log.read_text())
+    for label, key in (("K5", "bilstm_train_cluster_kernel"), ("K6 (a)", "lstm_z_kernel"),
+                       ("K6 (b)", "bilstm_bptt_cluster_kernel"),
+                       ("K6 (c)", "lstm_dwh_partial_kernel"), ("K6 (c)", "sum_partials_kernel")):
+        found = sorted((name, r) for name, r in res.items() if key in name)
+        check(len(found) > 0, f"(3) ptxas reported no kernel named {key}")
+        for name, r in found:
+            inst = name[name.index(key) + len(key):].split("E", 1)[0] or "-"
+            print(f"  {label} {key} {inst}: {r['registers']} registers, spill stores "
+                  f"{r['spill_stores']} B, spill loads {r['spill_loads']} B, static smem {r['smem']} B",
+                  flush=True)
+    for tag, plan in plans.items():
+        print(f"  K5/K6 {tag}: dynamic smem a block K5 {plan.smem_fwd} B, K6 walk {plan.smem_bwd} B "
+              f"(C={plan.C}, R={plan.R})", flush=True)
+
+
 def phase_parity_tool(dev) -> dict:
     """Phase 7a: the kernel-parity tool at batch 32; K10-K13's launches over it."""
     from mmbidaf_tpu_torch.ops.cuda import conv_kernel, preprocess_kernel
@@ -1241,7 +1320,11 @@ def phase_train(dev, card: str, records: list[dict]) -> None:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"(5a) median step {t_step * 1e3:.2f} ms over {TRAIN_STEPS - 1} -> {1.0 / t_step:.3f} steps/s, "
           f"{B_TRAIN / t_step:.2f} videos/s on {card}; peak memory {peak_gb:.2f} GB", flush=True)
-    profile_kernels(lambda st: train_step(st, batch)[0], state, t_step, "(5a)", "step")
+    profile_kernels(lambda st: train_step(st, batch)[0], state, t_step, "(5a)", "step",
+                    groups={"K5": "bilstm_train_cluster_kernel", "K6 (a) z": "lstm_z_kernel",
+                            "K6 (b) walk": "bilstm_bptt_cluster_kernel",
+                            "K6 (c) dW_h": "lstm_dwh_partial_kernel", "K8": "bidaf_bwd_kernel",
+                            "K7": "bidaf_kernel"})
 
     # (b) drop_prob 0, f32: one step through the kernels and through the plain versions.
     results = []

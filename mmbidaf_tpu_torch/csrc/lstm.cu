@@ -1,6 +1,6 @@
 // K1 — BiLSTM recurrence, both directions in one launch — and K5, the same
 // recurrence for training, which also writes the carried h and c of every
-// step as the BPTT residuals (kTrain = true).
+// step as the BPTT residuals.
 //
 // Replaces: mmbidaf_tpu/ops/pallas/lstm_kernel.py::_lstm_kernel (K1, entry
 // points lstm_pallas / bilstm_pallas) and ::_lstm_fwd_train_kernel (K5,
@@ -19,25 +19,28 @@
 // position T-1-t in the reverse direction), which csrc/lstm_bwd.cu (K6)
 // reads back.
 //
-// What bounds it on the H100: the recurrence is sequential in T, so the
-// parallelism is rows x directions only, and every step must read all of
-// W_h (128 x 512 f32 = 256 KB per direction) — more than a block's 227 KB
-// of shared memory. The TPU kept W_h resident in VMEM; here it is read each
-// step from L2 (50 MB, it stays resident), and each W_h element read is
-// reused for R rows held by the block, so L2 traffic per step is
-// 256 KB x blocks / R. The word tower (2048 rows x 16 steps) runs R=16 ->
-// 256 blocks; the audio tower (64 rows x 512 steps) runs R=4 -> 32 blocks,
-// which leaves most SMs idle: its time is 512 dependent steps of latency,
-// the occupancy problem named for a later PR (split W_h over a cluster and
-// keep it in distributed shared memory).
+// K1 (bilstm_kernel): grid (ceil(B/R), 2 directions); W_h (128 x 512 f32 =
+// 256 KB per direction, over a block's 227 KB) is read from L2 every step,
+// each read reused for the block's R rows; one thread per gate column
+// accumulates z for the R rows, then one thread per (row, unit) runs the
+// gate math. Its time is T dependent steps of L2 latency; the cluster design
+// below is its candidate too.
 //
-// Design: grid (ceil(B/R), 2 directions); one thread per gate column j of
-// 4H accumulates z[r][j] for the block's R rows in registers (the W_h
-// column read is coalesced across the warp, h is a shared-memory
-// broadcast); the gate math then runs one thread per (row, unit) with the
-// carried h and c in shared memory. Two barriers per step, no
-// synchronisation between blocks (rows are independent).
+// K5 (bilstm_train_cluster_kernel) keeps W_h on chip over a thread-block
+// cluster (csrc/lstm_cluster.cuh): block c of a cluster holds the four gate
+// columns of its ~H/C units for the cluster's R rows. Per step it computes
+// z[:, its columns] = gates + h_prev · W_h[:, its columns] from the full
+// h_prev [H][R] it holds, runs the gate math of its units, writes out,
+// h_seq and c_seq, pushes its h slice into every block's h buffer of the
+// next parity, and passes the cluster barrier: one barrier a step. The next
+// step's gates and mask come by cp.async while the step runs.
+// What bounds it: per step, one cluster barrier and the [R x H]·[H x 4U]
+// product a block (U = ceil(H/C)); for the whole kernel, the recurrent
+// product's 2·2·B·T·H·4H FLOPs at the H100's 67 TFLOP/s f32 rate (the
+// residual writes are the bytes). W_h is read from device memory once per
+// block, not once per step.
 #include "common.cuh"
+#include "lstm_cluster.cuh"
 
 namespace {
 
@@ -162,6 +165,133 @@ int bilstm_forward(const void* gates, const void* mask, const void* w_h, void* o
   return (int)e;
 }
 
+// ---------------------------------------------------------------------------
+// K5: the training recurrence on a thread-block cluster.
+// ---------------------------------------------------------------------------
+
+namespace lc = mmb::lstmc;
+
+template <int R>
+__global__ void __launch_bounds__(lc::kThreads) bilstm_train_cluster_kernel(
+    const float* __restrict__ gates,  // [B, T, 2, 4H]
+    const float* __restrict__ mask,   // [B, T]
+    const float* __restrict__ w_h,    // [2, H, 4H]
+    float* __restrict__ out,          // [B, T, 2H]
+    float* __restrict__ h_last,       // [B, 2H]
+    float* __restrict__ c_last,       // [B, 2H]
+    float* __restrict__ h_seq,        // [2, T, B, H]
+    float* __restrict__ c_seq,        // [2, T, B, H]
+    int B, int T, int H) {
+  static_assert(R % lc::kRC == 0, "rows a cluster must be a multiple of kRC");
+  lc::cg::cluster_group cluster = lc::cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  const int C = gridDim.x, c = blockIdx.x;
+  const int U = lc::units_max(H, C), G4 = 4 * U, ldw = G4 + 1, G = 4 * H;
+  const int u0 = lc::unit_begin(c, H, C), nu = lc::unit_begin(c + 1, H, C) - u0;
+  const int row0 = blockIdx.y * R, dir = blockIdx.z;
+  float* h_b = smem;                                  // [2][H][R] full h, by parity
+  float* w_s = h_b + lc::round4(2 * (size_t)H * R);   // [H][4U+1]
+  float* z_s = w_s + lc::round4((size_t)H * ldw);     // [R][4U]
+  float* g_st = z_s + lc::round4(R * G4);             // [2][R][4U] gates stage
+  float* c_s = g_st + lc::round4(2 * R * G4);         // [R][U] carried c
+  float* m_st = c_s + lc::round4(R * U);              // [2][R] mask stage
+
+  // The gates and mask of step t into stage t & 1.
+  auto prefetch = [&](int t) {
+    const int tt = dir ? T - 1 - t : t;
+    float* gs = g_st + (t & 1) * R * G4;
+    for (int e = threadIdx.x; e < R * G4 + R; e += blockDim.x) {
+      if (e < R * G4) {
+        const int r = e / G4, jl = e - r * G4, g = jl / U, ul = jl - g * U;
+        const int row = row0 + r;
+        const bool ok = row < B && ul < nu;
+        lc::cp_async4(gs + e,
+                      ok ? gates + ((size_t)row * T + tt) * 2 * G + (size_t)dir * G + g * H + u0 + ul
+                         : gates,
+                      ok);
+      } else {
+        const int r = e - R * G4, row = row0 + r;
+        lc::cp_async4(m_st + (t & 1) * R + r, row < B ? mask + (size_t)row * T + tt : mask,
+                      row < B);
+      }
+    }
+  };
+
+  lc::load_w_slice(w_s, w_h + (size_t)dir * H * G, H, U, u0, nu);
+  for (int e = threadIdx.x; e < H * R; e += blockDim.x) h_b[e] = 0.0f;
+  for (int e = threadIdx.x; e < R * U; e += blockDim.x) c_s[e] = 0.0f;
+  prefetch(0);
+  lc::cp_async_wait_all();
+  cluster.sync();  // every block of the cluster has started and is initialised
+
+  for (int t = 0; t < T; ++t) {
+    const int par = t & 1, tt = dir ? T - 1 - t : t;
+    if (t + 1 < T) prefetch(t + 1);
+    const float* hb = h_b + par * H * R;
+    const float* gs = g_st + par * R * G4;
+    // z[:, this block's columns] = gates + h_prev · W_h[:, those columns]
+    for (int q = threadIdx.x; q < G4 * (R / lc::kRC); q += blockDim.x) {
+      const int jl = q % G4, r0 = (q / G4) * lc::kRC;
+      float acc[lc::kRC] = {};
+#pragma unroll 4
+      for (int k = 0; k < H; ++k) {
+        const float w = w_s[k * ldw + jl];
+        const float4 hv = *reinterpret_cast<const float4*>(hb + k * R + r0);
+        acc[0] = fmaf(hv.x, w, acc[0]);
+        acc[1] = fmaf(hv.y, w, acc[1]);
+        acc[2] = fmaf(hv.z, w, acc[2]);
+        acc[3] = fmaf(hv.w, w, acc[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < lc::kRC; ++i) z_s[(r0 + i) * G4 + jl] = gs[(r0 + i) * G4 + jl] + acc[i];
+    }
+    __syncthreads();
+    // The gate math of this block's units; h goes to every block's buffer
+    // of the next parity.
+    float* hn = h_b + (par ^ 1) * H * R;
+    for (int p = threadIdx.x; p < R * nu; p += blockDim.x) {
+      const int r = p / nu, ul = p - r * nu, u = u0 + ul, row = row0 + r;
+      const float* z = z_s + r * G4;
+      const float ig = mmb::sigmoid(z[ul]);
+      const float fg = mmb::sigmoid(z[U + ul]);
+      const float gg = tanhf(z[2 * U + ul]);
+      const float og = mmb::sigmoid(z[3 * U + ul]);
+      const float c_old = c_s[r * U + ul], h_old = hb[u * R + r];
+      const float c_new = fg * c_old + ig * gg;
+      const float h_new = og * tanhf(c_new);
+      const float m = m_st[par * R + r];
+      const float c_carry = m * c_new + (1.0f - m) * c_old;
+      const float h_carry = m * h_new + (1.0f - m) * h_old;
+      c_s[r * U + ul] = c_carry;
+      for (int cc = 0; cc < C; ++cc) cluster.map_shared_rank(hn, cc)[u * R + r] = h_carry;
+      if (row < B) {
+        out[((size_t)row * T + tt) * 2 * H + (size_t)dir * H + u] = h_new * m;
+        const size_t q = (((size_t)dir * T + t) * B + row) * H + u;
+        h_seq[q] = h_carry;
+        c_seq[q] = c_carry;
+      }
+    }
+    lc::cp_async_wait_all();
+    cluster.sync();
+  }
+
+  const float* hb = h_b + (T & 1) * H * R;
+  for (int p = threadIdx.x; p < R * nu; p += blockDim.x) {
+    const int r = p / nu, ul = p - r * nu, u = u0 + ul, row = row0 + r;
+    if (row < B) {
+      h_last[(size_t)row * 2 * H + (size_t)dir * H + u] = hb[u * R + r];
+      c_last[(size_t)row * 2 * H + (size_t)dir * H + u] = c_s[r * U + ul];
+    }
+  }
+}
+
+// f(the kernel instantiated for a plan's R).
+template <typename F>
+auto with_train_kernel(int R, F f) {
+  return R == 16 ? f(bilstm_train_cluster_kernel<16>)
+                 : R == 8 ? f(bilstm_train_cluster_kernel<8>) : f(bilstm_train_cluster_kernel<4>);
+}
+
 }  // namespace
 
 // K1: the inference recurrence.
@@ -172,12 +302,40 @@ MMB_API int mmb_bilstm_forward(const void* gates, const void* mask, const void* 
                                H, stream);
 }
 
-// K5: the training recurrence, which also writes h_seq / c_seq.
+// K5: the training recurrence on a cluster, which also writes h_seq / c_seq.
 MMB_API int mmb_bilstm_forward_train(const void* gates, const void* mask, const void* w_h,
                                      void* out, void* h_last, void* c_last, void* h_seq,
                                      void* c_seq, int B, int T, int H, void* stream) {
-  return bilstm_forward<true>(gates, mask, w_h, out, h_last, c_last, h_seq, c_seq, B, T, H,
-                              stream);
+  lc::Plan p;
+  if (T <= 0 || !lc::plan(B, H, &p)) return (int)cudaErrorInvalidValue;
+  return (int)with_train_kernel(p.R, [&](auto kernel) {
+    return lc::launch(kernel, p, p.smem_fwd, static_cast<cudaStream_t>(stream),
+                      static_cast<const float*>(gates), static_cast<const float*>(mask),
+                      static_cast<const float*>(w_h), static_cast<float*>(out),
+                      static_cast<float*>(h_last), static_cast<float*>(c_last),
+                      static_cast<float*>(h_seq), static_cast<float*>(c_seq), B, T, H);
+  });
+}
+
+// The cluster plan of K5 and K6 for B rows of width H into out[7]: C, R,
+// U, clusters a direction, blocks, K5's and K6's dynamic shared memory a
+// block (bytes). Returns 0, or cudaErrorInvalidValue if there is none.
+MMB_API int mmb_lstm_cluster_plan(int B, int H, int* out) {
+  lc::Plan p;
+  if (!lc::plan(B, H, &p)) return (int)cudaErrorInvalidValue;
+  const int v[7] = {p.C, p.R, p.U, p.groups, 2 * p.groups * p.C, p.smem_fwd, p.smem_bwd};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+
+// How many of K5's clusters the card holds at once for this shape (0: the
+// launch cannot run); a negative cudaError_t on failure.
+MMB_API int mmb_bilstm_forward_train_occupancy(int B, int H) {
+  lc::Plan p;
+  if (!lc::plan(B, H, &p)) return -(int)cudaErrorInvalidValue;
+  return with_train_kernel(p.R, [&](auto kernel) {
+    return lc::max_active_clusters(kernel, p, p.smem_fwd);
+  });
 }
 
 // Message for a code returned by any mmb_* entry point.

@@ -1,5 +1,6 @@
-// K6 — BiLSTM backward through time (BPTT), both directions in one launch,
-// and the dW_h reduction over the residuals.
+// K6 — BiLSTM backward through time (BPTT), both directions, in three
+// phases: the gate pre-activations of every step at once, the walk, and the
+// dW_h reduction over the residuals.
 //
 // Replaces: mmbidaf_tpu/ops/pallas/lstm_kernel.py::_lstm_bwd_kernel (entry
 // _trainable_bwd, the custom VJP of lstm_pallas_trainable). Contract, per
@@ -18,178 +19,271 @@
 // as it is) and dW_h = Σ_s Σ_rows h_prevᵀ·dz [2, H, 4H]. dx, dW_x and db
 // stay GEMMs outside the kernel, as on the TPU.
 //
-// What bounds it on the H100: as K1, the walk is sequential in T and reads
-// all of W_h (256 KB in f32, over a block's 227 KB) twice a step, as W_h for
-// the recomputed z and as W_hᵀ for dz @ W_hᵀ. Both are read from L2 with
-// each read reused for the block's R rows; the wrapper passes W_hᵀ as a
-// transposed copy so that both reads are coalesced. The TPU kernel summed
-// dW_h in VMEM across its sequential grid; here blocks run in parallel, so
-// dW_h is not formed in the walk. A second kernel computes it from the
-// residuals after the walk: a tiled [H x N]·[N x 4H] product over
-// N = (T-1)·rows (h_seq against dgates), split over N into per-block
-// partials that a third pass sums in a fixed order. No atomics: two runs
-// give the same bits.
+// (a) lstm_z_kernel: z does not depend on the walk (h_prev comes from the
+//     residuals), so z for every step s >= 1 is one tiled f32 product
+//     gates + h_seq[s-1]·W_h over N = (T-1)·B rows, written into dgates in
+//     place (dgates has the gates' layout, so it needs no scratch); the walk
+//     reads step 0's z straight from gates. The TPU kernel forms the same
+//     product inside each grid step (_lstm_bwd_kernel:279).
+// (b) bilstm_bptt_cluster_kernel: the walk on a thread-block cluster
+//     (csrc/lstm_cluster.cuh), which keeps W_h on chip: block c holds the
+//     four gate columns of its ~H/C units. Per step it runs the gate math
+//     of its units from the prefetched z, c_prev, dout and mask and its
+//     carried dh/dc, writes dz over z in dgates, forms the partial
+//     P_c = dz[:, its 4U columns]·W_h[:, those columns]ᵀ [R x H], pushes
+//     each unit's share into the owning block's exchange buffer, passes the
+//     cluster barrier, and sets dh <- (1-m)·dh + Σ_c P_c, summing the C
+//     partials in rank order 0 … C-1. The next step's operands come by
+//     cp.async while the step runs.
+// (c) lstm_dwh_partial_kernel + sum_partials_kernel: dW_h as a tiled
+//     [H x N]·[N x 4H] product over N = (T-1)·rows (h_seq against dgates),
+//     split over N into per-slice partials that a second pass sums in a
+//     fixed order.
+// No atomics anywhere and every sum in a fixed order: two runs give the
+// same bits.
+//
+// What bounds it on the H100: the walk is sequential in T; per step, one
+// cluster barrier and the [R x 4U]·[4U x H] product a block; for the whole
+// kernel, the three products' 3·2·2·B·T·H·4H FLOPs at the 67 TFLOP/s f32
+// rate. Phases (a) and (c) run at the card's width; the walk's step is one
+// barrier and ~R·H·4U FMAs a block, with W_h read from device memory once
+// per block instead of twice a step from L2.
 #include "common.cuh"
+#include "lstm_cluster.cuh"
 
 namespace {
 
+namespace lc = mmb::lstmc;
+
+// Tiles of the two products over the residuals: 64 x 64 outputs, 256
+// threads with 4 x 4 outputs each, the reduction in chunks of 16.
+constexpr int kBK = 64, kBJ = 64, kBN = 16;
+
+// acc[x][y] += a[x]·b[y] for one step of the reduction.
+__device__ __forceinline__ void fma_4x4(const float* a_row, const float* b_row, float acc[4][4]) {
+  float a[4], b[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) a[x] = a_row[x];
+#pragma unroll
+  for (int y = 0; y < 4; ++y) b[y] = b_row[y];
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(a[x], b[y], acc[x][y]);
+}
+
 // ---------------------------------------------------------------------------
-// The BPTT walk.
+// (a) z[dir][n] = gates + h_seq[dir][n]·W_h[dir] for n = (s-1)·B + row,
+// s = 1 … T-1, into dgates at (row, tt(s), dir): a [N x H]·[H x 4H] product
+// whose rows are h_seq[dir] read in order.
 // ---------------------------------------------------------------------------
 
-constexpr int kRC = 4;  // rows of dz @ W_hᵀ one thread keeps in registers
+__global__ void __launch_bounds__(256) lstm_z_kernel(
+    const float* __restrict__ gates,  // [B, T, 2, 4H]
+    const float* __restrict__ w_h,    // [2, H, 4H]
+    const float* __restrict__ h_seq,  // [2, T, B, H]
+    float* __restrict__ dgates,       // [B, T, 2, 4H]: z out
+    int B, int T, int H) {
+  __shared__ float a_s[kBN][kBK + 1];  // [k][n], padded: the loads run along k
+  __shared__ float b_s[kBN][kBJ];      // [k][j]
+  const int G = 4 * H;
+  const int j0 = blockIdx.x * kBJ, dir = blockIdx.z;
+  const int n0 = blockIdx.y * kBK, N = (T - 1) * B;  // N < 65536·kBK (the entry point checks)
+  const float* hs = h_seq + (size_t)dir * T * B * H;
+  const float* wh = w_h + (size_t)dir * H * G;
+  const int tid = threadIdx.x;
+  const int tn = (tid / 16) * 4, tj = (tid % 16) * 4;  // this thread's 4 x 4 outputs
+  float acc[4][4] = {};
+
+  for (int k0 = 0; k0 < H; k0 += kBN) {
+    for (int e = tid; e < kBN * kBK; e += blockDim.x) {
+      const int nn = e / kBN, kk = e - nn * kBN;
+      const int n = n0 + nn, k = k0 + kk;
+      a_s[kk][nn] = (n < N && k < H) ? hs[(size_t)n * H + k] : 0.0f;
+    }
+    for (int e = tid; e < kBN * kBJ; e += blockDim.x) {
+      const int kk = e / kBJ, jj = e - kk * kBJ;
+      const int k = k0 + kk, j = j0 + jj;
+      b_s[kk][jj] = (k < H && j < G) ? wh[(size_t)k * G + j] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBN; ++kk) fma_4x4(&a_s[kk][tn], &b_s[kk][tj], acc);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int n = n0 + tn + x;
+    if (n >= N) continue;
+    const int s = n / B + 1, row = n - (s - 1) * B;
+    const int tt = dir ? T - 1 - s : s;
+    const size_t base = ((size_t)row * T + tt) * 2 * G + (size_t)dir * G;
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const int j = j0 + tj + y;
+      if (j < G) dgates[base + j] = gates[base + j] + acc[x][y];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// (b) The walk on a cluster.
+// ---------------------------------------------------------------------------
 
 template <int R>
-__global__ void __launch_bounds__(512) bilstm_bptt_kernel(
-    const float* __restrict__ gates,    // [B, T, 2, 4H]
+__global__ void __launch_bounds__(lc::kThreads) bilstm_bptt_cluster_kernel(
+    const float* __restrict__ gates,    // [B, T, 2, 4H]: step 0's z
     const float* __restrict__ mask,     // [B, T]
     const float* __restrict__ w_h,      // [2, H, 4H]
-    const float* __restrict__ w_hT,     // [2, 4H, H]
-    const float* __restrict__ h_seq,    // [2, T, B, H]
     const float* __restrict__ c_seq,    // [2, T, B, H]
     const float* __restrict__ dout,     // [B, T, 2H]
     const float* __restrict__ dh_last,  // [B, 2H]
     const float* __restrict__ dc_last,  // [B, 2H]
-    float* __restrict__ dgates,         // [B, T, 2, 4H]
+    float* __restrict__ dgates,         // [B, T, 2, 4H]: z of steps >= 1 in, dz out
     int B, int T, int H) {
-  extern __shared__ float smem[];
-  const int G = 4 * H;
-  float* hp_s = smem;          // [R][H] h_prev
-  float* cp_s = hp_s + R * H;  // [R][H] c_prev
-  float* dh_s = cp_s + R * H;  // [R][H] carried dh
-  float* dc_s = dh_s + R * H;  // [R][H] carried dc
-  float* z_s = dc_s + R * H;   // [R][G] z, then dz in place
-  const int dir = blockIdx.y;
-  const int row0 = blockIdx.x * R;
-  const float* wh = w_h + (size_t)dir * H * G;
-  const float* whT = w_hT + (size_t)dir * G * H;
+  static_assert(R % lc::kRC == 0, "rows a cluster must be a multiple of kRC");
+  lc::cg::cluster_group cluster = lc::cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  const int C = gridDim.x, c = blockIdx.x;
+  const int U = lc::units_max(H, C), G4 = 4 * U, ldw = G4 + 1, G = 4 * H;
+  const int u0 = lc::unit_begin(c, H, C), nu = lc::unit_begin(c + 1, H, C) - u0;
+  const int row0 = blockIdx.y * R, dir = blockIdx.z;
+  float* dz_s = smem;                                   // [4U][R] this step's dz
+  float* w_s = dz_s + lc::round4(G4 * R);               // [H][4U+1]
+  float* x_b = w_s + lc::round4((size_t)H * ldw);       // [2][C][U][R] partials, by parity
+  float* dh_s = x_b + lc::round4(2 * (size_t)C * U * R);  // [R][U] carried dh
+  float* dc_s = dh_s + lc::round4(R * U);               // [R][U] carried dc
+  float* z_st = dc_s + lc::round4(R * U);               // [2][R][4U] z stage
+  float* cp_st = z_st + lc::round4(2 * R * G4);         // [2][R][U] c_prev stage
+  float* do_st = cp_st + lc::round4(2 * R * U);         // [2][R][U] dout stage
+  float* m_st = do_st + lc::round4(2 * R * U);          // [2][R] mask stage
 
-  for (int p = threadIdx.x; p < R * H; p += blockDim.x) {
-    const int r = p / H, u = p - r * H;
-    const int row = row0 + r;
-    dh_s[p] = row < B ? dh_last[(size_t)row * 2 * H + (size_t)dir * H + u] : 0.0f;
-    dc_s[p] = row < B ? dc_last[(size_t)row * 2 * H + (size_t)dir * H + u] : 0.0f;
+  // z, c_prev, dout and the mask of step s into stage s & 1.
+  auto prefetch = [&](int s) {
+    const int tt = dir ? T - 1 - s : s, st = s & 1;
+    const float* zsrc = s > 0 ? dgates : gates;
+    for (int e = threadIdx.x; e < R * G4 + 2 * R * U + R; e += blockDim.x) {
+      if (e < R * G4) {
+        const int r = e / G4, jl = e - r * G4, g = jl / U, ul = jl - g * U, row = row0 + r;
+        const bool ok = row < B && ul < nu;
+        lc::cp_async4(z_st + st * R * G4 + e,
+                      ok ? zsrc + ((size_t)row * T + tt) * 2 * G + (size_t)dir * G + g * H + u0 + ul
+                         : gates,
+                      ok);
+      } else if (e < R * G4 + 2 * R * U) {
+        const int f = e - R * G4, which = f / (R * U), ru = f - which * R * U;
+        const int r = ru / U, ul = ru - r * U, row = row0 + r;
+        if (which == 0) {
+          const bool ok = row < B && ul < nu && s > 0;
+          lc::cp_async4(cp_st + st * R * U + ru,
+                        ok ? c_seq + (((size_t)dir * T + (s - 1)) * B + row) * H + u0 + ul : c_seq,
+                        ok);
+        } else {
+          const bool ok = row < B && ul < nu;
+          lc::cp_async4(do_st + st * R * U + ru,
+                        ok ? dout + ((size_t)row * T + tt) * 2 * H + (size_t)dir * H + u0 + ul : dout,
+                        ok);
+        }
+      } else {
+        const int r = e - R * G4 - 2 * R * U, row = row0 + r;
+        lc::cp_async4(m_st + st * R + r, row < B ? mask + (size_t)row * T + tt : mask, row < B);
+      }
+    }
+  };
+
+  lc::load_w_slice(w_s, w_h + (size_t)dir * H * G, H, U, u0, nu);
+  for (int e = threadIdx.x; e < G4 * R; e += blockDim.x) dz_s[e] = 0.0f;  // past nu: stays 0
+  for (int p = threadIdx.x; p < R * U; p += blockDim.x) {
+    const int r = p / U, ul = p - r * U, row = row0 + r;
+    const bool ok = row < B && ul < nu;
+    const size_t q = (size_t)row * 2 * H + (size_t)dir * H + u0 + ul;
+    dh_s[p] = ok ? dh_last[q] : 0.0f;
+    dc_s[p] = ok ? dc_last[q] : 0.0f;
   }
+  prefetch(T - 1);
+  lc::cp_async_wait_all();
+  cluster.sync();  // every block of the cluster has started and is initialised
 
   for (int s = T - 1; s >= 0; --s) {
-    const int tt = dir ? T - 1 - s : s;
-    for (int p = threadIdx.x; p < R * H; p += blockDim.x) {
-      const int r = p / H, u = p - r * H;
-      const int row = row0 + r;
-      float hv = 0.0f, cv = 0.0f;
-      if (row < B && s > 0) {
-        const size_t q = (((size_t)dir * T + (s - 1)) * B + row) * H + u;
-        hv = h_seq[q];
-        cv = c_seq[q];
-      }
-      hp_s[p] = hv;
-      cp_s[p] = cv;
-    }
-    __syncthreads();
-    // z = gates + h_prev @ W_h (the forward's product, recomputed)
-    for (int j = threadIdx.x; j < G; j += blockDim.x) {
-      float acc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float w = __ldg(wh + (size_t)k * G + j);
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(hp_s[r * H + k], w, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row = row0 + r;
-        const float g =
-            row < B ? gates[((size_t)row * T + tt) * 2 * G + (size_t)dir * G + j] : 0.0f;
-        z_s[r * G + j] = g + acc[r];
-      }
-    }
-    __syncthreads();
-    // the gate math, dz, and the carried dc
-    for (int p = threadIdx.x; p < R * H; p += blockDim.x) {
-      const int r = p / H, u = p - r * H;
-      const int row = row0 + r;
-      float* z = z_s + r * G;
-      if (row >= B) {
-        z[u] = z[H + u] = z[2 * H + u] = z[3 * H + u] = 0.0f;
-        continue;
-      }
-      const float ig = mmb::sigmoid(z[u]);
-      const float fg = mmb::sigmoid(z[H + u]);
-      const float gg = tanhf(z[2 * H + u]);
-      const float og = mmb::sigmoid(z[3 * H + u]);
-      const float c_prev = cp_s[p];
+    const int par = s & 1, tt = dir ? T - 1 - s : s;
+    if (s > 0) prefetch(s - 1);
+    const float* zs = z_st + par * R * G4;
+    // the gate math of this block's units, dz, and the carried dc
+    for (int p = threadIdx.x; p < R * nu; p += blockDim.x) {
+      const int r = p / nu, ul = p - r * nu, row = row0 + r;
+      const float* z = zs + r * G4;
+      const float ig = mmb::sigmoid(z[ul]);
+      const float fg = mmb::sigmoid(z[U + ul]);
+      const float gg = tanhf(z[2 * U + ul]);
+      const float og = mmb::sigmoid(z[3 * U + ul]);
+      const float c_prev = cp_st[par * R * U + r * U + ul];
       const float c_new = fg * c_prev + ig * gg;
       const float tc = tanhf(c_new);
-      const float m = mask[(size_t)row * T + tt];
-      const float dh_carry = dh_s[p], dc_carry = dc_s[p];
-      const float dh_new =
-          m * (dout[((size_t)row * T + tt) * 2 * H + (size_t)dir * H + u] + dh_carry);
+      const float m = m_st[par * R + r];
+      const float dh_carry = dh_s[r * U + ul], dc_carry = dc_s[r * U + ul];
+      const float dh_new = m * (do_st[par * R * U + r * U + ul] + dh_carry);
       const float d_o = dh_new * tc;
       const float dc_new = dh_new * og * (1.0f - tc * tc) + m * dc_carry;
-      const float dzi = dc_new * gg * ig * (1.0f - ig);
-      const float dzf = dc_new * c_prev * fg * (1.0f - fg);
-      const float dzg = dc_new * ig * (1.0f - gg * gg);
-      const float dzo = d_o * og * (1.0f - og);
-      z[u] = dzi;
-      z[H + u] = dzf;
-      z[2 * H + u] = dzg;
-      z[3 * H + u] = dzo;
-      float* dg = dgates + ((size_t)row * T + tt) * 2 * G + (size_t)dir * G;
-      dg[u] = dzi;
-      dg[H + u] = dzf;
-      dg[2 * H + u] = dzg;
-      dg[3 * H + u] = dzo;
-      dc_s[p] = fg * dc_new + (1.0f - m) * dc_carry;
-      dh_s[p] = (1.0f - m) * dh_carry;
-    }
-    __syncthreads();
-    // dh += dz @ W_hᵀ: a thread per (unit k, chunk of kRC rows)
-    for (int q = threadIdx.x; q < H * (R / kRC); q += blockDim.x) {
-      const int k = q % H, r0 = (q / H) * kRC;
-      float acc[kRC];
+      const float dz[4] = {dc_new * gg * ig * (1.0f - ig), dc_new * c_prev * fg * (1.0f - fg),
+                           dc_new * ig * (1.0f - gg * gg), d_o * og * (1.0f - og)};
 #pragma unroll
-      for (int r = 0; r < kRC; ++r) acc[r] = 0.0f;
-#pragma unroll 4
-      for (int j = 0; j < G; ++j) {
-        const float w = __ldg(whT + (size_t)j * H + k);
+      for (int g = 0; g < 4; ++g) dz_s[(g * U + ul) * R + r] = dz[g];
+      if (row < B) {
+        float* dg = dgates + ((size_t)row * T + tt) * 2 * G + (size_t)dir * G + u0 + ul;
 #pragma unroll
-        for (int r = 0; r < kRC; ++r) acc[r] = fmaf(z_s[(r0 + r) * G + j], w, acc[r]);
+        for (int g = 0; g < 4; ++g) dg[g * H] = dz[g];
       }
-#pragma unroll
-      for (int r = 0; r < kRC; ++r) dh_s[(r0 + r) * H + k] += acc[r];
+      dc_s[r * U + ul] = fg * dc_new + (1.0f - m) * dc_carry;
+      dh_s[r * U + ul] = (1.0f - m) * dh_carry;
     }
     __syncthreads();
+    // P_c = dz[:, this block's columns]·W_h[:, those columns]ᵀ, each unit's
+    // share pushed to the block that owns the unit.
+    float* xb = x_b + par * C * U * R;
+    for (int q = threadIdx.x; q < H * (R / lc::kRC); q += blockDim.x) {
+      const int k = q % H, r0 = (q / H) * lc::kRC;
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+      for (int jl = 0; jl < G4; ++jl) {
+        const float w = w_s[k * ldw + jl];
+        const float4 d = *reinterpret_cast<const float4*>(dz_s + jl * R + r0);
+        acc.x = fmaf(d.x, w, acc.x);
+        acc.y = fmaf(d.y, w, acc.y);
+        acc.z = fmaf(d.z, w, acc.z);
+        acc.w = fmaf(d.w, w, acc.w);
+      }
+      const int o = lc::owner_of(k, H, C);
+      float* dst = cluster.map_shared_rank(xb, o);
+      *reinterpret_cast<float4*>(dst + ((size_t)c * U + (k - lc::unit_begin(o, H, C))) * R + r0) =
+          acc;
+    }
+    lc::cp_async_wait_all();
+    cluster.sync();
+    // dh <- (1-m)·dh + Σ_c P_c, the partials in rank order
+    for (int p = threadIdx.x; p < R * nu; p += blockDim.x) {
+      const int r = p / nu, ul = p - r * nu;
+      float acc = 0.0f;
+      for (int cc = 0; cc < C; ++cc) acc += xb[((size_t)cc * U + ul) * R + r];
+      dh_s[r * U + ul] += acc;
+    }
   }
 }
 
-template <int R>
-cudaError_t launch_bptt(const float* gates, const float* mask, const float* w_h,
-                        const float* w_hT, const float* h_seq, const float* c_seq,
-                        const float* dout, const float* dh_last, const float* dc_last,
-                        float* dgates, int B, int T, int H, cudaStream_t stream) {
-  static_assert(R % kRC == 0, "rows per block must be a multiple of kRC");
-  const size_t smem = sizeof(float) * (size_t)R * 8 * H;
-  if (smem > (size_t)mmb::kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(bilstm_bptt_kernel<R>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((B + R - 1) / R, 2);
-  bilstm_bptt_kernel<R><<<grid, mmb::threads_for(4 * H, 512), smem, stream>>>(
-      gates, mask, w_h, w_hT, h_seq, c_seq, dout, dh_last, dc_last, dgates, B, T, H);
-  return cudaGetLastError();
+// f(the walk instantiated for a plan's R).
+template <typename F>
+auto with_bptt_kernel(int R, F f) {
+  return R == 16 ? f(bilstm_bptt_cluster_kernel<16>)
+                 : R == 8 ? f(bilstm_bptt_cluster_kernel<8>) : f(bilstm_bptt_cluster_kernel<4>);
 }
 
 // ---------------------------------------------------------------------------
-// dW_h[dir] = Σ_{s=1..T-1} Σ_rows h_seq[dir][s-1][row]ᵀ · dz[row][tt(s)][dir]
+// (c) dW_h[dir] = Σ_{s=1..T-1} Σ_rows h_seq[dir][s-1][row]ᵀ · dz[row][tt(s)][dir]
 // as a [H x N]·[N x 4H] product with n = (s-1)·B + row, so that the h rows
-// are h_seq[dir] read in order. Tiles of 64 x 64 outputs, 256 threads with
-// 4 x 4 outputs each, the reduction in chunks of kBN; the N axis is split
-// into kSplitN-long slices whose partial sums go to a scratch buffer.
+// are h_seq[dir] read in order. The N axis is split into split_n-long
+// slices whose partial sums go to a scratch buffer: short slices give the
+// card enough blocks to hide each chunk's load latency (the loop has no
+// second stage).
 // ---------------------------------------------------------------------------
-
-constexpr int kBK = 64, kBJ = 64, kBN = 16;
 
 __global__ void __launch_bounds__(256) lstm_dwh_partial_kernel(
     const float* __restrict__ h_seq,   // [2, T, B, H]
@@ -201,28 +295,25 @@ __global__ void __launch_bounds__(256) lstm_dwh_partial_kernel(
   const int G = 4 * H;
   const int j0 = blockIdx.x * kBJ, k0 = blockIdx.y * kBK;
   const int dir = blockIdx.z & 1, split = blockIdx.z >> 1;
-  const long long N = (long long)(T - 1) * B;
-  const long long n_begin = (long long)split * split_n;
-  const long long n_end = min(N, n_begin + split_n);
+  const int N = (T - 1) * B;  // N < 65536·kBK (the entry point checks)
+  const int n_begin = split * split_n, n_end = min(N, n_begin + split_n);
   const float* hs = h_seq + (size_t)dir * T * B * H;
   const int tid = threadIdx.x;
   const int tk = (tid / 16) * 4, tj = (tid % 16) * 4;  // this thread's 4 x 4 outputs
   float acc[4][4] = {};
 
-  for (long long n0 = n_begin; n0 < n_end; n0 += kBN) {
+  for (int n0 = n_begin; n0 < n_end; n0 += kBN) {
     for (int e = tid; e < kBN * kBK; e += blockDim.x) {
       const int nn = e / kBK, kk = e - nn * kBK;
-      const long long n = n0 + nn;
-      const int k = k0 + kk;
+      const int n = n0 + nn, k = k0 + kk;
       a_s[nn][kk] = (n < n_end && k < H) ? hs[(size_t)n * H + k] : 0.0f;
     }
     for (int e = tid; e < kBN * kBJ; e += blockDim.x) {
       const int nn = e / kBJ, jj = e - nn * kBJ;
-      const long long n = n0 + nn;
-      const int j = j0 + jj;
+      const int n = n0 + nn, j = j0 + jj;
       float v = 0.0f;
       if (n < n_end && j < G) {
-        const int s = (int)(n / B) + 1, row = (int)(n - (long long)(s - 1) * B);
+        const int s = n / B + 1, row = n - (s - 1) * B;
         const int tt = dir ? T - 1 - s : s;
         v = dgates[((size_t)row * T + tt) * 2 * G + (size_t)dir * G + j];
       }
@@ -230,17 +321,7 @@ __global__ void __launch_bounds__(256) lstm_dwh_partial_kernel(
     }
     __syncthreads();
 #pragma unroll
-    for (int nn = 0; nn < kBN; ++nn) {
-      float a[4], b[4];
-#pragma unroll
-      for (int x = 0; x < 4; ++x) a[x] = a_s[nn][tk + x];
-#pragma unroll
-      for (int y = 0; y < 4; ++y) b[y] = b_s[nn][tj + y];
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-#pragma unroll
-        for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(a[x], b[y], acc[x][y]);
-    }
+    for (int nn = 0; nn < kBN; ++nn) fma_4x4(&a_s[nn][tk], &b_s[nn][tj], acc);
     __syncthreads();
   }
   float* out = partial + ((size_t)split * 2 + dir) * H * G;
@@ -268,34 +349,46 @@ __global__ void sum_partials_kernel(const float* __restrict__ partial, float* __
 
 }  // namespace
 
-// Length of the N slices of the dW_h product (the wrapper sizes the
-// partials buffer as ceil((T-1)·B / split) slices, at least one).
-MMB_API int mmb_lstm_dwh_split() { return 2048; }
+// Length of the N slices of the dW_h product over N = (T-1)·B: 512, or
+// longer where that would give more than 256 slices (the wrapper sizes the
+// partials buffer as ceil(N / split) slices, at least one).
+MMB_API int mmb_lstm_dwh_split(int B, int T) {
+  const long long N = (long long)(T - 1) * B, per = ((N + 255) / 256 + kBN - 1) / kBN * kBN;
+  return per > 512 ? (int)per : 512;
+}
 
 MMB_API int mmb_bilstm_backward(const void* gates, const void* mask, const void* w_h,
-                                const void* w_hT, const void* h_seq, const void* c_seq,
-                                const void* dout, const void* dh_last, const void* dc_last,
-                                void* dgates, void* dwh_partial, void* dw_h, int num_splits,
-                                int B, int T, int H, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || num_splits <= 0) return (int)cudaErrorInvalidValue;
+                                const void* h_seq, const void* c_seq, const void* dout,
+                                const void* dh_last, const void* dc_last, void* dgates,
+                                void* dwh_partial, void* dw_h, int num_splits, int B, int T,
+                                int H, void* stream) {
+  lc::Plan p;
+  if (T <= 0 || num_splits <= 0 || !lc::plan(B, H, &p)) return (int)cudaErrorInvalidValue;
   const long long N = (long long)(T - 1) * B;
-  const int split = mmb_lstm_dwh_split();
-  if ((long long)num_splits * split < N) return (int)cudaErrorInvalidValue;
+  const int split = mmb_lstm_dwh_split(B, T);
+  if ((long long)num_splits * split < N || (N + kBK - 1) / kBK > 65535)
+    return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* g = static_cast<const float*>(gates);
-  const auto* m = static_cast<const float*>(mask);
   const auto* w = static_cast<const float*>(w_h);
-  const auto* wt = static_cast<const float*>(w_hT);
   const auto* hs = static_cast<const float*>(h_seq);
-  const auto* cs = static_cast<const float*>(c_seq);
-  const auto* d = static_cast<const float*>(dout);
-  const auto* dh = static_cast<const float*>(dh_last);
-  const auto* dc = static_cast<const float*>(dc_last);
   auto* dg = static_cast<float*>(dgates);
-  cudaError_t e = B >= 1024 ? launch_bptt<16>(g, m, w, wt, hs, cs, d, dh, dc, dg, B, T, H, s)
-                            : launch_bptt<4>(g, m, w, wt, hs, cs, d, dh, dc, dg, B, T, H, s);
-  if (e != cudaSuccess) return (int)e;
   const int G = 4 * H;
+  cudaError_t e;
+  if (N > 0) {  // (a) z of steps 1 … T-1 into dgates
+    lstm_z_kernel<<<dim3((G + kBJ - 1) / kBJ, (unsigned)((N + kBK - 1) / kBK), 2), 256, 0, s>>>(
+        g, w, hs, dg, B, T, H);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  e = with_bptt_kernel(p.R, [&](auto kernel) {  // (b) the walk
+    return lc::launch(kernel, p, p.smem_bwd, s, g, static_cast<const float*>(mask), w,
+                      static_cast<const float*>(c_seq), static_cast<const float*>(dout),
+                      static_cast<const float*>(dh_last), static_cast<const float*>(dc_last), dg,
+                      B, T, H);
+  });
+  if (e != cudaSuccess) return (int)e;
+  // (c) dW_h
   const dim3 grid((G + kBJ - 1) / kBJ, (H + kBK - 1) / kBK, 2 * num_splits);
   lstm_dwh_partial_kernel<<<grid, 256, 0, s>>>(hs, dg, static_cast<float*>(dwh_partial), B, T,
                                                H, split);
@@ -305,4 +398,14 @@ MMB_API int mmb_bilstm_backward(const void* gates, const void* mask, const void*
   sum_partials_kernel<<<(n + 255) / 256, 256, 0, s>>>(static_cast<const float*>(dwh_partial),
                                                       static_cast<float*>(dw_h), num_splits, n);
   return (int)cudaGetLastError();
+}
+
+// How many of the walk's clusters the card holds at once for this shape
+// (0: the launch cannot run); a negative cudaError_t on failure.
+MMB_API int mmb_bilstm_backward_occupancy(int B, int H) {
+  lc::Plan p;
+  if (!lc::plan(B, H, &p)) return -(int)cudaErrorInvalidValue;
+  return with_bptt_kernel(p.R, [&](auto kernel) {
+    return lc::max_active_clusters(kernel, p, p.smem_bwd);
+  });
 }

@@ -30,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("lstm.cu", "lstm_bwd.cu", "bidaf.cu", "bidaf_bwd.cu", "bidaf_tiled.cu", "mfcc.cu",
            "winograd.cu", "conv3x3.cu", "preprocess.cu")
-HEADERS = ("common.cuh", "mma.cuh", "tma.cuh")
+HEADERS = ("common.cuh", "lstm_cluster.cuh", "mma.cuh", "tma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -44,10 +44,17 @@ SIGNATURES = {
     "mmb_bilstm_forward": (P, P, P, P, P, P, I, I, I, P),
     # gates, mask, w_h, out, h_last, c_last, h_seq, c_seq, B, T, H, stream
     "mmb_bilstm_forward_train": (P, P, P, P, P, P, P, P, I, I, I, P),
-    # gates, mask, w_h, w_hT, h_seq, c_seq, dout, dh_last, dc_last, dgates,
+    # gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last, dgates,
     # dwh_partial, dw_h, num_splits, B, T, H, stream
-    "mmb_bilstm_backward": (P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
-    "mmb_lstm_dwh_split": (),
+    "mmb_bilstm_backward": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
+    # B, T -> the length of the dW_h product's N slices
+    "mmb_lstm_dwh_split": (I, I),
+    # B, H, out[7] -> K5/K6's cluster plan: C, R, U, clusters a direction,
+    # blocks, K5's and K6's dynamic shared memory a block
+    "mmb_lstm_cluster_plan": (I, I, P),
+    # B, H -> clusters of K5's / K6's walk the card holds at once (<= 0: none)
+    "mmb_bilstm_forward_train_occupancy": (I, I),
+    "mmb_bilstm_backward_occupancy": (I, I),
     # c, q, c_mask, q_mask, w_c, w_q, w_cq, bias, out, B, T_c, T_q, D, stream
     "mmb_bidaf_forward": (P, P, P, P, P, P, P, P, P, I, I, I, I, P),
     # c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, out, B, T_c, T_q, D, stream

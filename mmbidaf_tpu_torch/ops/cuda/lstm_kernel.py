@@ -8,13 +8,20 @@ and then cast to f32; the kernel runs the recurrence of both directions in
 f32 and writes the ``[B, T, 2h]`` output and the carried ``h``/``c``
 directly.
 
-K5 and K6 are the training pair, the port of ``bilstm_pallas_trainable``:
-K5 is K1's recurrence that also writes the carried ``h_seq``/``c_seq``
-``[2, T, rows, h]`` (per direction, in processing order) as the BPTT
-residuals; K6 walks the steps backwards from those residuals and the
-saved f32 gates, seeded with the cotangents of ``(h_last, c_last)``, and
-returns ``dgates`` in the gates' layout and ``dW_h`` (summed over rows and
-steps by a second hand-written pass, without atomics).
+K5 and K6 are the training pair, the port of ``bilstm_pallas_trainable``,
+both on thread-block clusters that keep ``W_h`` in shared memory
+(``csrc/lstm_cluster.cuh``; :func:`cluster_plan` mirrors its host-side
+plan, and a shape with no plan raises). K5 is K1's recurrence that also
+writes the carried ``h_seq``/``c_seq`` ``[2, T, rows, h]`` (per direction,
+in processing order) as the BPTT residuals. K6 runs in three phases:
+(a) the gate pre-activations ``z`` of every step at once, one product over
+the residuals written into the ``dgates`` buffer, which has the gates'
+layout and doubles as z's scratch; (b) the walk backwards from the saved
+f32 gates and residuals, seeded with the cotangents of ``(h_last,
+c_last)``, which overwrites each step's ``z`` with its ``dz`` and carries
+``dh`` through the cluster's shared memory; (c) ``dW_h``, summed over rows
+and steps by a product over the residuals with partials summed in a fixed
+order. No phase uses atomics.
 :class:`BiLSTMTrainableFn` ties them into one ``torch.autograd.Function``
 per layer; ``dx``, ``dW_x`` and ``db`` come from autograd through the
 projection, the plain GEMMs they are on the TPU too. The TPU recomputes
@@ -25,11 +32,13 @@ Each wrapper (``bilstm_cuda`` K1, ``bilstm_train_forward`` K5,
 kernel on a CUDA tensor, or raises; ``<wrapper>.launches`` counts launches.
 
 Tolerances of kernel vs plain on the card (``TOLERANCE``, ``BPTT_TOLERANCE``):
-the kernels sum ``h @ W_h`` in their own order and use CUDA's
-``expf``/``tanhf``, so outputs differ by f32 rounding that the recurrence
-carries forward. K1/K5 outputs are below 1 in magnitude (``|h|, |c|`` stay
-small by construction); the largest error measured at the five bench-shape
-towers (up to 512 steps) on an H100 was 2.4e-7 (K1) and 3.6e-7 (K5), so
+the kernels sum their products in their own order (K6's walk sums
+``dz @ W_h^T`` per block over its gate columns, then over the cluster's
+partials in rank order) and use CUDA's ``expf``/``tanhf``, so outputs
+differ by f32 rounding that the recurrence carries forward. K1/K5 outputs
+are below 1 in magnitude (``|h|, |c|`` stay small by construction); the
+largest error measured at the five bench-shape towers (up to 512 steps) on
+an H100 was 2.4e-7 (K1) and 3.6e-7 (K5, before and on a cluster), so
 ``atol = 1e-5`` leaves a 30x margin and still catches a wrong gate, step or
 mask. K6's ``dgates`` carry the same rounding back through up to 512 steps,
 and ``dW_h`` sums ~16k products per entry in another order than the plain
@@ -37,11 +46,14 @@ version's per-step matmuls, so K6 is held normwise: each output within
 ``atol + rtol·max|ref|`` of that output. With unit-normal cotangents at the
 bench_train shapes (B=32) the largest errors measured on an H100 were
 5.4e-7 on dgates up to 3.4 and 1.3e-5 on dW_h up to 13 (1.0e-6 of its
-scale), so ``BPTT_TOLERANCE`` (``atol = 1e-5, rtol = 5e-6``, normwise) leaves
+scale); on a cluster, 4.8e-7 on dgates up to 4.9 and 1.3e-5 on dW_h up to
+13. So ``BPTT_TOLERANCE`` (``atol = 1e-5, rtol = 5e-6``, normwise) leaves
 a 5x margin on dW_h and 50x on dgates.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -52,6 +64,83 @@ from mmbidaf_tpu_torch.ops.lstm import lstm_cell
 TOLERANCE = {"atol": 1e-5, "rtol": 0.0}
 # K6 vs its plain version on the card, per output: |err| <= atol + rtol·max|ref|.
 BPTT_TOLERANCE = {"atol": 1e-5, "rtol": 5e-6}
+
+
+# Hopper's opt-in shared memory of a block (bytes), the cluster plan's limit.
+SMEM_LIMIT = 232448
+_MAX_CLUSTER = 16
+_TARGET_UNITS = 16
+
+
+class ClusterPlan(NamedTuple):
+    """How K5 and K6 lay ``rows`` rows of width ``H`` over clusters: ``C``
+    blocks a cluster, ``R`` rows a cluster, block ``c`` owning the units
+    ``slices[c] = (begin, end)`` (``U`` the largest slice), ``clusters`` a
+    direction, ``blocks`` in all, and each kernel's dynamic shared memory a
+    block in bytes."""
+    C: int
+    R: int
+    U: int
+    slices: tuple
+    clusters: int
+    blocks: int
+    smem_fwd: int
+    smem_bwd: int
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _smem(H: int, C: int, R: int) -> tuple[int, int]:
+    """K5's and K6's dynamic shared memory a block (``lstm_cluster.cuh``)."""
+    U = -(-H // C)
+    G4 = 4 * U
+    w = _round4(H * (G4 + 1))
+    fwd = _round4(2 * H * R) + w + _round4(R * G4) + _round4(2 * R * G4) + _round4(R * U) + _round4(2 * R)
+    bwd = (_round4(G4 * R) + w + _round4(2 * C * U * R) + 2 * _round4(R * U) + _round4(2 * R * G4)
+           + 2 * _round4(2 * R * U) + _round4(2 * R))
+    return 4 * fwd, 4 * bwd
+
+
+def cluster_plan(rows: int, H: int) -> ClusterPlan:
+    """The cluster plan of K5 and K6 (``lstm_cluster.cuh::plan``): ``R`` = 16
+    rows a cluster from 512 rows, 8 from 128, else 4; ``C`` the smallest
+    power of two giving at most 16 units a block, raised until both kernels'
+    shared memory fits a block. Raises ``ValueError`` where no cluster of at
+    most 16 blocks holds ``W_h``'s slice."""
+    if rows <= 0 or H <= 0:
+        raise ValueError(f"no LSTM cluster plan for rows={rows}, H={H}")
+    R = 16 if rows >= 512 else 8 if rows >= 128 else 4
+    C = 1
+    while C < _MAX_CLUSTER and -(-H // C) > _TARGET_UNITS:
+        C *= 2
+    while C <= _MAX_CLUSTER and max(_smem(H, C, R)) > SMEM_LIMIT:
+        C *= 2
+    if C > _MAX_CLUSTER or C > H:
+        raise ValueError(f"no LSTM cluster plan for H={H}: W_h's slice over {_MAX_CLUSTER} blocks "
+                         f"needs more than {SMEM_LIMIT} bytes of shared memory a block")
+    slices = tuple((c * H // C, (c + 1) * H // C) for c in range(C))
+    clusters = -(-rows // R)
+    return ClusterPlan(C, R, -(-H // C), slices, clusters, 2 * clusters * C, *_smem(H, C, R))
+
+
+_occupancy_checked: set = set()
+
+
+def _check_cluster(lib, entry: str, rows: int, H: int) -> None:
+    """That this shape has a plan and, once per plan, that the card can hold
+    one of its clusters (``cudaOccupancyMaxActiveClusters > 0``); raises
+    otherwise, before anything is launched."""
+    plan = cluster_plan(rows, H)
+    key = (entry, H, plan.R)  # the plan's only inputs
+    if key not in _occupancy_checked:
+        n = getattr(lib, f"{entry}_occupancy")(rows, H)
+        if n <= 0:
+            raise RuntimeError(f"{entry}: the card holds no cluster of {plan.C} blocks of this plan "
+                               f"({plan.smem_fwd} / {plan.smem_bwd} bytes of shared memory a block "
+                               f"for K5 / K6; cudaOccupancyMaxActiveClusters {n})")
+        _occupancy_checked.add(key)
 
 
 def _projection(params, x: torch.Tensor) -> torch.Tensor:
@@ -185,12 +274,13 @@ def bilstm_train_forward(gates: torch.Tensor, mask: torch.Tensor, w_h: torch.Ten
     if gates.device.type != "cuda":
         raise ValueError(f"bilstm_train_forward: unsupported device {gates.device}")
     B, T, H, dev = _check_train_operands(gates, mask, w_h)
+    lib = build.library()
+    _check_cluster(lib, "mmb_bilstm_forward_train", B, H)
     out = torch.empty(B, T, 2 * H, device=dev)
     h_last = torch.empty(B, 2 * H, device=dev)
     c_last = torch.empty(B, 2 * H, device=dev)
     h_seq = torch.empty(2, T, B, H, device=dev)
     c_seq = torch.empty(2, T, B, H, device=dev)
-    lib = build.library()
     rc = lib.mmb_bilstm_forward_train(
         gates.data_ptr(), mask.data_ptr(), w_h.data_ptr(), out.data_ptr(), h_last.data_ptr(),
         c_last.data_ptr(), h_seq.data_ptr(), c_seq.data_ptr(), B, T, H,
@@ -205,9 +295,13 @@ bilstm_train_forward.launches = 0
 
 
 def bilstm_bptt(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last):
-    """K6: backward through time (contract of :func:`bilstm_bptt_reference`).
-    ``bilstm_bptt.launches`` counts calls that launched the kernels (the walk,
-    the dW_h partial product and its sum)."""
+    """K6: backward through time (contract of :func:`bilstm_bptt_reference`)
+    in three phases: (a) ``z = gates + h_seq[s-1]·W_h`` for every step
+    ``s >= 1`` at once, written into ``dgates``, which has the gates' layout
+    and doubles as its scratch; (b) the walk on a cluster, which overwrites
+    each step's ``z`` with its ``dz``; (c) ``dW_h`` over the residuals, in
+    per-slice partials (``partial``) summed in a fixed order.
+    ``bilstm_bptt.launches`` counts calls that launched the three phases."""
     if gates.device.type == "cpu":
         return bilstm_bptt_reference(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last)
     if gates.device.type != "cuda":
@@ -218,15 +312,15 @@ def bilstm_bptt(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last):
                            ("dc_last", dc_last, (B, 2 * H))):
         build.check_tensor(t, name, shape, dev)
     lib = build.library()
-    num_splits = max(1, -(-((T - 1) * B) // lib.mmb_lstm_dwh_split()))
-    w_hT = w_h.transpose(1, 2).contiguous()  # a copy, so both W_h walks read coalesced
+    _check_cluster(lib, "mmb_bilstm_backward", B, H)
+    num_splits = max(1, -(-((T - 1) * B) // lib.mmb_lstm_dwh_split(B, T)))
     dgates = torch.empty_like(gates)
     partial = torch.empty(num_splits, 2, H, 4 * H, device=dev)
     dw_h = torch.empty(2, H, 4 * H, device=dev)
     rc = lib.mmb_bilstm_backward(
-        gates.data_ptr(), mask.data_ptr(), w_h.data_ptr(), w_hT.data_ptr(), h_seq.data_ptr(),
-        c_seq.data_ptr(), dout.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(),
-        dgates.data_ptr(), partial.data_ptr(), dw_h.data_ptr(), num_splits, B, T, H,
+        gates.data_ptr(), mask.data_ptr(), w_h.data_ptr(), h_seq.data_ptr(), c_seq.data_ptr(),
+        dout.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(), dgates.data_ptr(),
+        partial.data_ptr(), dw_h.data_ptr(), num_splits, B, T, H,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(lib, rc, "mmb_bilstm_backward")

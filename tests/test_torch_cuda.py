@@ -316,12 +316,18 @@ def test_long_audio_parity_with_jax(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,steps,in_dim,hidden", [
-    (1030, 3, 8, 256),  # 16-row blocks with a partial last block; 4H=1024 > 512 threads
-    (7, 40, 5, 32),     # 4-row blocks, a partial block, 4H=128 < a warp-multiple cap
+@pytest.mark.parametrize("rows,steps,in_dim,hidden,empty", [
+    (1030, 3, 8, 256, None),  # 16-row clusters of 16 blocks, a partial last cluster: the largest slice
+    (7, 40, 5, 32, None),     # 4-row clusters of 2 blocks, a partial cluster
+    (37, 20, 6, 100, 3),      # H=100: slices of 12 and 13 units over 8 blocks
+    (32, 512, 40, 128, 1),    # the audio tower's shape
+    (9, 1, 5, 32, None),      # T=1: no step has an h_prev
+    (1, 13, 5, 128, None),    # one row
+    (6, 9, 5, 128, 2),        # a row of length 0
 ])
-def test_train_lstm_kernels_generic_shapes(cuda_device, rows, steps, in_dim, hidden):
-    """K5 and K6 against their plain versions; K6 twice gives the same bits."""
+def test_train_lstm_kernels_generic_shapes(cuda_device, rows, steps, in_dim, hidden, empty):
+    """K5 and K6 against their plain versions; each twice gives the same
+    bits; a row of length 0 gets zero output and zero dgates."""
     from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
     from mmbidaf_tpu_torch.ops.lstm import BiLSTMParams
 
@@ -329,12 +335,15 @@ def test_train_lstm_kernels_generic_shapes(cuda_device, rows, steps, in_dim, hid
     p = BiLSTMParams(in_dim, hidden, gen, cuda_device)
     x = torch.randn(rows, steps, in_dim, device=cuda_device, generator=gen)
     lengths = torch.randint(0, steps + 1, (rows,), device=cuda_device, generator=gen)
+    if empty is not None:
+        lengths[empty] = 0
     mask = (torch.arange(steps, device=cuda_device)[None] < lengths[:, None]).float()
     gates = lk._projection(p, x).contiguous()
     w_h = torch.stack([p.fwd.w_h, p.bwd.w_h]).contiguous()
     fwd = lk.bilstm_train_forward(gates, mask, w_h)
     for o, r in zip(fwd, lk.bilstm_train_forward_reference(gates, mask, w_h)):
         torch.testing.assert_close(o, r, **lk.TOLERANCE)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, lk.bilstm_train_forward(gates, mask, w_h)))
     args = (gates, mask, w_h, fwd[3], fwd[4],
             torch.randn(rows, steps, 2 * hidden, device=cuda_device, generator=gen),
             torch.randn(rows, 2 * hidden, device=cuda_device, generator=gen),
@@ -342,6 +351,71 @@ def test_train_lstm_kernels_generic_shapes(cuda_device, rows, steps, in_dim, hid
     bwd = lk.bilstm_bptt(*args)
     _assert_normwise(bwd, lk.bilstm_bptt_reference(*args), lk.BPTT_TOLERANCE, "K6")
     assert all(torch.equal(a, b) for a, b in zip(bwd, lk.bilstm_bptt(*args)))
+    if empty is not None:
+        assert not fwd[0][empty].any() and not bwd[0][empty].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,steps,hidden", [(32, 512, 128), (37, 20, 100), (1030, 3, 256)])
+def test_train_forward_agrees_with_the_serving_kernel(cuda_device, rows, steps, hidden):
+    """K5 (on a cluster) and K1 (one block a row group) sum h·W_h in other
+    orders; at the same gates their out, h_last and c_last agree within
+    TOLERANCE."""
+    from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
+    from mmbidaf_tpu_torch.ops.lstm import BiLSTMParams
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    p = BiLSTMParams(7, hidden, gen, cuda_device)
+    x = torch.randn(rows, steps, 7, device=cuda_device, generator=gen)
+    lengths = torch.randint(0, steps + 1, (rows,), device=cuda_device, generator=gen)
+    mask = (torch.arange(steps, device=cuda_device)[None] < lengths[:, None]).float()
+    out1, (h1, c1) = lk.bilstm_cuda(p, x, mask)
+    w_h = torch.stack([p.fwd.w_h, p.bwd.w_h]).contiguous()
+    out5, h5, c5, _, _ = lk.bilstm_train_forward(lk._projection(p, x).contiguous(), mask, w_h)
+    for a, b in ((out5, out1), (h5, h1), (c5, c1)):
+        torch.testing.assert_close(a, b, **lk.TOLERANCE)
+
+
+@pytest.mark.cuda
+def test_lstm_cluster_plan_matches_the_card(cuda_device):
+    """The Python plan is the C plan, and the card holds a cluster of each."""
+    import ctypes
+
+    from mmbidaf_tpu_torch.ops.cuda import build
+    from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
+
+    lib = build.library()
+    for H in (8, 32, 100, 128, 256):
+        for rows in (1, 5, 32, 1024, 1030):
+            out = (ctypes.c_int * 7)()
+            assert lib.mmb_lstm_cluster_plan(rows, H, out) == 0
+            plan = lk.cluster_plan(rows, H)
+            assert list(out) == [plan.C, plan.R, plan.U, plan.clusters, plan.blocks,
+                                 plan.smem_fwd, plan.smem_bwd], (rows, H)
+            assert lib.mmb_bilstm_forward_train_occupancy(rows, H) > 0, (rows, H)
+            assert lib.mmb_bilstm_backward_occupancy(rows, H) > 0, (rows, H)
+
+
+@pytest.mark.cuda
+def test_lstm_shape_with_no_cluster_plan_raises(cuda_device):
+    """H=512: no cluster of 16 blocks holds W_h's slice, so K5 and K6 raise
+    before launching anything."""
+    from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
+
+    B, T, H = 4, 3, 512
+    gates = torch.zeros(B, T, 8 * H, device=cuda_device)
+    mask = torch.ones(B, T, device=cuda_device)
+    w_h = torch.zeros(2, H, 4 * H, device=cuda_device)
+    seq = torch.zeros(2, T, B, H, device=cuda_device)
+    last = torch.zeros(B, 2 * H, device=cuda_device)
+    before = (lk.bilstm_train_forward.launches, lk.bilstm_bptt.launches)
+    with pytest.raises(ValueError, match="no LSTM cluster plan"):
+        lk.bilstm_train_forward(gates, mask, w_h)
+    with pytest.raises(ValueError, match="no LSTM cluster plan"):
+        lk.bilstm_bptt(gates, mask, w_h, seq, seq, torch.zeros(B, T, 2 * H, device=cuda_device),
+                       last, last)
+    torch.cuda.synchronize()
+    assert (lk.bilstm_train_forward.launches, lk.bilstm_bptt.launches) == before
 
 
 @pytest.mark.cuda
