@@ -15,9 +15,10 @@ Phases, in order; any failure exits non-zero before the result line:
      silent audio example, dropped BiDAF operands cd != c), max error against
      the module's stated bound, the median time of each and of one PyTorch
      library call computing the same function where there is one (CUDA
-     events), its bound from the H100's published peaks, and for the
-     backward kernels K6/K8 and the blockwise BiDAF K9 that two runs agree
-     bit for bit; K4 (tiled mel, both modes) at the long-audio and log-mel
+     events), its bound from the H100's published peaks, and for K5-K9
+     that two runs agree bit for bit; K5-K8's device time from
+     ``torch.profiler``, their cluster plans and ptxas's registers, spills
+     and shared memory; K4 (tiled mel, both modes) at the long-audio and log-mel
      shapes, K9 at the long-audio attention shape, and K2's wrapper routing
      a T_q=1024 block to K9;
   4. the serving slice at the bench configuration (``bench.py::build_bench_config``:
@@ -575,8 +576,8 @@ def phase_long_kernels(dev) -> list[dict]:
 def phase_train_kernels(dev, cfg) -> list[dict]:
     """K5-K8 against their plain versions at the training path's shapes
     (bench widths, B=32: five towers, two attention blocks with dropped
-    operands), plus a small ragged shape; K6 and K8 run twice and must
-    agree bit for bit. Returns the records of the JSON line."""
+    operands), plus a small ragged shape; K5-K8 run twice and must agree
+    bit for bit. Returns the records of the JSON line."""
     import torch
 
     from mmbidaf_tpu_torch.ops.common import dropout_mask
@@ -665,9 +666,10 @@ def phase_train_kernels(dev, cfg) -> list[dict]:
     print_lstm_resources(plans)
 
     # K7 / K8 with dropped operands (drop 0.2, as in training).
-    rec7 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "parts": []}
-    rec8 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "parts": []}
+    rec7 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "dev": 0.0, "parts": []}
+    rec8 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "dev": 0.0, "parts": []}
     D = 2 * h
+    drop_plans = {}
     for tag, bb, tc, tq, dd in [("image", B_TRAIN, d.max_sentences, d.max_keyframes, D),
                                 ("audio", B_TRAIN, d.max_sentences, d.max_audio_frames, D),
                                 ("small-ragged", 3, 7, 45, 20)]:
@@ -678,8 +680,9 @@ def phase_train_kernels(dev, cfg) -> list[dict]:
         qm = t(ragged_mask(rng, bb, tq, lo=0, empty_row=2))
         w = [normal(dd) * 0.1 for _ in range(3)]
         ops = (c, q, cd, qd, cm, qm, *w, torch.tensor(0.25, device=dev))
-        e7 = compare(f"bidaf_dropout[{tag}]", bk.bidaf_dropout_forward(*ops),
-                     bk.bidaf_dropout_reference(*ops), bk.TOLERANCE)
+        fwd = bk.bidaf_dropout_forward(*ops)
+        e7 = compare(f"bidaf_dropout[{tag}]", fwd, bk.bidaf_dropout_reference(*ops), bk.TOLERANCE)
+        check(torch.equal(fwd, bk.bidaf_dropout_forward(*ops)), f"K7[{tag}]: two runs differ")
         g = normal(bb, tc, 4 * dd)
         bwd = bk.bidaf_dropout_backward(*ops, g)
         e8 = compare(f"bidaf_dropout_backward[{tag}]", bwd,
@@ -688,11 +691,17 @@ def phase_train_kernels(dev, cfg) -> list[dict]:
         again = bk.bidaf_dropout_backward(*ops, g)
         check(all(torch.equal(a, b) for a, b in zip(bwd, again)), f"K8[{tag}]: two runs differ")
         rec7["err"], rec8["err"] = max(rec7["err"], e7), max(rec8["err"], e8)
+        plan = bk.drop_plan(tc, tq, dd)
+        drop_plans[tag] = plan
+        plan_s = f"cluster plan C={plan.C} tile={plan.tq} blocks={bb * plan.C}"
         if tag == "small-ragged":
-            print(f"  K7/K8 {tag}: max_abs_err K7={e7:.3e} K8={e8:.3e}; K8 deterministic", flush=True)
+            print(f"  K7/K8 {tag}: {plan_s}; max_abs_err K7={e7:.3e} K8={e8:.3e}; "
+                  f"K7 and K8 deterministic", flush=True)
             continue
         k7 = time_ms(lambda: bk.bidaf_dropout_forward(*ops), iters=20)
         k8 = time_ms(lambda: bk.bidaf_dropout_backward(*ops, g), iters=20)
+        d7 = device_ms(lambda: bk.bidaf_dropout_forward(*ops))
+        d8 = device_ms(lambda: bk.bidaf_dropout_backward(*ops, g))
         p7 = time_ms(lambda: bk.bidaf_dropout_reference(*ops), iters=20)
         p8 = time_ms(lambda: bk.bidaf_dropout_backward_reference(*ops, g), iters=20)
         seq = bb * (2 * tc * dd + 2 * tq * dd + tc + tq) + 3 * dd + 1  # c, q, cd, qd, masks, params
@@ -701,21 +710,23 @@ def phase_train_kernels(dev, cfg) -> list[dict]:
         rec8["parts"].append(bound(bb * (12 * tc * tq * dd + 6 * tc * tc * tq + 6 * tc * tc * dd),
                                    4 * (seq + bb * tc * 4 * dd + bb * (2 * tc * dd + 2 * tq * dd)
                                         + 3 * dd + 1)))
-        for r, k, pl in ((rec7, k7, p7), (rec8, k8, p8)):
-            r["ms"], r["plain"] = r["ms"] + k, r["plain"] + pl
-        print(f"  K7/K8 {tag:5s} B={bb} T_c={tc} T_q={tq} D={dd}: max_abs_err K7={e7:.3e} "
-              f"K8={e8:.3e}; K7 {k7:.4f} ms (plain {p7:.4f}); K8 {k8:.4f} ms (plain {p8:.4f}); "
-              f"K8 deterministic", flush=True)
+        for r, k, kd, pl in ((rec7, k7, d7, p7), (rec8, k8, d8, p8)):
+            r["ms"], r["dev"], r["plain"] = r["ms"] + k, r["dev"] + kd, r["plain"] + pl
+        print(f"  K7/K8 {tag:5s} B={bb} T_c={tc} T_q={tq} D={dd}: {plan_s}; max_abs_err K7={e7:.3e} "
+              f"K8={e8:.3e}; K7 {k7:.4f} ms (device {d7:.4f}; plain {p7:.4f}); K8 {k8:.4f} ms "
+              f"(device {d8:.4f}; plain {p8:.4f}); K7 and K8 deterministic", flush=True)
+    print_bidaf_drop_resources(drop_plans)
 
     def record(name, src, replaces, r, lib):
         out = {"name": name, "route": "cuda", "source": f"mmbidaf_tpu_torch/csrc/{src}",
                "replaces": f"mmbidaf_tpu/ops/pallas/{replaces}", "max_abs_err": r["err"],
                "ms": r["ms"], "plain_ms": r["plain"], **bound_fields(r["parts"]),
-               "library_ms": lib}
-        if "dev" in r:  # K5 / K6: device times beside the CUDA-event ones
-            out.update(device_ms=r["dev"], library_device_ms=r["lib_dev"])
-        print(f"{name}: max_abs_err={r['err']:.3e} kernel={r['ms']:.4f} ms plain={r['plain']:.4f} ms "
-              f"library={lib} roofline={out['bound_ms']:.4f} ms ({out['bound_by']})", flush=True)
+               "library_ms": lib, "device_ms": r["dev"]}  # device time beside the events'
+        if "lib_dev" in r:  # K5 / K6: cuDNN's device time
+            out["library_device_ms"] = r["lib_dev"]
+        print(f"{name}: max_abs_err={r['err']:.3e} kernel={r['ms']:.4f} ms (device "
+              f"{r['dev']:.4f}) plain={r['plain']:.4f} ms library={lib} "
+              f"roofline={out['bound_ms']:.4f} ms ({out['bound_by']})", flush=True)
         return out
 
     return [record("bilstm_train_forward", "lstm.cu", "lstm_kernel.py:228", rec5, rec5["lib"]),
@@ -1263,6 +1274,27 @@ def phase_winograd(dev, card: str, rec14: dict) -> None:
           "(7e) the f32 kernel path did not run K14 twelve times")
 
 
+def print_bidaf_drop_resources(plans: dict) -> None:
+    """ptxas's registers, spills and static shared memory for K7's and K8's
+    cluster kernels (from the build log), and each shape's plan and dynamic
+    shared memory a block."""
+    from mmbidaf_tpu_torch.ops.cuda import build
+
+    log = build.library_path().with_suffix(".log")
+    check(log.exists(), f"(3) no build log at {log}")
+    res = build.ptxas_resources(log.read_text())
+    for label, key in (("K7", "bidaf_drop_fwd_cluster_kernel"), ("K8", "bidaf_drop_bwd_cluster_kernel"),
+                       ("K8", "sum_over_batch_kernel")):
+        found = [r for name, r in res.items() if key in name]
+        check(len(found) == 1, f"(3) ptxas reported {len(found)} kernels named {key}")
+        r = found[0]
+        print(f"  {label} {key}: {r['registers']} registers, spill stores {r['spill_stores']} B, "
+              f"spill loads {r['spill_loads']} B, static smem {r['smem']} B", flush=True)
+    for tag, plan in plans.items():
+        print(f"  K7/K8 {tag}: C={plan.C} tile={plan.tq}; dynamic smem a block K7 {plan.smem_fwd} B, "
+              f"K8 {plan.smem_bwd} B", flush=True)
+
+
 def train_state(cfg, dev, seed: int):
     """A ``TrainState`` at ``cfg`` from ``seed`` and one fixed synthetic batch."""
     import torch
@@ -1323,8 +1355,9 @@ def phase_train(dev, card: str, records: list[dict]) -> None:
     profile_kernels(lambda st: train_step(st, batch)[0], state, t_step, "(5a)", "step",
                     groups={"K5": "bilstm_train_cluster_kernel", "K6 (a) z": "lstm_z_kernel",
                             "K6 (b) walk": "bilstm_bptt_cluster_kernel",
-                            "K6 (c) dW_h": "lstm_dwh_partial_kernel", "K8": "bidaf_bwd_kernel",
-                            "K7": "bidaf_kernel"})
+                            "K6 (c) dW_h": "lstm_dwh_partial_kernel",
+                            "K8": "bidaf_drop_bwd_cluster_kernel",
+                            "K7": "bidaf_drop_fwd_cluster_kernel"})
 
     # (b) drop_prob 0, f32: one step through the kernels and through the plain versions.
     results = []

@@ -14,41 +14,46 @@ K7 and K8 are the training pair, the port of
 ``bidaf_attention_fused_dropout`` and its custom VJP: the forward forms S
 from the dropped ``cd``/``qd`` and everything after S from the undropped
 ``c``/``q``; the backward recomputes S and both softmaxes and returns
-``d_c, d_q, d_cd, d_qd`` and the parameter grads summed over the batch (per
-block partials reduced in order, no atomics). :class:`BiDAFDropoutFn` ties
-them into one ``torch.autograd.Function``; the dropout masks are drawn
+``d_c, d_q, d_cd, d_qd`` and the parameter grads summed over the batch.
+Both split each example over T_q across a thread-block cluster
+(``csrc/bidaf_cluster.cuh``; :func:`drop_plan` mirrors its plan): each block
+keeps its q tile and the tile's S in shared memory, the row softmax is
+combined from per-tile maxima and sums as K9 does, and every sum across
+tiles or over the batch runs in a fixed order through distributed shared
+memory (no atomics, so two runs agree bit for bit). :class:`BiDAFDropoutFn`
+ties them into one ``torch.autograd.Function``; the dropout masks are drawn
 outside (``cd = c·m/keep``) and autograd adds ``d_cd·m/keep`` to ``d_c``.
 ``bidaf_attention_fused_trainable`` is the ``cd = c, qd = q`` case.
 
 Each wrapper (``bidaf_attention_fused`` K2, ``bidaf_attention_tiled`` K9,
 ``bidaf_dropout_forward`` K7, ``bidaf_dropout_backward`` K8) runs its plain
 version on a CPU tensor and launches its kernel on a CUDA tensor, or raises
-— K7/K8 also for shapes whose resident operands do not fit a block's
-shared memory (training at long T_q is not ported). ``<wrapper>.launches``
-counts launches.
+— K7/K8 also, before any launch, for shapes with no cluster plan (at T_c=32,
+D=256, T_q past 1088). ``<wrapper>.launches`` counts launches.
 
 Tolerances of kernel vs plain on the card: K2/K7/K9 form Q2C as
 ``(s_row·s_colᵀ)·c`` where the plain version contracts ``s_row, s_col, c``
-in einsum's order, and sum every product in their own order. On outputs up
-to ~12 in magnitude (unit-normal c and q, D=256) the largest error
-measured on an H100 was 5.2e-6 (K2), 4.3e-6 (K7) and, with its row
-softmax combined from per-block maxima and sums, 7.9e-6 (K9 at T_q=4096),
-so ``atol = 5e-5, rtol = 1e-5``. K8 reassociates ``qc = s_colᵀ·c`` and
-``d_qc = s_rowᵀ·d_b`` through ``[T_c, T_c]`` products and sums the parameter
-grads over B·T_c or B·T_q products, so it is held normwise: each output
-within ``atol + rtol·max|ref|`` of that output. dbias is a sum of terms
-that cancel to ~0 (each softmax's gradient sums to zero), so only the atol
-bounds it. With unit-normal c, q and cotangent at the bench_train shapes
-(B=32, T_q=16 and 512) the largest errors measured on an H100 were 1.7e-5
-on d_c/d_q/d_cd/d_qd up to 36, 4.7e-4 on the parameter grads up to 1140
-(4e-7 of their scale) and 7.4e-5 on dbias, so ``BACKWARD_TOLERANCE``
-(``atol = 5e-4, rtol = 2e-6``, normwise) leaves a 5x margin on the
-parameter grads and 6x on dbias.
+in einsum's order, and sum every product in their own order; K7 and K9
+combine the row softmax from per-tile maxima and sums. On outputs up to
+~12 in magnitude (unit-normal c and q, D=256) the largest error measured
+on an H100 was 5.2e-6 (K2), 1.1e-5 (K7 at T_q=512) and 7.9e-6 (K9 at
+T_q=4096), so ``atol = 5e-5, rtol = 1e-5``. K8 reassociates
+``qc = s_colᵀ·c`` and ``d_qc = s_rowᵀ·d_b`` through ``[T_c, T_c]`` products
+and sums the parameter grads over B·T_c or B·T_q products, so it is held
+normwise: each output within ``atol + rtol·max|ref|`` of that output. dbias
+is a sum of terms that cancel to ~0 (each softmax's gradient sums to zero),
+so only the atol bounds it. With unit-normal c, q and cotangent at the
+bench_train shapes (B=32, T_q=16 and 512) the largest errors measured on an
+H100 were 1.7e-5 on d_c/d_q/d_cd/d_qd up to 36, 4.9e-4 on the parameter
+grads up to 1140 (4e-7 of their scale) and 2.2e-5 on dbias, so
+``BACKWARD_TOLERANCE`` (``atol = 5e-4, rtol = 2e-6``, normwise) leaves a 5x
+margin on the parameter grads and 20x on dbias.
 """
 
 from __future__ import annotations
 
 import types
+from typing import NamedTuple
 
 import torch
 
@@ -70,13 +75,6 @@ def bidaf_smem_bytes(T_c: int, T_q: int, D: int) -> int:
     """Bytes of shared memory K2 and K7 need: c, a q tile (rows padded by
     one), S and s_col (rows padded by one), P, and three small vectors."""
     return 4 * (T_c * D + _TQ * (D + 1) + 2 * T_c * (T_q + 1) + T_c * T_c + T_c + _TQ + D)
-
-
-def bidaf_bwd_smem_bytes(T_c: int, T_q: int, D: int) -> int:
-    """Bytes of shared memory K8 needs: c, cd and d_a, a q tile (rows padded
-    by one), E and P, and small vectors (``csrc/bidaf_bwd.cu::smem_floats``);
-    s_row, s_col and dS live in a global scratch."""
-    return 4 * (3 * T_c * D + _TQ * (D + 1) + 2 * T_c * T_c + 3 * T_c + _TQ + D + T_q)
 
 
 def tiled_smem_bytes(T_c: int, tc: int, tq: int, D: int) -> int:
@@ -111,6 +109,78 @@ def _refuse_smem(fn: str, need: int, T_c: int, T_q: int, D: int) -> None:
             f"{fn}: T_c={T_c}, T_q={T_q}, D={D} needs {need} bytes of "
             f"shared memory, over the {SMEM_LIMIT_BYTES} a block has"
         )
+
+
+# K7 / K8's cluster plan (csrc/bidaf_cluster.cuh): q columns a block where
+# T_q allows, and the largest cluster.
+_TARGET_TILE = 32
+_MAX_CLUSTER = 16
+
+
+class DropPlan(NamedTuple):
+    """How K7 and K8 split one ``T_c x T_q`` example at width ``D``: a
+    cluster of ``C`` blocks, block ``r`` owning the q columns ``tiles[r] =
+    (begin, end)`` (``tq`` the widest) and the D columns ``[r·D/C,
+    (r+1)·D/C)`` of the sums over the tiles, and each kernel's dynamic
+    shared memory a block in bytes."""
+    C: int
+    tq: int
+    tiles: tuple
+    smem_fwd: int
+    smem_bwd: int
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _drop_smem(T_c: int, tq: int, D: int, C: int) -> tuple[int, int]:
+    """K7's and K8's dynamic shared memory a block (``bidaf_cluster.cuh::
+    Layout``): sections of floats, each rounded up to four, rows of odd
+    stride."""
+    LD, LQ, LT = D | 1, tq | 1, T_c | 1
+    fwd = sum(map(_round4, (tq * LD, T_c * LD, T_c * LQ, T_c * LQ, T_c * LQ, T_c * LT, T_c * LT,
+                            T_c, T_c, T_c, tq, C * T_c, C * T_c, 2 * T_c * (-(-D // C) | 1))))
+    bwd = fwd + sum(map(_round4, (T_c * LD, T_c * LD, T_c * LQ, T_c * LT, T_c * LT, T_c, T_c, T_c,
+                                  T_c, tq, D)))
+    return 4 * fwd, 4 * bwd
+
+
+def drop_plan(T_c: int, T_q: int, D: int) -> DropPlan:
+    """The cluster plan of K7 and K8 (``bidaf_cluster.cuh::plan``): ``C =
+    ceil(T_q / 32)`` blocks up to 16, tiles of ``tq = ceil(T_q / C)``
+    columns, then ``C = ceil(T_q / tq)`` so that none is empty. Raises
+    ``ValueError`` where K8's block does not fit Hopper's shared memory."""
+    if T_c <= 0 or T_q <= 0 or D <= 0:
+        raise ValueError(f"no BiDAF cluster plan for T_c={T_c}, T_q={T_q}, D={D}")
+    C = min(-(-T_q // _TARGET_TILE), _MAX_CLUSTER)
+    tq = -(-T_q // C)
+    C = -(-T_q // tq)
+    smem_fwd, smem_bwd = _drop_smem(T_c, tq, D, C)
+    if smem_bwd > SMEM_LIMIT_BYTES:
+        raise ValueError(f"no BiDAF cluster plan for T_c={T_c}, T_q={T_q}, D={D}: a block of "
+                         f"{tq} q columns needs {smem_bwd} bytes of shared memory, over the "
+                         f"{SMEM_LIMIT_BYTES} a block has")
+    tiles = tuple((r * tq, min((r + 1) * tq, T_q)) for r in range(C))
+    return DropPlan(C, tq, tiles, smem_fwd, smem_bwd)
+
+
+_occupancy_checked: set = set()
+
+
+def _check_drop_cluster(lib, entry: str, T_c: int, T_q: int, D: int) -> None:
+    """That this shape has a plan and, once per shape, that the card can hold
+    one of its clusters (``cudaOccupancyMaxActiveClusters > 0``); raises
+    otherwise, before anything is launched."""
+    plan = drop_plan(T_c, T_q, D)
+    key = (entry, T_c, T_q, D)
+    if key not in _occupancy_checked:
+        n = getattr(lib, f"{entry}_occupancy")(T_c, T_q, D)
+        if n <= 0:
+            raise RuntimeError(f"{entry}: the card holds no cluster of {plan.C} blocks of this plan "
+                               f"({plan.smem_fwd} / {plan.smem_bwd} bytes of shared memory a block "
+                               f"for K7 / K8; cudaOccupancyMaxActiveClusters {n})")
+        _occupancy_checked.add(key)
 
 
 def _f32_params(params) -> types.SimpleNamespace:
@@ -268,17 +338,18 @@ def _check_drop_operands(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias):
 
 
 def bidaf_dropout_forward(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias) -> torch.Tensor:
-    """K7 (contract of :func:`bidaf_dropout_reference`) → f32 ``[B, T_c, 4D]``.
-    ``bidaf_dropout_forward.launches`` counts kernel launches."""
+    """K7 (contract of :func:`bidaf_dropout_reference`) → f32 ``[B, T_c, 4D]``;
+    the shape must have a :func:`drop_plan`. ``bidaf_dropout_forward.launches``
+    counts kernel launches."""
     if c.device.type == "cpu":
         return bidaf_dropout_reference(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias)
     if c.device.type != "cuda":
         raise ValueError(f"bidaf_dropout_forward: unsupported device {c.device}")
     ops = (c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias)
     B, T_c, T_q, D, dev = _check_drop_operands(*ops)
-    _refuse_smem("bidaf_dropout_forward", bidaf_smem_bytes(T_c, T_q, D), T_c, T_q, D)
-    out = torch.empty(B, T_c, 4 * D, device=dev)
     lib = build.library()
+    _check_drop_cluster(lib, "mmb_bidaf_forward_dropout", T_c, T_q, D)
+    out = torch.empty(B, T_c, 4 * D, device=dev)
     rc = lib.mmb_bidaf_forward_dropout(*(t.data_ptr() for t in ops), out.data_ptr(),
                                        B, T_c, T_q, D, torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch(lib, rc, "mmb_bidaf_forward_dropout")
@@ -290,8 +361,10 @@ bidaf_dropout_forward.launches = 0
 
 
 def bidaf_dropout_backward(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, g):
-    """K8 (contract of :func:`bidaf_dropout_backward_reference`).
-    ``bidaf_dropout_backward.launches`` counts calls that launched it."""
+    """K8 (contract of :func:`bidaf_dropout_backward_reference`) → ``(d_c,
+    d_q, d_cd, d_qd, dw_c, dw_q, dw_cq, dbias)``; the shape must have a
+    :func:`drop_plan`. ``bidaf_dropout_backward.launches`` counts calls that
+    launched it (two kernels a call)."""
     if c.device.type == "cpu":
         return bidaf_dropout_backward_reference(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq,
                                                 bias, g)
@@ -300,17 +373,16 @@ def bidaf_dropout_backward(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, g
     ops = (c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias)
     B, T_c, T_q, D, dev = _check_drop_operands(*ops)
     build.check_tensor(g, "g", (B, T_c, 4 * D), dev)
-    _refuse_smem("bidaf_dropout_backward", bidaf_bwd_smem_bytes(T_c, T_q, D), T_c, T_q, D)
+    lib = build.library()
+    _check_drop_cluster(lib, "mmb_bidaf_backward", T_c, T_q, D)
     d_c, d_cd = torch.empty_like(c), torch.empty_like(c)
     d_q, d_qd = torch.empty_like(q), torch.empty_like(q)
-    scratch = torch.empty(3, B, T_c, T_q, device=dev)
     partial = torch.empty(B, 3 * D + 1, device=dev)
     d_params = torch.empty(3 * D + 1, device=dev)
-    lib = build.library()
     rc = lib.mmb_bidaf_backward(
         *(t.data_ptr() for t in ops), g.data_ptr(), d_c.data_ptr(), d_q.data_ptr(),
-        d_cd.data_ptr(), d_qd.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
-        d_params.data_ptr(), B, T_c, T_q, D, torch.cuda.current_stream(dev).cuda_stream,
+        d_cd.data_ptr(), d_qd.data_ptr(), partial.data_ptr(), d_params.data_ptr(),
+        B, T_c, T_q, D, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(lib, rc, "mmb_bidaf_backward")
     bidaf_dropout_backward.launches += 1

@@ -30,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("lstm.cu", "lstm_bwd.cu", "bidaf.cu", "bidaf_bwd.cu", "bidaf_tiled.cu", "mfcc.cu",
            "winograd.cu", "conv3x3.cu", "preprocess.cu")
-HEADERS = ("common.cuh", "lstm_cluster.cuh", "mma.cuh", "tma.cuh")
+HEADERS = ("common.cuh", "bidaf_cluster.cuh", "lstm_cluster.cuh", "mma.cuh", "tma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -60,9 +60,15 @@ SIGNATURES = {
     # c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, out, B, T_c, T_q, D, stream
     "mmb_bidaf_forward_dropout": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
     # c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, g, d_c, d_q, d_cd,
-    # d_qd, scratch, partial, d_params, B, T_c, T_q, D, stream
-    "mmb_bidaf_backward": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
+    # d_qd, partial, d_params, B, T_c, T_q, D, stream
+    "mmb_bidaf_backward": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
                            I, I, I, I, P),
+    # T_c, T_q, D, out[4] -> K7/K8's cluster plan: C, tq, K7's and K8's
+    # dynamic shared memory a block
+    "mmb_bidaf_drop_plan": (I, I, I, P),
+    # T_c, T_q, D -> clusters of K7 / K8 the card holds at once (<= 0: none)
+    "mmb_bidaf_forward_dropout_occupancy": (I, I, I),
+    "mmb_bidaf_backward_occupancy": (I, I, I),
     # frames, stride_b, stride_t, cos, sin, mel, dct, logmel, tile_max, out,
     # B, T, win, bins, n_mels, n_mfcc, stream
     "mmb_mfcc_forward": (P, LL, LL, P, P, P, P, P, P, P, I, I, I, I, I, I, P),

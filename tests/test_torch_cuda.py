@@ -447,6 +447,96 @@ def test_bidaf_dropout_kernels_generic_shapes(cuda_device, B, T_c, T_q, D):
     assert all(torch.equal(a, b) for a, b in zip(bwd, bk.bidaf_dropout_backward(*ops, g)))
 
 
+def _has_drop_plan(T_c, T_q, D) -> bool:
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+
+    try:
+        bk.drop_plan(T_c, T_q, D)
+        return True
+    except ValueError:
+        return False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T_c,T_q,D", [
+    (3, 8, 70, 24),          # T_q not a multiple of the tile: 3 tiles of 24, 24, 22
+    (3, 33, 20, 64),         # a cluster of one (T_q <= the tile); T_c = 33
+    (3, 33, 512, 256),       # T_c = 33 over 16 tiles of 32
+    (2, 32, "largest", 256), # the plan's largest accepted T_q (16 tiles, >= 1024 columns)
+])
+def test_bidaf_dropout_cluster_edges(cuda_device, B, T_c, T_q, D):
+    """K7 and K8 at the cluster split's edges against their plain versions,
+    with a fully masked q row (example 0), a fully masked c column (example
+    1) and, where B=3, q masked past the first tile (example 2); each twice
+    gives the same bits."""
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+
+    if T_q == "largest":
+        T_q = max(t for t in range(1024, 2048) if _has_drop_plan(T_c, t, D))
+    plan = bk.drop_plan(T_c, T_q, D)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    rand = lambda *s: torch.randn(*s, device=cuda_device, generator=gen)  # noqa: E731
+    c, q = rand(B, T_c, D), rand(B, T_q, D)
+    cd = c * (torch.rand(c.shape, device=cuda_device, generator=gen) > 0.2).float() / 0.8
+    qd = q * (torch.rand(q.shape, device=cuda_device, generator=gen) > 0.2).float() / 0.8
+    c_mask = (torch.rand(B, T_c, device=cuda_device, generator=gen) > 0.3).float()
+    q_mask = (torch.rand(B, T_q, device=cuda_device, generator=gen) > 0.3).float()
+    q_mask[0] = 0.0
+    c_mask[1] = 0.0
+    if B > 2:
+        q_mask[2, plan.tiles[0][1]:] = 0.0
+    ops = (c, q, cd, qd, c_mask, q_mask, rand(D) * 0.1, rand(D) * 0.1, rand(D) * 0.1,
+           torch.tensor(0.3, device=cuda_device))
+    out = bk.bidaf_dropout_forward(*ops)
+    torch.testing.assert_close(out, bk.bidaf_dropout_reference(*ops), **bk.TOLERANCE)
+    assert torch.equal(out, bk.bidaf_dropout_forward(*ops))
+    g = rand(B, T_c, 4 * D)
+    bwd = bk.bidaf_dropout_backward(*ops, g)
+    _assert_normwise(bwd, bk.bidaf_dropout_backward_reference(*ops, g), bk.BACKWARD_TOLERANCE, "K8")
+    assert all(torch.equal(a, b) for a, b in zip(bwd, bk.bidaf_dropout_backward(*ops, g)))
+
+
+@pytest.mark.cuda
+def test_bidaf_drop_plan_matches_the_card(cuda_device):
+    """The Python plan of K7 and K8 is the C plan, and the card holds a
+    cluster of each kernel at every such plan."""
+    import ctypes
+
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+    from mmbidaf_tpu_torch.ops.cuda import build
+
+    lib = build.library()
+    largest = max(t for t in range(1024, 2048) if _has_drop_plan(32, t, 256))
+    for T_c, T_q, D in ((32, 16, 256), (32, 512, 256), (33, 100, 320), (5, 33, 40), (7, 45, 20),
+                        (32, 1, 256), (8, 70, 24), (32, 1024, 256), (32, largest, 256)):
+        out = (ctypes.c_int * 4)()
+        assert lib.mmb_bidaf_drop_plan(T_c, T_q, D, out) == 0
+        plan = bk.drop_plan(T_c, T_q, D)
+        assert list(out) == [plan.C, plan.tq, plan.smem_fwd, plan.smem_bwd], (T_c, T_q, D)
+        assert lib.mmb_bidaf_forward_dropout_occupancy(T_c, T_q, D) > 0, (T_c, T_q, D)
+        assert lib.mmb_bidaf_backward_occupancy(T_c, T_q, D) > 0, (T_c, T_q, D)
+    assert lib.mmb_bidaf_drop_plan(32, largest + 1, 256, out) != 0
+
+
+@pytest.mark.cuda
+def test_bidaf_dropout_shape_with_no_plan_raises(cuda_device):
+    """T_q=4096 at T_c=32, D=256: K8's block of 256 q columns does not fit,
+    so K7 and K8 raise before launching anything."""
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+
+    B, T_c, T_q, D = 1, 32, 4096, 256
+    z = lambda *s: torch.zeros(*s, device=cuda_device)  # noqa: E731
+    ops = (z(B, T_c, D), z(B, T_q, D), z(B, T_c, D), z(B, T_q, D), z(B, T_c), z(B, T_q),
+           z(D), z(D), z(D), z(()))
+    before = (bk.bidaf_dropout_forward.launches, bk.bidaf_dropout_backward.launches)
+    with pytest.raises(ValueError, match="no BiDAF cluster plan"):
+        bk.bidaf_dropout_forward(*ops)
+    with pytest.raises(ValueError, match="no BiDAF cluster plan"):
+        bk.bidaf_dropout_backward(*ops, z(B, T_c, 4 * D))
+    torch.cuda.synchronize()
+    assert (bk.bidaf_dropout_forward.launches, bk.bidaf_dropout_backward.launches) == before
+
+
 @pytest.mark.cuda
 def test_bench_width_train_step_parity_with_jax(cuda_device):
     """One training step of the port on the card (f32, drop_prob 0, the
