@@ -15,20 +15,27 @@ Phases, in order; any failure exits non-zero before the result line:
      silent audio example, dropped BiDAF operands cd != c), max error against
      the module's stated bound, the median time of each and of one PyTorch
      library call computing the same function where there is one (CUDA
-     events), its bound from the H100's published peaks, and for K5-K9
-     that two runs agree bit for bit; K5-K8's device time from
-     ``torch.profiler``, their cluster plans and ptxas's registers, spills
-     and shared memory; K4 (tiled mel, both modes) at the long-audio and log-mel
-     shapes, K9 at the long-audio attention shape, and K2's wrapper routing
-     a T_q=1024 block to K9;
+     events), its bound from the H100's published peaks, and for K1 and
+     K4-K9 that two runs agree bit for bit; K1's route (cluster) and
+     cluster plan per tower, its kernel alone in microseconds a step at the
+     audio (B=64, T=512) and long-audio (B=16, T=4096) towers, ptxas's
+     registers, spills and shared memory of its kernels, and its L2 route
+     at H=512; K5-K8's device time from ``torch.profiler``, their cluster
+     plans and ptxas's reports; K4 (tiled mel, both modes) on its FFT
+     route at the long-audio and log-mel shapes, its dense route at a small
+     n_fft=400 shape, the silent example exact, ptxas's reports and the FFT
+     body's shared memory; K9 at the long-audio attention shape, and K2's
+     wrapper routing a T_q=1024 block to K9;
   4. the serving slice at the bench configuration (``bench.py::build_bench_config``:
      VGG-16 at 224², hidden 128, vocab 20000, T_s=32 x W=16, 16 keyframes,
      512 audio frames, K=4, bf16, all three kernel flags on):
      (a) ``make_end_to_end_decode`` on a seeded raw batch of B=64 (frames
-         240x320), checked and timed (videos/s);
+         240x320), checked and timed (videos/s), and a ``torch.profiler``
+         breakdown of three batches;
      (b) ``Summarizer.summarize_batch`` answering 8 requests on a synthetic
          corpus written by ``examples/make_synthetic_corpus.py``;
-     (c) K1-K3's launch counters rose during (a) and (b);
+     (c) K1-K3's launch counters rose during (a) and (b), K1's on its
+         cluster route only;
      (d) an f32 copy of the (a) batch through the kernels and through the
          plain versions (full f32 convs for both): equal picks, close log-probs;
   5. the training step at the ``bench_train.py --pallas`` configuration (the
@@ -47,15 +54,16 @@ Phases, in order; any failure exits non-zero before the result line:
      (``examples/configs/config6_sp_long_audio.json`` on one device: 4096
      audio frames, vocab 50000, bf16, the three kernel flags on):
      (a) ``make_end_to_end_decode`` on a seeded raw batch of B=16, checked
-         and timed; K1, K2, K4 and K9 ran, K3 did not;
+         and timed; K1, K2, K4 and K9 ran, K3 did not; K1 on its cluster
+         route only, K4 on its FFT route only;
      (b) ``Summarizer.summarize_long`` answering 2 requests with 41 s of
          audio and 80 transcript sentences (four windows), and
          ``summarize`` 1 more;
      (c) an f32 copy of the (a) batch at B=2 through the kernels and
          through the plain versions: equal picks, close log-probs;
      (d) the log-mel configuration (the bench config with
-         ``audio_features="logmel"``): one B=64 batch through K4's log mode,
-         and f32 kernels vs plain at B=2: equal picks;
+         ``audio_features="logmel"``): one B=64 batch through K4's log mode
+         (its FFT route only), and f32 kernels vs plain at B=2: equal picks;
   7. the Winograd VGG frontend and the kernel-parity tool:
      (a) ``mmbidaf_tpu_torch.tools.kernel_parity`` in-process at batch 32:
          every kernel against its plain version at serving shapes, K11-K14
@@ -73,7 +81,8 @@ Phases, in order; any failure exits non-zero before the result line:
      (c) the bench config with ``use_winograd_conv=True``:
          ``make_end_to_end_decode`` on a seeded raw batch of B=16 (256
          keyframes), checked and timed; K14 runs 12 times a VGG pass and the
-         direct conv only for the stem; the frontend alone and a profile;
+         direct conv only for the stem, K1 on its cluster route only; the
+         frontend alone and a profile;
      (d) ``Summarizer.summarize_batch`` answering 4 requests under it;
      (e) an f32 copy of a B=2 batch through the kernels and through the
          plain versions (K14's too): equal picks, close log-probs; and, for
@@ -91,6 +100,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -351,6 +361,28 @@ def lstm_shapes(cfg, batch: int):
             ("modeling", batch, d.max_sentences, 2 * h), ("small-ragged", 5, 7, 6)]
 
 
+def k1_step_times(dev) -> dict:
+    """K1's kernel alone (its cluster route, on unit-normal gates as the
+    projection hands them over; ``tools/lstm_variants.py``'s operands, H=128)
+    at the audio tower (B=64, T=512) and the long-audio tower (B=16,
+    T=4096): microseconds a step, CUDA events. The wrapper's counters do not
+    move: these launches time the kernel, outside the main path."""
+    from mmbidaf_tpu_torch.ops.cuda import build, lstm_kernel
+    from mmbidaf_tpu_torch.tools import lstm_variants
+
+    lib = build.library()
+    out = {}
+    for tag, rows, steps in (("audio", B, bench_config().data.max_audio_frames),
+                             ("long-audio", B_LONG, long_config().data.max_audio_frames)):
+        gates, mask, w_h = lstm_variants.operands(rows, steps, dev)
+        k = time_ms(lambda: lstm_variants.run_k1(lib, gates, mask, w_h), iters=max(2, 4096 // steps))
+        plan = lstm_kernel.cluster_plan(rows, lstm_variants.H)
+        out[tag] = k * 1e3 / steps
+        print(f"  K1 kernel alone, {tag} tower rows={rows} T={steps}: {k:.4f} ms, "
+              f"{out[tag]:.3f} us a step (C={plan.C} R={plan.R}, {plan.blocks} blocks)", flush=True)
+    return out
+
+
 def phase_kernels(dev, cfg) -> list[dict]:
     """K1-K3 against their plain versions: bench shapes plus a small ragged
     one. Returns the per-kernel records of the JSON line (launches filled in
@@ -369,7 +401,7 @@ def phase_kernels(dev, cfg) -> list[dict]:
     def t(x):
         return torch.from_numpy(x).to(dev)
 
-    records = []
+    records, plans = [], {}
 
     # K1: the five BiLSTM towers at bench shapes (rows, steps, input width), then small.
     err, ms, plain_ms, lib_ms, parts = 0.0, 0.0, 0.0, 0.0, []
@@ -378,11 +410,17 @@ def phase_kernels(dev, cfg) -> list[dict]:
         p = BiLSTMParams(width, hid, gen, dev)
         x = t(rng.standard_normal((rows, steps, width)).astype(np.float32))
         m = t(ragged_mask(rng, rows, steps, lo=0, empty_row=1))
+        route = lstm_kernel.serving_route(rows, hid)
+        check(route == "cluster", f"bilstm[{tag}]: K1 took its {route} route at the bench widths")
         e = compare(f"bilstm[{tag}]", lstm_kernel.bilstm_cuda(p, x, m), lstm_kernel.bilstm_reference(p, x, m),
                     lstm_kernel.TOLERANCE)
         out = lstm_kernel.bilstm_cuda(p, x, m)
         check(not out[0][1].any() and not out[1][0][1].any(), f"bilstm[{tag}]: fully masked row not zero")
+        check(torch.equal(out[0], lstm_kernel.bilstm_cuda(p, x, m)[0]), f"K1[{tag}]: two runs differ")
         err = max(err, e)
+        plan = lstm_kernel.cluster_plan(rows, hid)
+        plans[tag] = plan
+        plan_s = f"{route} route, plan C={plan.C} R={plan.R} U={plan.U} blocks={plan.blocks}"
         if tag != "small-ragged":
             k = time_ms(lambda: lstm_kernel.bilstm_cuda(p, x, m), iters=10)
             pl = time_ms(lambda: lstm_kernel.bilstm_reference(p, x, m), iters=2, reps=3)
@@ -393,16 +431,30 @@ def phase_kernels(dev, cfg) -> list[dict]:
             parts.append(bound(2 * rows * steps * width * 2 * G + 2 * 2 * rows * steps * hid * G,
                                4 * (rows * steps * (width + 1 + 2 * hid) + 2 * (width + hid + 1) * G
                                     + 4 * rows * hid)))
-            print(f"  K1 bilstm {tag:9s} rows={rows:5d} T={steps:4d} in={width:5d}: "
-                  f"max_abs_err={e:.3e} kernel={k:.4f} ms plain={pl:.4f} ms cudnn={lb:.4f} ms", flush=True)
+            print(f"  K1 bilstm {tag:9s} rows={rows:5d} T={steps:4d} in={width:5d}: {plan_s}; "
+                  f"max_abs_err={e:.3e} kernel={k:.4f} ms plain={pl:.4f} ms cudnn={lb:.4f} ms; "
+                  f"deterministic", flush=True)
         else:
-            print(f"  K1 bilstm {tag}: max_abs_err={e:.3e}", flush=True)
+            print(f"  K1 bilstm {tag}: {plan_s}; max_abs_err={e:.3e}; deterministic", flush=True)
+    # past the cluster plan (H=512) K1 takes its L2 route (same function)
+    p = BiLSTMParams(6, 512, gen, dev)
+    x, m = t(rng.standard_normal((5, 7, 6)).astype(np.float32)), t(ragged_mask(rng, 5, 7, lo=0, empty_row=1))
+    routes = dict(lstm_kernel.bilstm_cuda.routes)
+    e = compare("bilstm[H=512]", lstm_kernel.bilstm_cuda(p, x, m), lstm_kernel.bilstm_reference(p, x, m),
+                lstm_kernel.TOLERANCE)
+    check(lstm_kernel.bilstm_cuda.routes == {"cluster": routes["cluster"], "l2": routes["l2"] + 1},
+          "bilstm: H=512 did not take K1's L2 route")
+    print(f"  K1 bilstm H=512 (no cluster plan) takes the l2 route: max_abs_err={e:.3e}", flush=True)
+    us = k1_step_times(dev)
     records.append({"name": "bilstm", "route": "cuda", "source": "mmbidaf_tpu_torch/csrc/lstm.cu",
+                    "kernel": "bilstm_cluster_kernel<R, false> (csrc/lstm_cluster.cuh)",
                     "replaces": "mmbidaf_tpu/ops/pallas/lstm_kernel.py:25", "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": lib_ms})
+                    "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": lib_ms,
+                    "us_a_step": us})
     print(f"K1 bilstm: bound {lstm_kernel.TOLERANCE}, max_abs_err={err:.3e}, "
           f"per batch (5 towers) kernel={ms:.4f} ms plain={plain_ms:.4f} ms cudnn={lib_ms:.4f} ms "
           f"roofline={records[-1]['bound_ms']:.4f} ms", flush=True)
+    print_lstm_resources(plans, "K1")
 
     # K2: image (T_q=16) and audio (T_q=512) attention at bench shapes, then small.
     D = 2 * h
@@ -494,6 +546,7 @@ def phase_long_kernels(dev) -> list[dict]:
     from mmbidaf_tpu_torch.ops import audio
     from mmbidaf_tpu_torch.ops.bidaf import BiDAFParams
     from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+    from mmbidaf_tpu_torch.ops.cuda import build
     from mmbidaf_tpu_torch.ops.cuda import melspec_kernel as mk
 
     rng = np.random.default_rng(13)
@@ -505,24 +558,37 @@ def phase_long_kernels(dev) -> list[dict]:
 
     consts = audio.make_audio_frontend_consts(d.sample_rate, d.n_fft, d.win_length, d.n_mels,
                                               d.n_mfcc, d.fmin, d.fmax, device=dev)
+    # n_fft=400 is no power of two: the dense route (not on the main paths)
+    dense = audio.make_audio_frontend_consts(d.sample_rate, 400, 400, 40, 13, device=dev)
     bins = consts["cos"].shape[1]
     err, ms, plain_ms, parts = 0.0, 0.0, 0.0, []
     for tag, bb, steps, log in [("long-audio", B_LONG, d.max_audio_frames, False),
                                 ("logmel", B, bench_config().data.max_audio_frames, True),
                                 ("small-ragged", 3, 37, True),
-                                ("small-ragged", 3, 37, False)]:
-        sig = rng.standard_normal((bb, (steps - 1) * d.hop_length + d.win_length)).astype(np.float32) * 0.1
+                                ("small-ragged", 3, 37, False),
+                                ("small-dense", 3, 37, True),
+                                ("small-dense", 3, 37, False)]:
+        cst = dense if tag == "small-dense" else consts
+        win = cst["cos"].shape[0]
+        sig = rng.standard_normal((bb, (steps - 1) * d.hop_length + win)).astype(np.float32) * 0.1
         sig[1] = 0.0
-        frames = audio.frame_signal(t(sig), d.win_length, d.hop_length, steps)
-        out = mk.log_mel_fused(frames, consts, log=log)
+        frames = audio.frame_signal(t(sig), win, d.hop_length, steps)
+        route = mk.log_mel_route(win, cst["cos"].shape[1])
+        check(route == ("dense" if tag == "small-dense" else "fft"), f"K4[{tag}]: the {route} route")
+        routes = dict(mk.log_mel_fused.routes)
+        out = mk.log_mel_fused(frames, cst, log=log)
+        check(mk.log_mel_fused.routes[route] == routes[route] + 1, f"K4[{tag}]: {route} not counted")
         name = f"log_mel[{tag}, log={log}]"
-        e = compare(name, out, mk.log_mel_reference(frames, consts, log=log),
+        e = compare(name, out, mk.log_mel_reference(frames, cst, log=log),
                     mk.LOG_MEL_TOLERANCE[log], normwise=not log)
-        silent = math.log(1e-6) if log else 0.0
-        check(bool((out[1] - silent).abs().max() <= 1e-5), f"{name}: the silent example is not {silent}")
+        silent = torch.zeros_like(out[1])
+        silent = torch.log(silent + 1e-6) if log else silent
+        check(torch.equal(out[1], silent), f"{name}: the silent example is not exactly {silent[0, 0].item()}")
+        check(torch.equal(out, mk.log_mel_fused(frames, cst, log=log)), f"{name}: two runs differ")
         err = max(err, e)
-        if tag == "small-ragged":
-            print(f"  K4 {name}: max_abs_err={e:.3e}", flush=True)
+        if tag.startswith("small"):
+            print(f"  K4 {name}: {route} route; max_abs_err={e:.3e}; silent example exact; "
+                  f"deterministic", flush=True)
             continue
         k = time_ms(lambda: mk.log_mel_fused(frames, consts, log=log), iters=10)
         pl = time_ms(lambda: mk.log_mel_reference(frames, consts, log=log), iters=10)
@@ -530,13 +596,21 @@ def phase_long_kernels(dev) -> list[dict]:
         n = bb * steps
         parts.append(bound(spectrum_flops(n, d.n_fft, d.win_length, consts["mel_fb"]) + n * d.n_mels * log,
                            4 * (sig.size + 2 * d.win_length * bins + bins * d.n_mels + n * d.n_mels)))
-        print(f"  K4 {name} B={bb} T={steps}: max_abs_err={e:.3e} kernel={k:.4f} ms "
-              f"plain={pl:.4f} ms bound={max(parts[-1]):.4f} ms", flush=True)
+        print(f"  K4 {name} B={bb} T={steps}: {route} route; max_abs_err={e:.3e} kernel={k:.4f} ms "
+              f"plain={pl:.4f} ms bound={max(parts[-1]):.4f} ms; silent example exact; deterministic",
+              flush=True)
     rec4 = {"name": "log_mel", "route": "cuda", "source": "mmbidaf_tpu_torch/csrc/mfcc.cu",
+            "kernel": "logmel_fft_kernel<kLogMel / kMelPower> (frame_power_fft)",
             "replaces": "mmbidaf_tpu/ops/pallas/melspec_kernel.py:24", "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": None}
     print(f"K4 log_mel: bounds {mk.LOG_MEL_TOLERANCE}, max_abs_err={err:.3e}, long-audio + logmel "
           f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms roofline={rec4['bound_ms']:.4f} ms", flush=True)
+    print_resources("3", (("K4 fft", "logmel_fft_kernel"), ("K4 dense", "logmel_tile_kernel")),
+                    keep=lambda inst: inst != "<0>")  # <0>: K3's pass
+    nnz = mk.mel_nonzeros(consts["mel_fb"])[1].numel()
+    smem = build.library().mmb_log_mel_fft_smem_bytes(d.n_fft, d.win_length, d.hop_length, d.n_mels, nnz)
+    print(f"  K4 fft: dynamic smem a block {smem} B (n_fft={d.n_fft}, win={d.win_length}, "
+          f"hop={d.hop_length}, {d.n_mels} mels, {nnz} mel weights staged; a warp a frame)", flush=True)
 
     D = 2 * long_config().model.hidden_size
     err, ms, plain_ms, parts = 0.0, 0.0, 0.0, []
@@ -663,7 +737,7 @@ def phase_train_kernels(dev, cfg) -> list[dict]:
           f"{rec6['dev']:.4f}) vs cudnn bwd {rec6['lib']:.4f} (device {rec6['lib_dev']:.4f}); the "
           f"dx/dW_x/db GEMMs {gemm['ms']:.4f} ms (device {gemm['dev']:.4f}): K6 + GEMMs on the "
           f"device {rec6['dev'] + gemm['dev']:.4f} vs cudnn bwd {rec6['lib_dev']:.4f}", flush=True)
-    print_lstm_resources(plans)
+    print_lstm_resources(plans, "K5/K6")
 
     # K7 / K8 with dropped operands (drop 0.2, as in training).
     rec7 = {"err": 0.0, "ms": 0.0, "plain": 0.0, "dev": 0.0, "parts": []}
@@ -886,6 +960,8 @@ def phase_long(dev, card: str, long_records: list[dict]) -> None:
                 "K9": bidaf_kernel.bidaf_attention_tiled}
     for fn in counters.values():
         fn.launches = 0
+    lstm_kernel.bilstm_cuda.routes = {"cluster": 0, "l2": 0}
+    melspec_kernel.log_mel_fused.routes = {"fft": 0, "dense": 0}
     torch.cuda.reset_peak_memory_stats(dev)
     # (a) the end-to-end program at B=16, 4096 audio frames
     lp, picks = end_to_end(s.model, s.frontend, raw)
@@ -919,6 +995,10 @@ def phase_long(dev, card: str, long_records: list[dict]) -> None:
     for k in ("K1", "K2", "K4", "K9"):
         check(launches[k] > 0, f"{k} was never launched on the long-audio path")
     check(launches["K3"] == 0, "K3 ran on the long-audio path (4096 frames exceed its bound)")
+    routes = {"K1": lstm_kernel.bilstm_cuda.routes, "K4": melspec_kernel.log_mel_fused.routes}
+    print(f"(6a-b) routes: {routes}", flush=True)
+    check(routes["K1"] == {"cluster": launches["K1"], "l2": 0}, "(6a-b) K1 left its cluster route")
+    check(routes["K4"] == {"fft": launches["K4"], "dense": 0}, "(6a-b) K4 left its FFT route")
     rec4, rec9 = long_records
     rec4["launches"], rec9["launches"] = launches["K4"], launches["K9"]
     # where the time of (a) goes: the frontend alone, the audio tower's
@@ -935,8 +1015,8 @@ def phase_long(dev, card: str, long_records: list[dict]) -> None:
           f"{(t_batch - t_front) * 1e3:.2f} ms; the audio BiLSTM alone (K1, {d.max_audio_frames} "
           f"steps): {t_aud:.2f} ms", flush=True)
     profile_kernels(lambda _: end_to_end(s.model, s.frontend, raw), None, t_batch, "(6a)", "batch",
-                    {"K1 bilstm": "bilstm_kernel", "K2 bidaf": "bidaf_kernel",
-                     "K4 log_mel": "logmel_tile_kernel", "K9 bidaf_tiled": "tiled_"})
+                    {"K1 bilstm": "bilstm_cluster_kernel", "K2 bidaf": "bidaf_kernel",
+                     "K4 log_mel": "logmel_fft_kernel", "K9 bidaf_tiled": "tiled_"})
     # (c) f32 at B=2: kernels vs plain versions
     f32_kernels_vs_plain(cfg, s, {k: v[:2] for k, v in raw.items()},
                          {k: v[:2] for k, v in raw_np.items()}, "(6c) long-audio")
@@ -949,16 +1029,18 @@ def phase_long(dev, card: str, long_records: list[dict]) -> None:
     raw = {k: torch.from_numpy(v).to(dev) for k, v in raw_np.items()}
     k4 = melspec_kernel.log_mel_fused
     k4.launches = 0
+    k4.routes = {"fft": 0, "dense": 0}
     end_to_end = make_end_to_end_decode(lm)
     lp, picks = end_to_end(s.model, s.frontend, raw)
     torch.cuda.synchronize()
     check_decode(lp.cpu().numpy(), picks.cpu().numpy(), raw_np, lm, "logmel bf16")
     # only the log mode runs on this configuration (logmel, not MFCC)
     check(k4.launches > 0, "K4's log mode was never launched on the log-mel path")
+    check(k4.routes == {"fft": k4.launches, "dense": 0}, f"(6d) K4 left its FFT route: {k4.routes}")
     launched = k4.launches
     rec4["launches"] += launched
     t_batch = timed_batches(lambda: end_to_end(s.model, s.frontend, raw), n=3)
-    print(f"(6d) logmel B={B}: K4 log launches {launched}; median batch "
+    print(f"(6d) logmel B={B}: K4 log launches {launched} (routes {k4.routes}); median batch "
           f"{t_batch * 1e3:.2f} ms over 3 -> {B / t_batch:.2f} videos/s on {card}", flush=True)
     f32_kernels_vs_plain(lm, s, {k: v[:2] for k, v in raw.items()},
                          {k: v[:2] for k, v in raw_np.items()}, "(6d) logmel")
@@ -1045,28 +1127,52 @@ def print_tensor_core_resources() -> None:
               flush=True)
 
 
-def print_lstm_resources(plans: dict) -> None:
-    """ptxas's registers, spills and static shared memory for K5's and K6's
-    kernels (from the build log), and each tower's dynamic shared memory a
-    block under its cluster plan."""
+def template_args(mangled: str, key: str) -> str:
+    """The template arguments of kernel ``key`` in its mangled name, as
+    ``<4, false>`` (integers and booleans only), or ``-`` if it has none."""
+    rest = mangled[mangled.index(key) + len(key):]
+    if not rest.startswith("I"):
+        return "-"
+    args = re.findall(r"L([ib])(\d+)", rest.split("EE", 1)[0])
+    return "<" + ", ".join(v if k == "i" else ("true" if v == "1" else "false") for k, v in args) + ">"
+
+
+def print_resources(label: str, keys, keep=lambda inst: True) -> None:
+    """ptxas's registers, spills and static shared memory (from the build
+    log) of every instance of each kernel in ``keys``."""
     from mmbidaf_tpu_torch.ops.cuda import build
 
     log = build.library_path().with_suffix(".log")
-    check(log.exists(), f"(3) no build log at {log}")
+    check(log.exists(), f"({label}) no build log at {log}")
     res = build.ptxas_resources(log.read_text())
-    for label, key in (("K5", "bilstm_train_cluster_kernel"), ("K6 (a)", "lstm_z_kernel"),
-                       ("K6 (b)", "bilstm_bptt_cluster_kernel"),
-                       ("K6 (c)", "lstm_dwh_partial_kernel"), ("K6 (c)", "sum_partials_kernel")):
-        found = sorted((name, r) for name, r in res.items() if key in name)
-        check(len(found) > 0, f"(3) ptxas reported no kernel named {key}")
-        for name, r in found:
-            inst = name[name.index(key) + len(key):].split("E", 1)[0] or "-"
-            print(f"  {label} {key} {inst}: {r['registers']} registers, spill stores "
+    for tag, key in keys:
+        found = sorted((template_args(name, key), r) for name, r in res.items()
+                       if f"{len(key)}{key}" in name)
+        found = [(inst, r) for inst, r in found if keep(inst)]
+        check(len(found) > 0, f"({label}) ptxas reported no kernel named {key}")
+        for inst, r in found:
+            print(f"  {tag} {key}{inst}: {r['registers']} registers, spill stores "
                   f"{r['spill_stores']} B, spill loads {r['spill_loads']} B, static smem {r['smem']} B",
                   flush=True)
+
+
+def print_lstm_resources(plans: dict, which: str) -> None:
+    """ptxas's registers, spills and static shared memory of K1's kernels
+    (``which="K1"``: the cluster body without residuals, and the L2 route)
+    or of K5's and K6's, and each tower's dynamic shared memory a block
+    under its cluster plan."""
+    if which == "K1":
+        print_resources("3", (("K1", "bilstm_cluster_kernel"), ("K1 l2", "bilstm_kernel")),
+                        keep=lambda inst: not inst.endswith("true>"))
+    else:
+        print_resources("3", (("K5", "bilstm_cluster_kernel"), ("K6 (a)", "lstm_z_kernel"),
+                              ("K6 (b)", "bilstm_bptt_cluster_kernel"),
+                              ("K6 (c)", "lstm_dwh_partial_kernel"), ("K6 (c)", "sum_partials_kernel")),
+                        keep=lambda inst: not inst.endswith("false>"))
     for tag, plan in plans.items():
-        print(f"  K5/K6 {tag}: dynamic smem a block K5 {plan.smem_fwd} B, K6 walk {plan.smem_bwd} B "
-              f"(C={plan.C}, R={plan.R})", flush=True)
+        smem = (f"K1 {plan.smem_fwd} B" if which == "K1"
+                else f"K5 {plan.smem_fwd} B, K6 walk {plan.smem_bwd} B")
+        print(f"  {which} {tag}: dynamic smem a block {smem} (C={plan.C}, R={plan.R})", flush=True)
 
 
 def phase_parity_tool(dev) -> dict:
@@ -1218,6 +1324,7 @@ def phase_winograd(dev, card: str, rec14: dict) -> None:
                 "K3": melspec_kernel.mfcc_fused, "K14": winograd_kernel.winograd_conv3x3_fused}
     for fn in counters.values():
         fn.launches = 0
+    lstm_kernel.bilstm_cuda.routes = {"cluster": 0, "l2": 0}
     direct = []
     # (c) one batch: K14 for the twelve C_in >= 32 convs, the direct conv for the stem
     with count_direct_convs(direct):
@@ -1244,7 +1351,7 @@ def phase_winograd(dev, card: str, rec14: dict) -> None:
           f"{t_front * 1e3:.2f} ms, direct cuDNN {t_direct * 1e3:.2f} ms; model + decode "
           f"{(t_batch - t_front) * 1e3:.2f} ms", flush=True)
     profile_kernels(lambda _: end_to_end(s.model, s.frontend, raw), None, t_batch, "(7c)", "batch",
-                    {"K14 winograd": "winograd_mma_kernel", "K1 bilstm": "bilstm_kernel",
+                    {"K14 winograd": "winograd_mma_kernel", "K1 bilstm": "bilstm_cluster_kernel",
                      "max-pool": "max_pool"})
     # (d) 4 requests through the serving API
     with tempfile.TemporaryDirectory() as tmp:
@@ -1259,6 +1366,9 @@ def phase_winograd(dev, card: str, rec14: dict) -> None:
     print(f"(7d) summarize_batch: 4 requests answered in {dt:.2f} s; first: {summaries[0][:80]!r}; "
           f"launches over (7c)-(7d): {launches}", flush=True)
     check(launches["K14"] > first["K14"], "(7d) K14 was not launched by summarize_batch")
+    k1_routes = lstm_kernel.bilstm_cuda.routes
+    print(f"(7c-d) K1 routes: {k1_routes}", flush=True)
+    check(k1_routes == {"cluster": launches["K1"], "l2": 0}, "(7c-d) K1 left its cluster route")
     rec14["launches"] = launches["K14"]
     # (e) for information: bf16 Winograd vs direct features; then f32 kernels vs plain at B=2
     two = {k: v[:2] for k, v in raw.items()}
@@ -1353,7 +1463,7 @@ def phase_train(dev, card: str, records: list[dict]) -> None:
     print(f"(5a) median step {t_step * 1e3:.2f} ms over {TRAIN_STEPS - 1} -> {1.0 / t_step:.3f} steps/s, "
           f"{B_TRAIN / t_step:.2f} videos/s on {card}; peak memory {peak_gb:.2f} GB", flush=True)
     profile_kernels(lambda st: train_step(st, batch)[0], state, t_step, "(5a)", "step",
-                    groups={"K5": "bilstm_train_cluster_kernel", "K6 (a) z": "lstm_z_kernel",
+                    groups={"K5": "bilstm_cluster_kernel", "K6 (a) z": "lstm_z_kernel",
                             "K6 (b) walk": "bilstm_bptt_cluster_kernel",
                             "K6 (c) dW_h": "lstm_dwh_partial_kernel",
                             "K8": "bidaf_drop_bwd_cluster_kernel",
@@ -1428,6 +1538,7 @@ def main() -> None:
     counters = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused)
     for fn in counters:
         fn.launches = 0
+    lstm_kernel.bilstm_cuda.routes = {"cluster": 0, "l2": 0}
     torch.cuda.reset_peak_memory_stats(dev)
     # (a) the end-to-end program at B=64
     lp, picks = end_to_end(s.model, s.frontend, raw)
@@ -1437,6 +1548,9 @@ def main() -> None:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"(a) end-to-end B={B}: median batch {t_batch * 1e3:.2f} ms over 5 -> "
           f"{B / t_batch:.2f} videos/s on {card}; peak memory {peak_gb:.2f} GB", flush=True)
+    profile_kernels(lambda _: end_to_end(s.model, s.frontend, raw), None, t_batch, "(a)", "batch",
+                    {"K1 bilstm": "bilstm_cluster_kernel", "K2 bidaf": "bidaf_kernel",
+                     "K3 mfcc (tile pass)": "logmel_tile_kernel", "K3 mfcc (DCT pass)": "mfcc_dct_kernel"})
     # (b) 8 requests through the serving API
     with tempfile.TemporaryDirectory() as tmp:
         load_corpus_module().make_corpus(tmp, videos=8, sentences=12, frames=10, seconds=4.0, seed=0)
@@ -1453,6 +1567,10 @@ def main() -> None:
     for rec, fn in zip(records, counters):
         check(fn.launches > 0, f"{fn.__name__} was never launched on the main path")
         rec["launches"] = fn.launches
+    k1_routes = lstm_kernel.bilstm_cuda.routes
+    print(f"(c) K1 routes during (a)+(b): {k1_routes}", flush=True)
+    check(k1_routes["cluster"] == lstm_kernel.bilstm_cuda.launches and k1_routes["l2"] == 0,
+          f"(c) K1 left its cluster route at the bench widths: {k1_routes}")
 
     # (d) f32: kernels vs plain versions, same weights, same batch
     f32_kernels_vs_plain(cfg, s, raw, raw_np, "(d) bench")

@@ -56,6 +56,20 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// 4 bytes global -> shared without a register round trip; with !pred
+// nothing is read and the 4 bytes are zero-filled (src must still be a
+// valid address).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Threads per block for a loop over n items: n rounded up to a warp, capped.
 inline int threads_for(int n, int cap) {
   int t = ((n + 31) / 32) * 32;

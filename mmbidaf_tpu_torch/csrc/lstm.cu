@@ -19,32 +19,40 @@
 // position T-1-t in the reverse direction), which csrc/lstm_bwd.cu (K6)
 // reads back.
 //
-// K1 (bilstm_kernel): grid (ceil(B/R), 2 directions); W_h (128 x 512 f32 =
-// 256 KB per direction, over a block's 227 KB) is read from L2 every step,
-// each read reused for the block's R rows; one thread per gate column
-// accumulates z for the R rows, then one thread per (row, unit) runs the
-// gate math. Its time is T dependent steps of L2 latency; the cluster design
-// below is its candidate too.
-//
-// K5 (bilstm_train_cluster_kernel) keeps W_h on chip over a thread-block
-// cluster (csrc/lstm_cluster.cuh): block c of a cluster holds the four gate
-// columns of its ~H/C units for the cluster's R rows. Per step it computes
+// Both run on a thread-block cluster that keeps W_h on chip
+// (bilstm_cluster_kernel<R, kTrain>, csrc/lstm_cluster.cuh): K5 is kTrain
+// = true, K1 kTrain = false, which writes no residuals and issues its
+// product's loads 8 k ahead of their FMAs (the step is latency: clock64
+// stamps put most of it in the product's dependent shared-memory loads,
+// tools/lstm_variants.py); the sums are the same, so at equal gates K1 and
+// K5 give the same bits. Block c of a cluster holds the four gate columns
+// of its ~H/C units for the cluster's R rows. Per step it computes
 // z[:, its columns] = gates + h_prev · W_h[:, its columns] from the full
-// h_prev [H][R] it holds, runs the gate math of its units, writes out,
-// h_seq and c_seq, pushes its h slice into every block's h buffer of the
-// next parity, and passes the cluster barrier: one barrier a step. The next
-// step's gates and mask come by cp.async while the step runs.
+// h_prev [H][R] it holds, runs the gate math of its units, writes out (and,
+// in K5, h_seq and c_seq), pushes its h slice into every block's h buffer
+// of the next parity, and passes the cluster barrier: one barrier a step.
+// The next step's gates and mask come by cp.async while the step runs.
 // What bounds it: per step, one cluster barrier and the [R x H]·[H x 4U]
-// product a block (U = ceil(H/C)); for the whole kernel, the recurrent
-// product's 2·2·B·T·H·4H FLOPs at the H100's 67 TFLOP/s f32 rate (the
-// residual writes are the bytes). W_h is read from device memory once per
-// block, not once per step.
+// product a block (U = ceil(H/C)): T dependent steps of on-chip latency;
+// for the whole kernel, the recurrent product's 2·2·B·T·H·4H FLOPs at the
+// H100's 67 TFLOP/s f32 rate (K5's residual writes are its bytes). W_h is
+// read from device memory once per block, not once per step.
+//
+// K1's second route (bilstm_kernel<R>) serves the widths with no cluster
+// plan (H past 448, 432 or 384 at 4, 8 or 16 rows a cluster, where no
+// 16-block cluster holds W_h's slice and the h buffers in shared memory):
+// grid (ceil(B/R), 2 directions); W_h (H x 4H f32) is read from L2 every
+// step, each read reused for the block's R rows; one thread per gate column
+// accumulates z for the R rows, then one thread per (row, unit) runs the
+// gate math. Its time is T dependent steps of L2 latency. The wrapper
+// (ops/cuda/lstm_kernel.py::bilstm_cuda) and mmb_bilstm_forward pick the
+// route from the same plan before any launch.
 #include "common.cuh"
 #include "lstm_cluster.cuh"
 
 namespace {
 
-template <int R, bool kTrain>
+template <int R>
 __global__ void __launch_bounds__(512) bilstm_kernel(
     const float* __restrict__ gates,  // [B, T, 2, 4H]: fwd gates, then bwd gates
     const float* __restrict__ mask,   // [B, T]
@@ -52,8 +60,6 @@ __global__ void __launch_bounds__(512) bilstm_kernel(
     float* __restrict__ out,          // [B, T, 2H]: fwd | bwd
     float* __restrict__ h_last,       // [B, 2H]
     float* __restrict__ c_last,       // [B, 2H]
-    float* __restrict__ h_seq,        // [2, T, B, H] (kTrain only)
-    float* __restrict__ c_seq,        // [2, T, B, H] (kTrain only)
     int B, int T, int H) {
   extern __shared__ float smem[];
   const int G = 4 * H;
@@ -109,11 +115,6 @@ __global__ void __launch_bounds__(512) bilstm_kernel(
       c_s[p] = c_carry;
       h_s[p] = h_carry;
       out[((size_t)row * T + tt) * 2 * H + (size_t)dir * H + u] = h_new * m;
-      if (kTrain) {
-        const size_t q = (((size_t)dir * T + t) * B + row) * H + u;
-        h_seq[q] = h_carry;
-        c_seq[q] = c_carry;
-      }
     }
     __syncthreads();
   }
@@ -128,59 +129,46 @@ __global__ void __launch_bounds__(512) bilstm_kernel(
   }
 }
 
-template <int R, bool kTrain>
-cudaError_t launch_bilstm(const float* gates, const float* mask, const float* w_h, float* out,
-                          float* h_last, float* c_last, float* h_seq, float* c_seq, int B,
-                          int T, int H, cudaStream_t stream) {
+template <int R>
+cudaError_t launch_bilstm_l2(const float* gates, const float* mask, const float* w_h, float* out,
+                             float* h_last, float* c_last, int B, int T, int H,
+                             cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)R * 6 * H;
   if (smem > (size_t)mmb::kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(bilstm_kernel<R, kTrain>,
+  cudaError_t e = cudaFuncSetAttribute(bilstm_kernel<R>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((B + R - 1) / R, 2);
-  bilstm_kernel<R, kTrain><<<grid, mmb::threads_for(4 * H, 512), smem, stream>>>(
-      gates, mask, w_h, out, h_last, c_last, h_seq, c_seq, B, T, H);
+  bilstm_kernel<R><<<grid, mmb::threads_for(4 * H, 512), smem, stream>>>(
+      gates, mask, w_h, out, h_last, c_last, B, T, H);
   return cudaGetLastError();
 }
 
-template <bool kTrain>
-int bilstm_forward(const void* gates, const void* mask, const void* w_h, void* out,
-                   void* h_last, void* c_last, void* h_seq, void* c_seq, int B, int T, int H,
-                   void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const auto* g = static_cast<const float*>(gates);
-  const auto* m = static_cast<const float*>(mask);
-  const auto* w = static_cast<const float*>(w_h);
-  auto* o = static_cast<float*>(out);
-  auto* h = static_cast<float*>(h_last);
-  auto* c = static_cast<float*>(c_last);
-  auto* hs = static_cast<float*>(h_seq);
-  auto* cs = static_cast<float*>(c_seq);
-  const auto s = static_cast<cudaStream_t>(stream);
-  // Many rows (the word tower): 16 rows a block reuse each W_h read 16x and
-  // still give 2*B/16 >= 128 blocks; few rows: 4 a block, for more blocks.
-  const cudaError_t e =
-      B >= 1024 ? launch_bilstm<16, kTrain>(g, m, w, o, h, c, hs, cs, B, T, H, s)
-                : launch_bilstm<4, kTrain>(g, m, w, o, h, c, hs, cs, B, T, H, s);
-  return (int)e;
+// K1's L2 route: many rows (1024 and more) 16 a block, which reuses each
+// W_h read 16x and still gives 2*B/16 >= 128 blocks; fewer rows 4 a block,
+// for more blocks.
+cudaError_t bilstm_l2(const float* gates, const float* mask, const float* w_h, float* out,
+                      float* h_last, float* c_last, int B, int T, int H, cudaStream_t stream) {
+  return B >= 1024 ? launch_bilstm_l2<16>(gates, mask, w_h, out, h_last, c_last, B, T, H, stream)
+                   : launch_bilstm_l2<4>(gates, mask, w_h, out, h_last, c_last, B, T, H, stream);
 }
 
 // ---------------------------------------------------------------------------
-// K5: the training recurrence on a thread-block cluster.
+// K1 and K5: the recurrence on a thread-block cluster.
 // ---------------------------------------------------------------------------
 
 namespace lc = mmb::lstmc;
 
-template <int R>
-__global__ void __launch_bounds__(lc::kThreads) bilstm_train_cluster_kernel(
+template <int R, bool kTrain>
+__global__ void __launch_bounds__(lc::kThreads) bilstm_cluster_kernel(
     const float* __restrict__ gates,  // [B, T, 2, 4H]
     const float* __restrict__ mask,   // [B, T]
     const float* __restrict__ w_h,    // [2, H, 4H]
     float* __restrict__ out,          // [B, T, 2H]
     float* __restrict__ h_last,       // [B, 2H]
     float* __restrict__ c_last,       // [B, 2H]
-    float* __restrict__ h_seq,        // [2, T, B, H]
-    float* __restrict__ c_seq,        // [2, T, B, H]
+    float* __restrict__ h_seq,        // [2, T, B, H] (kTrain only)
+    float* __restrict__ c_seq,        // [2, T, B, H] (kTrain only)
     int B, int T, int H) {
   static_assert(R % lc::kRC == 0, "rows a cluster must be a multiple of kRC");
   lc::cg::cluster_group cluster = lc::cg::this_cluster();
@@ -229,12 +217,34 @@ __global__ void __launch_bounds__(lc::kThreads) bilstm_train_cluster_kernel(
     if (t + 1 < T) prefetch(t + 1);
     const float* hb = h_b + par * H * R;
     const float* gs = g_st + par * R * G4;
-    // z[:, this block's columns] = gates + h_prev · W_h[:, those columns]
+    // z[:, this block's columns] = gates + h_prev · W_h[:, those columns],
+    // k ascending. K1 first issues the loads of 8 k at a time ahead of
+    // their FMAs (one shared-memory latency per 8 k, not per k or two); the
+    // sums are K5's, so are the bits.
     for (int q = threadIdx.x; q < G4 * (R / lc::kRC); q += blockDim.x) {
       const int jl = q % G4, r0 = (q / G4) * lc::kRC;
       float acc[lc::kRC] = {};
+      int k = 0;
+      if constexpr (!kTrain) {
+        for (; k + 8 <= H; k += 8) {
+          float w[8];
+          float4 hv[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            w[i] = w_s[(k + i) * ldw + jl];
+            hv[i] = *reinterpret_cast<const float4*>(hb + (k + i) * R + r0);
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[0] = fmaf(hv[i].x, w[i], acc[0]);
+            acc[1] = fmaf(hv[i].y, w[i], acc[1]);
+            acc[2] = fmaf(hv[i].z, w[i], acc[2]);
+            acc[3] = fmaf(hv[i].w, w[i], acc[3]);
+          }
+        }
+      }
 #pragma unroll 4
-      for (int k = 0; k < H; ++k) {
+      for (; k < H; ++k) {
         const float w = w_s[k * ldw + jl];
         const float4 hv = *reinterpret_cast<const float4*>(hb + k * R + r0);
         acc[0] = fmaf(hv.x, w, acc[0]);
@@ -266,9 +276,11 @@ __global__ void __launch_bounds__(lc::kThreads) bilstm_train_cluster_kernel(
       for (int cc = 0; cc < C; ++cc) cluster.map_shared_rank(hn, cc)[u * R + r] = h_carry;
       if (row < B) {
         out[((size_t)row * T + tt) * 2 * H + (size_t)dir * H + u] = h_new * m;
-        const size_t q = (((size_t)dir * T + t) * B + row) * H + u;
-        h_seq[q] = h_carry;
-        c_seq[q] = c_carry;
+        if (kTrain) {
+          const size_t q = (((size_t)dir * T + t) * B + row) * H + u;
+          h_seq[q] = h_carry;
+          c_seq[q] = c_carry;
+        }
       }
     }
     lc::cp_async_wait_all();
@@ -285,30 +297,19 @@ __global__ void __launch_bounds__(lc::kThreads) bilstm_train_cluster_kernel(
   }
 }
 
-// f(the kernel instantiated for a plan's R).
-template <typename F>
-auto with_train_kernel(int R, F f) {
-  return R == 16 ? f(bilstm_train_cluster_kernel<16>)
-                 : R == 8 ? f(bilstm_train_cluster_kernel<8>) : f(bilstm_train_cluster_kernel<4>);
+// f(the cluster kernel instantiated for a plan's R).
+template <bool kTrain, typename F>
+auto with_cluster_kernel(int R, F f) {
+  return R == 16  ? f(bilstm_cluster_kernel<16, kTrain>)
+         : R == 8 ? f(bilstm_cluster_kernel<8, kTrain>)
+                  : f(bilstm_cluster_kernel<4, kTrain>);
 }
 
-}  // namespace
-
-// K1: the inference recurrence.
-MMB_API int mmb_bilstm_forward(const void* gates, const void* mask, const void* w_h, void* out,
-                               void* h_last, void* c_last, int B, int T, int H,
-                               void* stream) {
-  return bilstm_forward<false>(gates, mask, w_h, out, h_last, c_last, nullptr, nullptr, B, T,
-                               H, stream);
-}
-
-// K5: the training recurrence on a cluster, which also writes h_seq / c_seq.
-MMB_API int mmb_bilstm_forward_train(const void* gates, const void* mask, const void* w_h,
-                                     void* out, void* h_last, void* c_last, void* h_seq,
-                                     void* c_seq, int B, int T, int H, void* stream) {
-  lc::Plan p;
-  if (T <= 0 || !lc::plan(B, H, &p)) return (int)cudaErrorInvalidValue;
-  return (int)with_train_kernel(p.R, [&](auto kernel) {
+template <bool kTrain>
+int bilstm_cluster(const lc::Plan& p, const void* gates, const void* mask, const void* w_h,
+                   void* out, void* h_last, void* c_last, void* h_seq, void* c_seq, int B, int T,
+                   int H, void* stream) {
+  return (int)with_cluster_kernel<kTrain>(p.R, [&](auto kernel) {
     return lc::launch(kernel, p, p.smem_fwd, static_cast<cudaStream_t>(stream),
                       static_cast<const float*>(gates), static_cast<const float*>(mask),
                       static_cast<const float*>(w_h), static_cast<float*>(out),
@@ -317,9 +318,46 @@ MMB_API int mmb_bilstm_forward_train(const void* gates, const void* mask, const 
   });
 }
 
-// The cluster plan of K5 and K6 for B rows of width H into out[7]: C, R,
-// U, clusters a direction, blocks, K5's and K6's dynamic shared memory a
-// block (bytes). Returns 0, or cudaErrorInvalidValue if there is none.
+template <bool kTrain>
+int cluster_occupancy(int B, int H) {
+  lc::Plan p;
+  if (!lc::plan(B, H, &p)) return -(int)cudaErrorInvalidValue;
+  return with_cluster_kernel<kTrain>(
+      p.R, [&](auto kernel) { return lc::max_active_clusters(kernel, p, p.smem_fwd); });
+}
+
+}  // namespace
+
+// K1: the inference recurrence: on a cluster where the shape has a plan,
+// else by the L2 route.
+MMB_API int mmb_bilstm_forward(const void* gates, const void* mask, const void* w_h, void* out,
+                               void* h_last, void* c_last, int B, int T, int H,
+                               void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  lc::Plan p;
+  if (lc::plan(B, H, &p))
+    return bilstm_cluster<false>(p, gates, mask, w_h, out, h_last, c_last, nullptr, nullptr, B,
+                                 T, H, stream);
+  return (int)bilstm_l2(static_cast<const float*>(gates), static_cast<const float*>(mask),
+                        static_cast<const float*>(w_h), static_cast<float*>(out),
+                        static_cast<float*>(h_last), static_cast<float*>(c_last), B, T, H,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// K5: the training recurrence on a cluster, which also writes h_seq / c_seq.
+MMB_API int mmb_bilstm_forward_train(const void* gates, const void* mask, const void* w_h,
+                                     void* out, void* h_last, void* c_last, void* h_seq,
+                                     void* c_seq, int B, int T, int H, void* stream) {
+  lc::Plan p;
+  if (T <= 0 || !lc::plan(B, H, &p)) return (int)cudaErrorInvalidValue;
+  return bilstm_cluster<true>(p, gates, mask, w_h, out, h_last, c_last, h_seq, c_seq, B, T, H,
+                              stream);
+}
+
+// The cluster plan of K1, K5 and K6 for B rows of width H into out[7]: C,
+// R, U, clusters a direction, blocks, K1/K5's and K6's dynamic shared
+// memory a block (bytes). Returns 0, or cudaErrorInvalidValue if there is
+// none.
 MMB_API int mmb_lstm_cluster_plan(int B, int H, int* out) {
   lc::Plan p;
   if (!lc::plan(B, H, &p)) return (int)cudaErrorInvalidValue;
@@ -328,14 +366,11 @@ MMB_API int mmb_lstm_cluster_plan(int B, int H, int* out) {
   return 0;
 }
 
-// How many of K5's clusters the card holds at once for this shape (0: the
-// launch cannot run); a negative cudaError_t on failure.
+// How many of K1's / K5's clusters the card holds at once for this shape
+// (0: the launch cannot run); a negative cudaError_t on failure.
+MMB_API int mmb_bilstm_forward_occupancy(int B, int H) { return cluster_occupancy<false>(B, H); }
 MMB_API int mmb_bilstm_forward_train_occupancy(int B, int H) {
-  lc::Plan p;
-  if (!lc::plan(B, H, &p)) return -(int)cudaErrorInvalidValue;
-  return with_train_kernel(p.R, [&](auto kernel) {
-    return lc::max_active_clusters(kernel, p, p.smem_fwd);
-  });
+  return cluster_occupancy<true>(B, H);
 }
 
 // Message for a code returned by any mmb_* entry point.

@@ -1,5 +1,5 @@
-// What the cluster bodies of K5 (csrc/lstm.cu) and K6 (csrc/lstm_bwd.cu)
-// share: the layout of W_h over a thread-block cluster, the host-side plan
+// What the cluster bodies of K1 and K5 (csrc/lstm.cu) and K6
+// (csrc/lstm_bwd.cu) share: the layout of W_h over a thread-block cluster, the host-side plan
 // that sizes it, the exchange between the blocks of a cluster through
 // distributed shared memory, and the launch.
 //
@@ -25,7 +25,8 @@
 // Plan. R = 16 rows a cluster from 512 rows, 8 from 128, else 4; C the
 // smallest power of two that gives U <= 16 units a block, raised further
 // until the larger of the two kernels' shared memory fits a block's 227 KB;
-// past C = 16 there is no plan and the entry points refuse the shape.
+// past C = 16 there is no plan: K5 and K6 refuse the shape, and K1 serves it
+// by its L2 route (one plan for the three kernels: one layout, one rule).
 // ops/cuda/lstm_kernel.py::cluster_plan mirrors this function.
 #pragma once
 
@@ -56,7 +57,7 @@ __host__ __device__ inline int unit_begin(int c, int H, int C) { return c * H / 
 
 __host__ __device__ inline size_t round4(size_t n) { return (n + 3) & ~size_t(3); }
 
-// K5's block: hbuf [2][H][R] | W [H][4U+1] | z [R][4U] | gates stage
+// K1's and K5's block: hbuf [2][H][R] | W [H][4U+1] | z [R][4U] | gates stage
 // [2][R][4U] | c [R][U] | mask stage [2][R], each section a multiple of
 // four floats (16-byte aligned).
 inline size_t smem_fwd(int H, int C, int R) {
@@ -159,19 +160,8 @@ __device__ __forceinline__ int owner_of(int k, int H, int C) {
   return c;
 }
 
-// 4 bytes global -> shared without a register round trip; with !pred
-// nothing is read and the 4 bytes are zero-filled (src must still be a
-// valid address).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(pred ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
+using mmb::cp_async4;
+using mmb::cp_async_wait_all;
 
 }  // namespace lstmc
 }  // namespace mmb

@@ -49,10 +49,11 @@ SIGNATURES = {
     "mmb_bilstm_backward": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
     # B, T -> the length of the dW_h product's N slices
     "mmb_lstm_dwh_split": (I, I),
-    # B, H, out[7] -> K5/K6's cluster plan: C, R, U, clusters a direction,
-    # blocks, K5's and K6's dynamic shared memory a block
+    # B, H, out[7] -> K1/K5/K6's cluster plan: C, R, U, clusters a direction,
+    # blocks, K1/K5's and K6's dynamic shared memory a block
     "mmb_lstm_cluster_plan": (I, I, P),
-    # B, H -> clusters of K5's / K6's walk the card holds at once (<= 0: none)
+    # B, H -> clusters of K1's / K5's / K6's walk the card holds at once (<= 0: none)
+    "mmb_bilstm_forward_occupancy": (I, I),
     "mmb_bilstm_forward_train_occupancy": (I, I),
     "mmb_bilstm_backward_occupancy": (I, I),
     # c, q, c_mask, q_mask, w_c, w_q, w_cq, bias, out, B, T_c, T_q, D, stream
@@ -74,6 +75,12 @@ SIGNATURES = {
     "mmb_mfcc_forward": (P, LL, LL, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
     # frames, stride_b, stride_t, cos, sin, mel, out, B, T, win, bins, n_mels, log, stream
     "mmb_log_mel_forward": (P, LL, LL, P, P, P, P, I, I, I, I, I, I, P),
+    # frames, stride_b, stride_t, window, twiddles, mel_w, mel_range, out, B, T, win,
+    # n_fft, n_mels, nnz, log, stream
+    "mmb_log_mel_fft_forward": (P, LL, LL, P, P, P, P, P, I, I, I, I, I, I, I, P),
+    # n_fft, win, ld, n_mels, nnz -> dynamic shared memory of a block of K4's
+    # FFT route, in bytes
+    "mmb_log_mel_fft_smem_bytes": (I, I, I, I, I),
     # c, q, c_mask, q_mask, w_c, w_q, w_cq, bias, out, row_max, row_sum, p_part,
     # a_part, B, T_c, T_q, D, tc_blk, tq_blk, stream
     "mmb_bidaf_tiled_forward": (P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),

@@ -6,7 +6,14 @@ As on the TPU, the input projection ``x @ W_x + b`` is one GEMM outside the
 kernel (here for both directions at once), rounded in the operands' dtype
 and then cast to f32; the kernel runs the recurrence of both directions in
 f32 and writes the ``[B, T, 2h]`` output and the carried ``h``/``c``
-directly.
+directly. It has two routes, picked by :func:`serving_route` before any
+launch: ``cluster``, K5's cluster body without the residual writes and
+with its product's shared-memory loads issued 8 k ahead of their FMAs (the
+same sums, so K1 and K5 give the same bits at equal gates), wherever
+:func:`cluster_plan` has a plan; and ``l2``, one block a
+row group reading ``W_h`` from L2 every step, for the widths with none (H
+past 448, 432 or 384 at 4, 8 or 16 rows a cluster). ``bilstm_cuda.routes``
+counts the launches of each.
 
 K5 and K6 are the training pair, the port of ``bilstm_pallas_trainable``,
 both on thread-block clusters that keep ``W_h`` in shared memory
@@ -73,7 +80,7 @@ _TARGET_UNITS = 16
 
 
 class ClusterPlan(NamedTuple):
-    """How K5 and K6 lay ``rows`` rows of width ``H`` over clusters: ``C``
+    """How K1, K5 and K6 lay ``rows`` rows of width ``H`` over clusters: ``C``
     blocks a cluster, ``R`` rows a cluster, block ``c`` owning the units
     ``slices[c] = (begin, end)`` (``U`` the largest slice), ``clusters`` a
     direction, ``blocks`` in all, and each kernel's dynamic shared memory a
@@ -104,7 +111,7 @@ def _smem(H: int, C: int, R: int) -> tuple[int, int]:
 
 
 def cluster_plan(rows: int, H: int) -> ClusterPlan:
-    """The cluster plan of K5 and K6 (``lstm_cluster.cuh::plan``): ``R`` = 16
+    """The cluster plan of K1, K5 and K6 (``lstm_cluster.cuh::plan``): ``R`` = 16
     rows a cluster from 512 rows, 8 from 128, else 4; ``C`` the smallest
     power of two giving at most 16 units a block, raised until both kernels'
     shared memory fits a block. Raises ``ValueError`` where no cluster of at
@@ -125,6 +132,17 @@ def cluster_plan(rows: int, H: int) -> ClusterPlan:
     return ClusterPlan(C, R, -(-H // C), slices, clusters, 2 * clusters * C, *_smem(H, C, R))
 
 
+def serving_route(rows: int, H: int) -> str:
+    """K1's route for ``rows`` rows of width ``H`` (``mmb_bilstm_forward``'s
+    rule): ``"cluster"`` where :func:`cluster_plan` has a plan, else
+    ``"l2"``."""
+    try:
+        cluster_plan(rows, H)
+    except ValueError:
+        return "l2"
+    return "cluster"
+
+
 _occupancy_checked: set = set()
 
 
@@ -139,7 +157,7 @@ def _check_cluster(lib, entry: str, rows: int, H: int) -> None:
         if n <= 0:
             raise RuntimeError(f"{entry}: the card holds no cluster of {plan.C} blocks of this plan "
                                f"({plan.smem_fwd} / {plan.smem_bwd} bytes of shared memory a block "
-                               f"for K5 / K6; cudaOccupancyMaxActiveClusters {n})")
+                               f"for K1 and K5 / K6; cudaOccupancyMaxActiveClusters {n})")
         _occupancy_checked.add(key)
 
 
@@ -189,7 +207,9 @@ def bilstm_reference(params, x: torch.Tensor, mask: torch.Tensor):
 
 def bilstm_cuda(params, x: torch.Tensor, mask: torch.Tensor):
     """One BiLSTM layer through the hand kernel (``bilstm_pallas``'s
-    contract). ``bilstm_cuda.launches`` counts kernel launches."""
+    contract), on the route :func:`serving_route` picks.
+    ``bilstm_cuda.launches`` counts kernel launches, ``bilstm_cuda.routes``
+    those of each route."""
     if x.device.type == "cpu":
         return bilstm_reference(params, x, mask)
     if x.device.type != "cuda":
@@ -207,6 +227,9 @@ def bilstm_cuda(params, x: torch.Tensor, mask: torch.Tensor):
     h_last = torch.empty(B, 2 * H, device=dev)
     c_last = torch.empty(B, 2 * H, device=dev)
     lib = build.library()
+    route = serving_route(B, H)
+    if route == "cluster":
+        _check_cluster(lib, "mmb_bilstm_forward", B, H)
     rc = lib.mmb_bilstm_forward(
         gates.data_ptr(), m.data_ptr(), w_h.data_ptr(), out.data_ptr(),
         h_last.data_ptr(), c_last.data_ptr(), B, T, H,
@@ -214,10 +237,12 @@ def bilstm_cuda(params, x: torch.Tensor, mask: torch.Tensor):
     )
     build.check_launch(lib, rc, "mmb_bilstm_forward")
     bilstm_cuda.launches += 1
+    bilstm_cuda.routes[route] += 1
     return out, (h_last, c_last)
 
 
 bilstm_cuda.launches = 0
+bilstm_cuda.routes = {"cluster": 0, "l2": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -30,11 +30,27 @@ error ε moves ``log(mel + 1e-6)`` by at most ε, and the values reach ~14,
 so K3's bound scaled to that range, ``atol = 5e-5, rtol = 1e-5``. Measured
 on an H100 at the long-audio and log-mel shapes: 6.0e-8 on raw mels up to
 0.63 (1e-7 of the scale) and 4.8e-7 on log-mels (half an ulp at 14).
+
+K4 has two routes, picked by :func:`log_mel_route` from the shapes before
+the launch and counted in ``log_mel_fused.routes``: ``fft`` where
+``n_fft = 2·(bins − 1)`` is a power of two from 16 to 2048 and ``win <=
+n_fft`` (the configurations' 512), ``dense`` (the DFT as two products, any
+``n_fft``) otherwise. The FFT route rests on the bases being a window's
+DFT basis of ``n_fft`` (``ops/audio.py::make_audio_frontend_consts``:
+``cos = window[:, None] · cos(2πnk/n_fft)``, the frame zero-padded at the
+end), so ``frames @ cos`` and ``frames @ sin`` are the real and imaginary
+parts of ``rfft(window · frame, n=n_fft)``. It takes the window from
+``cos[:, 0]`` and checks once per consts tensor (cached) that ``cos`` and
+``sin`` are that window's basis within f32 rounding; it raises otherwise,
+so a caller's other basis is never replaced by the FFT. Its mel product
+runs over each mel column's nonzero bins (:func:`mel_nonzeros`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from mmbidaf_tpu_torch.ops import audio
 from mmbidaf_tpu_torch.ops.cuda import build
@@ -105,10 +121,110 @@ def log_mel_reference(frames: torch.Tensor, consts: dict, log: bool = True) -> t
     return audio.log_mel(frames, consts) if log else audio.melspectrogram(frames, consts)
 
 
+# K4's FFT route: n_fft a power of two in this range, win <= n_fft.
+FFT_SIZES = (16, 2048)
+# cos/sin vs the window's DFT basis, within this share of max|window| (f32
+# rounding of the basis and of its product with the window: 2^-23 at most).
+_BASIS_RTOL = 2.0 ** -21
+
+
+def log_mel_route(win: int, bins: int) -> str:
+    """K4's route for ``[win, bins]`` bases: ``"fft"`` where ``n_fft = 2·(bins
+    − 1)`` is a power of two in ``FFT_SIZES`` and ``win <= n_fft``, else
+    ``"dense"``."""
+    n_fft = 2 * (bins - 1)
+    lo, hi = FFT_SIZES
+    pow2 = n_fft > 0 and n_fft & (n_fft - 1) == 0
+    return "fft" if pow2 and lo <= n_fft <= hi and 1 <= win <= n_fft else "dense"
+
+
+def dft_basis_error(cos: torch.Tensor, sin: torch.Tensor) -> float:
+    """The largest distance of ``cos``/``sin [win, bins]`` from the DFT basis of
+    ``n_fft = 2·(bins − 1)`` with the window ``cos[:, 0]`` folded in, as a
+    share of ``max|window|`` (computed in f64)."""
+    c, s = cos.detach().double().cpu().numpy(), sin.detach().double().cpu().numpy()
+    win, bins = c.shape
+    n_fft = 2 * (bins - 1)
+    window = c[:, 0]
+    nk = (np.arange(win)[:, None] * np.arange(bins)[None, :]) % n_fft  # exact angles
+    ang = 2.0 * np.pi * nk / n_fft
+    err = max(np.abs(c - window[:, None] * np.cos(ang)).max(),
+              np.abs(s + window[:, None] * np.sin(ang)).max())
+    return float(err / max(np.abs(window).max(), np.finfo(np.float32).tiny))
+
+
+def mel_nonzeros(mel_fb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The filterbank's nonzeros as the FFT route reads them: int32 ``[n_mels,
+    4]``, each mel column's first and last nonzero bin (``(0, -1)`` for an
+    all-zero column) and the offset of its weights in the packed list, and
+    the f32 weights of each column from its first to its last nonzero bin,
+    packed column by column; both on ``mel_fb``'s device."""
+    fb = mel_fb.detach().cpu()
+    nz = fb != 0
+    bins, n_mels = nz.shape
+    k = torch.arange(bins)[:, None].expand(bins, n_mels)
+    hi = torch.where(nz, k, -1).amax(0)
+    lo = torch.where(hi < 0, 0, torch.where(nz, k, bins).amin(0))
+    width = hi - lo + 1
+    off = torch.cumsum(width, 0) - width
+    ranges = torch.stack([lo, hi, off, torch.zeros_like(lo)], 1).to(torch.int32)
+    weights = torch.cat([fb[lo[m]:hi[m] + 1, m] for m in range(n_mels)])
+    return ranges.contiguous().to(mel_fb.device), weights.float().contiguous().to(mel_fb.device)
+
+
+def twiddles(n_fft: int, device) -> torch.Tensor:
+    """The FFT route's twiddles, f32 ``[n_fft, 2]`` (real, imaginary), computed
+    in f64 with ``W_n = e^{-2πi/n}``: for each radix-2 stage of the
+    ``n_fft/2``-point FFT with butterfly span ``2·half``, ``W_{2·half}^pos``
+    at ``half + pos`` (``pos < half``; row 0 is unused, 1), then
+    ``W_{n_fft}^k`` at ``n_fft/2 + k`` for the real-FFT split (``k <
+    n_fft/2``)."""
+    M = n_fft // 2
+    ang = np.zeros(n_fft)
+    half = 1
+    while half < M:
+        ang[half:2 * half] = -np.pi * np.arange(half) / half
+        half *= 2
+    ang[M:] = -2.0 * np.pi * np.arange(M) / n_fft
+    return torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)], 1).astype(np.float32)).to(device)
+
+
+_WINDOWS = WeakIdKeyDictionary()  # cos -> (versions of cos and sin, sin's id, window)
+_NONZEROS = WeakIdKeyDictionary()  # mel_fb -> (its version, ranges, weights)
+_TWIDDLES: dict = {}              # (n_fft, device) -> twiddles
+
+
+def _fft_operands(consts: dict) -> tuple[torch.Tensor, ...]:
+    """The FFT route's window, twiddles, mel ranges and packed mel weights for
+    ``consts``, cached per tensor; raises ``ValueError`` if ``cos``/``sin``
+    are not the window's DFT basis."""
+    cos, sin, mel_fb = consts["cos"], consts["sin"], consts["mel_fb"]
+    key = (cos._version, sin._version, id(sin))
+    hit = _WINDOWS.get(cos)
+    if hit is None or hit[0] != key:
+        err = dft_basis_error(cos, sin)
+        if not err <= _BASIS_RTOL:
+            raise ValueError(f"log_mel_fused: cos/sin are not the DFT basis of n_fft="
+                             f"{2 * (cos.shape[1] - 1)} with the window cos[:, 0] (off by "
+                             f"{err:.3e} of max|window|, bound {_BASIS_RTOL:.3e}); the FFT "
+                             f"route computes only that basis")
+        hit = (key, cos[:, 0].contiguous())
+        _WINDOWS[cos] = hit
+    nonzeros = _NONZEROS.get(mel_fb)
+    if nonzeros is None or nonzeros[0] != mel_fb._version:
+        nonzeros = (mel_fb._version, *mel_nonzeros(mel_fb))
+        _NONZEROS[mel_fb] = nonzeros
+    n_fft, dev = 2 * (cos.shape[1] - 1), cos.device
+    if (n_fft, dev) not in _TWIDDLES:
+        _TWIDDLES[n_fft, dev] = twiddles(n_fft, dev)
+    return hit[1], _TWIDDLES[n_fft, dev], *nonzeros[1:]
+
+
 def log_mel_fused(frames: torch.Tensor, consts: dict, log: bool = True) -> torch.Tensor:
     """``[..., win] → [..., n_mels]`` through the hand kernel: natural-log mel
-    (``log=True``) or the raw mel power. ``log_mel_fused.launches`` counts
-    launches."""
+    (``log=True``) or the raw mel power, on the route :func:`log_mel_route`
+    picks. ``log_mel_fused.launches`` counts launches,
+    ``log_mel_fused.routes`` those of each route."""
     if frames.device.type == "cpu":
         return log_mel_reference(frames, consts, log)
     if frames.device.type != "cuda":
@@ -128,14 +244,27 @@ def log_mel_fused(frames: torch.Tensor, consts: dict, log: bool = True) -> torch
         build.check_tensor(consts[name], name, shape, dev)
     out = torch.empty(B, T, n_mels, device=dev)
     lib = build.library()
-    rc = lib.mmb_log_mel_forward(
-        x.data_ptr(), x.stride(0), x.stride(1), consts["cos"].data_ptr(),
-        consts["sin"].data_ptr(), consts["mel_fb"].data_ptr(), out.data_ptr(),
-        B, T, win, bins, n_mels, int(log), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    build.check_launch(lib, rc, "mmb_log_mel_forward")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    route = log_mel_route(win, bins)
+    if route == "fft":
+        window, twiddle, ranges, weights = _fft_operands(consts)
+        rc = lib.mmb_log_mel_fft_forward(
+            x.data_ptr(), x.stride(0), x.stride(1), window.data_ptr(), twiddle.data_ptr(),
+            weights.data_ptr(), ranges.data_ptr(), out.data_ptr(),
+            B, T, win, 2 * (bins - 1), n_mels, weights.numel(), int(log), stream,
+        )
+        build.check_launch(lib, rc, "mmb_log_mel_fft_forward")
+    else:
+        rc = lib.mmb_log_mel_forward(
+            x.data_ptr(), x.stride(0), x.stride(1), consts["cos"].data_ptr(),
+            consts["sin"].data_ptr(), consts["mel_fb"].data_ptr(), out.data_ptr(),
+            B, T, win, bins, n_mels, int(log), stream,
+        )
+        build.check_launch(lib, rc, "mmb_log_mel_forward")
     log_mel_fused.launches += 1
+    log_mel_fused.routes[route] += 1
     return out.reshape(*lead, n_mels)
 
 
 log_mel_fused.launches = 0
+log_mel_fused.routes = {"fft": 0, "dense": 0}

@@ -213,6 +213,58 @@ def test_log_mel_kernel_generic_shapes(cuda_device, log, n_fft, win, n_mels, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("log", [True, False], ids=["log", "raw_mel"])
+@pytest.mark.parametrize("n_fft,win,n_mels,T,route", [
+    (64, 48, 12, 37, "fft"),      # the tiny config's shape; a partial block of frames
+    (512, 400, 64, 512, "fft"),   # the bench and long-audio configs
+    (1024, 1024, 80, 45, "fft"),  # 513 bins; frames that overlap by more than a hop
+    (400, 400, 40, 20, "dense"),  # n_fft not a power of two
+])
+def test_log_mel_routes(cuda_device, log, n_fft, win, n_mels, T, route):
+    """K4 on each route against its plain version (both modes), the silent
+    example exact, and only the route's counter rose."""
+    from mmbidaf_tpu_torch.ops import audio
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel as mk
+
+    consts = audio.make_audio_frontend_consts(16000, n_fft, win, n_mels, 13, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    sig = torch.randn(3, (T - 1) * 160 + win, device=cuda_device, generator=gen) * 0.1
+    sig[1] = 0.0
+    frames = audio.frame_signal(sig, win, 160, T)
+    assert mk.log_mel_route(win, n_fft // 2 + 1) == route
+    before = dict(mk.log_mel_fused.routes)
+    out = mk.log_mel_fused(frames, consts, log=log)
+    ref = mk.log_mel_reference(frames, consts, log=log)
+    tol = mk.LOG_MEL_TOLERANCE[log]
+    if log:
+        torch.testing.assert_close(out, ref, **tol)
+    else:
+        _assert_normwise([out], [ref], tol, "K4")
+    silent = torch.zeros_like(out[1])
+    assert torch.equal(out[1], torch.log(silent + 1e-6) if log else silent)
+    other = "dense" if route == "fft" else "fft"
+    assert mk.log_mel_fused.routes[route] == before[route] + 1
+    assert mk.log_mel_fused.routes[other] == before[other]
+
+
+@pytest.mark.cuda
+def test_log_mel_fft_refuses_a_basis_that_is_not_the_dft(cuda_device):
+    """Bases that are not a window's DFT basis of n_fft raise before any
+    launch on the FFT route."""
+    from mmbidaf_tpu_torch.ops import audio
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel as mk
+
+    consts = audio.make_audio_frontend_consts(16000, 64, 48, 12, 8, device=cuda_device)
+    consts["sin"] = consts["sin"].clone()
+    consts["sin"][5, 7] += 1e-3
+    frames = torch.randn(2, 3, 48, device=cuda_device)
+    before = mk.log_mel_fused.launches
+    with pytest.raises(ValueError, match="not the DFT basis"):
+        mk.log_mel_fused(frames, consts)
+    assert mk.log_mel_fused.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,T_c,T_q,D,tc_blk,tq_blk", [
     (2, 40, 300, 256, 16, 128),  # T_c > tc_blk (a partial c tile); T_q not a block multiple
     (3, 7, 45, 20, 128, 8),      # small blocks, a partial last q block
@@ -358,9 +410,8 @@ def test_train_lstm_kernels_generic_shapes(cuda_device, rows, steps, in_dim, hid
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,steps,hidden", [(32, 512, 128), (37, 20, 100), (1030, 3, 256)])
 def test_train_forward_agrees_with_the_serving_kernel(cuda_device, rows, steps, hidden):
-    """K5 (on a cluster) and K1 (one block a row group) sum h·W_h in other
-    orders; at the same gates their out, h_last and c_last agree within
-    TOLERANCE."""
+    """K1 runs K5's cluster body without the residual writes: at the same
+    gates their out, h_last and c_last are the same bits."""
     from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
     from mmbidaf_tpu_torch.ops.lstm import BiLSTMParams
 
@@ -373,12 +424,69 @@ def test_train_forward_agrees_with_the_serving_kernel(cuda_device, rows, steps, 
     w_h = torch.stack([p.fwd.w_h, p.bwd.w_h]).contiguous()
     out5, h5, c5, _, _ = lk.bilstm_train_forward(lk._projection(p, x).contiguous(), mask, w_h)
     for a, b in ((out5, out1), (h5, h1), (c5, c1)):
-        torch.testing.assert_close(a, b, **lk.TOLERANCE)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,steps,empty", [
+    (2048, 16, None),  # the word tower: 16-row clusters
+    (64, 512, 1),      # the audio tower, a row of length 0 (fully masked)
+    (16, 4096, None),  # the long-audio tower
+    (7, 33, 3),        # a partial row group, a row of length 0
+    (1, 9, None),      # one row
+])
+def test_bilstm_cluster_route_serving_shapes(cuda_device, rows, steps, empty):
+    """K1's cluster route at the serving towers' shapes (H=128) against
+    its plain version; twice the same bits; a fully masked row gives zero
+    output and zero state; the route counter rose and the L2 one did not."""
+    from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
+    from mmbidaf_tpu_torch.ops.lstm import BiLSTMParams
+
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    p = BiLSTMParams(8, 128, gen, cuda_device)
+    x = torch.randn(rows, steps, 8, device=cuda_device, generator=gen)
+    lengths = torch.randint(0, steps + 1, (rows,), device=cuda_device, generator=gen)
+    if empty is not None:
+        lengths[empty] = 0
+    mask = (torch.arange(steps, device=cuda_device)[None] < lengths[:, None]).float()
+    assert lk.serving_route(rows, 128) == "cluster"
+    before = dict(lk.bilstm_cuda.routes)
+    out, (h, c) = lk.bilstm_cuda(p, x, mask)
+    ref, (rh, rc) = lk.bilstm_reference(p, x, mask)
+    for o, r in ((out, ref), (h, rh), (c, rc)):
+        torch.testing.assert_close(o, r, **lk.TOLERANCE)
+    again, (h2, c2) = lk.bilstm_cuda(p, x, mask)
+    assert torch.equal(out, again) and torch.equal(h, h2) and torch.equal(c, c2)
+    assert lk.bilstm_cuda.routes == {"cluster": before["cluster"] + 2, "l2": before["l2"]}
+    if empty is not None:
+        assert not out[empty].any() and not h[empty].any() and not c[empty].any()
+
+
+@pytest.mark.cuda
+def test_bilstm_l2_route_past_the_cluster_plan(cuda_device):
+    """H=512 has no cluster plan: K1 serves it by its L2 route (counted),
+    against its plain version."""
+    from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
+    from mmbidaf_tpu_torch.ops.lstm import BiLSTMParams
+
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    p = BiLSTMParams(6, 512, gen, cuda_device)
+    x = torch.randn(5, 7, 6, device=cuda_device, generator=gen)
+    mask = torch.ones(5, 7, device=cuda_device)
+    mask[2, 4:] = 0.0
+    assert lk.serving_route(5, 512) == "l2"
+    before = dict(lk.bilstm_cuda.routes)
+    out, (h, c) = lk.bilstm_cuda(p, x, mask)
+    ref, (rh, rc) = lk.bilstm_reference(p, x, mask)
+    for o, r in ((out, ref), (h, rh), (c, rc)):
+        torch.testing.assert_close(o, r, **lk.TOLERANCE)
+    assert lk.bilstm_cuda.routes == {"cluster": before["cluster"], "l2": before["l2"] + 1}
 
 
 @pytest.mark.cuda
 def test_lstm_cluster_plan_matches_the_card(cuda_device):
-    """The Python plan is the C plan, and the card holds a cluster of each."""
+    """The Python plan is the C plan, up to its edge, and the card holds a
+    cluster of each."""
     import ctypes
 
     from mmbidaf_tpu_torch.ops.cuda import build
@@ -392,8 +500,16 @@ def test_lstm_cluster_plan_matches_the_card(cuda_device):
             plan = lk.cluster_plan(rows, H)
             assert list(out) == [plan.C, plan.R, plan.U, plan.clusters, plan.blocks,
                                  plan.smem_fwd, plan.smem_bwd], (rows, H)
+            assert lib.mmb_bilstm_forward_occupancy(rows, H) > 0, (rows, H)
             assert lib.mmb_bilstm_forward_train_occupancy(rows, H) > 0, (rows, H)
             assert lib.mmb_bilstm_backward_occupancy(rows, H) > 0, (rows, H)
+    # the edge of the plan, where K1 turns to its L2 route
+    for rows in (5, 200, 1024):
+        h_max = max(H for H in range(1, 1025) if lk.serving_route(rows, H) == "cluster")
+        out = (ctypes.c_int * 7)()
+        assert lib.mmb_lstm_cluster_plan(rows, h_max, out) == 0, (rows, h_max)
+        assert lib.mmb_lstm_cluster_plan(rows, h_max + 1, out) != 0, (rows, h_max + 1)
+        assert lib.mmb_bilstm_forward_occupancy(rows, h_max) > 0, (rows, h_max)
 
 
 @pytest.mark.cuda
