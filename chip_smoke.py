@@ -15,8 +15,15 @@ Phases, in order; any failure exits non-zero before the result line:
      silent audio example, dropped BiDAF operands cd != c), max error against
      the module's stated bound, the median time of each and of one PyTorch
      library call computing the same function where there is one (CUDA
-     events), its bound from the H100's published peaks, and for K1 and
-     K4-K9 that two runs agree bit for bit; K1's route (cluster) and
+     events), its bound from the H100's published peaks, and for K1-K9 that
+     two runs agree bit for bit; K2 on its cluster route at the image and
+     audio towers with its plan, K7's bits at cd = c, qd = q, its device
+     time, ptxas's report, and T_q one past the plan's edge handed to K9;
+     K3 on its FFT route at the bench shape on white noise and on a signal
+     whose mel bands span more than 60 dB (held against an f64 MFCC with
+     the plain version and the dense route), its dense route at n_fft=400,
+     the silent example exactly 0, the device time of each pass, ptxas's
+     report and the FFT body's shared memory; K1's route (cluster) and
      cluster plan per tower, its kernel alone in microseconds a step at the
      audio (B=64, T=512) and long-audio (B=16, T=4096) towers, ptxas's
      registers, spills and shared memory of its kernels, and its L2 route
@@ -24,8 +31,7 @@ Phases, in order; any failure exits non-zero before the result line:
      plans and ptxas's reports; K4 (tiled mel, both modes) on its FFT
      route at the long-audio and log-mel shapes, its dense route at a small
      n_fft=400 shape, the silent example exact, ptxas's reports and the FFT
-     body's shared memory; K9 at the long-audio attention shape, and K2's
-     wrapper routing a T_q=1024 block to K9;
+     body's shared memory; K9 at the long-audio attention shape;
   4. the serving slice at the bench configuration (``bench.py::build_bench_config``:
      VGG-16 at 224², hidden 128, vocab 20000, T_s=32 x W=16, 16 keyframes,
      512 audio frames, K=4, bf16, all three kernel flags on):
@@ -34,8 +40,8 @@ Phases, in order; any failure exits non-zero before the result line:
          breakdown of three batches;
      (b) ``Summarizer.summarize_batch`` answering 8 requests on a synthetic
          corpus written by ``examples/make_synthetic_corpus.py``;
-     (c) K1-K3's launch counters rose during (a) and (b), K1's on its
-         cluster route only;
+     (c) K1-K3's launch counters rose during (a) and (b), K1's and K2's on
+         their cluster routes only, K3's on its FFT route only;
      (d) an f32 copy of the (a) batch through the kernels and through the
          plain versions (full f32 convs for both): equal picks, close log-probs;
   5. the training step at the ``bench_train.py --pallas`` configuration (the
@@ -55,7 +61,8 @@ Phases, in order; any failure exits non-zero before the result line:
      audio frames, vocab 50000, bf16, the three kernel flags on):
      (a) ``make_end_to_end_decode`` on a seeded raw batch of B=16, checked
          and timed; K1, K2, K4 and K9 ran, K3 did not; K1 on its cluster
-         route only, K4 on its FFT route only;
+         route only, K2's wrapper on its cluster route (the image tower) and
+         K9 (the audio tower), K4 on its FFT route only;
      (b) ``Summarizer.summarize_long`` answering 2 requests with 41 s of
          audio and 80 transcript sentences (four windows), and
          ``summarize`` 1 more;
@@ -81,8 +88,8 @@ Phases, in order; any failure exits non-zero before the result line:
      (c) the bench config with ``use_winograd_conv=True``:
          ``make_end_to_end_decode`` on a seeded raw batch of B=16 (256
          keyframes), checked and timed; K14 runs 12 times a VGG pass and the
-         direct conv only for the stem, K1 on its cluster route only; the
-         frontend alone and a profile;
+         direct conv only for the stem, K1 and K2 on their cluster routes
+         only, K3 on its FFT route only; the frontend alone and a profile;
      (d) ``Summarizer.summarize_batch`` answering 4 requests under it;
      (e) an f32 copy of a B=2 batch through the kernels and through the
          plain versions (K14's too): equal picks, close log-probs; and, for
@@ -391,8 +398,9 @@ def phase_kernels(dev, cfg) -> list[dict]:
 
     from mmbidaf_tpu_torch.ops import audio
     from mmbidaf_tpu_torch.ops.bidaf import BiDAFParams
-    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, build, lstm_kernel, melspec_kernel
     from mmbidaf_tpu_torch.ops.lstm import BiLSTMParams
+    from mmbidaf_tpu_torch.tools.mfcc_variants import f64_mfcc, wide_signal
 
     rng = np.random.default_rng(7)
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -456,9 +464,10 @@ def phase_kernels(dev, cfg) -> list[dict]:
           f"roofline={records[-1]['bound_ms']:.4f} ms", flush=True)
     print_lstm_resources(plans, "K1")
 
-    # K2: image (T_q=16) and audio (T_q=512) attention at bench shapes, then small.
+    # K2: image (T_q=16) and audio (T_q=512) attention at bench shapes on its
+    # cluster route, then small.
     D = 2 * h
-    err, ms, plain_ms, parts = 0.0, 0.0, 0.0, []
+    err, ms, plain_ms, dev_ms, parts, k2_plans = 0.0, 0.0, 0.0, 0.0, [], {}
     for tag, bb, tc, tq, dd in [("image", B, d.max_sentences, d.max_keyframes, D),
                                 ("audio", B, d.max_sentences, d.max_audio_frames, D),
                                 ("small-ragged", 3, 7, 45, 20)]:
@@ -469,68 +478,135 @@ def phase_kernels(dev, cfg) -> list[dict]:
         q = t(rng.standard_normal((bb, tq, dd)).astype(np.float32))
         cm = t(ragged_mask(rng, bb, tc, lo=0, empty_row=1))
         qm = t(ragged_mask(rng, bb, tq, lo=0, empty_row=2))
-        e = compare(f"bidaf[{tag}]", bidaf_kernel.bidaf_attention_fused(p, c, q, cm, qm),
-                    bidaf_kernel.bidaf_reference(p, c, q, cm, qm), bidaf_kernel.TOLERANCE)
+        route = bidaf_kernel.bidaf_route(tc, tq, dd)
+        check(route == "cluster", f"bidaf[{tag}]: K2 took its {route} route")
+        routes = dict(bidaf_kernel.bidaf_attention_fused.routes)
+        out = bidaf_kernel.bidaf_attention_fused(p, c, q, cm, qm)
+        check(bidaf_kernel.bidaf_attention_fused.routes["cluster"] == routes["cluster"] + 1,
+              f"bidaf[{tag}]: the cluster route was not counted")
+        e = compare(f"bidaf[{tag}]", out, bidaf_kernel.bidaf_reference(p, c, q, cm, qm),
+                    bidaf_kernel.TOLERANCE)
+        check(torch.equal(out, bidaf_kernel.bidaf_attention_fused(p, c, q, cm, qm)),
+              f"K2[{tag}]: two runs differ")
+        k7 = bidaf_kernel.bidaf_dropout_forward(c, q, c, q, cm, qm, p.w_c, p.w_q, p.w_cq,
+                                                p.bias.reshape(()))
+        check(torch.equal(out, k7), f"K2[{tag}]: not K7's bits at cd = c, qd = q")
         err = max(err, e)
+        plan = bidaf_kernel.fused_plan(tc, tq, dd)
+        k2_plans[tag] = plan
+        plan_s = (f"cluster route, plan C={plan.C} tile={plan.tq} blocks={bb * plan.C} "
+                  f"smem {plan.smem_fwd} B")
         if tag != "small-ragged":
             k = time_ms(lambda: bidaf_kernel.bidaf_attention_fused(p, c, q, cm, qm), iters=20)
+            kd = device_ms(lambda: bidaf_kernel.bidaf_attention_fused(p, c, q, cm, qm))
             pl = time_ms(lambda: bidaf_kernel.bidaf_reference(p, c, q, cm, qm), iters=20)
-            ms, plain_ms = ms + k, plain_ms + pl
+            ms, plain_ms, dev_ms = ms + k, plain_ms + pl, dev_ms + kd
             parts.append(bound(bb * (4 * tc * tq * dd + 2 * tc * tc * (tq + dd)),
                                4 * bb * (tc * dd + tq * dd + tc + tq + tc * 4 * dd) + 4 * (3 * dd + 1)))
-            print(f"  K2 bidaf {tag:5s} B={bb} T_c={tc} T_q={tq} D={dd}: max_abs_err={e:.3e} "
-                  f"kernel={k:.4f} ms plain={pl:.4f} ms", flush=True)
+            print(f"  K2 bidaf {tag:5s} B={bb} T_c={tc} T_q={tq} D={dd}: {plan_s}; max_abs_err={e:.3e} "
+                  f"kernel={k:.4f} ms (device {kd:.4f}) plain={pl:.4f} ms; deterministic; K7's bits",
+                  flush=True)
         else:
-            print(f"  K2 bidaf {tag}: max_abs_err={e:.3e}", flush=True)
-    # past K2's shared-memory bound the wrapper launches K9 (same function)
+            print(f"  K2 bidaf {tag}: {plan_s}; max_abs_err={e:.3e}; deterministic; K7's bits",
+                  flush=True)
+    # one past K2's plan (T_q=2049 at T_c=32, D=256) the wrapper launches K9 (same function)
+    edge = max(t for t in range(d.max_audio_frames, 4097) if bidaf_kernel.bidaf_route(32, t, D) == "cluster")
     p = BiDAFParams(D, gen, dev)
-    c, q = t(rng.standard_normal((2, 32, D)).astype(np.float32)), t(rng.standard_normal((2, 1024, D)).astype(np.float32))
-    cm, qm = t(ragged_mask(rng, 2, 32)), t(ragged_mask(rng, 2, 1024))
+    c, q = t(rng.standard_normal((2, 32, D)).astype(np.float32)), t(rng.standard_normal((2, edge + 1, D)).astype(np.float32))
+    cm, qm = t(ragged_mask(rng, 2, 32)), t(ragged_mask(rng, 2, edge + 1))
     k2, k9 = bidaf_kernel.bidaf_attention_fused.launches, bidaf_kernel.bidaf_attention_tiled.launches
-    e = compare("bidaf[T_q=1024]", bidaf_kernel.bidaf_attention_fused(p, c, q, cm, qm),
+    routes = dict(bidaf_kernel.bidaf_attention_fused.routes)
+    e = compare(f"bidaf[T_q={edge + 1}]", bidaf_kernel.bidaf_attention_fused(p, c, q, cm, qm),
                 bidaf_kernel.bidaf_reference(p, c, q, cm, qm), bidaf_kernel.TOLERANCE)
     check(bidaf_kernel.bidaf_attention_fused.launches == k2
-          and bidaf_kernel.bidaf_attention_tiled.launches == k9 + 1,
-          "bidaf: T_q=1024 was not routed from K2 to K9")
-    print(f"  K2 bidaf routes T_q=1024 to K9: max_abs_err={e:.3e}", flush=True)
+          and bidaf_kernel.bidaf_attention_tiled.launches == k9 + 1
+          and bidaf_kernel.bidaf_attention_fused.routes["K9"] == routes["K9"] + 1,
+          f"bidaf: T_q={edge + 1} was not handed from K2 to K9")
+    print(f"  K2 bidaf: the plan's edge at T_c=32, D={D} is T_q={edge}; T_q={edge + 1} goes to K9: "
+          f"max_abs_err={e:.3e}", flush=True)
+    print_resources("3", (("K2", "bidaf_fwd_cluster_kernel"),))
     records.append({"name": "bidaf_attention", "route": "cuda", "source": "mmbidaf_tpu_torch/csrc/bidaf.cu",
+                    "kernel": "bidaf_fwd_cluster_kernel (K7's cluster body, kDrop = false)",
                     "replaces": "mmbidaf_tpu/ops/pallas/bidaf_kernel.py:31", "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": None})
+                    "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": None,
+                    "device_ms": dev_ms})
     print(f"K2 bidaf: bound {bidaf_kernel.TOLERANCE}, max_abs_err={err:.3e}, "
-          f"per batch (2 calls) kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+          f"per batch (2 calls) kernel={ms:.4f} ms (device {dev_ms:.4f}) plain={plain_ms:.4f} ms "
           f"roofline={records[-1]['bound_ms']:.4f} ms", flush=True)
 
-    # K3: the bench's MFCC (B=64, T=512, win 400, n_fft 512), then small; one silent example each.
+    # K3: the bench's MFCC (B=64, T=512, win 400, n_fft 512) on its FFT route,
+    # on white noise and on the wide signal, then small shapes on both
+    # routes; one silent example each.
+    consts = audio.make_audio_frontend_consts(d.sample_rate, d.n_fft, d.win_length, d.n_mels,
+                                              d.n_mfcc, d.fmin, d.fmax, device=dev)
+    # n_fft=400 is no power of two: the dense route (not on the main paths)
+    dense = audio.make_audio_frontend_consts(d.sample_rate, 400, 400, 40, 13, device=dev)
     err = 0.0
-    for tag, bb, steps in [("bench", B, d.max_audio_frames), ("small-ragged", 3, 37)]:
-        consts = audio.make_audio_frontend_consts(d.sample_rate, d.n_fft, d.win_length, d.n_mels,
-                                                  d.n_mfcc, d.fmin, d.fmax, device=dev)
-        sig = rng.standard_normal((bb, (steps - 1) * d.hop_length + d.win_length)).astype(np.float32) * 0.1
+    for tag, bb, steps, cst in [("bench", B, d.max_audio_frames, consts), ("wide", B, d.max_audio_frames, consts),
+                                ("small-ragged", 3, 37, consts), ("small-dense", 3, 37, dense)]:
+        win = cst["cos"].shape[0]
+        n = (steps - 1) * d.hop_length + win
+        if tag == "wide":
+            sig = wide_signal(rng, bb, n, d.sample_rate)
+        else:
+            sig = rng.standard_normal((bb, n)).astype(np.float32) * 0.1
         sig[1] = 0.0
-        frames = audio.frame_signal(t(sig), d.win_length, d.hop_length, steps)
-        out = melspec_kernel.mfcc_fused(frames, consts)
-        e = compare(f"mfcc[{tag}]", out, melspec_kernel.mfcc_reference(frames, consts),
-                    melspec_kernel.TOLERANCE)
+        frames = audio.frame_signal(t(sig), win, d.hop_length, steps)
+        route = melspec_kernel.mfcc_route(win, cst["cos"].shape[1])
+        check(route == ("dense" if tag == "small-dense" else "fft"), f"K3[{tag}]: the {route} route")
+        routes = dict(melspec_kernel.mfcc_fused.routes)
+        out = melspec_kernel.mfcc_fused(frames, cst)
+        check(melspec_kernel.mfcc_fused.routes[route] == routes[route] + 1, f"K3[{tag}]: {route} not counted")
+        plain = melspec_kernel.mfcc_reference(frames, cst)
+        if tag == "wide":
+            # the FFT route, the plain version and the dense route at this
+            # n_fft (outside the counters) against an f64 MFCC on the host
+            ref = f64_mfcc(frames, cst)
+            other = melspec_kernel._mfcc_launch(frames, cst, "dense")
+            dist = {k: float(np.abs(v.double().cpu().numpy() - ref).max())
+                    for k, v in (("fft", out), ("plain", plain), ("dense", other))}
+            print(f"  K3 mfcc wide signal, max abs distance from an f64 MFCC: fft {dist['fft']:.3e}, "
+                  f"plain {dist['plain']:.3e}, dense route {dist['dense']:.3e}; fft vs plain "
+                  f"{(out - plain).abs().max().item():.3e}", flush=True)
+            check(dist["fft"] <= min(dist["plain"], dist["dense"]),
+                  "K3[wide]: the FFT route is farther from the f64 MFCC than a dense f32 DFT")
+        e = compare(f"mfcc[{tag}]", out, plain, melspec_kernel.TOLERANCE)
         check(not out[1].any(), f"mfcc[{tag}]: the silent example is not all zero")
+        check(torch.equal(out, melspec_kernel.mfcc_fused(frames, cst)), f"K3[{tag}]: two runs differ")
         err = max(err, e)
         if tag == "bench":
             ms = time_ms(lambda: melspec_kernel.mfcc_fused(frames, consts), iters=20)
             plain_ms = time_ms(lambda: melspec_kernel.mfcc_reference(frames, consts), iters=20)
+            passes = device_ms_by_kernel(lambda: melspec_kernel.mfcc_fused(frames, consts),
+                                         ("logmel_fft_kernel", "mfcc_dct_kernel"))
             # the dB, tile max and DCT on top of the mel spectrum
             parts = [bound(spectrum_flops(bb * steps, d.n_fft, d.win_length, consts["mel_fb"])
                            + bb * steps * (2 * d.n_mels + 2 * d.n_mels * d.n_mfcc),
                            4 * (sig.size + sum(v.numel() for v in consts.values())
                                 + bb * steps * d.n_mfcc))]
-            print(f"  K3 mfcc B={bb} T={steps}: max_abs_err={e:.3e} kernel={ms:.4f} ms "
-                  f"plain={plain_ms:.4f} ms", flush=True)
+            dev3 = sum(passes.values())
+            print(f"  K3 mfcc B={bb} T={steps}: {route} route; max_abs_err={e:.3e} kernel={ms:.4f} ms "
+                  f"(device {dev3:.4f}: FFT pass {passes['logmel_fft_kernel']:.4f}, DCT pass "
+                  f"{passes['mfcc_dct_kernel']:.4f}, {passes['mfcc_dct_kernel'] / dev3:.1%}) "
+                  f"plain={plain_ms:.4f} ms; silent example exact; deterministic", flush=True)
         else:
-            print(f"  K3 mfcc {tag}: max_abs_err={e:.3e}", flush=True)
+            print(f"  K3 mfcc {tag}: {route} route; max_abs_err={e:.3e}; silent example exact; "
+                  f"deterministic", flush=True)
+    print_resources("3", (("K3 fft", "logmel_fft_kernel"), ("K3 dense", "logmel_tile_kernel"),
+                          ("K3", "mfcc_dct_kernel")),
+                    keep=lambda inst: inst in ("<0>", "-"))  # <0>: K3's first passes
+    nnz = melspec_kernel.mel_nonzeros(consts["mel_fb"])[1].numel()
+    smem = build.library().mmb_log_mel_fft_smem_bytes(d.n_fft, d.win_length, d.hop_length, d.n_mels, nnz, 1)
+    print(f"  K3 fft: dynamic smem a block {smem} B (f64 FFT; n_fft={d.n_fft}, win={d.win_length}, "
+          f"hop={d.hop_length}, {d.n_mels} mels, {nnz} mel weights staged; a warp a frame)", flush=True)
     records.append({"name": "mfcc", "route": "cuda", "source": "mmbidaf_tpu_torch/csrc/mfcc.cu",
+                    "kernel": "logmel_fft_kernel<kDb> (f64 frame_power_fft) + mfcc_dct_kernel",
                     "replaces": "mmbidaf_tpu/ops/pallas/melspec_kernel.py:87", "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": None})
+                    "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": None,
+                    "device_ms": dev3})
     print(f"K3 mfcc: bound {melspec_kernel.TOLERANCE}, max_abs_err={err:.3e}, "
-          f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms roofline={records[-1]['bound_ms']:.4f} ms",
-          flush=True)
+          f"kernel={ms:.4f} ms (device {dev3:.4f}) plain={plain_ms:.4f} ms "
+          f"roofline={records[-1]['bound_ms']:.4f} ms", flush=True)
     return records
 
 
@@ -606,9 +682,9 @@ def phase_long_kernels(dev) -> list[dict]:
     print(f"K4 log_mel: bounds {mk.LOG_MEL_TOLERANCE}, max_abs_err={err:.3e}, long-audio + logmel "
           f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms roofline={rec4['bound_ms']:.4f} ms", flush=True)
     print_resources("3", (("K4 fft", "logmel_fft_kernel"), ("K4 dense", "logmel_tile_kernel")),
-                    keep=lambda inst: inst != "<0>")  # <0>: K3's pass
+                    keep=lambda inst: inst != "<0>")  # <0>: K3's first passes
     nnz = mk.mel_nonzeros(consts["mel_fb"])[1].numel()
-    smem = build.library().mmb_log_mel_fft_smem_bytes(d.n_fft, d.win_length, d.hop_length, d.n_mels, nnz)
+    smem = build.library().mmb_log_mel_fft_smem_bytes(d.n_fft, d.win_length, d.hop_length, d.n_mels, nnz, 0)
     print(f"  K4 fft: dynamic smem a block {smem} B (n_fft={d.n_fft}, win={d.win_length}, "
           f"hop={d.hop_length}, {d.n_mels} mels, {nnz} mel weights staged; a warp a frame)", flush=True)
 
@@ -961,6 +1037,7 @@ def phase_long(dev, card: str, long_records: list[dict]) -> None:
     for fn in counters.values():
         fn.launches = 0
     lstm_kernel.bilstm_cuda.routes = {"cluster": 0, "l2": 0}
+    bidaf_kernel.bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
     melspec_kernel.log_mel_fused.routes = {"fft": 0, "dense": 0}
     torch.cuda.reset_peak_memory_stats(dev)
     # (a) the end-to-end program at B=16, 4096 audio frames
@@ -995,9 +1072,12 @@ def phase_long(dev, card: str, long_records: list[dict]) -> None:
     for k in ("K1", "K2", "K4", "K9"):
         check(launches[k] > 0, f"{k} was never launched on the long-audio path")
     check(launches["K3"] == 0, "K3 ran on the long-audio path (4096 frames exceed its bound)")
-    routes = {"K1": lstm_kernel.bilstm_cuda.routes, "K4": melspec_kernel.log_mel_fused.routes}
+    routes = {"K1": lstm_kernel.bilstm_cuda.routes, "K2": bidaf_kernel.bidaf_attention_fused.routes,
+              "K4": melspec_kernel.log_mel_fused.routes}
     print(f"(6a-b) routes: {routes}", flush=True)
     check(routes["K1"] == {"cluster": launches["K1"], "l2": 0}, "(6a-b) K1 left its cluster route")
+    check(routes["K2"] == {"cluster": launches["K2"], "K9": launches["K9"]},
+          "(6a-b) K2's wrapper took other routes than the image tower's cluster and the audio's K9")
     check(routes["K4"] == {"fft": launches["K4"], "dense": 0}, "(6a-b) K4 left its FFT route")
     rec4, rec9 = long_records
     rec4["launches"], rec9["launches"] = launches["K4"], launches["K9"]
@@ -1015,7 +1095,7 @@ def phase_long(dev, card: str, long_records: list[dict]) -> None:
           f"{(t_batch - t_front) * 1e3:.2f} ms; the audio BiLSTM alone (K1, {d.max_audio_frames} "
           f"steps): {t_aud:.2f} ms", flush=True)
     profile_kernels(lambda _: end_to_end(s.model, s.frontend, raw), None, t_batch, "(6a)", "batch",
-                    {"K1 bilstm": "bilstm_cluster_kernel", "K2 bidaf": "bidaf_kernel",
+                    {"K1 bilstm": "bilstm_cluster_kernel", "K2 bidaf": "bidaf_fwd_cluster_kernel",
                      "K4 log_mel": "logmel_fft_kernel", "K9 bidaf_tiled": "tiled_"})
     # (c) f32 at B=2: kernels vs plain versions
     f32_kernels_vs_plain(cfg, s, {k: v[:2] for k, v in raw.items()},
@@ -1085,18 +1165,31 @@ def device_ms(fn, calls: int = 10) -> float:
     under ``torch.profiler`` over ``calls`` back-to-back calls, per call. It
     leaves out the host's launch overhead, which the CUDA-event time of a
     call of tens of microseconds can be made of."""
+    return sum(device_ms_by_kernel(fn, ("",), calls).values())
+
+
+def device_ms_by_kernel(fn, subs, calls: int = 10, windows: int = 3) -> dict:
+    """As ``device_ms``, split by kernel: the device time per call of the
+    kernels whose names contain each of ``subs``. A profiler window that
+    recorded no kernel at all (it happens now and then) is taken again, up
+    to ``windows`` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / calls / 1e3
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    check(bool(kernels), f"torch.profiler recorded no kernel in {windows} windows")
+    return {sub: sum(e.self_device_time_total for e in kernels if sub in e.key) / calls / 1e3
+            for sub in subs}
 
 
 def achieved(flops: float, ms: float, part: tuple[float, float]) -> str:
@@ -1325,6 +1418,8 @@ def phase_winograd(dev, card: str, rec14: dict) -> None:
     for fn in counters.values():
         fn.launches = 0
     lstm_kernel.bilstm_cuda.routes = {"cluster": 0, "l2": 0}
+    bidaf_kernel.bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
+    melspec_kernel.mfcc_fused.routes = {"fft": 0, "dense": 0}
     direct = []
     # (c) one batch: K14 for the twelve C_in >= 32 convs, the direct conv for the stem
     with count_direct_convs(direct):
@@ -1367,8 +1462,12 @@ def phase_winograd(dev, card: str, rec14: dict) -> None:
           f"launches over (7c)-(7d): {launches}", flush=True)
     check(launches["K14"] > first["K14"], "(7d) K14 was not launched by summarize_batch")
     k1_routes = lstm_kernel.bilstm_cuda.routes
-    print(f"(7c-d) K1 routes: {k1_routes}", flush=True)
+    k2_routes = bidaf_kernel.bidaf_attention_fused.routes
+    k3_routes = melspec_kernel.mfcc_fused.routes
+    print(f"(7c-d) routes: K1 {k1_routes}, K2 {k2_routes}, K3 {k3_routes}", flush=True)
     check(k1_routes == {"cluster": launches["K1"], "l2": 0}, "(7c-d) K1 left its cluster route")
+    check(k2_routes == {"cluster": launches["K2"], "K9": 0}, "(7c-d) K2 left its cluster route")
+    check(k3_routes == {"fft": launches["K3"], "dense": 0}, "(7c-d) K3 left its FFT route")
     rec14["launches"] = launches["K14"]
     # (e) for information: bf16 Winograd vs direct features; then f32 kernels vs plain at B=2
     two = {k: v[:2] for k, v in raw.items()}
@@ -1539,6 +1638,8 @@ def main() -> None:
     for fn in counters:
         fn.launches = 0
     lstm_kernel.bilstm_cuda.routes = {"cluster": 0, "l2": 0}
+    bidaf_kernel.bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
+    melspec_kernel.mfcc_fused.routes = {"fft": 0, "dense": 0}
     torch.cuda.reset_peak_memory_stats(dev)
     # (a) the end-to-end program at B=64
     lp, picks = end_to_end(s.model, s.frontend, raw)
@@ -1549,8 +1650,8 @@ def main() -> None:
     print(f"(a) end-to-end B={B}: median batch {t_batch * 1e3:.2f} ms over 5 -> "
           f"{B / t_batch:.2f} videos/s on {card}; peak memory {peak_gb:.2f} GB", flush=True)
     profile_kernels(lambda _: end_to_end(s.model, s.frontend, raw), None, t_batch, "(a)", "batch",
-                    {"K1 bilstm": "bilstm_cluster_kernel", "K2 bidaf": "bidaf_kernel",
-                     "K3 mfcc (tile pass)": "logmel_tile_kernel", "K3 mfcc (DCT pass)": "mfcc_dct_kernel"})
+                    {"K1 bilstm": "bilstm_cluster_kernel", "K2 bidaf": "bidaf_fwd_cluster_kernel",
+                     "K3 mfcc (FFT pass)": "logmel_fft_kernel", "K3 mfcc (DCT pass)": "mfcc_dct_kernel"})
     # (b) 8 requests through the serving API
     with tempfile.TemporaryDirectory() as tmp:
         load_corpus_module().make_corpus(tmp, videos=8, sentences=12, frames=10, seconds=4.0, seed=0)
@@ -1568,9 +1669,15 @@ def main() -> None:
         check(fn.launches > 0, f"{fn.__name__} was never launched on the main path")
         rec["launches"] = fn.launches
     k1_routes = lstm_kernel.bilstm_cuda.routes
-    print(f"(c) K1 routes during (a)+(b): {k1_routes}", flush=True)
+    k2_routes = bidaf_kernel.bidaf_attention_fused.routes
+    k3_routes = melspec_kernel.mfcc_fused.routes
+    print(f"(c) routes during (a)+(b): K1 {k1_routes}, K2 {k2_routes}, K3 {k3_routes}", flush=True)
     check(k1_routes["cluster"] == lstm_kernel.bilstm_cuda.launches and k1_routes["l2"] == 0,
           f"(c) K1 left its cluster route at the bench widths: {k1_routes}")
+    check(k2_routes == {"cluster": bidaf_kernel.bidaf_attention_fused.launches, "K9": 0},
+          f"(c) K2 left its cluster route at the bench widths: {k2_routes}")
+    check(k3_routes == {"fft": melspec_kernel.mfcc_fused.launches, "dense": 0},
+          f"(c) K3 left its FFT route at the bench widths: {k3_routes}")
 
     # (d) f32: kernels vs plain versions, same weights, same batch
     f32_kernels_vs_plain(cfg, s, raw, raw_np, "(d) bench")

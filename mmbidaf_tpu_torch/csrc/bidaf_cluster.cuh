@@ -1,8 +1,9 @@
-// What K7 (csrc/bidaf.cu, bidaf_drop_fwd_cluster_kernel) and K8
-// (csrc/bidaf_bwd.cu, bidaf_drop_bwd_cluster_kernel) share: the split of one
-// example over T_q across a thread-block cluster, the host-side plan that
-// sizes it, the shared-memory layouts, the register-blocked products over
-// shared memory, and the launch.
+// What K2 and K7 (csrc/bidaf.cu, bidaf_fwd_cluster_kernel and
+// bidaf_drop_fwd_cluster_kernel) and K8 (csrc/bidaf_bwd.cu,
+// bidaf_drop_bwd_cluster_kernel) share: the split of one example over T_q
+// across a thread-block cluster, the host-side plan that sizes it, the
+// shared-memory layouts, the register-blocked products over shared memory,
+// and the launch.
 //
 // Split. One cluster of C blocks serves one example (grid (C, B), clusters
 // along x, so a block's rank is blockIdx.x). Rank r owns the q columns
@@ -18,11 +19,14 @@
 //
 // Plan. C = ceil(T_q / kTargetTile) up to kMaxCluster, tq = ceil(T_q / C),
 // then C = ceil(T_q / tq) (so no tile is empty). Past C = 16 the tiles grow
-// instead; where K8's shared memory no longer fits a block's 227 KB (at
-// T_c=32, D=256: past T_q = 1088) there is no plan and both entry points
-// refuse the shape. K7 and K8 take the same plan; 64-column tiles would
-// make K8 faster and K7 slower (tools/bidaf_variants.py, `tile64`).
-// ops/cuda/bidaf_kernel.py::drop_plan mirrors this function.
+// instead; where the block's shared memory no longer fits 227 KB there is
+// no plan. K7 and K8 take the same plan, sized by K8's layout (at T_c=32,
+// D=256: none past T_q = 1088, and both entry points refuse the shape);
+// 64-column tiles would make K8 faster and K7 slower
+// (tools/bidaf_variants.py, `tile64`). K2, the serving forward, needs only
+// the forward section of the layout (fwd_floats), so its plan holds further
+// (at T_c=32, D=256: to T_q = 2048); its wrapper hands longer T_q to K9.
+// ops/cuda/bidaf_kernel.py::drop_plan and ::fused_plan mirror this function.
 //
 // Row strides in shared memory are odd (D | 1, tq | 1, T_c | 1 floats): a
 // warp's threads walk neighbouring rows or neighbouring columns of every
@@ -57,7 +61,7 @@ __host__ __device__ inline size_t take(size_t& o, size_t n) {
 }
 
 // Shared-memory layout of a block, in floats; every section starts on a
-// 16-byte boundary. K7 uses the first part (tile … cs); K8 all of it.
+// 16-byte boundary. K2 and K7 use the first part (tile … cs); K8 all of it.
 struct Layout {
   int LD, LQ, LT;  // odd row strides of [*, D], [*, tq] and [*, T_c] arrays
   int ND;          // odd row stride of [*, D columns of the widest rank]
@@ -68,8 +72,8 @@ struct Layout {
   __host__ __device__ Layout(int Tc, int tq, int D, int C) {
     LD = D | 1, LQ = tq | 1, LT = Tc | 1, ND = ((D + C - 1) / C) | 1;
     size_t o = 0;
-    tile = take(o, (size_t)tq * LD);  // [tq][LD]  the qd tile, then q's
-    cw = take(o, (size_t)Tc * LD);    // [Tc][LD]  cd∘w_cq (K7: then a_J)
+    tile = take(o, (size_t)tq * LD);  // [tq][LD]  the qd tile, then q's (K2: q's)
+    cw = take(o, (size_t)Tc * LD);    // [Tc][LD]  cd∘w_cq (K2, K7: then a_J)
     sr = take(o, (size_t)Tc * LQ);    // [Tc][LQ]  p, then (K8) s_row
     sc = take(o, (size_t)Tc * LQ);    // [Tc][LQ]  s_col
     ss = take(o, (size_t)Tc * LQ);    // [Tc][LQ]  S, then (K8) dS
@@ -101,19 +105,20 @@ struct Layout {
 struct Plan {
   int C;   // blocks a cluster (tiles of an example)
   int tq;  // q columns of the widest tile
-  int smem_fwd, smem_bwd;  // dynamic shared memory of a K7 / K8 block, bytes
+  int smem_fwd, smem_bwd;  // dynamic shared memory of a K2 or K7 / K8 block, bytes
 };
 
-// The plan for one example of T_c x T_q at width D; false if K8's block does
-// not fit (or the shape is empty).
-inline bool plan(int Tc, int Tq, int D, Plan* p) {
+// The plan for one example of T_c x T_q at width D; false if the block does
+// not fit (K8's, or with fwd_only K2's forward section) or the shape is
+// empty.
+inline bool plan(int Tc, int Tq, int D, Plan* p, bool fwd_only = false) {
   if (Tc <= 0 || Tq <= 0 || D <= 0) return false;
   int C = (Tq + kTargetTile - 1) / kTargetTile;
   if (C > kMaxCluster) C = kMaxCluster;
   const int tq = (Tq + C - 1) / C;
   C = (Tq + tq - 1) / tq;
   const Layout lay(Tc, tq, D, C);
-  if (4 * lay.bwd_floats > (size_t)kMaxSmemBytes) return false;
+  if (4 * (fwd_only ? lay.fwd_floats : lay.bwd_floats) > (size_t)kMaxSmemBytes) return false;
   *p = {C, tq, (int)(4 * lay.fwd_floats), (int)(4 * lay.bwd_floats)};
   return true;
 }
@@ -239,7 +244,7 @@ __device__ __forceinline__ void copy_rows_async(float* dst, const float* __restr
   }
 }
 
-// The operands of S, shared by K7 and K8, once the caller's copies of cd
+// The operands of S, shared by K2, K7 and K8, once the caller's copies of cd
 // (into cw) and of qd's tile (into tile) are in flight: waits for every
 // copy, then s0 = cd·w_c, s1 = qd_J·w_q (a warp a row) and cw = cd∘w_cq.
 // Ends with the block synchronised.
@@ -269,7 +274,7 @@ __device__ __forceinline__ void s_operands(float* smem, const Layout& L, int Tc,
   __syncthreads();
 }
 
-// The tile's part of the forward, shared by K7 and K8 (s_operands done):
+// The tile's part of the forward, shared by K2, K7 and K8 (s_operands done):
 //   S_J = s0·1ᵀ + 1·s1ᵀ + cw·qd_Jᵀ + bias into ss;
 //   s_col_J (exact, a warp a column) into sc;
 //   the masked row maxima m, p = exp(v − m) into sr and l = Σ p (a warp a

@@ -1,5 +1,5 @@
 // K3 — MFCC: windowed DFT -> |.|^2 -> mel -> dB (per-example max) -> DCT,
-// and K4 — the frame-tiled mel spectrogram, log or raw, on the same tile pass.
+// and K4 — the frame-tiled mel spectrogram, log or raw, on the same passes.
 //
 // Replaces: mmbidaf_tpu/ops/pallas/melspec_kernel.py::_mfcc_kernel (K3, entry
 // point mfcc_fused) and ::_melspec_kernel (K4, entry point log_mel_fused).
@@ -13,28 +13,18 @@
 // (the 4096-frame long-audio configuration): its dB and DCT tail is plain
 // tensor code in ops/audio.py.
 //
-// What bounds it on the H100: the two DFT products (2 x T x win x bins
-// multiply-adds: 0.42 GFLOP per example at T=512, win=400, bins=257) in
-// f32 on the CUDA cores, and shared memory: one example's frames
-// ([512, 400] = 800 KB) and each DFT basis ([400, 257] = 411 KB) do not fit
-// a block, where the TPU held a whole example in VMEM. The dB reference is
-// the maximum over the WHOLE example, which is why the TPU ran one example
-// per program.
-// Design — the tile pass, then (K3 only) a second pass:
-// 1. grid (frame tiles of kTF, examples): a tile of kTF frames sits in
-//    shared memory; one thread per frequency bin reads its cos/sin column
-//    entries from L2 (coalesced over bins) and keeps kTF real and imaginary
-//    sums in registers, each basis value reused kTF times. The power
-//    spectrum [kTF, bins] stays in shared memory for the mel product. The
-//    epilogue is a template parameter: K3 writes log-mel rows in dB and the
-//    tile's own maximum to global scratch; K4 writes log(mel + 1e-6) or the
-//    raw mel as its output, and nothing else.
-// 2. (K3) grid (frame tiles, examples): each block takes the example's
-//    maximum over the tile maxima, clamps at -80 dB and applies the DCT.
-// The frames are read through their strides, so the framing of the
-// waveform stays a strided view and is never copied.
+// What bounds them on the H100: the bytes (each waveform sample read once,
+// each output written once) once the DFT is an FFT (2.5·N·log2 N operations
+// a frame, ~1/27 of the dense DFT's 2 x win x bins multiply-adds at N = 512).
+// The TPU held a whole example in VMEM; on the card one example's frames
+// ([512, 400] = 800 KB) and each dense DFT basis ([400, 257] = 411 KB) do
+// not fit a block, and the dB reference is the maximum over the WHOLE
+// example. So K3 runs two passes: a pass over frame tiles that writes the
+// dB log-mel rows and each tile's maximum, then a DCT pass that takes the
+// example's maximum over the tile maxima, clamps at -80 dB and applies the
+// DCT (mfcc_dct_kernel).
 //
-// K4's FFT route (logmel_fft_kernel), for a power-of-two n_fft from 16 to
+// The FFT route (logmel_fft_kernel), for a power-of-two n_fft from 16 to
 // 2048 and win <= n_fft (the configurations' 512; the wrapper checks once
 // per consts that cos/sin are the window's DFT basis of n_fft): the bases
 // fold a periodic window and a zero pad at the end into the DFT, so
@@ -54,11 +44,23 @@
 //    (from the wrapper, with the weights packed and staged in shared memory;
 //    each bin lies in at most two triangles, ~490 weights at n_fft = 512,
 //    64 mels), summed in ascending k as the dense pass sums all bins
-//    (fmaf(p, 0, acc) == acc), and the log or raw epilogue, rows written
-//    coalesced.
-// What bounds it: the bytes (each sample read once, each mel written
-// once): 2.5·N·log2 N operations a frame are ~1/27 of the dense DFT's at
-// N = 512. K3's first pass can take frame_power_fft in place of its DFT.
+//    (fmaf(p, 0, acc) == acc), and the epilogue, rows written coalesced:
+//    K4's log or raw mel, or K3's dB and the block's maximum.
+// K3's FFT runs in f64 (K4's in f32). Its dB turns a relative power error ε
+// into ≈ 4.3·ε dB, and an FFT's rounding is relative to the frame's own
+// energy, so weak mel bands far below a frame's peak carry the largest
+// errors. On a loud sine over weak noise with a quiet stretch (mel bands
+// more than 60 dB apart) at B=64, T=512, tools/mfcc_variants.py measured on
+// an H100 this body in f32 8.4e-4 from an f64 MFCC, the dense f32 DFT (the
+// plain version) 5.5e-4 and this body in f64 2.8e-4; the f64 body takes
+// 0.22 ms a call against the f32 body's 0.15 (its complex values take
+// twice the shared-memory bytes: 61,936 B a block against 40,432, three
+// blocks an SM against five).
+// The dense route (logmel_tile_kernel) takes every other n_fft: a tile of
+// kTF frames in shared memory, a thread a frequency bin with kTF real and
+// imaginary sums in registers, cos/sin read from L2.
+// The frames are read through their strides, so the framing of the
+// waveform stays a strided view and is never copied.
 #include "common.cuh"
 
 #include <math.h>
@@ -79,7 +81,7 @@ __global__ void __launch_bounds__(512) logmel_tile_kernel(
     const float* __restrict__ cos_b, const float* __restrict__ sin_b,  // [win, bins]
     const float* __restrict__ mel,                                     // [bins, n_mels]
     float* __restrict__ logmel,                                        // [B, T, n_mels]
-    float* __restrict__ tile_max,                                      // [B, T] (kDb only)
+    float* __restrict__ tile_max,                                      // [B, tiles] (kDb only)
     int T, int win, int bins, int n_mels) {
   extern __shared__ float smem[];
   float* fr_s = smem;              // [kTF][win]
@@ -133,12 +135,16 @@ __global__ void __launch_bounds__(512) logmel_tile_kernel(
   if (tid < 32) {
     float v = tid < (int)(blockDim.x >> 5) ? red[tid] : -INFINITY;
     v = mmb::warp_max(v);
-    if (tid == 0) tile_max[(size_t)b * T + tile] = v;
+    if (tid == 0) tile_max[(size_t)b * gridDim.x + tile] = v;
   }
 }
 
+// K3's second pass: grid (tiles of kTF frames, examples); the example's
+// maximum over the first pass's ntiles tile maxima, then the clamp and the
+// DCT of the tile's rows.
 __global__ void __launch_bounds__(256) mfcc_dct_kernel(
-    const float* __restrict__ logmel, const float* __restrict__ tile_max, int ntiles,
+    const float* __restrict__ logmel, const float* __restrict__ tile_max,  // [B, ntiles]
+    int ntiles,
     const float* __restrict__ dct,  // [n_mels, n_mfcc]
     float* __restrict__ out,        // [B, T, n_mfcc]
     int T, int n_mels, int n_mfcc) {
@@ -148,7 +154,7 @@ __global__ void __launch_bounds__(256) mfcc_dct_kernel(
   const int nf = min(kTF, T - t0);
   if (tid < 32) {
     float mx = -INFINITY;
-    for (int i = tid; i < ntiles; i += 32) mx = fmaxf(mx, tile_max[(size_t)b * T + i]);
+    for (int i = tid; i < ntiles; i += 32) mx = fmaxf(mx, tile_max[(size_t)b * ntiles + i]);
     mx = mmb::warp_max(mx);
     if (tid == 0) ref_s = mx;
   }
@@ -177,19 +183,29 @@ __host__ __device__ inline int zstride(int log2m) {
   return (1 << log2m) + ((1 << log2m) >> zpad_shift(log2m));
 }
 
+// The FFT's working precision by epilogue: f64 for K3's dB (see the
+// header), f32 for K4. Cplx<R> is its complex type.
+template <int kEpi> struct FftReal { using T = float; };
+template <> struct FftReal<kDb> { using T = double; };
+template <typename R> struct Cplx;
+template <> struct Cplx<float> { using T = float2; };
+template <> struct Cplx<double> { using T = double2; };
+
 // One warp: the power spectrum |rfft(window · x, n = 2M)|² of one frame into
-// pw[0..M]. x and wnd hold win samples (zero past win); tw[half + pos] =
-// W_{2·half}^pos for the stage of butterfly span 2·half (half < M), tw[M + k]
-// = W_{2M}^k for the split (k < M), W = e^{-2πi/n}; z is the warp's
-// [zstride] scratch; M = 2^log2m >= 8.
+// pw[0..M], computed in R. x and wnd hold win samples (zero past win);
+// tw[half + pos] = W_{2·half}^pos for the stage of butterfly span 2·half
+// (half < M), tw[M + k] = W_{2M}^k for the split (k < M), W = e^{-2πi/n};
+// z is the warp's [zstride] scratch; M = 2^log2m >= 8.
+template <typename R>
 __device__ __forceinline__ void frame_power_fft(const float* x, const float* wnd, int win,
-                                                const float2* tw, int log2m, float2* z,
-                                                float* pw, int lane) {
+                                                const typename Cplx<R>::T* tw, int log2m,
+                                                typename Cplx<R>::T* z, float* pw, int lane) {
+  using C2 = typename Cplx<R>::T;
   const int M = 1 << log2m, sh = zpad_shift(log2m);
   for (int n = lane; n < M; n += 32) {
     const int a = 2 * n, b = a + 1;
     z[zpad(__brev(n) >> (32 - log2m), sh)] =
-        make_float2(a < win ? x[a] * wnd[a] : 0.0f, b < win ? x[b] * wnd[b] : 0.0f);
+        C2{a < win ? R(x[a]) * R(wnd[a]) : R(0), b < win ? R(x[b]) * R(wnd[b]) : R(0)};
   }
   __syncwarp();
   for (int s = 0; s < log2m; ++s) {
@@ -198,11 +214,11 @@ __device__ __forceinline__ void frame_power_fft(const float* x, const float* wnd
       const int pos = j & (half - 1);
       const int i = ((j >> s) << (s + 1)) + pos;
       const int i0 = zpad(i, sh), i1 = zpad(i + half, sh);
-      const float2 w = tw[half + pos];
-      const float2 p = z[i0], q = z[i1];
-      const float qr = q.x * w.x - q.y * w.y, qi = q.x * w.y + q.y * w.x;
-      z[i0] = make_float2(p.x + qr, p.y + qi);
-      z[i1] = make_float2(p.x - qr, p.y - qi);
+      const C2 w = tw[half + pos];
+      const C2 p = z[i0], q = z[i1];
+      const R qr = q.x * w.x - q.y * w.y, qi = q.x * w.y + q.y * w.x;
+      z[i0] = C2{p.x + qr, p.y + qi};
+      z[i1] = C2{p.x - qr, p.y - qi};
     }
     __syncwarp();
   }
@@ -210,32 +226,32 @@ __device__ __forceinline__ void frame_power_fft(const float* x, const float* wnd
   // E_k = (Z_k + conj Z_{M-k}) / 2, O_k = (Z_k - conj Z_{M-k}) / 2i,
   // X_k = E_k + W_{2M}^k·O_k for k = 0..M (W_{2M}^M = -1).
   for (int k = lane; k <= M; k += 32) {
-    const float2 p = z[zpad(k & (M - 1), sh)], q = z[zpad((M - k) & (M - 1), sh)];
-    const float er = 0.5f * (p.x + q.x), ei = 0.5f * (p.y - q.y);
-    const float orr = 0.5f * (p.y + q.y), oi = -0.5f * (p.x - q.x);
-    const float2 w = k < M ? tw[M + k] : make_float2(-1.0f, 0.0f);
-    const float xr = er + w.x * orr - w.y * oi, xi = ei + w.x * oi + w.y * orr;
-    pw[k] = xr * xr + xi * xi;
+    const C2 p = z[zpad(k & (M - 1), sh)], q = z[zpad((M - k) & (M - 1), sh)];
+    const R er = R(0.5) * (p.x + q.x), ei = R(0.5) * (p.y - q.y);
+    const R orr = R(0.5) * (p.y + q.y), oi = R(-0.5) * (p.x - q.x);
+    const C2 w = k < M ? tw[M + k] : C2{R(-1), R(0)};
+    const R xr = er + w.x * orr - w.y * oi, xi = ei + w.x * oi + w.y * orr;
+    pw[k] = static_cast<float>(xr * xr + xi * xi);
   }
 }
 
 // Dynamic shared memory of logmel_fft_kernel: twiddles [2M] and the warps'
-// scratch [F][zstride] (float2), the mel ranges [n_mels] (int4), then the
-// window [win], the powers [F][M+1], the packed mel weights [nnz] (if
-// staged) and the frame span [(F-1)·ld + win] (floats), each a multiple of
-// 16 bytes.
-inline size_t fft_smem_bytes(int M, int win, int ld, int n_mels, int nnz_staged) {
+// scratch [F][zstride] (complex of cbytes: 8 for f32, 16 for f64), the mel
+// ranges [n_mels] (int4), then the window [win], the powers [F][M+1], the
+// packed mel weights [nnz] (if staged) and the frame span [(F-1)·ld + win]
+// (floats), each a multiple of 16 bytes.
+inline size_t fft_smem_bytes(int M, int win, int ld, int n_mels, int nnz_staged, int cbytes) {
   const size_t r4 = 3;
   const int log2m = __builtin_ctz(M);
-  return 8 * ((size_t)2 * M + (size_t)kFftFrames * zstride(log2m)) + 16 * (size_t)n_mels +
+  return cbytes * ((size_t)2 * M + (size_t)kFftFrames * zstride(log2m)) + 16 * (size_t)n_mels +
          4 * (((size_t)win + r4) & ~r4) + 4 * (((size_t)kFftFrames * (M + 1) + r4) & ~r4) +
          4 * (((size_t)nnz_staged + r4) & ~r4) + 4 * (size_t)((kFftFrames - 1) * ld + win);
 }
 
 // The mel weights go to shared memory when they fit beside the rest (a
 // filterbank of triangles has about two weights a bin; a dense one may not).
-inline int fft_staged_weights(int M, int win, int ld, int n_mels, int nnz) {
-  return fft_smem_bytes(M, win, ld, n_mels, nnz) <= (size_t)mmb::kMaxSmemBytes ? nnz : 0;
+inline int fft_staged_weights(int M, int win, int ld, int n_mels, int nnz, int cbytes) {
+  return fft_smem_bytes(M, win, ld, n_mels, nnz, cbytes) <= (size_t)mmb::kMaxSmemBytes ? nnz : 0;
 }
 
 template <int kEpi>
@@ -243,15 +259,19 @@ __global__ void __launch_bounds__(32 * kFftFrames) logmel_fft_kernel(
     const float* __restrict__ frames, long long stride_b, long long stride_t,
     int ld,                               // frame f of the block starts at span[f * ld]
     const float* __restrict__ window,     // [win]
-    const float2* __restrict__ twiddle,   // [n_fft]: the stages', then the split's
+    const typename Cplx<typename FftReal<kEpi>::T>::T* __restrict__ twiddle,
+                                          // [n_fft]: the stages', then the split's
     const float* __restrict__ mel_w,      // [nnz]: each mel column's weights lo..hi, packed
     const int4* __restrict__ mel_range,   // [n_mels]: lo, hi, offset into mel_w, 0
     float* __restrict__ out,              // [B, T, n_mels]
+    float* __restrict__ tile_max,         // [B, blocks along x] (kDb only)
     int T, int win, int log2m, int n_mels, int nnz_staged) {
+  using R = typename FftReal<kEpi>::T;
+  using C2 = typename Cplx<R>::T;
   extern __shared__ __align__(16) float smem[];
   const int M = 1 << log2m, bins = M + 1, zs = zstride(log2m);
-  float2* tw_s = reinterpret_cast<float2*>(smem);  // [2M]
-  float2* z_s = tw_s + 2 * M;                       // [F][zs]
+  C2* tw_s = reinterpret_cast<C2*>(smem);  // [2M]
+  C2* z_s = tw_s + 2 * M;                   // [F][zs]
   int4* mr_s = reinterpret_cast<int4*>(z_s + kFftFrames * zs);  // [n_mels]
   float* w_s = reinterpret_cast<float*>(mr_s + n_mels);         // [win]
   float* pw_s = w_s + ((win + 3) & ~3);                          // [F][bins]
@@ -275,7 +295,7 @@ __global__ void __launch_bounds__(32 * kFftFrames) logmel_fft_kernel(
     for (int e = tid; e < n; e += blockDim.x)
       mmb::cp_async4(static_cast<float*>(dst) + e, static_cast<const float*>(src) + e, true);
   };
-  copy(tw_s, twiddle, 4 * M);
+  copy(tw_s, twiddle, 2 * M * (int)(sizeof(C2) / sizeof(float)));
   copy(mr_s, mel_range, 4 * n_mels);
   copy(mw_s, mel_w, nnz_staged);
   mmb::cp_async_wait_all();
@@ -283,13 +303,14 @@ __global__ void __launch_bounds__(32 * kFftFrames) logmel_fft_kernel(
 
   // 2. a warp a frame
   if (warp < nf)
-    frame_power_fft(x_s + warp * ld, w_s, win, tw_s, log2m, z_s + warp * zs, pw_s + warp * bins,
-                    lane);
+    frame_power_fft<R>(x_s + warp * ld, w_s, win, tw_s, log2m, z_s + warp * zs,
+                       pw_s + warp * bins, lane);
   __syncthreads();
 
   // 3. the mel product over each column's nonzero bins in ascending k, then
-  // the epilogue
+  // the epilogue (K3: dB, as the dense pass, and the block's maximum)
   const float* mw = nnz_staged ? mw_s : mel_w;
+  float local_max = -INFINITY;
   for (int e = tid; e < nf * n_mels; e += blockDim.x) {
     const int f = e / n_mels, m = e - f * n_mels;
     const float* pw = pw_s + f * bins;
@@ -297,12 +318,62 @@ __global__ void __launch_bounds__(32 * kFftFrames) logmel_fft_kernel(
     const float* w = mw + r.z - r.x;
     float acc = 0.0f;
     for (int k = r.x; k <= r.y; ++k) acc = fmaf(pw[k], w[k], acc);
-    out[((size_t)b * T + t0 + f) * n_mels + m] = kEpi == kLogMel ? logf(acc + 1e-6f) : acc;
+    float v = acc;
+    if (kEpi == kLogMel) v = logf(acc + 1e-6f);
+    if (kEpi == kDb) v = 10.0f * (logf(fmaxf(acc, 1e-10f)) / kLn10);
+    out[((size_t)b * T + t0 + f) * n_mels + m] = v;
+    local_max = fmaxf(local_max, v);
   }
+  if constexpr (kEpi == kDb) {
+    __shared__ float red[kFftFrames];
+    local_max = mmb::warp_max(local_max);
+    if (lane == 0) red[warp] = local_max;
+    __syncthreads();
+    if (warp == 0) {
+      float v = lane < kFftFrames ? red[lane] : -INFINITY;
+      v = mmb::warp_max(v);
+      if (lane == 0) tile_max[(size_t)b * gridDim.x + blockIdx.x] = v;
+    }
+  }
+}
+
+// K3's second pass, on the first pass's dB rows and ntiles tile maxima an
+// example.
+int launch_dct(const float* logmel, const float* tile_max, int ntiles, const void* dct, void* out,
+               int B, int T, int n_mels, int n_mfcc, cudaStream_t s) {
+  const size_t smem = sizeof(float) * (size_t)kTF * n_mels;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  mfcc_dct_kernel<<<dim3((T + kTF - 1) / kTF, B), 256, smem, s>>>(
+      logmel, tile_max, ntiles, static_cast<const float*>(dct), static_cast<float*>(out), T,
+      n_mels, n_mfcc);
+  return (int)cudaGetLastError();
+}
+
+// The FFT route's validity and block geometry (shared by K3 and K4):
+// overlapping or abutting frames are staged as their span, others one by
+// one; the mel weights are staged when they fit.
+struct FftGeometry {
+  int M, log2m, ld, staged;
+  size_t smem;
+};
+
+bool fft_geometry(int B, int T, int win, int n_fft, int n_mels, int nnz, long long stride_t,
+                  int cbytes, FftGeometry* g) {
+  if (B <= 0 || T <= 0 || win <= 0 || n_mels <= 0 || nnz < 0 || n_fft < 16 || n_fft > 2048 ||
+      (n_fft & (n_fft - 1)) != 0 || win > n_fft)
+    return false;
+  g->M = n_fft / 2;
+  g->log2m = __builtin_ctz(g->M);
+  g->ld = stride_t > 0 && stride_t <= win ? (int)stride_t : win;
+  g->staged = fft_staged_weights(g->M, win, g->ld, n_mels, nnz, cbytes);
+  g->smem = fft_smem_bytes(g->M, win, g->ld, n_mels, g->staged, cbytes);
+  return g->smem <= (size_t)mmb::kMaxSmemBytes;
 }
 
 }  // namespace
 
+// K3's dense route: logmel [B, T, n_mels] and tile_max [B, ceil(T / 32)]
+// are scratch.
 MMB_API int mmb_mfcc_forward(const void* frames, long long stride_b, long long stride_t,
                              const void* cos_b, const void* sin_b, const void* mel,
                              const void* dct, void* logmel, void* tile_max, void* out, int B,
@@ -322,12 +393,39 @@ MMB_API int mmb_mfcc_forward(const void* frames, long long stride_b, long long s
       static_cast<float*>(logmel), static_cast<float*>(tile_max), T, win, bins, n_mels);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t smem2 = sizeof(float) * (size_t)kTF * n_mels;
-  if (smem2 > 48 * 1024) return (int)cudaErrorInvalidValue;
-  mfcc_dct_kernel<<<dim3(ntiles, B), 256, smem2, s>>>(
-      static_cast<const float*>(logmel), static_cast<const float*>(tile_max), ntiles,
-      static_cast<const float*>(dct), static_cast<float*>(out), T, n_mels, n_mfcc);
-  return (int)cudaGetLastError();
+  return launch_dct(static_cast<const float*>(logmel), static_cast<const float*>(tile_max), ntiles,
+                    dct, out, B, T, n_mels, n_mfcc, s);
+}
+
+// K3's FFT route: out [B, T, n_mfcc] as mmb_mfcc_forward, from the window,
+// the f64 twiddles (double2 [n_fft], laid out as K4's), the filterbank's
+// nonzeros (as for mmb_log_mel_fft_forward) and the DCT; logmel [B, T,
+// n_mels] and tile_max [B, ceil(T / 8)] are scratch. n_fft a power of two
+// from 16 to 2048, win <= n_fft.
+MMB_API int mmb_mfcc_fft_forward(const void* frames, long long stride_b, long long stride_t,
+                                 const void* window, const void* twiddle, const void* mel_w,
+                                 const void* mel_range, const void* dct, void* logmel,
+                                 void* tile_max, void* out, int B, int T, int win, int n_fft,
+                                 int n_mels, int nnz, int n_mfcc, void* stream) {
+  using C2 = Cplx<FftReal<kDb>::T>::T;
+  FftGeometry g;
+  if (n_mfcc <= 0 || !fft_geometry(B, T, win, n_fft, n_mels, nnz, stride_t, sizeof(C2), &g))
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int ntiles = (T + kFftFrames - 1) / kFftFrames;
+  cudaError_t e = cudaFuncSetAttribute(logmel_fft_kernel<kDb>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
+  if (e != cudaSuccess) return (int)e;
+  logmel_fft_kernel<kDb><<<dim3(ntiles, B), 32 * kFftFrames, g.smem, s>>>(
+      static_cast<const float*>(frames), stride_b, stride_t, g.ld,
+      static_cast<const float*>(window), static_cast<const C2*>(twiddle),
+      static_cast<const float*>(mel_w), static_cast<const int4*>(mel_range),
+      static_cast<float*>(logmel), static_cast<float*>(tile_max), T, win, g.log2m, n_mels,
+      g.staged);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch_dct(static_cast<const float*>(logmel), static_cast<const float*>(tile_max), ntiles,
+                    dct, out, B, T, n_mels, n_mfcc, s);
 }
 
 // K4: the tile pass alone; out [B, T, n_mels] = log(mel + 1e-6) (log != 0) or the raw mel.
@@ -360,31 +458,28 @@ MMB_API int mmb_log_mel_fft_forward(const void* frames, long long stride_b, long
                                     const void* window, const void* twiddle, const void* mel_w,
                                     const void* mel_range, void* out, int B, int T, int win,
                                     int n_fft, int n_mels, int nnz, int log, void* stream) {
-  if (B <= 0 || T <= 0 || win <= 0 || n_mels <= 0 || nnz < 0 || n_fft < 16 || n_fft > 2048 ||
-      (n_fft & (n_fft - 1)) != 0 || win > n_fft)
+  FftGeometry g;
+  if (!fft_geometry(B, T, win, n_fft, n_mels, nnz, stride_t, sizeof(float2), &g))
     return (int)cudaErrorInvalidValue;
-  const int M = n_fft / 2, log2m = __builtin_ctz(M);
-  // overlapping or abutting frames are staged as their span, others one by one
-  const int ld = stride_t > 0 && stride_t <= win ? (int)stride_t : win;
-  const int staged = fft_staged_weights(M, win, ld, n_mels, nnz);
-  const size_t smem = fft_smem_bytes(M, win, ld, n_mels, staged);
-  if (smem > (size_t)mmb::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   const auto kernel = log ? logmel_fft_kernel<kLogMel> : logmel_fft_kernel<kMelPower>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+                                       (int)g.smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3((T + kFftFrames - 1) / kFftFrames, B), 32 * kFftFrames, smem,
+  kernel<<<dim3((T + kFftFrames - 1) / kFftFrames, B), 32 * kFftFrames, g.smem,
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(frames), stride_b, stride_t, ld,
+      static_cast<const float*>(frames), stride_b, stride_t, g.ld,
       static_cast<const float*>(window), static_cast<const float2*>(twiddle),
       static_cast<const float*>(mel_w), static_cast<const int4*>(mel_range),
-      static_cast<float*>(out), T, win, log2m, n_mels, staged);
+      static_cast<float*>(out), nullptr, T, win, g.log2m, n_mels, g.staged);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory a block of K4's FFT route asks for, in bytes (ld:
-// the distance between frames in the staged span, stride_t or win).
-MMB_API int mmb_log_mel_fft_smem_bytes(int n_fft, int win, int ld, int n_mels, int nnz) {
+// Dynamic shared memory a block of K4's FFT route (f64 != 0: K3's) asks
+// for, in bytes (ld: the distance between frames in the staged span,
+// stride_t or win).
+MMB_API int mmb_log_mel_fft_smem_bytes(int n_fft, int win, int ld, int n_mels, int nnz, int f64) {
   const int M = n_fft / 2;
-  return (int)fft_smem_bytes(M, win, ld, n_mels, fft_staged_weights(M, win, ld, n_mels, nnz));
+  const int cbytes = f64 ? sizeof(Cplx<FftReal<kDb>::T>::T) : sizeof(float2);
+  return (int)fft_smem_bytes(M, win, ld, n_mels, fft_staged_weights(M, win, ld, n_mels, nnz, cbytes),
+                             cbytes);
 }

@@ -3,12 +3,17 @@
 
 K2 is the port of ``mmbidaf_tpu/ops/pallas/bidaf_kernel.py::bidaf_attention_fused``
 (inference path, no dropout). Inputs are cast to f32 as on the TPU
-(``bidaf_kernel.py:117-125``); the output is f32 ``[B, T_c, 4D]``. K2 keeps
-S ``[T_c, T_q]`` resident in shared memory, so its wrapper routes shapes
-past that bound (T_q ≥ 1024 at T_c=32, D=256: the 4096-frame audio tower)
-to K9, the port of ``bidaf_tiled_kernel.py::bidaf_attention_tiled``: the
-same function, split over q blocks across the card and combined in a fixed
-order (:func:`bidaf_route`). Both are hand kernels; neither falls back.
+(``bidaf_kernel.py:117-125``); the output is f32 ``[B, T_c, 4D]``. K2 runs
+K7's cluster body with S formed from ``c`` and ``q`` themselves
+(``csrc/bidaf.cu::bidaf_fwd_cluster_kernel``; the same sums in the same
+order, so K2 gives K7's bits at ``cd = c, qd = q``), on :func:`fused_plan`:
+K7's split, judged on the forward section of the block's layout alone.
+Past that plan (T_q > 2048 at T_c=32, D=256: the 4096-frame audio tower)
+its wrapper hands the shape to K9, the port of
+``bidaf_tiled_kernel.py::bidaf_attention_tiled``: the same function, split
+over q blocks across the card and combined in a fixed order
+(:func:`bidaf_route`; ``bidaf_attention_fused.routes`` counts both). Both
+are hand kernels; neither falls back.
 
 K7 and K8 are the training pair, the port of
 ``bidaf_attention_fused_dropout`` and its custom VJP: the forward forms S
@@ -16,7 +21,8 @@ from the dropped ``cd``/``qd`` and everything after S from the undropped
 ``c``/``q``; the backward recomputes S and both softmaxes and returns
 ``d_c, d_q, d_cd, d_qd`` and the parameter grads summed over the batch.
 Both split each example over T_q across a thread-block cluster
-(``csrc/bidaf_cluster.cuh``; :func:`drop_plan` mirrors its plan): each block
+(``csrc/bidaf_cluster.cuh``; :func:`drop_plan` mirrors its plan, sized by
+K8's block): each block
 keeps its q tile and the tile's S in shared memory, the row softmax is
 combined from per-tile maxima and sums as K9 does, and every sum across
 tiles or over the batch runs in a fixed order through distributed shared
@@ -29,7 +35,8 @@ Each wrapper (``bidaf_attention_fused`` K2, ``bidaf_attention_tiled`` K9,
 ``bidaf_dropout_forward`` K7, ``bidaf_dropout_backward`` K8) runs its plain
 version on a CPU tensor and launches its kernel on a CUDA tensor, or raises
 — K7/K8 also, before any launch, for shapes with no cluster plan (at T_c=32,
-D=256, T_q past 1088). ``<wrapper>.launches`` counts launches.
+D=256, T_q past 1088), and K2, K7 and K8 where the card holds none of the
+plan's clusters. ``<wrapper>.launches`` counts launches of its own kernel.
 
 Tolerances of kernel vs plain on the card: K2/K7/K9 form Q2C as
 ``(s_row·s_colᵀ)·c`` where the plain version contracts ``s_row, s_col, c``
@@ -65,16 +72,10 @@ TOLERANCE = {"atol": 5e-5, "rtol": 1e-5}
 # K8 vs its plain version on the card, per output: |err| <= atol + rtol·max|ref|.
 BACKWARD_TOLERANCE = {"atol": 5e-4, "rtol": 2e-6}
 
-# Shared-memory layouts of csrc/bidaf.cu and csrc/bidaf_tiled.cu (kTQ q rows
-# per streamed tile in both).
+# K9's shared-memory layout (csrc/bidaf_tiled.cu: kTQ q rows per streamed
+# tile).
 _TQ = 32
 SMEM_LIMIT_BYTES = 232448  # Hopper's opt-in limit per block (227 KB)
-
-
-def bidaf_smem_bytes(T_c: int, T_q: int, D: int) -> int:
-    """Bytes of shared memory K2 and K7 need: c, a q tile (rows padded by
-    one), S and s_col (rows padded by one), P, and three small vectors."""
-    return 4 * (T_c * D + _TQ * (D + 1) + 2 * T_c * (T_q + 1) + T_c * T_c + T_c + _TQ + D)
 
 
 def tiled_smem_bytes(T_c: int, tc: int, tq: int, D: int) -> int:
@@ -98,9 +99,13 @@ def tiled_blocks(T_c: int, T_q: int, D: int, tc_blk: int = 128,
 
 
 def bidaf_route(T_c: int, T_q: int, D: int) -> str:
-    """The hand kernel ``bidaf_attention_fused`` launches on the card: ``"K2"``
-    while its resident operands fit a block's shared memory, else ``"K9"``."""
-    return "K2" if bidaf_smem_bytes(T_c, T_q, D) <= SMEM_LIMIT_BYTES else "K9"
+    """The hand kernel ``bidaf_attention_fused`` launches on the card:
+    ``"cluster"`` (K2) where :func:`fused_plan` holds, else ``"K9"``."""
+    try:
+        fused_plan(T_c, T_q, D)
+    except ValueError:
+        return "K9"
+    return "cluster"
 
 
 def _refuse_smem(fn: str, need: int, T_c: int, T_q: int, D: int) -> None:
@@ -111,18 +116,18 @@ def _refuse_smem(fn: str, need: int, T_c: int, T_q: int, D: int) -> None:
         )
 
 
-# K7 / K8's cluster plan (csrc/bidaf_cluster.cuh): q columns a block where
-# T_q allows, and the largest cluster.
+# K2 / K7 / K8's cluster plan (csrc/bidaf_cluster.cuh): q columns a block
+# where T_q allows, and the largest cluster.
 _TARGET_TILE = 32
 _MAX_CLUSTER = 16
 
 
 class DropPlan(NamedTuple):
-    """How K7 and K8 split one ``T_c x T_q`` example at width ``D``: a
+    """How K2, K7 and K8 split one ``T_c x T_q`` example at width ``D``: a
     cluster of ``C`` blocks, block ``r`` owning the q columns ``tiles[r] =
     (begin, end)`` (``tq`` the widest) and the D columns ``[r·D/C,
-    (r+1)·D/C)`` of the sums over the tiles, and each kernel's dynamic
-    shared memory a block in bytes."""
+    (r+1)·D/C)`` of the sums over the tiles, and the dynamic shared memory
+    a block of the forward (K2, K7) and of the backward (K8) in bytes."""
     C: int
     tq: int
     tiles: tuple
@@ -135,9 +140,9 @@ def _round4(n: int) -> int:
 
 
 def _drop_smem(T_c: int, tq: int, D: int, C: int) -> tuple[int, int]:
-    """K7's and K8's dynamic shared memory a block (``bidaf_cluster.cuh::
-    Layout``): sections of floats, each rounded up to four, rows of odd
-    stride."""
+    """The forward's (K2, K7) and K8's dynamic shared memory a block
+    (``bidaf_cluster.cuh::Layout``): sections of floats, each rounded up to
+    four, rows of odd stride."""
     LD, LQ, LT = D | 1, tq | 1, T_c | 1
     fwd = sum(map(_round4, (tq * LD, T_c * LD, T_c * LQ, T_c * LQ, T_c * LQ, T_c * LT, T_c * LT,
                             T_c, T_c, T_c, tq, C * T_c, C * T_c, 2 * T_c * (-(-D // C) | 1))))
@@ -146,40 +151,58 @@ def _drop_smem(T_c: int, tq: int, D: int, C: int) -> tuple[int, int]:
     return 4 * fwd, 4 * bwd
 
 
-def drop_plan(T_c: int, T_q: int, D: int) -> DropPlan:
-    """The cluster plan of K7 and K8 (``bidaf_cluster.cuh::plan``): ``C =
-    ceil(T_q / 32)`` blocks up to 16, tiles of ``tq = ceil(T_q / C)``
+def _split(T_c: int, T_q: int, D: int) -> DropPlan:
+    """``bidaf_cluster.cuh::plan``'s split, whether a block fits or not:
+    ``C = ceil(T_q / 32)`` blocks up to 16, tiles of ``tq = ceil(T_q / C)``
     columns, then ``C = ceil(T_q / tq)`` so that none is empty. Raises
-    ``ValueError`` where K8's block does not fit Hopper's shared memory."""
+    ``ValueError`` for an empty shape."""
     if T_c <= 0 or T_q <= 0 or D <= 0:
         raise ValueError(f"no BiDAF cluster plan for T_c={T_c}, T_q={T_q}, D={D}")
     C = min(-(-T_q // _TARGET_TILE), _MAX_CLUSTER)
     tq = -(-T_q // C)
     C = -(-T_q // tq)
-    smem_fwd, smem_bwd = _drop_smem(T_c, tq, D, C)
-    if smem_bwd > SMEM_LIMIT_BYTES:
-        raise ValueError(f"no BiDAF cluster plan for T_c={T_c}, T_q={T_q}, D={D}: a block of "
-                         f"{tq} q columns needs {smem_bwd} bytes of shared memory, over the "
-                         f"{SMEM_LIMIT_BYTES} a block has")
     tiles = tuple((r * tq, min((r + 1) * tq, T_q)) for r in range(C))
-    return DropPlan(C, tq, tiles, smem_fwd, smem_bwd)
+    return DropPlan(C, tq, tiles, *_drop_smem(T_c, tq, D, C))
+
+
+def _fitting(plan: DropPlan, kernel: str, smem: int, T_c: int, T_q: int, D: int) -> DropPlan:
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"no BiDAF cluster plan for T_c={T_c}, T_q={T_q}, D={D}: a {kernel} block "
+                         f"of {plan.tq} q columns needs {smem} bytes of shared memory, over the "
+                         f"{SMEM_LIMIT_BYTES} a block has")
+    return plan
+
+
+def drop_plan(T_c: int, T_q: int, D: int) -> DropPlan:
+    """The cluster plan of K7 and K8 (``bidaf_cluster.cuh::plan``), sized by
+    K8's block. Raises ``ValueError`` where that block does not fit
+    Hopper's shared memory."""
+    plan = _split(T_c, T_q, D)
+    return _fitting(plan, "K8", plan.smem_bwd, T_c, T_q, D)
+
+
+def fused_plan(T_c: int, T_q: int, D: int) -> DropPlan:
+    """K2's cluster plan (``bidaf_cluster.cuh::plan`` with ``fwd_only``): the
+    same split, judged on the forward section of the layout (``smem_fwd``).
+    Raises ``ValueError`` where that does not fit Hopper's shared memory."""
+    plan = _split(T_c, T_q, D)
+    return _fitting(plan, "K2", plan.smem_fwd, T_c, T_q, D)
 
 
 _occupancy_checked: set = set()
 
 
-def _check_drop_cluster(lib, entry: str, T_c: int, T_q: int, D: int) -> None:
-    """That this shape has a plan and, once per shape, that the card can hold
-    one of its clusters (``cudaOccupancyMaxActiveClusters > 0``); raises
-    otherwise, before anything is launched."""
-    plan = drop_plan(T_c, T_q, D)
+def _check_cluster(lib, entry: str, plan: DropPlan, T_c: int, T_q: int, D: int) -> None:
+    """Once per shape, that the card can hold one of the plan's clusters
+    (``cudaOccupancyMaxActiveClusters > 0``); raises otherwise, before
+    anything is launched."""
     key = (entry, T_c, T_q, D)
     if key not in _occupancy_checked:
         n = getattr(lib, f"{entry}_occupancy")(T_c, T_q, D)
         if n <= 0:
             raise RuntimeError(f"{entry}: the card holds no cluster of {plan.C} blocks of this plan "
                                f"({plan.smem_fwd} / {plan.smem_bwd} bytes of shared memory a block "
-                               f"for K7 / K8; cudaOccupancyMaxActiveClusters {n})")
+                               f"for the forward / K8; cudaOccupancyMaxActiveClusters {n})")
         _occupancy_checked.add(key)
 
 
@@ -220,29 +243,35 @@ def _operands(params, c, q, c_mask, q_mask) -> list[torch.Tensor]:
 
 def bidaf_attention_fused(params, c, q, c_mask, q_mask) -> torch.Tensor:
     """The whole BiDAF block through a hand kernel → f32 ``[B, T_c, 4D]``:
-    K2, or K9 where :func:`bidaf_route` says so.
-    ``bidaf_attention_fused.launches`` counts K2's launches."""
+    K2 on its cluster route, or K9 where :func:`bidaf_route` says so.
+    ``bidaf_attention_fused.launches`` counts K2's launches,
+    ``bidaf_attention_fused.routes`` the calls of each route."""
     if c.device.type == "cpu":
         return bidaf_reference(params, c, q, c_mask, q_mask)
     if c.device.type != "cuda":
         raise ValueError(f"bidaf_attention_fused: unsupported device {c.device}")
     B, T_c, D = c.shape
     T_q = q.shape[1]
-    if bidaf_route(T_c, T_q, D) == "K9":
-        return bidaf_attention_tiled(params, c, q, c_mask, q_mask)
-    ops = _operands(params, c, q, c_mask, q_mask)
-    out = torch.empty(B, T_c, 4 * D, device=c.device)
-    lib = build.library()
-    rc = lib.mmb_bidaf_forward(
-        *(t.data_ptr() for t in ops), out.data_ptr(),
-        B, T_c, T_q, D, torch.cuda.current_stream(c.device).cuda_stream,
-    )
-    build.check_launch(lib, rc, "mmb_bidaf_forward")
-    bidaf_attention_fused.launches += 1
+    route = bidaf_route(T_c, T_q, D)
+    if route == "K9":
+        out = bidaf_attention_tiled(params, c, q, c_mask, q_mask)
+    else:
+        ops = _operands(params, c, q, c_mask, q_mask)
+        lib = build.library()
+        _check_cluster(lib, "mmb_bidaf_forward", fused_plan(T_c, T_q, D), T_c, T_q, D)
+        out = torch.empty(B, T_c, 4 * D, device=c.device)
+        rc = lib.mmb_bidaf_forward(
+            *(t.data_ptr() for t in ops), out.data_ptr(),
+            B, T_c, T_q, D, torch.cuda.current_stream(c.device).cuda_stream,
+        )
+        build.check_launch(lib, rc, "mmb_bidaf_forward")
+        bidaf_attention_fused.launches += 1
+    bidaf_attention_fused.routes[route] += 1
     return out
 
 
 bidaf_attention_fused.launches = 0
+bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
 
 
 def bidaf_attention_tiled(params, c, q, c_mask, q_mask, tc_blk: int = 128,
@@ -348,7 +377,7 @@ def bidaf_dropout_forward(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias) ->
     ops = (c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias)
     B, T_c, T_q, D, dev = _check_drop_operands(*ops)
     lib = build.library()
-    _check_drop_cluster(lib, "mmb_bidaf_forward_dropout", T_c, T_q, D)
+    _check_cluster(lib, "mmb_bidaf_forward_dropout", drop_plan(T_c, T_q, D), T_c, T_q, D)
     out = torch.empty(B, T_c, 4 * D, device=dev)
     rc = lib.mmb_bidaf_forward_dropout(*(t.data_ptr() for t in ops), out.data_ptr(),
                                        B, T_c, T_q, D, torch.cuda.current_stream(dev).cuda_stream)
@@ -374,7 +403,7 @@ def bidaf_dropout_backward(c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, g
     B, T_c, T_q, D, dev = _check_drop_operands(*ops)
     build.check_tensor(g, "g", (B, T_c, 4 * D), dev)
     lib = build.library()
-    _check_drop_cluster(lib, "mmb_bidaf_backward", T_c, T_q, D)
+    _check_cluster(lib, "mmb_bidaf_backward", drop_plan(T_c, T_q, D), T_c, T_q, D)
     d_c, d_cd = torch.empty_like(c), torch.empty_like(c)
     d_q, d_qd = torch.empty_like(q), torch.empty_like(q)
     partial = torch.empty(B, 3 * D + 1, device=dev)

@@ -58,6 +58,11 @@ SIGNATURES = {
     "mmb_bilstm_backward_occupancy": (I, I),
     # c, q, c_mask, q_mask, w_c, w_q, w_cq, bias, out, B, T_c, T_q, D, stream
     "mmb_bidaf_forward": (P, P, P, P, P, P, P, P, P, I, I, I, I, P),
+    # T_c, T_q, D, out[4] -> K2's cluster plan: C, tq, K2's and (at this
+    # split) K8's dynamic shared memory a block
+    "mmb_bidaf_fused_plan": (I, I, I, P),
+    # T_c, T_q, D -> clusters of K2 the card holds at once (<= 0: none)
+    "mmb_bidaf_forward_occupancy": (I, I, I),
     # c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, out, B, T_c, T_q, D, stream
     "mmb_bidaf_forward_dropout": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
     # c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, g, d_c, d_q, d_cd,
@@ -73,14 +78,17 @@ SIGNATURES = {
     # frames, stride_b, stride_t, cos, sin, mel, dct, logmel, tile_max, out,
     # B, T, win, bins, n_mels, n_mfcc, stream
     "mmb_mfcc_forward": (P, LL, LL, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    # frames, stride_b, stride_t, window, twiddles (f64), mel_w, mel_range, dct,
+    # logmel, tile_max, out, B, T, win, n_fft, n_mels, nnz, n_mfcc, stream
+    "mmb_mfcc_fft_forward": (P, LL, LL, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
     # frames, stride_b, stride_t, cos, sin, mel, out, B, T, win, bins, n_mels, log, stream
     "mmb_log_mel_forward": (P, LL, LL, P, P, P, P, I, I, I, I, I, I, P),
     # frames, stride_b, stride_t, window, twiddles, mel_w, mel_range, out, B, T, win,
     # n_fft, n_mels, nnz, log, stream
     "mmb_log_mel_fft_forward": (P, LL, LL, P, P, P, P, P, I, I, I, I, I, I, I, P),
-    # n_fft, win, ld, n_mels, nnz -> dynamic shared memory of a block of K4's
-    # FFT route, in bytes
-    "mmb_log_mel_fft_smem_bytes": (I, I, I, I, I),
+    # n_fft, win, ld, n_mels, nnz, f64 -> dynamic shared memory of a block of
+    # K4's FFT route (f64 != 0: K3's), in bytes
+    "mmb_log_mel_fft_smem_bytes": (I, I, I, I, I, I),
     # c, q, c_mask, q_mask, w_c, w_q, w_cq, bias, out, row_max, row_sum, p_part,
     # a_part, B, T_c, T_q, D, tc_blk, tq_blk, stream
     "mmb_bidaf_tiled_forward": (P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),

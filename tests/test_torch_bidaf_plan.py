@@ -1,19 +1,26 @@
-"""K7 and K8's split of an example over T_q across a thread-block cluster,
-on the CPU.
+"""K2, K7 and K8's split of an example over T_q across a thread-block
+cluster, on the CPU.
 
 The plan (``ops/cuda/bidaf_kernel.py::drop_plan``, the mirror of
 ``csrc/bidaf_cluster.cuh::plan``) is a pure function of (T_c, T_q, D): the
 tiles cover T_q once, none is empty, the cluster has at most 16 blocks and
-K8's block fits Hopper's 227 KB. The card test
-``test_bidaf_drop_plan_matches_the_card`` holds it against the C plan.
+K8's block fits Hopper's 227 KB. K2's plan (``fused_plan``) is the same
+split judged on the forward section of the layout alone: it holds to T_q =
+2048 at T_c=32, D=256, and past it ``bidaf_route`` hands the shape to K9;
+every shape K2's first body took (one block an example, S resident) still
+has a route. The card tests ``test_bidaf_drop_plan_matches_the_card`` and
+``test_bidaf_fused_plan_matches_the_card`` hold both against the C plan.
 
 The algebra of the split is held here before the card sees it: a blockwise
 emulation in this file (per-tile row statistics, K9's combine in rank
 order, the column softmax exact in each tile, rs as the tiles' row sums of
 ``d_s_row∘s_row`` checked against the identity ``d_a·a + rowsum(E∘P)``, and
 the two exchanges) against JAX's ``bidaf_attention_fused_dropout`` and its
-VJP, the Pallas kernels run in interpret mode on the CPU. Bounds: the kernels' own, ``TOLERANCE`` on the
-output and ``BACKWARD_TOLERANCE`` normwise on each gradient.
+VJP, the Pallas kernels run in interpret mode on the CPU, and the same
+emulation with ``cd = c, qd = q`` (K2's ``kDrop = false`` body) at C in
+{1, 2, 3, 16} against JAX's ``bidaf_attention_fused``. Bounds: the kernels'
+own, ``TOLERANCE`` on the output and ``BACKWARD_TOLERANCE`` normwise on
+each gradient.
 """
 
 import numpy as np
@@ -23,6 +30,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from mmbidaf_tpu.ops.pallas.bidaf_kernel import bidaf_attention_fused as j_bidaf_fused
 from mmbidaf_tpu.ops.pallas.bidaf_kernel import bidaf_attention_fused_dropout as j_bidaf_drop
 from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
 from mmbidaf_tpu_torch.ops.cuda import build
@@ -58,14 +66,14 @@ def test_drop_plan_of_the_training_blocks():
     assert largest_accepted_t_q(32, 256) >= 1024
 
 
-def largest_accepted_t_q(T_c: int, D: int) -> int:
-    """The largest T_q the plan accepts at (T_c, D) (the plan's shared
+def largest_accepted_t_q(T_c: int, D: int, plan=bk.drop_plan) -> int:
+    """The largest T_q ``plan`` accepts at (T_c, D) (the plan's shared
     memory grows with T_q)."""
     lo, hi = 1, 1 << 16
     while lo < hi:
         mid = (lo + hi + 1) // 2
         try:
-            bk.drop_plan(T_c, mid, D)
+            plan(T_c, mid, D)
             lo = mid
         except ValueError:
             hi = mid - 1
@@ -87,6 +95,75 @@ def test_largest_accepted_t_q_is_refused_one_past():
     assert bk.drop_plan(32, t_q, 256).smem_bwd <= SMEM_LIMIT
     with pytest.raises(ValueError, match="no BiDAF cluster plan"):
         bk.drop_plan(32, t_q + 1, 256)
+
+
+@pytest.mark.parametrize("T_c,T_q,D", [
+    (32, 16, 256), (32, 512, 256),  # the serving image and audio blocks
+    (32, 2048, 256),                # the plan's edge at the model's widths
+    (32, 1, 256), (1, 1, 1),        # one q column
+    (5, 33, 40), (7, 45, 20),       # the card tests' and the smoke script's small shapes
+])
+def test_fused_plan_tiles_cover_q_once(T_c, T_q, D):
+    plan = bk.fused_plan(T_c, T_q, D)
+    assert 1 <= plan.C <= 16 and len(plan.tiles) == plan.C
+    assert [j for begin, end in plan.tiles for j in range(begin, end)] == list(range(T_q))
+    assert all(end > begin for begin, end in plan.tiles)
+    assert max(end - begin for begin, end in plan.tiles) == plan.tq
+    assert plan.smem_fwd <= SMEM_LIMIT
+    assert bk.bidaf_route(T_c, T_q, D) == "cluster"
+
+
+def test_fused_plan_of_the_serving_blocks():
+    """The serving audio block (T_q=512): 16 tiles of 32 columns, 95,872
+    bytes a block; the image block (T_q=16): one block an example."""
+    assert bk.fused_plan(32, 512, 256)[:2] == (16, 32)
+    assert bk.fused_plan(32, 512, 256).smem_fwd == 95_872
+    assert bk.fused_plan(32, 16, 256)[:2] == (1, 16)
+
+
+def test_fused_plan_hands_over_to_k9_past_its_edge():
+    """K2's plan holds to T_q = 2048 at T_c=32, D=256 (16 tiles of 128
+    columns), past K7/K8's 1088; one past, the route is K9, whose blocks
+    fit."""
+    edge = largest_accepted_t_q(32, 256, bk.fused_plan)
+    assert edge == 2048 and bk.fused_plan(32, edge, 256)[:2] == (16, 128)
+    assert edge > largest_accepted_t_q(32, 256)
+    with pytest.raises(ValueError, match="no BiDAF cluster plan"):
+        bk.fused_plan(32, edge + 1, 256)
+    assert bk.bidaf_route(32, edge + 1, 256) == "K9"
+    bk.tiled_blocks(32, edge + 1, 256)
+
+
+@pytest.mark.parametrize("T_c,D", [(32, 256), (5, 40), (64, 384), (128, 64)])
+def test_fused_plan_is_the_drop_plan_where_both_hold(T_c, D):
+    for T_q in (1, 7, 16, 33, 100, 512, 1000):
+        try:
+            drop = bk.drop_plan(T_c, T_q, D)
+        except ValueError:
+            continue
+        assert bk.fused_plan(T_c, T_q, D) == drop
+
+
+def _first_k2_smem_bytes(T_c: int, T_q: int, D: int) -> int:
+    """The shared memory of K2's first body (one block an example: c, a
+    streamed q tile of 32 rows, S and s_col, P and three vectors), which
+    decided what its wrapper took."""
+    return 4 * (T_c * D + 32 * (D + 1) + 2 * T_c * (T_q + 1) + T_c * T_c + T_c + 32 + D)
+
+
+def test_no_shape_the_first_k2_body_took_is_refused():
+    """Over a grid of shapes, every one the first body took has a route now:
+    K2's cluster plan, or K9's blocks."""
+    took = 0
+    for T_c in (1, 5, 32, 33, 64, 100, 128, 160):
+        for T_q in (1, 16, 33, 100, 512, 1024, 1500):
+            for D in (8, 40, 256, 384, 512, 1024, 1500):
+                if _first_k2_smem_bytes(T_c, T_q, D) > SMEM_LIMIT:
+                    continue
+                took += 1
+                if bk.bidaf_route(T_c, T_q, D) == "K9":
+                    bk.tiled_blocks(T_c, T_q, D)  # raises if K9's blocks do not fit
+    assert took > 100
 
 
 # ---------------------------------------------------------------------------
@@ -224,3 +301,27 @@ def test_bidaf_variants_refuse_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
     assert bidaf_variants.main([]) == 1
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 16])
+def test_k2_split_matches_pallas(C):
+    """K2's body (``kDrop = false``: S from c and q) split over C tiles of
+    T_q=46 (16: fifteen tiles of 3 columns and one of 1), with a fully
+    masked q row (example 1), a fully masked c column (example 2), and in
+    example 0 a q mask that leaves the last tiles fully masked."""
+    rng = np.random.default_rng(60 + C)
+    B, T_c, T_q, D = 3, 6, 46, 12
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    c, q = f32(B, T_c, D), f32(B, T_q, D)
+    c_mask = (np.arange(T_c)[None] < np.array([6, 4, 0])[:, None]).astype(np.float32)
+    q_mask = (np.arange(T_q)[None] < np.array([40, 0, 46])[:, None]).astype(np.float32)
+    w_c, w_q, w_cq = f32(D) * 0.3, f32(D) * 0.3, f32(D) * 0.3
+    bias = np.float32(-0.2)
+    jp = {"w_c": jnp.asarray(w_c), "w_q": jnp.asarray(w_q), "w_cq": jnp.asarray(w_cq),
+          "bias": jnp.float32(bias)}
+    ref = j_bidaf_fused(jp, *(jnp.asarray(v) for v in (c, q, c_mask, q_mask)), interpret=True)
+    tc, tq = torch.from_numpy(c), torch.from_numpy(q)
+    out = split_forward(tc, tq, tc, tq, *(torch.from_numpy(v) for v in (c_mask, q_mask, w_c, w_q,
+                                                                          w_cq)),
+                        torch.tensor(bias), C=C)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **bk.TOLERANCE)

@@ -146,10 +146,12 @@ def test_bilstm_kernel_generic_shapes(cuda_device, rows, steps, in_dim, hidden):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T_c,T_q,D", [
-    (2, 64, 100, 384),  # two register chunks of context rows; D > 256 threads
-    (3, 5, 33, 40),     # a partial q tile
+    (2, 64, 100, 384),  # past K2's plan at this width (K9); D > 256 threads
+    (3, 5, 33, 40),     # K2's cluster route: a partial q tile
 ])
 def test_bidaf_kernel_generic_shapes(cuda_device, B, T_c, T_q, D):
+    """The shapes K2's first body took: whichever route they take now
+    computes K2's function."""
     from mmbidaf_tpu_torch.ops.bidaf import BiDAFParams
     from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel
 
@@ -160,16 +162,19 @@ def test_bidaf_kernel_generic_shapes(cuda_device, B, T_c, T_q, D):
     c_mask = (torch.rand(B, T_c, device=cuda_device, generator=gen) > 0.3).float()
     q_mask = (torch.rand(B, T_q, device=cuda_device, generator=gen) > 0.3).float()
     q_mask[0] = 0.0
+    route = bidaf_kernel.bidaf_route(T_c, T_q, D)
+    before = dict(bidaf_kernel.bidaf_attention_fused.routes)
     out = bidaf_kernel.bidaf_attention_fused(p, c, q, c_mask, q_mask)
     torch.testing.assert_close(out, bidaf_kernel.bidaf_reference(p, c, q, c_mask, q_mask),
                                **bidaf_kernel.TOLERANCE)
+    assert bidaf_kernel.bidaf_attention_fused.routes[route] == before[route] + 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_fft,win,T", [(1024, 1024, 45), (64, 48, 1)])
 def test_mfcc_kernel_generic_shapes(cuda_device, n_fft, win, T):
-    """More frequency bins than threads in a block (513), a partial frame
-    tile, a one-frame example."""
+    """K3's FFT route: 513 bins, frames that overlap by more than a hop, a
+    partial block of frames, a one-frame example."""
     from mmbidaf_tpu_torch.ops import audio
     from mmbidaf_tpu_torch.ops.cuda import melspec_kernel
 
@@ -180,6 +185,78 @@ def test_mfcc_kernel_generic_shapes(cuda_device, n_fft, win, T):
     out = melspec_kernel.mfcc_fused(frames, consts)
     torch.testing.assert_close(out, melspec_kernel.mfcc_reference(frames, consts),
                                **melspec_kernel.TOLERANCE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,win,n_mels,T,route", [
+    (64, 48, 12, 37, "fft"),      # the tiny config's shape; a partial block of frames
+    (512, 400, 64, 512, "fft"),   # the bench config
+    (1024, 1024, 80, 45, "fft"),  # 513 bins; frames that overlap by more than a hop
+    (400, 400, 40, 20, "dense"),  # n_fft not a power of two: the first body
+])
+def test_mfcc_routes(cuda_device, n_fft, win, n_mels, T, route):
+    """K3 on each route against its plain version, the silent example
+    exactly 0, twice the same bits, and only the route's counter rose."""
+    from mmbidaf_tpu_torch.ops import audio
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel as mk
+
+    consts = audio.make_audio_frontend_consts(16000, n_fft, win, n_mels, 13, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    sig = torch.randn(3, (T - 1) * 160 + win, device=cuda_device, generator=gen) * 0.1
+    sig[1] = 0.0
+    frames = audio.frame_signal(sig, win, 160, T)
+    assert mk.mfcc_route(win, n_fft // 2 + 1) == route
+    before = dict(mk.mfcc_fused.routes)
+    out = mk.mfcc_fused(frames, consts)
+    torch.testing.assert_close(out, mk.mfcc_reference(frames, consts), **mk.TOLERANCE)
+    assert not out[1].any()
+    assert torch.equal(out, mk.mfcc_fused(frames, consts))
+    other = "dense" if route == "fft" else "fft"
+    assert mk.mfcc_fused.routes[route] == before[route] + 2
+    assert mk.mfcc_fused.routes[other] == before[other]
+
+
+@pytest.mark.cuda
+def test_mfcc_fft_route_on_a_wide_signal(cuda_device):
+    """The bench shape on mel bands more than 60 dB apart: K3's FFT route
+    against its plain version, and no farther from an f64 MFCC than the
+    plain version or the dense route at the same n_fft; the silent
+    example exactly 0; twice the same bits."""
+    from mmbidaf_tpu_torch.ops import audio
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel as mk
+    from mmbidaf_tpu_torch.tools.mfcc_variants import f64_mfcc, wide_signal
+
+    T = 509
+    consts = audio.make_audio_frontend_consts(16000, 512, 400, 64, 40, device=cuda_device)
+    sig = wide_signal(np.random.default_rng(21), 3, (T - 1) * 160 + 400)
+    sig[1] = 0.0
+    frames = audio.frame_signal(torch.from_numpy(sig).to(cuda_device), 400, 160, T)
+    out = mk.mfcc_fused(frames, consts)
+    plain = mk.mfcc_reference(frames, consts)
+    dense = mk._mfcc_launch(frames, consts, "dense")
+    ref = f64_mfcc(frames, consts)
+    dist = {k: np.abs(v.double().cpu().numpy() - ref).max()
+            for k, v in (("fft", out), ("plain", plain), ("dense", dense))}
+    assert dist["fft"] <= min(dist["plain"], dist["dense"]), dist
+    torch.testing.assert_close(out, plain, **mk.TOLERANCE)
+    assert not out[1].any()
+    assert torch.equal(out, mk.mfcc_fused(frames, consts))
+
+
+@pytest.mark.cuda
+def test_mfcc_fft_refuses_a_basis_that_is_not_the_dft(cuda_device):
+    """K3's FFT route, like K4's, raises before any launch on bases that
+    are not a window's DFT basis of n_fft."""
+    from mmbidaf_tpu_torch.ops import audio
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel as mk
+
+    consts = audio.make_audio_frontend_consts(16000, 64, 48, 12, 8, device=cuda_device)
+    consts["cos"] = consts["cos"].clone()
+    consts["cos"][3, 2] += 1e-3
+    before = (mk.mfcc_fused.launches, dict(mk.mfcc_fused.routes))
+    with pytest.raises(ValueError, match="not the DFT basis"):
+        mk.mfcc_fused(torch.randn(2, 3, 48, device=cuda_device), consts)
+    assert (mk.mfcc_fused.launches, mk.mfcc_fused.routes) == before
 
 
 @pytest.mark.cuda
@@ -294,20 +371,87 @@ def test_bidaf_tiled_kernel_generic_shapes(cuda_device, B, T_c, T_q, D, tc_blk, 
 
 @pytest.mark.cuda
 def test_bidaf_fused_routes_long_queries_to_k9(cuda_device):
-    """``bidaf_attention_fused`` past K2's shared-memory bound launches K9
-    and still computes K2's function."""
+    """``bidaf_attention_fused`` one past K2's cluster plan (T_q=2049 at
+    T_c=32, D=256) launches K9 and still computes K2's function."""
     from mmbidaf_tpu_torch.ops.bidaf import BiDAFParams
     from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
 
+    T_q = 2049
+    assert bk.bidaf_route(32, T_q - 1, 256) == "cluster" and bk.bidaf_route(32, T_q, 256) == "K9"
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     p = BiDAFParams(256, gen, cuda_device)
     c = torch.randn(2, 32, 256, device=cuda_device, generator=gen)
-    q = torch.randn(2, 1024, 256, device=cuda_device, generator=gen)
-    masks = torch.ones(2, 32, device=cuda_device), torch.ones(2, 1024, device=cuda_device)
+    q = torch.randn(2, T_q, 256, device=cuda_device, generator=gen)
+    masks = torch.ones(2, 32, device=cuda_device), torch.ones(2, T_q, device=cuda_device)
     k2, k9 = bk.bidaf_attention_fused.launches, bk.bidaf_attention_tiled.launches
+    routes = dict(bk.bidaf_attention_fused.routes)
     out = bk.bidaf_attention_fused(p, c, q, *masks)
     assert bk.bidaf_attention_fused.launches == k2 and bk.bidaf_attention_tiled.launches == k9 + 1
+    assert bk.bidaf_attention_fused.routes == {"cluster": routes["cluster"], "K9": routes["K9"] + 1}
     torch.testing.assert_close(out, bk.bidaf_reference(p, c, q, *masks), **bk.TOLERANCE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T_c,T_q,D", [
+    (4, 32, 16, 256),    # the serving image block: a cluster of one
+    (4, 32, 512, 256),   # the serving audio block: 16 tiles of 32
+    (2, 32, 2048, 256),  # the plan's edge: 16 tiles of 128
+    (3, 7, 45, 20),      # two tiles, the last partial
+])
+def test_bidaf_cluster_route_serving_shapes(cuda_device, B, T_c, T_q, D):
+    """K2 on its cluster route against its plain version with ragged masks,
+    a fully masked q row (example 0) and a fully masked c column (example
+    1); twice the same bits; K7's bits at cd = c, qd = q where K7 has a
+    plan; only the cluster route's counter rose."""
+    from mmbidaf_tpu_torch.ops.bidaf import BiDAFParams
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    p = BiDAFParams(D, gen, cuda_device)
+    with torch.no_grad():
+        p.bias.fill_(0.25)
+    c = torch.randn(B, T_c, D, device=cuda_device, generator=gen)
+    q = torch.randn(B, T_q, D, device=cuda_device, generator=gen)
+    c_len = torch.randint(1, T_c + 1, (B,), device=cuda_device, generator=gen)
+    q_len = torch.randint(1, T_q + 1, (B,), device=cuda_device, generator=gen)
+    c_mask = (torch.arange(T_c, device=cuda_device)[None] < c_len[:, None]).float()
+    q_mask = (torch.arange(T_q, device=cuda_device)[None] < q_len[:, None]).float()
+    q_mask[0] = 0.0
+    c_mask[1] = 0.0
+    assert bk.bidaf_route(T_c, T_q, D) == "cluster"
+    before = (bk.bidaf_attention_fused.launches, dict(bk.bidaf_attention_fused.routes),
+              bk.bidaf_attention_tiled.launches)
+    out = bk.bidaf_attention_fused(p, c, q, c_mask, q_mask)
+    torch.testing.assert_close(out, bk.bidaf_reference(p, c, q, c_mask, q_mask), **bk.TOLERANCE)
+    assert torch.equal(out, bk.bidaf_attention_fused(p, c, q, c_mask, q_mask))
+    if _has_drop_plan(T_c, T_q, D):  # K7's plan ends at T_q = 1088 here
+        k7 = bk.bidaf_dropout_forward(c, q, c, q, c_mask, q_mask, p.w_c.float(), p.w_q.float(),
+                                      p.w_cq.float(), p.bias.float().reshape(()))
+        assert torch.equal(out, k7)
+    routes = before[1]
+    assert bk.bidaf_attention_fused.launches == before[0] + 2
+    assert bk.bidaf_attention_fused.routes == {"cluster": routes["cluster"] + 2, "K9": routes["K9"]}
+    assert bk.bidaf_attention_tiled.launches == before[2]
+
+
+@pytest.mark.cuda
+def test_bidaf_fused_plan_matches_the_card(cuda_device):
+    """K2's Python plan is the C plan, the card holds a cluster of K2 at
+    every such plan, and one past the plan's edge the C plan refuses."""
+    import ctypes
+
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+    from mmbidaf_tpu_torch.ops.cuda import build
+
+    lib = build.library()
+    out = (ctypes.c_int * 4)()
+    for T_c, T_q, D in ((32, 16, 256), (32, 512, 256), (32, 1, 256), (5, 33, 40), (7, 45, 20),
+                        (32, 1024, 256), (32, 1500, 256), (32, 2048, 256), (64, 512, 256)):
+        assert lib.mmb_bidaf_fused_plan(T_c, T_q, D, out) == 0
+        plan = bk.fused_plan(T_c, T_q, D)
+        assert list(out) == [plan.C, plan.tq, plan.smem_fwd, plan.smem_bwd], (T_c, T_q, D)
+        assert lib.mmb_bidaf_forward_occupancy(T_c, T_q, D) > 0, (T_c, T_q, D)
+    assert lib.mmb_bidaf_fused_plan(32, 2049, 256, out) != 0
 
 
 @pytest.mark.cuda

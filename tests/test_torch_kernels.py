@@ -107,11 +107,12 @@ def test_bidaf_wrapper_matches_pallas(rng):
 
 
 def test_bidaf_shared_memory_bound():
-    """The bench's audio attention (T_c=32, T_q=512, D=256) fits the
-    kernel's shared memory; T_q=1024 does not (the wrapper routes such
+    """The bench's audio attention (T_c=32, T_q=512, D=256) fits K2's
+    cluster plan; the long-audio T_q=4096 does not (the wrapper routes such
     shapes to K9 on the card, which chip_smoke.py checks)."""
-    assert bidaf_kernel.bidaf_smem_bytes(32, 512, 256) <= bidaf_kernel.SMEM_LIMIT_BYTES
-    assert bidaf_kernel.bidaf_smem_bytes(32, 1024, 256) > bidaf_kernel.SMEM_LIMIT_BYTES
+    assert bidaf_kernel.fused_plan(32, 512, 256).smem_fwd <= bidaf_kernel.SMEM_LIMIT_BYTES
+    with pytest.raises(ValueError, match="no BiDAF cluster plan"):
+        bidaf_kernel.fused_plan(32, 4096, 256)
 
 
 def test_mfcc_wrapper_matches_pallas(rng):

@@ -147,11 +147,13 @@ def test_bidaf_tiled_wrapper_matches_pallas(rng, B, T_c, T_q, D, c_len, q_len):
                                    np.broadcast_to(q[2].mean(0), (T_c, D)), atol=1e-5)
 
 
-@pytest.mark.parametrize("T_q,route", [(16, "K2"), (512, "K2"), (1024, "K9"), (4096, "K9")])
+@pytest.mark.parametrize("T_q,route", [(16, "cluster"), (512, "cluster"), (1024, "cluster"),
+                                       (2048, "cluster"), (2049, "K9"), (4096, "K9")])
 def test_bidaf_route(T_q, route):
-    """``bidaf_attention_fused`` launches K2 while S fits a block's shared
-    memory and K9 past it, at the model's attention width (T_c=32, D=256);
-    K9's blocks fit at the long-audio shape with the TPU kernel's sizes."""
+    """``bidaf_attention_fused`` launches K2 on its cluster route while its
+    plan's forward block fits a block's shared memory and K9 past it, at the
+    model's attention width (T_c=32, D=256); K9's blocks fit at the
+    long-audio shape with the TPU kernel's sizes."""
     assert bidaf_kernel.bidaf_route(32, T_q, 256) == route
     tc, tq = bidaf_kernel.tiled_blocks(32, T_q, 256)
     assert (tc, tq) == (32, min(128, T_q))

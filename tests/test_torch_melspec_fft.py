@@ -1,5 +1,5 @@
-"""K4's FFT route on the CPU (``ops/cuda/melspec_kernel.py``): what it rests
-on, and what the wrapper hands the kernel.
+"""K4's and K3's FFT routes on the CPU (``ops/cuda/melspec_kernel.py``):
+what they rest on, and what the wrappers hand the kernels.
 
 - The identity: the frontend's bases fold a periodic Hann window and a zero
   pad at the end into the DFT (``ops/audio.py::make_audio_frontend_consts``),
@@ -12,14 +12,31 @@ on, and what the wrapper hands the kernel.
   bench, long-audio, test and card-test configurations.
 - The kernel's FFT, step for step in numpy (``csrc/mfcc.cu::frame_power_fft``:
   bit-reversed load of ``z[n] = x[2n] + i·x[2n+1]``, radix-2 stages, the
-  real-FFT split), against ``numpy.fft.rfft``.
+  real-FFT split), against ``numpy.fft.rfft``, on K4's f32 twiddles and on
+  K3's f64 ones.
+- K3's FFT route step for step (``logmel_fft_kernel<kDb>``: the FFT in f64,
+  the mel product over each column's nonzero bins in f32 fused
+  multiply-adds, the dB, the maxima of blocks of 8 frames, then
+  ``mfcc_dct_kernel``: the example's maximum, the -80 dB clamp and the DCT)
+  against JAX's ``mfcc_fused`` (Pallas, interpret mode) and the port's plain
+  ``audio.mfcc`` at the bench shape (B=2, T=509: a partial last block of
+  frames, a silent example), on white noise and on a signal whose mel bands
+  span more than 60 dB (a loud low sine over weak noise, with a quiet
+  stretch; ``tools/mfcc_variants.py::wide_signal``), and against an f64
+  MFCC (``mfcc_variants.f64_mfcc``: ``numpy.fft.rfft``, f64 window): the
+  FFT route is closer to it than either dense f32 reference.
 
 Tolerances: f32 on both sides, sums in other orders. Powers and mels are
 held normwise at ``LOG_MEL_TOLERANCE[False]`` (``rtol = 1e-5`` of the
 largest value), log-mels elementwise at ``LOG_MEL_TOLERANCE[True]``, as the
 card holds K4 against its plain version. The emulation runs in f64 on the
 f32 twiddle table and is held at 2e-6 of the largest power (f32 twiddles,
-~6e-8 each, through up to 10 stages).
+~6e-8 each, through up to 10 stages), on the f64 table at 1e-12. K3's
+emulation is held against JAX and the plain version at K3's ``TOLERANCE``
+(atol 1e-3, rtol 1e-5, the card's): on the wide signal both dense f32
+references are themselves up to 7.3e-4 (JAX) and 5.9e-4 (plain) from the
+f64 MFCC, where the emulation is 2.6e-4 from it (measured here), and the
+emulation must be the closest of the three to the f64 MFCC.
 """
 
 import numpy as np
@@ -29,8 +46,12 @@ import torch
 import jax.numpy as jnp
 
 from mmbidaf_tpu.ops import audio as j_audio
+from mmbidaf_tpu.ops.pallas.melspec_kernel import mfcc_fused as j_mfcc_fused
 from mmbidaf_tpu_torch.ops import audio
 from mmbidaf_tpu_torch.ops.cuda import melspec_kernel as mk
+from mmbidaf_tpu_torch.ops.cuda import build
+from mmbidaf_tpu_torch.tools import mfcc_variants
+from mmbidaf_tpu_torch.tools.mfcc_variants import f64_mfcc, wide_signal
 
 # (sample rate, n_fft, win, n_mels): the bench and long-audio configurations
 # (DataConfig's defaults), the tiny test config, the card tests' shapes.
@@ -160,29 +181,31 @@ def test_mel_nonzeros_cover_the_filterbank(cfg):
     assert torch.equal(rebuilt, fb)
 
 
-def _kernel_fft_power(x, wnd, win, n_fft):
+def _kernel_fft_power(x, wnd, win, n_fft, dtype=torch.float32):
     """``csrc/mfcc.cu::frame_power_fft`` step for step in f64, on the
-    wrapper's f32 twiddle table."""
+    wrapper's twiddle table in ``dtype`` (K4's f32, K3's f64), for frames
+    ``x [..., >= win]``."""
     M = n_fft // 2
     log2m = M.bit_length() - 1
-    tw = mk.twiddles(n_fft, "cpu").double().numpy()
+    tw = mk.twiddles(n_fft, "cpu", dtype).double().numpy()
     tw = tw[:, 0] + 1j * tw[:, 1]
-    xs = np.zeros(n_fft)
-    xs[:win] = x[:win] * wnd[:win]
+    x = np.asarray(x, np.float64)
+    xs = np.zeros((*x.shape[:-1], n_fft))
+    xs[..., :win] = x[..., :win] * wnd[:win]
     n = np.arange(M)
     rev = np.array([int(format(i, f"0{log2m}b")[::-1], 2) for i in n])
-    z = np.zeros(M, complex)
-    z[rev] = xs[0::2] + 1j * xs[1::2]
+    z = np.zeros((*x.shape[:-1], M), complex)
+    z[..., rev] = xs[..., 0::2] + 1j * xs[..., 1::2]
     j = np.arange(M // 2)
     for s in range(log2m):
         half = 1 << s
         pos = j & (half - 1)
         i0 = ((j >> s) << (s + 1)) + pos
         i1 = i0 + half
-        p, q = z[i0], z[i1] * tw[half + pos]
-        z[i0], z[i1] = p + q, p - q
+        p, q = z[..., i0], z[..., i1] * tw[half + pos]
+        z[..., i0], z[..., i1] = p + q, p - q
     k = np.arange(M + 1)
-    p, q = z[k & (M - 1)], z[(M - k) & (M - 1)]
+    p, q = z[..., k & (M - 1)], z[..., (M - k) & (M - 1)]
     e = 0.5 * (p + np.conj(q))
     o = -0.5j * (p - np.conj(q))
     w = np.where(k < M, tw[M + np.minimum(k, M - 1)], -1.0)
@@ -198,3 +221,130 @@ def test_the_kernels_fft_is_the_rfft_power(n_fft, win):
     ref = np.abs(np.fft.rfft(x * wnd, n=n_fft)) ** 2
     got = _kernel_fft_power(x, wnd, win, n_fft)
     np.testing.assert_allclose(got, ref, atol=2e-6 * ref.max(), rtol=0)
+
+
+@pytest.mark.parametrize("n_fft,win", [(16, 16), (512, 400), (2048, 2000)])
+def test_k3s_f64_fft_is_the_rfft_power(n_fft, win):
+    rng = np.random.default_rng(n_fft + 1)
+    x = rng.standard_normal(win)
+    wnd = audio.hann_window(win).astype(np.float64)
+    ref = np.abs(np.fft.rfft(x * wnd, n=n_fft)) ** 2
+    got = _kernel_fft_power(x, wnd, win, n_fft, torch.float64)
+    np.testing.assert_allclose(got, ref, atol=1e-12 * ref.max(), rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K3's FFT route, step for step.
+# ---------------------------------------------------------------------------
+
+SR, N_FFT, WIN, HOP, N_MELS, N_MFCC = 16000, 512, 400, 160, 64, 40  # the bench's audio
+K3_FRAMES = 8  # frames a block of the first pass (csrc/mfcc.cu::kFftFrames)
+
+
+def _fma32(a, b, c):
+    """f32 ``fmaf(a, b, c)``: the product is exact in f64, one rounding to f32."""
+    return (np.asarray(a, np.float64) * b + c).astype(np.float32)
+
+
+def _k3_fft_mfcc(frames, consts):
+    """``mfcc_fused``'s FFT route on ``frames [B, T, win]`` (numpy f32), step
+    for step: the power spectrum in f64 (stored as f32), the mel product
+    over each column's nonzero bins in ascending k, the dB, each block's
+    maximum, then the DCT pass."""
+    B, T, win = frames.shape
+    n_fft = 2 * (consts["cos"].shape[1] - 1)
+    wnd = consts["cos"][:, 0].double().numpy()
+    pw = _kernel_fft_power(frames.reshape(-1, win), wnd, win, n_fft, torch.float64)
+    pw = pw.astype(np.float32)
+    ranges, weights = mk.mel_nonzeros(consts["mel_fb"])
+    weights = weights.numpy()
+    acc = np.zeros((pw.shape[0], ranges.shape[0]), np.float32)
+    for m, (lo, hi, off, _) in enumerate(ranges.tolist()):
+        for k in range(lo, hi + 1):
+            acc[:, m] = _fma32(pw[:, k], weights[off + k - lo], acc[:, m])
+    ln10 = np.float32(2.302585093)
+    db = np.float32(10.0) * (np.log(np.maximum(acc, np.float32(1e-10))) / ln10)
+    db = db.reshape(B, T, -1)
+    blocks = -(-T // K3_FRAMES)
+    padded = np.full((B, blocks * K3_FRAMES, db.shape[-1]), -np.inf, np.float32)
+    padded[:, :T] = db
+    block_max = padded.reshape(B, blocks, -1).max(axis=-1)
+    clamped = np.maximum(db - block_max.max(axis=1)[:, None, None], np.float32(-80.0))
+    dct = consts["dct"].numpy()
+    out = np.zeros((B, T, dct.shape[1]), np.float32)
+    for m in range(dct.shape[0]):
+        out = _fma32(clamped[:, :, m:m + 1], dct[m], out)
+    return out
+
+
+def _k3_signal(rng, B, T, kind):
+    """White noise x 0.1, or ``mfcc_variants.wide_signal`` (a loud low sine
+    over weak noise, with a quiet stretch from a third to half of the
+    waveform); example 1 silent."""
+    n = (T - 1) * HOP + WIN
+    sig = (rng.standard_normal((B, n)) * 0.1).astype(np.float32) if kind == "noise" else \
+        wide_signal(rng, B, n, SR)
+    sig[1] = 0.0
+    return sig
+
+
+def test_the_wide_signal_spans_60_db():
+    """Its mel bands span more than 60 dB below the example's maximum (the
+    quiet stretch more than 80), so weak bands far below each frame's peak
+    reach the DCT."""
+    consts = _consts(SR, N_FFT, WIN, N_MELS)
+    sig = _k3_signal(np.random.default_rng(0), 2, 509, "wide")
+    frames = audio.frame_signal(torch.from_numpy(sig), WIN, HOP, 509)
+    log_spec = audio.log_power(audio.melspectrogram(frames[0], consts))
+    loud = log_spec[:150]  # before the quiet stretch
+    assert (log_spec.max() - loud.min()).item() > 60.0
+    assert (log_spec.max() - log_spec[200:240].max()).item() > 80.0
+
+
+@pytest.mark.parametrize("kind", ["noise", "wide"])
+def test_k3_fft_route_matches_jax_and_the_plain_mfcc(kind):
+    rng = np.random.default_rng(0)
+    B, T = 2, 509  # T: a partial last block of 8 frames
+    consts = audio.make_audio_frontend_consts(SR, N_FFT, WIN, N_MELS, N_MFCC, device="cpu")
+    assert mk.mfcc_route(WIN, N_FFT // 2 + 1) == "fft"
+    sig = _k3_signal(rng, B, T, kind)
+    frames = audio.frame_signal(torch.from_numpy(sig), WIN, HOP, T)
+    emu = _k3_fft_mfcc(frames.numpy(), consts)
+    j_consts = {k: jnp.asarray(v.numpy()) for k, v in consts.items()}
+    jx = np.asarray(j_mfcc_fused(j_audio.frame_signal(jnp.asarray(sig), WIN, HOP, T), j_consts,
+                                 interpret=True))
+    plain = mk.mfcc_fused(frames, consts).numpy()  # the wrapper's plain version on the CPU
+    assert not emu[1].any() and not plain[1].any()  # the silent example is exactly 0
+    np.testing.assert_allclose(emu, jx, **mk.TOLERANCE)
+    np.testing.assert_allclose(emu, plain, **mk.TOLERANCE)
+    ref = f64_mfcc(frames, consts)
+    dist = {name: np.abs(v[0] - ref[0]).max() for name, v in (("fft", emu), ("jax", jx),
+                                                                ("plain", plain))}
+    if kind == "wide":
+        assert dist["fft"] <= min(dist["jax"], dist["plain"]), dist
+    assert dist["fft"] <= mk.TOLERANCE["atol"] / 2, dist
+
+
+@pytest.mark.parametrize("win,bins,route", [
+    (400, 257, "fft"), (48, 33, "fft"), (1024, 513, "fft"), (16, 9, "fft"),
+    (400, 201, "dense"), (4096, 2049, "dense"), (8, 5, "dense"), (600, 257, "dense"),
+])
+def test_mfcc_route(win, bins, route):
+    """K3 takes K4's rule: the FFT route for a power-of-two n_fft from 16 to
+    2048 and win <= n_fft, the dense one otherwise."""
+    assert mk.mfcc_route(win, bins) == route == mk.log_mel_route(win, bins)
+
+
+@pytest.mark.parametrize("variant", sorted(mfcc_variants.VARIANTS))
+def test_mfcc_variants_edit_the_sources_once(variant):
+    """Each variant of ``tools/mfcc_variants.py`` finds every text it
+    replaces exactly once in the checkout's sources."""
+    for fname, edits in mfcc_variants.VARIANTS[variant].items():
+        text = (build.CSRC / fname).read_text()
+        assert [text.count(old) for old, _ in edits] == [1] * len(edits), fname
+
+
+def test_mfcc_variants_refuse_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    assert mfcc_variants.main([]) == 1
