@@ -31,7 +31,10 @@ Phases, in order; any failure exits non-zero before the result line:
      plans and ptxas's reports; K4 (tiled mel, both modes) on its FFT
      route at the long-audio and log-mel shapes, its dense route at a small
      n_fft=400 shape, the silent example exact, ptxas's reports and the FFT
-     body's shared memory; K9 at the long-audio attention shape;
+     body's shared memory; K9 at the long-audio attention shape and a
+     small ragged one (twice bit for bit) with its walk plan, device time,
+     achieved TFLOP/s and ptxas's report, and, for the record, beside K2
+     at T_q=512 and 2048 (B=16);
   4. the serving slice at the bench configuration (``bench.py::build_bench_config``:
      VGG-16 at 224², hidden 128, vocab 20000, T_s=32 x W=16, 16 keyframes,
      512 audio frames, K=4, bf16, all three kernel flags on):
@@ -79,7 +82,10 @@ Phases, in order; any failure exits non-zero before the result line:
      (b) K10-K14 alone at the shapes their paths use (K10 and K11-K13 the
          tool's, K14 VGG-16's twelve C_in >= 32 convs at 256 frames): CUDA-event
          time, the plain version's, cuDNN's conv + bias + ReLU (K11-K14), the
-         bound and the max error; per layer, K11-K14's achieved TFLOP/s
+         bound and the max error; K10 in f32 and bf16, twice bit for bit,
+         its plan and device time beside its library yardstick
+         (``F.interpolate`` antialiased on the widened frames, channels-last,
+         plus one elementwise pass) and ptxas's report; per layer, K11-K14's achieved TFLOP/s
          and share of the bound, and the route K13 took (TMA or cp.async);
          K11-K13's and cuDNN's device time per call from ``torch.profiler``
          (no host launch overhead in it);
@@ -690,32 +696,66 @@ def phase_long_kernels(dev) -> list[dict]:
 
     D = 2 * long_config().model.hidden_size
     err, ms, plain_ms, parts = 0.0, 0.0, 0.0, []
+    # long-audio: the main path's shape (timed into the JSON record); at B=2
+    # and a 600-sentence context (a_acc and P_acc spilled to device memory)
+    # for the record only; small-ragged checked only
     for tag, bb, tc, tq, dd, blocks in [("long-audio", B_LONG, 32, d.max_audio_frames, D, (128, 128)),
+                                        ("long-audio", 2, 32, d.max_audio_frames, D, (128, 128)),
+                                        ("long-context", 1, 600, d.max_audio_frames, D, (128, 128)),
                                         ("small-ragged", 3, 7, 45, 20, (4, 16))]:
         p = BiDAFParams(dd, gen, dev)
         with torch.no_grad():
             p.bias.fill_(0.25)
         c = t(rng.standard_normal((bb, tc, dd)).astype(np.float32))
         q = t(rng.standard_normal((bb, tq, dd)).astype(np.float32))
-        cm = t(ragged_mask(rng, bb, tc, lo=0, empty_row=1))
-        qm = t(ragged_mask(rng, bb, tq, lo=0, empty_row=2))
+        cm = t(ragged_mask(rng, bb, tc, lo=0, empty_row=1 if bb > 1 else None))
+        qm = t(ragged_mask(rng, bb, tq, lo=0, empty_row=2 if bb > 2 else None))
         run = lambda: bk.bidaf_attention_tiled(p, c, q, cm, qm, *blocks)  # noqa: E731
         out = run()
         e = compare(f"bidaf_tiled[{tag}]", out, bk.bidaf_tiled_reference(p, c, q, cm, qm), bk.TOLERANCE)
         check(torch.equal(out, run()), f"K9[{tag}]: two runs differ")
         err = max(err, e)
+        plan = bk.tiled_plan(tc, tq, dd, blocks[1])
+        plan_s = (f"plan C={plan.C} span={plan.span} tile={plan.tq} ({-(-plan.span // plan.tq)} "
+                  f"tiles a rank) blocks={bb * plan.C} "
+                  f"{'c∘w_cq resident' if plan.resident else 'c∘w_cq from device memory'}, "
+                  f"smem {plan.smem} B, "
+                  f"{f'a_acc/P_acc spilled ({4 * bb * plan.C * plan.work} B)' if plan.work else 'no scratch'}")
         if tag == "small-ragged":
-            print(f"  K9 bidaf_tiled {tag} blocks {blocks}: max_abs_err={e:.3e}; deterministic", flush=True)
+            print(f"  K9 bidaf_tiled {tag} tq_blk={blocks[1]}: {plan_s}; max_abs_err={e:.3e}; "
+                  f"deterministic", flush=True)
             continue
         k = time_ms(run, iters=20)
+        kd = device_ms(run)
         pl = time_ms(lambda: bk.bidaf_tiled_reference(p, c, q, cm, qm), iters=20)
-        ms, plain_ms = ms + k, plain_ms + pl
-        parts.append(bound(bb * (4 * tc * tq * dd + 2 * tc * tc * (tq + dd)),
-                           4 * bb * (tc * dd + tq * dd + tc + tq + tc * 4 * dd) + 4 * (3 * dd + 1)))
-        print(f"  K9 bidaf_tiled {tag} B={bb} T_c={tc} T_q={tq} D={dd}: max_abs_err={e:.3e} "
-              f"kernel={k:.4f} ms plain={pl:.4f} ms; deterministic", flush=True)
+        flops = bb * (4 * tc * tq * dd + 2 * tc * tc * (tq + dd))
+        bd = bound(flops, 4 * bb * (tc * dd + tq * dd + tc + tq + tc * 4 * dd) + 4 * (3 * dd + 1))
+        main = tag == "long-audio" and bb == B_LONG
+        if main:
+            ms, plain_ms = ms + k, plain_ms + pl
+            parts.append(bd)
+        print(f"  K9 bidaf_tiled {tag} B={bb} T_c={tc} T_q={tq} D={dd}{'' if main else ' (record only)'}: "
+              f"{plan_s}; max_abs_err={e:.3e} kernel={k:.4f} ms {achieved(flops, k, bd)} (device "
+              f"{kd:.4f} ms {achieved(flops, kd, bd)}) plain={pl:.4f} ms; deterministic", flush=True)
+    # for the record: K9 beside K2 where both run (the route stays K2's to T_q = 2048)
+    for tq in (512, 2048):
+        p = BiDAFParams(D, gen, dev)
+        c = t(rng.standard_normal((B_LONG, 32, D)).astype(np.float32))
+        q = t(rng.standard_normal((B_LONG, tq, D)).astype(np.float32))
+        cm, qm = t(ragged_mask(rng, B_LONG, 32)), t(ragged_mask(rng, B_LONG, tq))
+        check(bk.bidaf_route(32, tq, D) == "cluster", f"K2 does not take T_q={tq}")
+        k9 = time_ms(lambda: bk.bidaf_attention_tiled(p, c, q, cm, qm), iters=20)
+        k2 = time_ms(lambda: bk.bidaf_attention_fused(p, c, q, cm, qm), iters=20)
+        k9d = device_ms(lambda: bk.bidaf_attention_tiled(p, c, q, cm, qm))
+        k2d = device_ms(lambda: bk.bidaf_attention_fused(p, c, q, cm, qm))
+        e = (bk.bidaf_attention_tiled(p, c, q, cm, qm) - bk.bidaf_attention_fused(p, c, q, cm, qm)).abs().max()
+        print(f"  K9 beside K2 at B={B_LONG} T_c=32 T_q={tq} D={D} (record only): K9 {k9:.4f} ms "
+              f"(device {k9d:.4f}), K2 {k2:.4f} ms (device {k2d:.4f}); max |K9 - K2| {e.item():.3e}",
+              flush=True)
+    print_resources("3", (("K9", "bidaf_tiled_cluster_kernel"),))
     rec9 = {"name": "bidaf_attention_tiled", "route": "cuda",
             "source": "mmbidaf_tpu_torch/csrc/bidaf_tiled.cu",
+            "kernel": "bidaf_tiled_cluster_kernel<true, false> (a cluster an example, each rank walking q tiles)",
             "replaces": "mmbidaf_tpu/ops/pallas/bidaf_tiled_kernel.py:37", "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": None}
     print(f"K9 bidaf_tiled: bound {bk.TOLERANCE}, max_abs_err={err:.3e}, kernel={ms:.4f} ms "
@@ -1298,7 +1338,7 @@ def phase_vgg_kernels(dev, tool_launches: dict) -> list[dict]:
     from mmbidaf_tpu_torch.ops.cuda import conv_kernel as ck
     from mmbidaf_tpu_torch.ops.cuda import preprocess_kernel as pk
     from mmbidaf_tpu_torch.ops.cuda import winograd_kernel as wk
-    from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
+    from mmbidaf_tpu_torch.ops.vgg import IMAGENET_MEAN, IMAGENET_STD, VGG16_SPEC
     from mmbidaf_tpu_torch.tools import kernel_parity
 
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -1315,16 +1355,46 @@ def phase_vgg_kernels(dev, tool_launches: dict) -> list[dict]:
               f"({rec['bound_by']}); launches {launches}", flush=True)
         records.append(rec)
 
-    # K10 at the tool's shape: 64 frames of 240x320 -> 224, f32 out.
+    # K10 at the tool's shape: 64 frames of 240x320 -> 224, f32 out (and bf16),
+    # beside one resize call of the library plus one elementwise pass.
     n, h, w, s = 64, *FRAME_HW, 224
     fr = torch.randint(0, 256, (n, h, w, 3), device=dev, generator=gen, dtype=torch.uint8)
     err = compare("preprocess[64x240x320->224]", pk.preprocess_frames_fused(fr, s),
                   pk.preprocess_reference(fr, s), pk.TOLERANCE[torch.float32])
+    e16 = compare("preprocess[64x240x320->224, bf16]", pk.preprocess_frames_fused(fr, s, torch.bfloat16),
+                  pk.preprocess_reference(fr, s, torch.bfloat16), pk.TOLERANCE[torch.bfloat16])
+    check(torch.equal(pk.preprocess_frames_fused(fr, s), pk.preprocess_frames_fused(fr, s)),
+          "K10: two runs differ")
     ms = time_ms(lambda: pk.preprocess_frames_fused(fr, s), iters=10)
+    kd = device_ms(lambda: pk.preprocess_frames_fused(fr, s))
     plain = time_ms(lambda: pk.preprocess_reference(fr, s), iters=10)
-    record("preprocess_frames_fused", "preprocess.cu", "preprocess_kernel.py:39", err, ms, plain, None,
-           [bound(resize_flops(n, h, w, s), n * (h * w * 3 + s * s * 3 * 4))], tool_launches["K10"])
-    del fr
+    # the library: F.interpolate on the widened frames, channels-last, then
+    # (y/255 - mean)/std as one addcmul (never used by the port)
+    xf = fr.permute(0, 3, 1, 2).float().contiguous(memory_format=torch.channels_last)
+    std = torch.from_numpy(IMAGENET_STD).to(dev).view(1, 3, 1, 1)
+    mean = torch.from_numpy(IMAGENET_MEAN).to(dev).view(1, 3, 1, 1)
+    scale, shift = 1.0 / (255.0 * std), -(mean / std)
+
+    def library():
+        y = torch.nn.functional.interpolate(xf, size=(s, s), mode="bilinear", antialias=True,
+                                            align_corners=False)
+        return torch.addcmul(shift, y, scale)
+
+    e_lib = (library().permute(0, 2, 3, 1) - pk.preprocess_reference(fr, s)).abs().max().item()
+    check(e_lib <= pk.TOLERANCE[torch.float32]["atol"], f"K10's library call is {e_lib:.3e} off")
+    lib = time_ms(library, iters=10)
+    lib_d = device_ms(library)
+    plan = pk.preprocess_plan(s, h, w)
+    part = bound(resize_flops(n, h, w, s), n * (h * w * 3 + s * s * 3 * 4))
+    print(f"  K10 preprocess 64x{h}x{w}->{s}: {plan.rows} output rows a block, input band "
+          f"{plan.band_rows} rows, smem {plan.smem} B, {-(-s // plan.rows) * n} blocks; "
+          f"max_abs_err f32 {err:.3e} bf16 {e16:.3e}; deterministic; kernel {ms:.4f} ms (device "
+          f"{kd:.4f}, {max(part) / kd:.1%} of the bound); library (F.interpolate antialias + one "
+          f"addcmul, f32 frames) {lib:.4f} ms (device {lib_d:.4f}, {e_lib:.2e} from plain)", flush=True)
+    print_resources("7b", (("K10", "preprocess_band_kernel"),))
+    record("preprocess_frames_fused", "preprocess.cu", "preprocess_kernel.py:39", err, ms, plain, lib,
+           [part], tool_launches["K10"])
+    del fr, xf
 
     # K11-K13 at the tool's VGG-16 layers (N=8, bf16), beside cuDNN.
     rec = {k: {"err": 0.0, "ms": 0.0} for k in ("K11", "K12", "K13")}

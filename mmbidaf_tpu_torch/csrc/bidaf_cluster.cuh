@@ -27,6 +27,8 @@
 // the forward section of the layout (fwd_floats), so its plan holds further
 // (at T_c=32, D=256: to T_q = 2048); its wrapper hands longer T_q to K9.
 // ops/cuda/bidaf_kernel.py::drop_plan and ::fused_plan mirror this function.
+// K9 (csrc/bidaf_tiled.cu) takes the launch and combine_rows with a plan
+// and layout of its own.
 //
 // Row strides in shared memory are odd (D | 1, tq | 1, T_c | 1 floats): a
 // warp's threads walk neighbouring rows or neighbouring columns of every
@@ -343,7 +345,10 @@ __device__ __forceinline__ void tile_softmaxes(float* smem, const Layout& L, int
 // every rank's row maxima and sums copied in (a thread a value), the
 // weights w_J of every tile into wts [C][Tc], then the combined
 // P = Σ_J w_J·P_J in rank order into pf. Ends with the block synchronised.
-__device__ __forceinline__ void combine_rows(float* smem, const Layout& L, int Tc, int C,
+// Lay is Layout, or K9's walk layout (csrc/bidaf_tiled.cu), with the same
+// sections m, l, pp, wts, lw, pf and stride LT.
+template <typename Lay>
+__device__ __forceinline__ void combine_rows(float* smem, const Lay& L, int Tc, int C,
                                              cg::cluster_group& cluster) {
   float *wts = smem + L.wts, *lw = smem + L.lw;
   for (int e = threadIdx.x; e < C * Tc; e += blockDim.x) {

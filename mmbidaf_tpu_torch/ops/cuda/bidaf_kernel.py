@@ -10,10 +10,12 @@ order, so K2 gives K7's bits at ``cd = c, qd = q``), on :func:`fused_plan`:
 K7's split, judged on the forward section of the block's layout alone.
 Past that plan (T_q > 2048 at T_c=32, D=256: the 4096-frame audio tower)
 its wrapper hands the shape to K9, the port of
-``bidaf_tiled_kernel.py::bidaf_attention_tiled``: the same function, split
-over q blocks across the card and combined in a fixed order
-(:func:`bidaf_route`; ``bidaf_attention_fused.routes`` counts both). Both
-are hand kernels; neither falls back.
+``bidaf_tiled_kernel.py::bidaf_attention_tiled``: the same function, on
+K2's launch too (a cluster an example), each rank walking its span of q
+columns tile by tile with flash-style row statistics, the ranks combined
+in a fixed order (:func:`tiled_plan`; :func:`bidaf_route`;
+``bidaf_attention_fused.routes`` counts both). Both are hand kernels;
+neither falls back.
 
 K7 and K8 are the training pair, the port of
 ``bidaf_attention_fused_dropout`` and its custom VJP: the forward forms S
@@ -35,8 +37,9 @@ Each wrapper (``bidaf_attention_fused`` K2, ``bidaf_attention_tiled`` K9,
 ``bidaf_dropout_forward`` K7, ``bidaf_dropout_backward`` K8) runs its plain
 version on a CPU tensor and launches its kernel on a CUDA tensor, or raises
 — K7/K8 also, before any launch, for shapes with no cluster plan (at T_c=32,
-D=256, T_q past 1088), and K2, K7 and K8 where the card holds none of the
-plan's clusters. ``<wrapper>.launches`` counts launches of its own kernel.
+D=256, T_q past 1088), K9 for shapes with no walk plan (at D=256, T_c past
+4288), and K2, K7, K8 and K9 where the card holds none of the plan's
+clusters. ``<wrapper>.launches`` counts launches of its own kernel.
 
 Tolerances of kernel vs plain on the card: K2/K7/K9 form Q2C as
 ``(s_row·s_colᵀ)·c`` where the plain version contracts ``s_row, s_col, c``
@@ -59,6 +62,7 @@ margin on the parameter grads and 20x on dbias.
 
 from __future__ import annotations
 
+import functools
 import types
 from typing import NamedTuple
 
@@ -72,30 +76,86 @@ TOLERANCE = {"atol": 5e-5, "rtol": 1e-5}
 # K8 vs its plain version on the card, per output: |err| <= atol + rtol·max|ref|.
 BACKWARD_TOLERANCE = {"atol": 5e-4, "rtol": 2e-6}
 
-# K9's shared-memory layout (csrc/bidaf_tiled.cu: kTQ q rows per streamed
-# tile).
-_TQ = 32
-SMEM_LIMIT_BYTES = 232448  # Hopper's opt-in limit per block (227 KB)
+SMEM_LIMIT_BYTES = build.SMEM_LIMIT_BYTES
+
+# K9's walk (csrc/bidaf_tiled.cu): ranks a cluster at most, q columns a rank
+# at least where T_q allows, q tiles in flight a block.
+_WALK_CLUSTER = 6
+_MIN_SPAN = 64
+_STAGES = 2
 
 
-def tiled_smem_bytes(T_c: int, tc: int, tq: int, D: int) -> int:
-    """Bytes of shared memory K9's first pass needs (``csrc/bidaf_tiled.cu::
-    smem_floats``): a c tile of ``tc`` rows, a q tile (rows padded by one),
-    the block's S and s_col columns ``[T_c, tq]`` (rows padded by one), and
-    three small vectors."""
-    return 4 * (tc * D + _TQ * (D + 1) + 2 * T_c * (tq + 1) + T_c + tq + D)
+class TiledPlan(NamedTuple):
+    """How K9 walks one ``T_c x T_q`` example at width ``D``: a cluster of
+    ``C`` blocks, rank ``r`` walking the q columns ``spans[r] = (begin,
+    end)`` (``span`` wide, the last maybe fewer) in tiles of at most ``tq``
+    columns (``tiles``, every rank's in rank order), ``c∘w_cq`` held in
+    shared memory (``resident``) or read from device memory, the dynamic
+    shared memory a block in bytes, and the floats of device memory a block
+    where ``a_acc`` and ``P_acc`` spill there (``work``; 0: in shared
+    memory)."""
+    C: int
+    span: int
+    tq: int
+    resident: bool
+    smem: int
+    work: int
+    spans: tuple
+    tiles: tuple
 
 
-def tiled_blocks(T_c: int, T_q: int, D: int, tc_blk: int = 128,
-                 tq_blk: int = 128) -> tuple[int, int]:
-    """K9's (c tile, q block): the requested sizes clamped to the sequence
-    lengths, then the q block halved (down to 8 columns) until the first
-    pass's operands fit a block. Raises past that."""
-    tc, tq = min(tc_blk, T_c), min(tq_blk, T_q)
-    while tiled_smem_bytes(T_c, tc, tq, D) > SMEM_LIMIT_BYTES and tq > 8:
-        tq = max(8, tq // 2)
-    _refuse_smem("bidaf_attention_tiled", tiled_smem_bytes(T_c, tc, tq, D), T_c, T_q, D)
-    return tc, tq
+def _odd4(n: int) -> int:
+    """A float4 row stride: ``n`` rounded up to 4 with an odd number of fours."""
+    m = _round4(n)
+    return m if (m // 4) % 2 else m + 4
+
+
+def _walk_smem(T_c: int, tq: int, D: int, C: int, resident: bool, spill: bool) -> tuple[int, int]:
+    """K9's dynamic shared memory a block in bytes and its floats of device
+    memory (``bidaf_tiled.cu::WalkLayout``): sections of floats, each
+    rounded up to four. The walk's dead sections come first and hold the
+    combine's P where it fits (a cluster of one combines in place), or with
+    ``spill`` the weights of the rank's rows, a_acc ``[T_c, LD]`` and P_acc
+    ``[T_c, LT]`` then in device memory."""
+    LD, LQ, LT, tq4 = _odd4(D), _odd4(tq), T_c | 1, _round4(tq)
+    dead = sum(map(_round4, (_STAGES * tq4 * LD, T_c * LD if resident else 0, T_c * LQ, T_c * LQ,
+                             T_c, T_c, D, T_c, _STAGES * tq4)))
+    if spill:
+        return 4 * (dead + 2 * _round4(T_c)), T_c * LD + _round4(T_c * LT)
+    live = sum(map(_round4, (T_c * LD, T_c * LT, T_c, T_c, C * T_c, C * T_c)))
+    pf = _round4(T_c * LT)
+    return 4 * (dead + live + (pf if C > 1 and pf > dead else 0)), 0
+
+
+@functools.lru_cache(maxsize=64)
+def tiled_plan(T_c: int, T_q: int, D: int, tq_blk: int = 128) -> TiledPlan:
+    """K9's plan (``bidaf_tiled.cu::walk_plan``): ``C = ceil(T_q / 64)`` ranks
+    up to 6 (an H100 holds only 15 clusters of 8 one-SM blocks at once, so
+    B=16 would take two waves), spans of ``ceil(T_q / C)`` columns (then ``C = ceil(T_q /
+    span)``, so none is empty), and the fewest walk tiles a span, each at
+    most ``tq_blk`` columns, whose block fits Hopper's shared memory with
+    ``c∘w_cq`` resident, else without; past that (long contexts: a_acc
+    ``[T_c, D]`` and P_acc ``[T_c, T_c]`` too large for a block) the same
+    with both accumulators in device memory. Raises ``ValueError`` where no
+    block fits."""
+    if min(T_c, T_q, D, tq_blk) <= 0:
+        raise ValueError(f"no K9 plan for T_c={T_c}, T_q={T_q}, D={D}, tq_blk={tq_blk}")
+    C = min(-(-T_q // _MIN_SPAN), _WALK_CLUSTER)
+    span = -(-T_q // C)
+    C = -(-T_q // span)
+    for spill in (False, True):
+        for resident in (True, False):
+            for n in range(-(-span // min(tq_blk, span)), span + 1):
+                tq = -(-span // n)
+                smem, work = _walk_smem(T_c, tq, D, C, resident, spill)
+                if smem <= SMEM_LIMIT_BYTES:
+                    spans = tuple((r * span, min((r + 1) * span, T_q)) for r in range(C))
+                    tiles = tuple((j, min(j + tq, end)) for begin, end in spans
+                                  for j in range(begin, end, tq))
+                    return TiledPlan(C, span, tq, resident, smem, work, spans, tiles)
+    raise ValueError(f"no K9 plan for T_c={T_c}, T_q={T_q}, D={D}: a block of one q column "
+                     f"needs {_walk_smem(T_c, 1, D, C, False, True)[0]} bytes of shared memory, "
+                     f"over the {SMEM_LIMIT_BYTES} a block has")
 
 
 def bidaf_route(T_c: int, T_q: int, D: int) -> str:
@@ -106,14 +166,6 @@ def bidaf_route(T_c: int, T_q: int, D: int) -> str:
     except ValueError:
         return "K9"
     return "cluster"
-
-
-def _refuse_smem(fn: str, need: int, T_c: int, T_q: int, D: int) -> None:
-    if need > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"{fn}: T_c={T_c}, T_q={T_q}, D={D} needs {need} bytes of "
-            f"shared memory, over the {SMEM_LIMIT_BYTES} a block has"
-        )
 
 
 # K2 / K7 / K8's cluster plan (csrc/bidaf_cluster.cuh): q columns a block
@@ -276,30 +328,37 @@ bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
 
 def bidaf_attention_tiled(params, c, q, c_mask, q_mask, tc_blk: int = 128,
                           tq_blk: int = 128) -> torch.Tensor:
-    """K9: the BiDAF block blockwise over q blocks → f32 ``[B, T_c, 4D]``,
-    K2's function for any T_q (block sizes: :func:`tiled_blocks`; the last
-    blocks are masked, not padded). ``bidaf_attention_tiled.launches``
-    counts kernel launches (one per call; the kernel runs as two passes)."""
+    """K9: the BiDAF block walked over q tiles → f32 ``[B, T_c, 4D]``, K2's
+    function for any T_q, in one launch (plan: :func:`tiled_plan`; the last
+    tiles are cut short, not padded), with no device memory but the output
+    unless the context is too long for the accumulators to fit a block
+    (``plan.work``). ``tq_blk`` caps the walk tile;
+    ``tc_blk`` keeps the JAX signature and does nothing on the card, where
+    every tile holds all T_c rows (the column softmax is exact inside it).
+    ``bidaf_attention_tiled.launches`` counts kernel launches."""
     if c.device.type == "cpu":
         return bidaf_tiled_reference(params, c, q, c_mask, q_mask)
     if c.device.type != "cuda":
         raise ValueError(f"bidaf_attention_tiled: unsupported device {c.device}")
     B, T_c, D = c.shape
     T_q = q.shape[1]
-    tc, tq = tiled_blocks(T_c, T_q, D, tc_blk, tq_blk)
+    plan = tiled_plan(T_c, T_q, D, tq_blk)
     ops = _operands(params, c, q, c_mask, q_mask)
-    dev = c.device
-    nqb = -(-T_q // tq)
-    out = torch.empty(B, T_c, 4 * D, device=dev)
-    row_max = torch.empty(B, nqb, T_c, device=dev)
-    row_sum = torch.empty(B, nqb, T_c, device=dev)
-    p_part = torch.empty(B, nqb, T_c, T_c, device=dev)
-    a_part = torch.empty(B, nqb, T_c, D, device=dev)
     lib = build.library()
+    key = ("mmb_bidaf_tiled_forward", T_c, T_q, D, tq_blk)
+    if key not in _occupancy_checked:
+        n = lib.mmb_bidaf_tiled_forward_occupancy(T_c, T_q, D, tq_blk)
+        if n <= 0:
+            raise RuntimeError(f"bidaf_attention_tiled: the card holds no cluster of {plan.C} "
+                               f"blocks of {plan.smem} bytes of shared memory "
+                               f"(cudaOccupancyMaxActiveClusters {n})")
+        _occupancy_checked.add(key)
+    out = torch.empty(B, T_c, 4 * D, device=c.device)
+    work = torch.empty(B * plan.C * plan.work, device=c.device) if plan.work else None
     rc = lib.mmb_bidaf_tiled_forward(
-        *(t.data_ptr() for t in ops), out.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
-        p_part.data_ptr(), a_part.data_ptr(), B, T_c, T_q, D, tc, tq,
-        torch.cuda.current_stream(dev).cuda_stream,
+        *(t.data_ptr() for t in ops), out.data_ptr(), None if work is None else work.data_ptr(),
+        B, T_c, T_q, D, tq_blk,
+        torch.cuda.current_stream(c.device).cuda_stream,
     )
     build.check_launch(lib, rc, "mmb_bidaf_tiled_forward")
     bidaf_attention_tiled.launches += 1

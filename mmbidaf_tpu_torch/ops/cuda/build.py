@@ -37,6 +37,9 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+# Hopper's opt-in shared memory a block (227 KB; csrc/common.cuh::kMaxSmemBytes).
+SMEM_LIMIT_BYTES = 232448
+
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: (argtypes), all return int (a cudaError_t).
 SIGNATURES = {
@@ -89,9 +92,13 @@ SIGNATURES = {
     # n_fft, win, ld, n_mels, nnz, f64 -> dynamic shared memory of a block of
     # K4's FFT route (f64 != 0: K3's), in bytes
     "mmb_log_mel_fft_smem_bytes": (I, I, I, I, I, I),
-    # c, q, c_mask, q_mask, w_c, w_q, w_cq, bias, out, row_max, row_sum, p_part,
-    # a_part, B, T_c, T_q, D, tc_blk, tq_blk, stream
-    "mmb_bidaf_tiled_forward": (P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    # c, q, c_mask, q_mask, w_c, w_q, w_cq, bias, out, work, B, T_c, T_q, D, tq_blk, stream
+    "mmb_bidaf_tiled_forward": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    # T_c, T_q, D, tq_blk, out[6] -> K9's plan: C, span, tq, resident, the
+    # dynamic shared memory a block, the floats of device memory a block
+    "mmb_bidaf_tiled_plan": (I, I, I, I, P),
+    # T_c, T_q, D, tq_blk -> clusters of K9 the card holds at once (<= 0: none)
+    "mmb_bidaf_tiled_forward_occupancy": (I, I, I, I),
     # x, u, bias, out, N, H, W, C, K, relu, bf16, stream
     "mmb_winograd_conv3x3": (P, P, P, P, I, I, I, I, I, I, I, P),
     # x, w, bias, out, N, H, W, Cin, Cout, relu, bf16, schedule, stream
@@ -104,8 +111,9 @@ SIGNATURES = {
     "mmb_conv3x3_mma_smem_bytes": (),
     "mmb_conv3x3_taps_smem_bytes": (),
     "mmb_conv3x3_ring_smem_bytes": (),
-    # frames, rh, rw3, bias, out, N, H, W, S, bf16, stream
-    "mmb_preprocess_frames": (P, P, P, P, P, I, I, I, I, I, P),
+    # frames, first_h, wh, first_w, ww, bias, out, N, H, W, S, Th, Tw, rows,
+    # band_rows, bf16, stream
+    "mmb_preprocess_frames": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
 }
 
 _lock = threading.Lock()

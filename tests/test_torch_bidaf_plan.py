@@ -1,5 +1,5 @@
 """K2, K7 and K8's split of an example over T_q across a thread-block
-cluster, on the CPU.
+cluster, and K9's walk over q tiles on one, on the CPU.
 
 The plan (``ops/cuda/bidaf_kernel.py::drop_plan``, the mirror of
 ``csrc/bidaf_cluster.cuh::plan``) is a pure function of (T_c, T_q, D): the
@@ -21,7 +21,17 @@ emulation with ``cd = c, qd = q`` (K2's ``kDrop = false`` body) at C in
 {1, 2, 3, 16} against JAX's ``bidaf_attention_fused``. Bounds: the kernels'
 own, ``TOLERANCE`` on the output and ``BACKWARD_TOLERANCE`` normwise on
 each gradient.
+
+K9's plan (``tiled_plan``, the mirror of ``csrc/bidaf_tiled.cu::walk_plan``)
+is held to its invariants (spans and walk tiles cover T_q once in rank
+order, none empty, at most 6 ranks, a block that fits) and its walk (per
+tile the exact column softmax, a running row maximum with a_acc and P_acc
+rescaled, then the rank-order combine) is emulated at C in {1, 2, 3} x
+tiles a rank in {1, 3} against JAX's Pallas ``bidaf_attention_tiled`` in
+interpret mode, within ``TOLERANCE``.
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -32,6 +42,7 @@ import jax.numpy as jnp
 
 from mmbidaf_tpu.ops.pallas.bidaf_kernel import bidaf_attention_fused as j_bidaf_fused
 from mmbidaf_tpu.ops.pallas.bidaf_kernel import bidaf_attention_fused_dropout as j_bidaf_drop
+from mmbidaf_tpu.ops.pallas.bidaf_tiled_kernel import bidaf_attention_tiled as j_bidaf_tiled
 from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
 from mmbidaf_tpu_torch.ops.cuda import build
 from mmbidaf_tpu_torch.ops.masked import NEG_INF
@@ -131,7 +142,8 @@ def test_fused_plan_hands_over_to_k9_past_its_edge():
     with pytest.raises(ValueError, match="no BiDAF cluster plan"):
         bk.fused_plan(32, edge + 1, 256)
     assert bk.bidaf_route(32, edge + 1, 256) == "K9"
-    bk.tiled_blocks(32, edge + 1, 256)
+    plan = bk.tiled_plan(32, edge + 1, 256)
+    assert plan.resident and plan.C == 6 and plan.smem <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("T_c,D", [(32, 256), (5, 40), (64, 384), (128, 64)])
@@ -153,7 +165,7 @@ def _first_k2_smem_bytes(T_c: int, T_q: int, D: int) -> int:
 
 def test_no_shape_the_first_k2_body_took_is_refused():
     """Over a grid of shapes, every one the first body took has a route now:
-    K2's cluster plan, or K9's blocks."""
+    K2's cluster plan, or K9's walk."""
     took = 0
     for T_c in (1, 5, 32, 33, 64, 100, 128, 160):
         for T_q in (1, 16, 33, 100, 512, 1024, 1500):
@@ -162,8 +174,91 @@ def test_no_shape_the_first_k2_body_took_is_refused():
                     continue
                 took += 1
                 if bk.bidaf_route(T_c, T_q, D) == "K9":
-                    bk.tiled_blocks(T_c, T_q, D)  # raises if K9's blocks do not fit
+                    bk.tiled_plan(T_c, T_q, D)  # raises if no K9 block fits
     assert took > 100
+
+
+@pytest.mark.parametrize("T_c,T_q,D,resident,spill", [
+    (32, 4096, 256, True, False),        # the long-audio attention: 6 ranks of 11 tiles of 63
+    (32, 2049, 256, True, False),        # one past K2's plan: 6 ranks of 342 columns
+    (32, 1, 256, True, False), (1, 1, 1, True, False),  # one q column
+    (40, 300, 256, True, False), (7, 45, 20, True, False),  # card tests' and smoke's small shapes
+    (2, 1000, 40, True, False), (33, 130, 12, True, False),  # several tiles a rank, ragged last
+    (64, 4096, 384, False, False),       # c∘w_cq no longer fits beside the accumulators
+    (114, 4096, 256, False, False),      # the last context whose accumulators fit a block
+    (115, 4096, 256, True, True),        # the first that spills them to device memory
+    (600, 4096, 256, False, True),       # a long context, spilled, c∘w_cq from device memory
+    (130, 301, 256, True, True),         # spilled, 5 ranks, the last of 57 columns
+    (200, 16, 256, True, True),          # spilled, a cluster of one
+])
+def test_tiled_plan_walks_q_once(T_c, T_q, D, resident, spill):
+    """K9's walk: the ranks' spans and their tiles cover T_q once in rank
+    order, none is empty, every tile lies in its rank's span and is at most
+    ``tq`` wide, the cluster has at most 6 blocks, and a block fits; where
+    the accumulators spill, a block's device memory holds a_acc and P_acc
+    (rows of 16-byte multiples, so the next block's a_acc stays aligned)."""
+    plan = bk.tiled_plan(T_c, T_q, D)
+    assert 1 <= plan.C <= 6 and len(plan.spans) == plan.C
+    assert [j for begin, end in plan.spans for j in range(begin, end)] == list(range(T_q))
+    assert [j for begin, end in plan.tiles for j in range(begin, end)] == list(range(T_q))
+    assert all(0 < end - begin <= plan.span for begin, end in plan.spans)
+    assert all(0 < end - begin <= plan.tq for begin, end in plan.tiles)
+    assert all(any(b0 <= begin and end <= b1 for b0, b1 in plan.spans) for begin, end in plan.tiles)
+    assert plan.smem <= SMEM_LIMIT and plan.resident == resident
+    assert (plan.work > 0) == spill and plan.work % 4 == 0
+    if spill:
+        assert plan.work >= T_c * (D + T_c)
+
+
+def test_tiled_plan_of_the_long_audio_block():
+    """B=16 long-audio examples run as one wave: 6 ranks a cluster (96
+    blocks), each walking 683 columns (the last 681) in 11 tiles of 63,
+    c∘w_cq resident; ``tq_blk`` caps the tile; a cluster of one where T_q is
+    short."""
+    plan = bk.tiled_plan(32, 4096, 256)
+    assert (plan.C, plan.span, plan.tq, plan.resident) == (6, 683, 63, True)
+    assert len(plan.tiles) == 66 and 16 * plan.C <= 132
+    assert bk.tiled_plan(32, 4096, 256, tq_blk=32).tq == 32
+    assert bk.tiled_plan(7, 45, 20, tq_blk=16)[:3] == (1, 45, 15)
+
+
+@pytest.mark.parametrize("T_c,T_q,D", [(5000, 64, 256), (4289, 4096, 256), (0, 16, 8), (4, 0, 8),
+                                       (4, 16, 0)])
+def test_tiled_plan_refuses_what_no_block_holds(T_c, T_q, D):
+    with pytest.raises(ValueError, match="no K9 plan"):
+        bk.tiled_plan(T_c, T_q, D)
+
+
+def _first_k9_smem_bytes(T_c: int, T_q: int, D: int) -> int:
+    """The shared memory of K9's first port (a c tile of min(128, T_c)
+    rows, a streamed q tile of 32 rows, S and s_col over a q block of 8
+    columns, the narrowest it would halve to), which decided what its
+    wrapper took."""
+    tc, tq = min(128, T_c), min(8, T_q)
+    return 4 * (tc * D + 32 * (D + 1) + 2 * T_c * (tq + 1) + T_c + tq + D)
+
+
+def test_no_shape_the_first_k9_took_is_refused():
+    """Over a grid of shapes, every one K9's first port took (T_c to 887 at
+    D=256, to 1971 at D=128) has a walk plan now, and every plan fits a
+    block; past T_c=114 at D=256 the accumulators spill."""
+    took = 0
+    for T_c in (1, 33, 114, 115, 300, 600, 887, 1971):
+        for T_q in (1, 16, 512, 4096):
+            for D in (8, 128, 256, 512):
+                if _first_k9_smem_bytes(T_c, T_q, D) > SMEM_LIMIT:
+                    continue
+                took += 1
+                plan = bk.tiled_plan(T_c, T_q, D)
+                assert plan.smem <= SMEM_LIMIT
+                assert plan.work > 0 or _walk_fits_shared(T_c, D)
+    assert took > 80
+    assert bk.tiled_plan(114, 4096, 256).work == 0 and bk.tiled_plan(115, 4096, 256).work > 0
+
+
+def _walk_fits_shared(T_c: int, D: int) -> bool:
+    """Whether a_acc [T_c, D] and P_acc [T_c, T_c] alone fit a block."""
+    return 4 * T_c * (D + T_c) <= SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------
@@ -325,3 +420,125 @@ def test_k2_split_matches_pallas(C):
                                                                           w_cq)),
                         torch.tensor(bias), C=C)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **bk.TOLERANCE)
+
+
+# ---------------------------------------------------------------------------
+# K9's walk, emulated (test-only).
+# ---------------------------------------------------------------------------
+
+
+def walk_forward(c, q, cm, qm, w_c, w_q, w_cq, bias, spans, spill=False):
+    """K9's arithmetic: each rank walks its tiles (``spans[r]``, a list of
+    ``(j0, j1)``) keeping a running row maximum m, the row sum l and the
+    accumulators a_acc = Σ p·q_t and P_acc = Σ p·s_colᵀ, rescaled by
+    exp(m − m_new) at each tile (the column softmax exact inside the tile);
+    then the ranks are combined in rank order with K2's weights (with
+    ``spill``, as the kernel does where a_acc and P_acc are in device
+    memory: each rank combines its own rows)."""
+    B, T_c, D = c.shape
+    cw, s0 = c * w_cq, c @ w_c
+    ranks = []
+    for tiles in spans:
+        m = torch.full((B, T_c), float("-inf"))
+        l = torch.zeros(B, T_c)
+        a_acc, p_acc = torch.zeros(B, T_c, D), torch.zeros(B, T_c, T_c)
+        for j0, j1 in tiles:
+            qt = q[:, j0:j1]
+            S = s0[:, :, None] + (qt @ w_q)[:, None, :] + cw @ qt.transpose(1, 2) + bias
+            cmm, qmm = cm[:, :, None], qm[:, None, j0:j1]
+            s_col = torch.softmax(cmm * S + (1.0 - cmm) * NEG_INF, dim=1)
+            v = qmm * S + (1.0 - qmm) * NEG_INF
+            m_new = torch.maximum(m, v.max(dim=2).values)
+            scale = torch.exp(m - m_new)
+            p = torch.exp(v - m_new[:, :, None])
+            l = l * scale + p.sum(dim=2)
+            a_acc = a_acc * scale[:, :, None] + p @ qt
+            p_acc = p_acc * scale[:, :, None] + p @ s_col.transpose(1, 2)
+            m = m_new
+        ranks.append((m, l, a_acc, p_acc))
+    if spill:
+        return _combine_by_rows(c, ranks)
+    M = torch.stack([m for m, _, _, _ in ranks]).max(dim=0).values
+    e = [torch.exp(m - M) for m, _, _, _ in ranks]
+    L = sum(ej * l for ej, (_, l, _, _) in zip(e, ranks))
+    a = sum((ej / L)[:, :, None] * aj for ej, (_, _, aj, _) in zip(e, ranks))
+    P = sum((ej / L)[:, :, None] * pj for ej, (_, _, _, pj) in zip(e, ranks))
+    return torch.cat([c, a, c * a, c * (P @ c)], dim=-1)
+
+
+def _combine_by_rows(c, ranks):
+    """The spilled combine: rank r owns the rows [r·NR, r·NR + NR) (NR =
+    ceil(T_c / C); the last ranks may own fewer or none), forms their
+    weights from every rank's m and l, their rows of P and of a, and b = P·c
+    over all of c."""
+    B, T_c, D = c.shape
+    C = len(ranks)
+    NR = -(-T_c // C)
+    out = torch.full((B, T_c, 4 * D), float("nan"))
+    for r in range(C):
+        rows = slice(min(r * NR, T_c), min((r + 1) * NR, T_c))
+        M = torch.stack([m[:, rows] for m, _, _, _ in ranks]).max(dim=0).values
+        e = [torch.exp(m[:, rows] - M) for m, _, _, _ in ranks]
+        L = sum(ej * l[:, rows] for ej, (_, l, _, _) in zip(e, ranks))
+        a = sum((ej / L)[:, :, None] * aj[:, rows] for ej, (_, _, aj, _) in zip(e, ranks))
+        P = sum((ej / L)[:, :, None] * pj[:, rows] for ej, (_, _, _, pj) in zip(e, ranks))
+        cr = c[:, rows]
+        out[:, rows] = torch.cat([cr, a, cr * a, cr * (P @ c)], dim=-1)
+    return out
+
+
+def _walk(T_q: int, C: int, n: int):
+    """C ranks of ``ceil(T_q / C)`` columns, each walked in n tiles (the last
+    rank's, and each span's last tile, may be shorter)."""
+    span = -(-T_q // C)
+    tq = -(-span // n)
+    spans = [[(j, min(j + tq, end)) for j in range(begin, end, tq)]
+             for begin, end in ((r * span, min((r + 1) * span, T_q)) for r in range(C))]
+    assert all(len(t) >= 1 for t in spans) and max(len(t) for t in spans) == n
+    return spans
+
+
+_WALK_B, _WALK_TC, _WALK_TQ, _WALK_D = 3, 16, 40, 12
+
+
+@pytest.fixture(scope="module")
+def walk_case():
+    """Inputs at 8x8 block multiples (T_c=16, T_q=40): ragged masks, a fully
+    masked q row (example 1) and a fully masked c column (example 2), and in
+    example 0 a q mask that leaves the last tiles fully masked; the JAX
+    Pallas kernel (8x8 blocks, interpret mode) on them, once."""
+    rng = np.random.default_rng(77)
+    B, T_c, T_q, D = _WALK_B, _WALK_TC, _WALK_TQ, _WALK_D
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    c, q = f32(B, T_c, D), f32(B, T_q, D)
+    c_mask = (np.arange(T_c)[None] < np.array([13, 9, 0])[:, None]).astype(np.float32)
+    q_mask = (np.arange(T_q)[None] < np.array([22, 0, 37])[:, None]).astype(np.float32)
+    w_c, w_q, w_cq = f32(D) * 0.3, f32(D) * 0.3, f32(D) * 0.3
+    bias = np.float32(0.25)
+    jp = {"w_c": jnp.asarray(w_c), "w_q": jnp.asarray(w_q), "w_cq": jnp.asarray(w_cq),
+          "bias": jnp.float32(bias)}
+    ref = j_bidaf_tiled(jp, *(jnp.asarray(v) for v in (c, q, c_mask, q_mask)), tc_blk=8, tq_blk=8,
+                        interpret=True)
+    ops = [torch.from_numpy(v) for v in (c, q, c_mask, q_mask, w_c, w_q, w_cq)]
+    return ops + [torch.tensor(bias)], np.asarray(ref)
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("C,spill", [(1, False), (2, False), (3, False), (1, True), (3, True),
+                                     (6, True)])
+def test_walk_matches_pallas(walk_case, C, n, spill):
+    """K9's walk over C ranks of n tiles each (C=3, n=3: spans of 14, 14 and
+    12 columns in tiles of 5, the last ones of 4 and 2), combined as the
+    shared-memory kernel does or, with ``spill``, each rank its own rows
+    (C=3: 6, 6 and 4 of T_c=16; C=6: five ranks of 3 and one of 1), against
+    JAX's blockwise Pallas kernel and against the plain version, within
+    ``TOLERANCE``; every row is written once."""
+    (c, q, cm, qm, w_c, w_q, w_cq, bias), ref = walk_case
+    out = walk_forward(c, q, cm, qm, w_c, w_q, w_cq, bias, _walk(_WALK_TQ, C, n), spill=spill)
+    assert not out.isnan().any()
+    np.testing.assert_allclose(out.numpy(), ref, **bk.TOLERANCE)
+    params = types.SimpleNamespace(w_c=w_c, w_q=w_q, w_cq=w_cq, bias=bias)
+    torch.testing.assert_close(out, bk.bidaf_reference(params, c, q, cm, qm), **bk.TOLERANCE)
+    # example 1's q is fully masked: C2Q is the plain mean of q over T_q
+    torch.testing.assert_close(out[1, :, _WALK_D:2 * _WALK_D],
+                               q[1].mean(dim=0).expand(_WALK_TC, _WALK_D), atol=1e-5, rtol=0)

@@ -343,13 +343,21 @@ def test_log_mel_fft_refuses_a_basis_that_is_not_the_dft(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T_c,T_q,D,tc_blk,tq_blk", [
-    (2, 40, 300, 256, 16, 128),  # T_c > tc_blk (a partial c tile); T_q not a block multiple
-    (3, 7, 45, 20, 128, 8),      # small blocks, a partial last q block
-    (2, 64, 4096, 384, 128, 128),  # D > 256 threads; 32 q blocks
+    (2, 40, 300, 256, 16, 128),  # 5 ranks of 60 columns, 2 tiles each (tc_blk does nothing)
+    (3, 7, 45, 20, 128, 8),      # a cluster of one: 6 tiles, the last of 5 columns
+    (2, 64, 4096, 384, 128, 128),  # D > 256 threads; c∘w_cq read from device memory
+    (2, 32, 1000, 256, 128, 64),   # 6 ranks of 167 columns, 3 tiles each (56 + 56 + 55)
+    (3, 33, 1001, 40, 128, 48),    # ragged: the last rank's 166 columns, 4 tiles, the last of 40
+    (2, 32, 4096, 256, 128, 128),  # the long-audio walk: 6 ranks of 11 tiles of 63
+    (1, 600, 4096, 256, 128, 128),  # a long context: a_acc and P_acc spilled to device memory
+    (3, 130, 301, 256, 128, 128),   # spilled, 5 ranks (the last of 57 columns), 4 tiles each
+    (2, 200, 40, 64, 128, 16),      # a cluster of one, c∘w_cq from device memory
 ])
 def test_bidaf_tiled_kernel_generic_shapes(cuda_device, B, T_c, T_q, D, tc_blk, tq_blk):
     """K9 against its plain version with fully masked rows and an
-    all-masked example; two runs give the same bits."""
+    all-masked example; two runs give the same bits; one launch a call and
+    no device memory but the output and, where the plan spills its
+    accumulators, their B·C·work floats."""
     from mmbidaf_tpu_torch.ops.bidaf import BiDAFParams
     from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
 
@@ -362,11 +370,48 @@ def test_bidaf_tiled_kernel_generic_shapes(cuda_device, B, T_c, T_q, D, tc_blk, 
     q_mask[0, : T_q // 2] = 0.0
     c_mask[-1] = 0.0  # the last example is all masked
     q_mask[-1] = 0.0
+    bk.bidaf_attention_tiled(p, c, q, c_mask, q_mask, tc_blk=tc_blk, tq_blk=tq_blk)  # set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    before = (torch.cuda.memory_allocated(cuda_device), bk.bidaf_attention_tiled.launches)
     out = bk.bidaf_attention_tiled(p, c, q, c_mask, q_mask, tc_blk=tc_blk, tq_blk=tq_blk)
+    torch.cuda.synchronize()
+    # the caching allocator hands out multiples of 512 bytes
+    grown = torch.cuda.max_memory_allocated(cuda_device) - before[0]
+    plan = bk.tiled_plan(T_c, T_q, D, tq_blk)
+    assert grown == sum(-(-n * 4 // 512) * 512 for n in (out.numel(), B * plan.C * plan.work) if n)
+    assert bk.bidaf_attention_tiled.launches == before[1] + 1
     torch.testing.assert_close(out, bk.bidaf_tiled_reference(p, c, q, c_mask, q_mask),
                                **bk.TOLERANCE)
     again = bk.bidaf_attention_tiled(p, c, q, c_mask, q_mask, tc_blk=tc_blk, tq_blk=tq_blk)
     assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_bidaf_tiled_plan_matches_the_card(cuda_device):
+    """K9's Python plan is the C plan, the card holds a cluster of K9 at
+    every such plan, and a shape no block holds is refused by both."""
+    import ctypes
+
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+    from mmbidaf_tpu_torch.ops.cuda import build
+
+    lib = build.library()
+    out = (ctypes.c_int * 6)()
+    for T_c, T_q, D, tq_blk in ((32, 4096, 256, 128), (32, 2049, 256, 128), (32, 1, 256, 128),
+                                (40, 300, 256, 128), (7, 45, 20, 8), (64, 4096, 384, 128),
+                                (48, 4096, 256, 128), (2, 1000, 40, 64), (160, 16, 40, 128),
+                                (114, 4096, 256, 128), (115, 4096, 256, 128), (600, 4096, 256, 128),
+                                (1971, 4096, 128, 128), (200, 16, 256, 128), (4288, 64, 256, 128)):
+        assert lib.mmb_bidaf_tiled_plan(T_c, T_q, D, tq_blk, out) == 0
+        plan = bk.tiled_plan(T_c, T_q, D, tq_blk)
+        want = [plan.C, plan.span, plan.tq, int(plan.resident), plan.smem, plan.work]
+        assert list(out) == want, (T_c, T_q, D)
+        assert lib.mmb_bidaf_tiled_forward_occupancy(T_c, T_q, D, tq_blk) > 0, (T_c, T_q, D)
+    assert lib.mmb_bidaf_tiled_plan(5000, 64, 256, 128, out) != 0
+    assert lib.mmb_bidaf_tiled_plan(4289, 64, 256, 128, out) != 0
+    with pytest.raises(ValueError, match="no K9 plan"):
+        bk.tiled_plan(5000, 64, 256)
 
 
 @pytest.mark.cuda
@@ -389,6 +434,35 @@ def test_bidaf_fused_routes_long_queries_to_k9(cuda_device):
     assert bk.bidaf_attention_fused.launches == k2 and bk.bidaf_attention_tiled.launches == k9 + 1
     assert bk.bidaf_attention_fused.routes == {"cluster": routes["cluster"], "K9": routes["K9"] + 1}
     torch.testing.assert_close(out, bk.bidaf_reference(p, c, q, *masks), **bk.TOLERANCE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T_c,T_q,D", [
+    (4, 200, 16, 256),  # the image block of 200 sentences: a cluster of one, spilled
+    (2, 600, 512, 256),  # the audio block of 600 sentences: 6 ranks, spilled
+])
+def test_bidaf_fused_takes_long_contexts_through_k9(cuda_device, B, T_c, T_q, D):
+    """``bidaf_attention_fused`` at a context past K2's plan and past K9's
+    shared-memory accumulators (max_sentences past ~115) launches K9 with
+    a_acc and P_acc in device memory and computes K2's function, a fully
+    masked q row and c column included."""
+    from mmbidaf_tpu_torch.ops.bidaf import BiDAFParams
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+
+    assert bk.bidaf_route(T_c, T_q, D) == "K9" and bk.tiled_plan(T_c, T_q, D).work > 0
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    p = BiDAFParams(D, gen, cuda_device)
+    c = torch.randn(B, T_c, D, device=cuda_device, generator=gen)
+    q = torch.randn(B, T_q, D, device=cuda_device, generator=gen)
+    c_len = torch.randint(1, T_c + 1, (B,), device=cuda_device, generator=gen)
+    c_mask = (torch.arange(T_c, device=cuda_device)[None] < c_len[:, None]).float()
+    q_mask = torch.ones(B, T_q, device=cuda_device)
+    q_mask[0] = 0.0
+    c_mask[1] = 0.0
+    k9 = bk.bidaf_attention_tiled.launches
+    out = bk.bidaf_attention_fused(p, c, q, c_mask, q_mask)
+    assert bk.bidaf_attention_tiled.launches == k9 + 1
+    torch.testing.assert_close(out, bk.bidaf_reference(p, c, q, c_mask, q_mask), **bk.TOLERANCE)
 
 
 @pytest.mark.cuda
@@ -1009,10 +1083,12 @@ def test_winograd_kernel_generic_shapes(cuda_device, dtype, N, H, W, C, K, relu)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("n,h,w,s", [(3, 37, 53, 24), (2, 20, 30, 33), (1, 16, 16, 16)])
+@pytest.mark.parametrize("n,h,w,s", [(3, 37, 53, 24), (2, 20, 30, 33), (1, 16, 16, 16),
+                                     (2, 100, 150, 224), (1, 1080, 1920, 224)])
 def test_preprocess_kernel_generic_shapes(cuda_device, dtype, n, h, w, s):
     """K10 against its plain version: odd downscales (a partial last block of
-    output rows), an upscale, and the identity resize."""
+    output rows, rows not 4-byte aligned), upscales, the identity resize,
+    and 1080p frames (two output rows a block)."""
     from mmbidaf_tpu_torch.ops.cuda import preprocess_kernel as pk
 
     gen = torch.Generator(device=cuda_device).manual_seed(11)

@@ -152,21 +152,28 @@ def test_bidaf_tiled_wrapper_matches_pallas(rng, B, T_c, T_q, D, c_len, q_len):
 def test_bidaf_route(T_q, route):
     """``bidaf_attention_fused`` launches K2 on its cluster route while its
     plan's forward block fits a block's shared memory and K9 past it, at the
-    model's attention width (T_c=32, D=256); K9's blocks fit at the
-    long-audio shape with the TPU kernel's sizes."""
+    model's attention width (T_c=32, D=256); K9 has a walk at every such
+    shape: ceil(T_q / 64) ranks up to 6, c∘w_cq resident, a block that
+    fits."""
     assert bidaf_kernel.bidaf_route(32, T_q, 256) == route
-    tc, tq = bidaf_kernel.tiled_blocks(32, T_q, 256)
-    assert (tc, tq) == (32, min(128, T_q))
-    assert bidaf_kernel.tiled_smem_bytes(32, tc, tq, 256) <= bidaf_kernel.SMEM_LIMIT_BYTES
+    plan = bidaf_kernel.tiled_plan(32, T_q, 256)
+    assert plan.C == min(6, -(-T_q // 64)) and plan.resident
+    assert plan.tq <= min(128, T_q) and plan.smem <= bidaf_kernel.SMEM_LIMIT_BYTES
 
 
 def test_tiled_blocks_shrink_to_fit():
-    """A context too long for a 128-column q block halves the block; one
-    that fits no block at all is refused."""
-    tc, tq = bidaf_kernel.tiled_blocks(600, 4096, 256)
-    assert tq < 128 and bidaf_kernel.tiled_smem_bytes(600, tc, tq, 256) <= bidaf_kernel.SMEM_LIMIT_BYTES
+    """A context too long for a 128-column q tile walks narrower tiles (at
+    T_c=600 with a_acc and P_acc in device memory, at T_c=48 beside c∘w_cq);
+    one whose c∘w_cq does not fit beside the accumulators reads it from
+    device memory; one that fits no block at all is refused."""
+    plan = bidaf_kernel.tiled_plan(600, 4096, 256)
+    assert plan.tq < 128 and plan.work > 0 and plan.smem <= bidaf_kernel.SMEM_LIMIT_BYTES
+    plan = bidaf_kernel.tiled_plan(48, 4096, 256)
+    assert plan.resident and plan.tq < 64 and plan.smem <= bidaf_kernel.SMEM_LIMIT_BYTES
+    plan = bidaf_kernel.tiled_plan(64, 4096, 384)
+    assert not plan.resident and plan.smem <= bidaf_kernel.SMEM_LIMIT_BYTES
     with pytest.raises(ValueError, match="shared memory"):
-        bidaf_kernel.tiled_blocks(5000, 64, 256)
+        bidaf_kernel.tiled_plan(5000, 64, 256)
 
 
 @pytest.mark.parametrize("feature,T,bound,k4_calls", [

@@ -12,8 +12,12 @@ roundings of f32 values that agree to ~1e-6, so they can land one bf16 ulp
 apart: ``rtol=2**-7`` (an ulp is at most 2⁻⁷ of the value). The preprocess
 kernel's resize weights come from ``jax.image.resize`` on the JAX side and
 from the port's numpy ``resize_matrix`` (they differ by up to 7e-6), so
-``atol=1e-4`` as the JAX package's own test. End to end in f32: picks
-equal, log-probs within 1e-4.
+``atol=1e-4`` as the JAX package's own test; K10's banded resize, emulated
+in numpy, sums the same f32 products as the plain version in another
+order: ``atol=1e-5`` on values up to 2.7. ``F.interpolate``'s antialiased
+weights, the library call timed beside K10, agree with ``resize_matrix`` to
+1.2e-7 at 240 -> 224: ``atol=1e-6``. End to end in f32: picks equal,
+log-probs within 1e-4.
 """
 
 import dataclasses
@@ -32,7 +36,7 @@ from mmbidaf_tpu.ops.winograd import winograd_conv3x3 as j_winograd
 from mmbidaf_tpu_torch.interop.from_jax import load_pytree
 from mmbidaf_tpu_torch.ops import vgg as t_vgg
 from mmbidaf_tpu_torch.ops import winograd as t_winograd
-from mmbidaf_tpu_torch.ops.cuda import conv_kernel, preprocess_kernel, winograd_kernel
+from mmbidaf_tpu_torch.ops.cuda import build, conv_kernel, preprocess_kernel, winograd_kernel
 
 SPEC = (32, 32, "M", 64, "M")  # conv2 and conv3 have C_in >= 32: the Winograd route
 BF16_ULP = 2.0 ** -7
@@ -124,6 +128,83 @@ def test_k10_plain_matches_pallas(rng, n, h, w, s):
     assert ours.dtype == torch.bfloat16 and ours.shape == (n, s, s, 3)
     np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref.astype(jnp.float32)),
                                rtol=BF16_ULP, atol=1e-4)
+
+
+@pytest.mark.parametrize("dst,src", [(224, 240), (224, 320), (224, 1080), (224, 100), (224, 224)])
+def test_band_taps_rebuild_resize_matrix(dst, src):
+    """K10's banded weights rebuild the port's resize matrix bit for bit:
+    every tap window lies inside [0, src), and T is the widest band (3 for
+    a downscale by less than 2x, 2 for an upscale, 1 for the identity)."""
+    first, weights = preprocess_kernel.band_taps(dst, src)
+    taps = weights.shape[1]
+    assert first.dtype == np.int32 and weights.dtype == np.float32 and first.shape == (dst,)
+    assert first.min() >= 0 and first.max() + taps <= src
+    dense = np.zeros((dst, src), np.float32)
+    for s, f in enumerate(first):
+        dense[s, f:f + taps] = weights[s]
+    assert np.array_equal(dense.view(np.int32), t_vgg.resize_matrix(dst, src).view(np.int32))
+    assert taps == {240: 3, 320: 3, 100: 2, 224: 1}.get(src, taps)
+
+
+def _band_resize(x: np.ndarray, s: int) -> np.ndarray:
+    """K10's arithmetic in numpy f32: the H pass over each output row's taps,
+    then the W pass over each output column's taps with 1/(255·std_c)
+    folded in, each summed over increasing input index, then the bias."""
+    _, h, w, _ = x.shape
+    first_h, wh = preprocess_kernel.band_taps(s, h)
+    first_w, rw = preprocess_kernel.band_taps(s, w)
+    scale = (np.float32(1.0) / (np.float32(255.0) * t_vgg.IMAGENET_STD)).astype(np.float32)
+    ww = rw[None] * scale[:, None, None]  # [3, S, Tw]
+    xf = x.astype(np.float32)
+    t = np.zeros((x.shape[0], s, w, 3), np.float32)
+    for i in range(wh.shape[1]):
+        t += wh[None, :, i, None, None] * xf[:, first_h + i]
+    out = np.zeros((x.shape[0], s, s, 3), np.float32)
+    for i in range(ww.shape[2]):
+        out += t[:, :, first_w + i, :] * ww[:, :, i].T[None, None]
+    return out - (t_vgg.IMAGENET_MEAN / t_vgg.IMAGENET_STD).astype(np.float32)
+
+
+@pytest.mark.parametrize("n,h,w,s", [(2, 48, 64, 32), (2, 20, 30, 33)])
+def test_band_resize_matches_plain_and_pallas(rng, n, h, w, s):
+    """K10's banded two-pass resize, emulated, against the plain version and
+    the Pallas preprocess kernel in interpret mode (a downscale and an
+    upscale)."""
+    from mmbidaf_tpu.ops.pallas.preprocess_kernel import preprocess_frames_fused as j_pre
+
+    x = rng.integers(0, 256, (n, h, w, 3)).astype(np.uint8)
+    ours = _band_resize(x, s)
+    plain = preprocess_kernel.preprocess_reference(_t(x), s).numpy()
+    np.testing.assert_allclose(ours, plain, atol=1e-5)
+    ref = j_pre(jnp.asarray(x), s, dtype=jnp.float32, interpret=True)
+    np.testing.assert_allclose(ours, np.asarray(ref), atol=1e-4)
+
+
+@pytest.mark.parametrize("s,h,w,rows", [(224, 240, 320, 8), (224, 1080, 1920, 2), (33, 20, 30, 8),
+                                        (16, 16, 16, 8)])
+def test_preprocess_plan_fits(s, h, w, rows):
+    """K10's block: 8 output rows at the tool's frames, fewer for 1080p; every
+    tile's input rows within ``band_rows``, the block within Hopper's shared
+    memory."""
+    plan = preprocess_kernel.preprocess_plan(s, h, w)
+    assert plan.rows == rows and plan.smem <= build.SMEM_LIMIT_BYTES
+    first, wh = preprocess_kernel.band_taps(s, h)
+    for s0 in range(0, s, rows):
+        tile = first[s0:s0 + rows]
+        assert tile.max() + wh.shape[1] - tile.min() <= plan.band_rows
+    with pytest.raises(ValueError, match="shared memory"):
+        preprocess_kernel.preprocess_plan(224, 240, 40000)
+
+
+@pytest.mark.parametrize("dst,src", [(224, 240), (224, 320)])
+def test_interpolate_antialias_matches_resize_matrix(dst, src):
+    """``F.interpolate(..., "bilinear", antialias=True, align_corners=False)``,
+    the library call timed beside K10 on the card, resizes with the port's
+    weights to 1e-6 (one axis resized, the identity on the other)."""
+    eye = torch.eye(src).reshape(1, 1, src, src)
+    out = torch.nn.functional.interpolate(eye, size=(dst, src), mode="bilinear", antialias=True,
+                                          align_corners=False)[0, 0]
+    np.testing.assert_allclose(out.numpy(), t_vgg.resize_matrix(dst, src), atol=1e-6, rtol=0)
 
 
 def _vgg_pair(spec, image_size=32, fc_dim=64, seed=8):
