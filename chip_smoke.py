@@ -100,6 +100,26 @@ Phases, in order; any failure exits non-zero before the result line:
      (e) an f32 copy of a B=2 batch through the kernels and through the
          plain versions (K14's too): equal picks, close log-probs; and, for
          information, the bf16 distance between Winograd and direct features.
+  8. the trainer on a real corpus at the training configuration of phase 5
+     (VGG-16 at 224², 16 keyframes, 512 MFCC frames, B=32, f32, drop 0.2):
+     a corpus of CORPUS_TRAIN training and CORPUS_DEV dev videos written by
+     ``examples/make_synthetic_corpus.py`` (32 sentences, 16 frames, every
+     MFCC frame real);
+     (a) ``train.cli.main([... "--data_dir", ...])`` for CORPUS_STEPS steps with
+         an eval and a checkpoint at the last: raw frames and waveforms, the
+         frozen VGG-16 and K3 (FFT route only) inside each step; K3, K5-K8
+         launched inside the steps; finite losses; the median step time
+         (synchronised; first step excluded) and the loop's (host decode
+         included) with videos/s beside the card's name and power limit, the
+         peak memory, and a ``torch.profiler`` breakdown of three steps;
+     (b) at drop_prob 0, one raw-batch step from the same state through the
+         kernels (K3 included) and through the plain versions: loss, grad
+         norm and every parameter within TRAIN_PARITY_ATOL;
+     (c) PREFETCH_STEPS steps with ``--prefetch 2`` and without: the logged
+         losses and the final parameters equal bit for bit;
+     (d) ``Summarizer.from_run(run_dir, seed=cfg.train.seed)`` answers the dev
+         videos, K1-K3 launch, and its f32 picks through the kernels equal
+         those through the plain versions.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The random weights come from seeds.
 """
@@ -134,6 +154,10 @@ TRAIN_STEPS = 150
 # gradient's; measured on an H100: 7.5e-9 on the parameters, 0 on the loss.
 TRAIN_PARITY_ATOL = 1e-5
 B_WINO = 16  # the Winograd serving batch (256 keyframes)
+# Phase 8's corpus and run lengths.
+CORPUS_TRAIN, CORPUS_DEV = 64, 16
+CORPUS_STEPS = 20
+PREFETCH_STEPS = 8
 # Published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
 # tensor cores, bf16 on the tensor cores (dense), and HBM3 bandwidth. A
 # bound counts operations at the peak of the units their operands are for.
@@ -1656,6 +1680,250 @@ def phase_train(dev, card: str, records: list[dict]) -> None:
     check(dp <= TRAIN_PARITY_ATOL and de <= TRAIN_PARITY_ATOL, "(5b) kernel and plain parameters differ")
 
 
+def corpus_cli_args(tmp: str, cfg_path: str, name: str, *extra: str) -> list[str]:
+    return ["--data_dir", os.path.join(tmp, "corpus"), "--vgg", "vgg16", "--config_json", cfg_path,
+            "--device", "cuda", "--save_dir", tmp, "--name", name, *extra]
+
+
+def final_checkpoint(run_dir: str) -> dict:
+    import torch
+
+    with open(os.path.join(run_dir, "ckpts", "index.json")) as f:
+        step = max(int(k) for k in json.load(f))
+    return torch.load(os.path.join(run_dir, "ckpts", f"step_{step}.pt"), weights_only=True)
+
+
+def run_log(run_dir: str) -> list[dict]:
+    with open(os.path.join(run_dir, "log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+@contextlib.contextmanager
+def timed_train_steps(counters):
+    """``loop.make_train_step`` patched while the block runs: each step it
+    builds is timed up to a synchronise (``seconds``, with each step's start
+    in ``starts``) and counts the launches of ``counters`` and K3's routes
+    inside it."""
+    import types
+
+    import torch
+
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel
+    from mmbidaf_tpu_torch.train import loop
+
+    rec = types.SimpleNamespace(starts=[], seconds=[], launches={fn.__name__: 0 for fn in counters},
+                                k3_routes={"fft": 0, "dense": 0})
+    make_train_step = loop.make_train_step
+
+    def timed_make(*args, **kw):
+        step = make_train_step(*args, **kw)
+
+        def timed(state, batch):
+            before = [fn.launches for fn in counters]
+            routes = dict(melspec_kernel.mfcc_fused.routes)
+            rec.starts.append(time.perf_counter())
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            rec.seconds.append(time.perf_counter() - rec.starts[-1])
+            for fn, n in zip(counters, before):
+                rec.launches[fn.__name__] += fn.launches - n
+            for k in rec.k3_routes:
+                rec.k3_routes[k] += melspec_kernel.mfcc_fused.routes[k] - routes[k]
+            return out
+
+        return timed
+
+    loop.make_train_step = timed_make
+    try:
+        yield rec
+    finally:
+        loop.make_train_step = make_train_step
+
+
+def loop_step_s(rec) -> float:
+    """The loop's median step, start to start (host decode and upload
+    included), the first step's interval left out."""
+    return statistics.median(b - a for a, b in zip(rec.starts[1:], rec.starts[2:]))
+
+
+def phase_corpus(dev, card: str) -> None:
+    """Phase 8: ``train.cli --data_dir`` on a corpus at the bench_train widths,
+    raw frames through the frozen frontend inside the step, then the run
+    served by ``Summarizer.from_run``."""
+    import torch
+
+    from mmbidaf_tpu_torch.data.frontend import frontend_init
+    from mmbidaf_tpu_torch.data.pipeline import VideoCorpus, batched_iterator
+    from mmbidaf_tpu_torch.data.synthetic import random_word_vectors
+    from mmbidaf_tpu_torch.data.vocab import vocab_from_corpus_dir
+    from mmbidaf_tpu_torch.models.mmbidaf import mmbidaf_init
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+    from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
+    from mmbidaf_tpu_torch.serving import Summarizer
+    from mmbidaf_tpu_torch.train import cli, loop
+    from mmbidaf_tpu_torch.train.checkpoint import load_config
+
+    cfg = train_config()
+    d = cfg.data
+    seconds = (d.max_audio_frames * d.hop_length + d.win_length) / d.sample_rate + 0.05
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        load_corpus_module().make_corpus(
+            os.path.join(tmp, "corpus"), videos=CORPUS_TRAIN + CORPUS_DEV, sentences=d.max_sentences,
+            frames=d.max_keyframes, seconds=seconds, seed=0, split=CORPUS_DEV)
+        cfg_path = os.path.join(tmp, "train.json")
+        with open(cfg_path, "w") as f:
+            json.dump(dataclasses.asdict(cfg), f)
+        print(f"corpus: {CORPUS_TRAIN} training and {CORPUS_DEV} dev videos, {d.max_sentences} "
+              f"sentences, {d.max_keyframes} frames of 48x64, {seconds:.3f} s of audio each, "
+              f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+
+        # (a) the trainer, its steps timed and their launches counted
+        counters = (melspec_kernel.mfcc_fused, lstm_kernel.bilstm_train_forward,
+                    lstm_kernel.bilstm_bptt, bidaf_kernel.bidaf_dropout_forward,
+                    bidaf_kernel.bidaf_dropout_backward)
+        for fn in counters:
+            fn.launches = 0
+        melspec_kernel.mfcc_fused.routes = {"fft": 0, "dense": 0}
+        torch.cuda.reset_peak_memory_stats(dev)
+        run_dir = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        with timed_train_steps(counters) as rec:
+            cli.main(corpus_cli_args(tmp, cfg_path, "run", "--num_steps", str(CORPUS_STEPS),
+                                     "--eval_steps", str(CORPUS_STEPS)))
+        wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        launches = {fn.__name__: fn.launches for fn in counters}
+        step_s = rec.seconds
+        print(f"(8a) launches during the run: {launches}; inside the {len(step_s)} steps: "
+              f"{rec.launches}; K3 routes inside the steps: {rec.k3_routes}", flush=True)
+        check(len(step_s) == CORPUS_STEPS, f"(8a) {len(step_s)} train steps ran")
+        for name, n in rec.launches.items():
+            check(n > 0, f"(8a) {name} was never launched inside the real-corpus train step")
+        check(rec.k3_routes["fft"] > 0 and rec.k3_routes["dense"] == 0,
+              f"(8a) K3 left its FFT route inside the train step: {rec.k3_routes}")
+        logs = run_log(run_dir)
+        losses = [r["loss"] for r in logs if "loss" in r]
+        evals = [r for r in logs if "eval_loss" in r]
+        check(bool(losses) and all(math.isfinite(x) for x in losses), f"(8a) train losses {losses}")
+        check(len(evals) == 1 and math.isfinite(evals[0]["eval_loss"]), f"(8a) eval {evals}")
+        t_step = statistics.median(step_s[1:])
+        t_loop = loop_step_s(rec)
+        print(f"(8a) real-corpus train step (B={B_TRAIN}, raw frames, VGG-16 f32 + K3 in the step): "
+              f"median {t_step * 1e3:.2f} ms over {len(step_s) - 1} (first {step_s[0] * 1e3:.2f} ms) "
+              f"-> {B_TRAIN / t_step:.2f} videos/s on {card}; the loop's median step, host decode "
+              f"of the batch included, {t_loop * 1e3:.2f} ms ({B_TRAIN / t_loop:.2f} videos/s); "
+              f"the run {wall:.2f} s for "
+              f"{CORPUS_STEPS} steps, an eval of {CORPUS_DEV} dev videos and a save "
+              f"({CORPUS_STEPS * B_TRAIN / wall:.2f} videos/s end to end); peak memory {peak_gb:.2f} GB "
+              f"of {torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f}; "
+              f"mean loss {losses[-1]:.6f}, eval loss {evals[0]['eval_loss']:.6f}, "
+              f"ROUGE-L {evals[0]['ROUGE-L']:.4f}", flush=True)
+
+        # the host's share: decode of B_TRAIN examples, the first epoch's
+        # (gold labels computed) and later ones' (labels kept by the corpus)
+        train_dir = os.path.join(tmp, "corpus", "train")
+        w2i = vocab_from_corpus_dir(train_dir, max_size=d.vocab_size)
+        stream = batched_iterator(VideoCorpus(train_dir, cfg, w2i, require_summary=True), B_TRAIN,
+                                  seed=cfg.train.seed)
+        decode_s = []
+        for _ in range(2 * CORPUS_TRAIN // B_TRAIN + 3):
+            t0 = time.perf_counter()
+            nb = next(stream)
+            decode_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t0) * 1e3
+        first = decode_s[:CORPUS_TRAIN // B_TRAIN]
+        print(f"(8a) host decode of a B={B_TRAIN} batch: first epoch (labels computed) "
+              f"{statistics.median(first) * 1e3:.2f} ms, later epochs (labels kept) median "
+              f"{statistics.median(decode_s[CORPUS_TRAIN // B_TRAIN:]) * 1e3:.2f} ms over "
+              f"{len(decode_s) - len(first)}; its upload (pageable) {upload_ms:.2f} ms", flush=True)
+
+        # where a step's device time goes, on one raw corpus batch
+        wv = random_word_vectors(np.random.default_rng(3), len(w2i), cfg.model.emb_dim)
+        st = loop.init_train_state(mmbidaf_init(cfg, wv, dev, seed=3), cfg, seed=4)
+        step = loop.make_train_step(cfg, frontend_init(cfg, VGG16_SPEC, dev, seed=5), VGG16_SPEC)
+        profile_kernels(lambda x: step(x, batch)[0], st, t_step, "(8a)", "step",
+                        groups={"K3 (FFT pass)": "logmel_fft_kernel", "K3 (DCT pass)": "mfcc_dct_kernel",
+                                "K5": "bilstm_cluster_kernel", "K6 (b) walk": "bilstm_bptt_cluster_kernel",
+                                "K7": "bidaf_drop_fwd_cluster_kernel", "K8": "bidaf_drop_bwd_cluster_kernel",
+                                "cuDNN implicit-GEMM convs": "xmma_fprop",
+                                "cuDNN FFT convs": "DSE::", "cuDNN FFT products": "complex",
+                                "max-pool": "max_pool"})
+        del st, step
+
+        # (b) drop_prob 0, f32: one raw-batch step through the kernels and the plain versions
+        results = []
+        for kernels in (True, False):
+            cfg0 = train_config(drop_prob=0.0, kernels=kernels)
+            cfg0 = dataclasses.replace(cfg0, model=dataclasses.replace(cfg0.model,
+                                                                       use_pallas_melspec=kernels))
+            st = loop.init_train_state(mmbidaf_init(cfg0, wv, dev, seed=3), cfg0, seed=4)
+            fe = frontend_init(cfg0, VGG16_SPEC, dev, seed=5)
+            st, m = loop.make_train_step(cfg0, fe, VGG16_SPEC)(st, batch)
+            results.append((float(m["loss"]), float(m["grad_norm"]),
+                            dict(st.params.named_parameters()), dict(st.ema_params.named_parameters())))
+            del fe
+        (lk, gk, pk, ek), (lp, gp, pp, ep) = results
+        dp = max((pk[n] - pp[n]).abs().max().item() for n in pk)
+        de = max((ek[n] - ep[n]).abs().max().item() for n in ek)
+        print(f"(8b) f32 drop 0, one raw-batch step: loss kernels {lk:.7f} plain {lp:.7f}; grad norm "
+              f"{gk:.7f} vs {gp:.7f}; max param diff {dp:.3e}, max EMA diff {de:.3e} "
+              f"(bound {TRAIN_PARITY_ATOL})", flush=True)
+        check(abs(lk - lp) <= TRAIN_PARITY_ATOL and abs(gk - gp) <= TRAIN_PARITY_ATOL * max(1.0, gp),
+              "(8b) kernel and plain loss / grad norm differ")
+        check(dp <= TRAIN_PARITY_ATOL and de <= TRAIN_PARITY_ATOL, "(8b) kernel and plain parameters differ")
+        del results, pk, pp, ek, ep
+
+        # (c) the same steps with and without the prefetch thread
+        loop_ms = {}
+        for name, depth in (("pf0", "0"), ("pf2", "2")):
+            with timed_train_steps(()) as rec:
+                cli.main(corpus_cli_args(tmp, cfg_path, name, "--num_steps", str(PREFETCH_STEPS),
+                                         "--eval_steps", "1000", "--prefetch", depth))
+            loop_ms[depth] = loop_step_s(rec) * 1e3
+        l0, l2 = run_log(os.path.join(tmp, "pf0")), run_log(os.path.join(tmp, "pf2"))
+        c0, c2 = final_checkpoint(os.path.join(tmp, "pf0")), final_checkpoint(os.path.join(tmp, "pf2"))
+        same = all(torch.equal(c0["params"][k], c2["params"][k]) for k in c0["params"])
+        print(f"(8c) {PREFETCH_STEPS} steps, prefetch 2 vs 0: logged losses "
+              f"{[r['loss'] for r in l2]} vs {[r['loss'] for r in l0]}; final params bit for bit "
+              f"equal: {same}; the loop's median step {loop_ms['2']:.2f} vs {loop_ms['0']:.2f} ms "
+              f"(host decode included; the second epoch on, labels kept) on {card}", flush=True)
+        check([r["loss"] for r in l0] == [r["loss"] for r in l2] and same,
+              "(8c) prefetch changed the losses or the parameters")
+
+        # (d) serve the run
+        dev_dirs = sorted(os.path.join(tmp, "corpus", "dev", v)
+                          for v in os.listdir(os.path.join(tmp, "corpus", "dev")))
+        served = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused)
+        for fn in served:
+            fn.launches = 0
+        run_cfg = load_config(run_dir)
+        t0 = time.perf_counter()
+        s = Summarizer.from_run(run_dir, seed=run_cfg.train.seed)
+        summaries = s.summarize_batch(dev_dirs)
+        dt = time.perf_counter() - t0
+        raw, _ = s._raw_batch(dev_dirs)
+        picks_k = s._decode_batch(raw)
+        launches = {fn.__name__: fn.launches for fn in served}
+        check(len(summaries) == CORPUS_DEV and all(isinstance(x, str) and x for x in summaries),
+              "(8d) from_run: empty or missing summaries")
+        for name, n in launches.items():
+            check(n > 0, f"(8d) {name} was never launched serving the trained run")
+        plain_cfg = dataclasses.replace(run_cfg, model=dataclasses.replace(
+            run_cfg.model, use_pallas_lstm=False, use_pallas_attention=False, use_pallas_melspec=False))
+        sp = Summarizer.from_checkpoint(os.path.join(run_dir, "ckpts"), os.path.join(run_dir, "vocab.json"),
+                                        os.path.join(run_dir, "emb.npz"), plain_cfg, VGG16_SPEC,
+                                        seed=run_cfg.train.seed, device=dev)
+        picks_p = sp._decode_batch(raw)
+        print(f"(8d) Summarizer.from_run answered {CORPUS_DEV} dev videos in {dt:.2f} s (load included); "
+              f"launches {launches}; f32 picks through the kernels equal the plain versions': "
+              f"{bool((picks_k == picks_p).all())}; first: {summaries[0][:80]!r}", flush=True)
+        check(bool((picks_k == picks_p).all()), "(8d) kernel and plain picks of the trained run differ")
+
+
 def main() -> None:
     import torch
 
@@ -1763,6 +2031,9 @@ def main() -> None:
     tool_launches = phase_parity_tool(dev)
     vgg_records = phase_vgg_kernels(dev, tool_launches)
     phase_winograd(dev, card, vgg_records[-1])
+
+    # 8. the trainer on a real corpus, then the trained run served
+    phase_corpus(dev, card)
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "mmbidaf_tpu")
                     or m.startswith(("jax.", "jaxlib", "mmbidaf_tpu.")))

@@ -2,6 +2,7 @@
 
     s = Summarizer.init_random(cfg, seed=0, device="cuda")
     s = Summarizer.from_jax_params(params_np, fe_np, word2idx, cfg, device="cuda")
+    s = Summarizer.from_run(run_dir, seed=cfg.train.seed)  # a train.cli run
     summaries = s.summarize_batch([video_dir1, video_dir2])
     summary = s.summarize(video_dir)
     summary = s.summarize_long(video_dir)   # transcripts past max_sentences
@@ -160,6 +161,49 @@ class Summarizer:
         model = model_from_jax(params, cfg, device)
         fe = frontend_from_jax(fe_params, cfg, vgg_spec, device)
         return cls(model, fe, word2idx, cfg, vgg_spec, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, vocab_path: str, emb_path: str, cfg: Config,
+                        vgg_spec=VGG16_SPEC, seed: int = 0, use_ema: bool = True,
+                        device="cuda", **kw):
+        """Serve the newest checkpoint of a port-trained run with the run's
+        vocabulary (``vocab.json`` / ``emb.npz``). ``use_ema=True`` serves the
+        EMA shadow, the reference's eval convention. The frozen frontend is
+        seeded from ``seed + 2``: a run trained on random VGG weights seeded
+        them from ``cfg.train.seed + 2``, so pass ``seed=cfg.train.seed`` to
+        serve through the VGG the run trained with."""
+        from mmbidaf_tpu_torch.data.vocab import load_vocab
+        from mmbidaf_tpu_torch.train.checkpoint import CheckpointManager
+        from mmbidaf_tpu_torch.train.loop import init_train_state
+
+        word2idx, table = load_vocab(vocab_path, emb_path)
+        model = mmbidaf_init(cfg, table, device, seed=seed)
+        restored = CheckpointManager(ckpt_dir).restore_latest(
+            init_train_state(model, cfg, seed=seed + 1))
+        if restored is None:
+            raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+        fe = frontend_init(cfg, vgg_spec, device, seed=seed + 2)
+        served = restored.ema_params if use_ema else restored.params
+        return cls(served, fe, word2idx, cfg, vgg_spec, **kw)
+
+    @classmethod
+    def from_run(cls, run_dir: str, mesh_overrides: dict | None = None, **kw):
+        """Serve a ``train.cli`` run directory: its saved config (with the
+        frontend's VGG variant), vocabulary and newest checkpoint.
+        ``from_checkpoint``'s keywords pass through (``seed``, ``device``,
+        ``use_ema``, ``vgg_spec`` …)."""
+        import os
+
+        from mmbidaf_tpu_torch.ops.vgg import spec_for_variant
+        from mmbidaf_tpu_torch.train.checkpoint import load_config
+
+        if mesh_overrides:
+            raise NotImplementedError("mesh layouts are not ported yet (ROADMAP Queue 1)")
+        cfg = load_config(run_dir)
+        vgg_spec = kw.pop("vgg_spec", None) or spec_for_variant(cfg.model.vgg_variant)
+        return cls.from_checkpoint(os.path.join(run_dir, "ckpts"),
+                                   os.path.join(run_dir, "vocab.json"),
+                                   os.path.join(run_dir, "emb.npz"), cfg, vgg_spec=vgg_spec, **kw)
 
     # -- inference ----------------------------------------------------------
 

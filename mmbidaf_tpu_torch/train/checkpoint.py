@@ -80,9 +80,17 @@ class CheckpointManager:
             del index[s]
         self._write_index(index)
 
-    def restore(self, step: int, template: TrainState) -> TrainState:
-        """Load step ``step`` into ``template`` (its modules, in place) and
-        return it; tensors go to the template's device."""
+    def save_unranked(self, state: TrainState) -> None:
+        """A resume point (a preemption save, the end of a run between
+        evals): saved without metrics, so best-k retention never evicts it;
+        nothing happens when this step is already on disk (an eval's ranked
+        save of it keeps its metrics)."""
+        if self.latest_step() != state.step:
+            self.save(state)
+
+    def _load_weights(self, step: int, template: TrainState) -> dict:
+        """Load step ``step``'s params and EMA shadow into ``template``'s
+        modules (in place, on their device); returns the whole blob."""
         dev = template.params.embedding.table.device
         blob = torch.load(self._path(step), map_location=dev, weights_only=True)
         template.params.load_state_dict(blob["params"])
@@ -90,6 +98,12 @@ class CheckpointManager:
         if unexpected or any(not is_frozen(k) for k in missing):
             raise RuntimeError(f"checkpoint step {step}: EMA keys differ "
                                f"(missing {missing}, unexpected {unexpected})")
+        return blob
+
+    def restore(self, step: int, template: TrainState) -> TrainState:
+        """Load step ``step`` into ``template`` (its modules, in place) and
+        return it; tensors go to the template's device."""
+        blob = self._load_weights(step, template)
         template.generator.set_state(blob["generator"].cpu())
         return dataclasses.replace(template, step=int(blob["step"]), opt_state=blob["opt_state"])
 
@@ -97,6 +111,15 @@ class CheckpointManager:
         """Auto-resume: the newest checkpoint, or None if there is none."""
         step = self.latest_step()
         return None if step is None else self.restore(step, template)
+
+    def warm_start(self, template: TrainState) -> int | None:
+        """Load the newest checkpoint's params and EMA shadow into
+        ``template`` (its modules, in place), keeping its step, optimizer
+        state and dropout generator: another run's weights under a fresh
+        schedule. Returns the source step, or None if there is no
+        checkpoint."""
+        step = self.latest_step()
+        return None if step is None else int(self._load_weights(step, template)["step"])
 
 
 def save_config(save_dir: str | os.PathLike, cfg: Config) -> None:

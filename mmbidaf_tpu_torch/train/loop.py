@@ -1,9 +1,10 @@
 """Training step, loss, optimizer and EMA — the port of ``mmbidaf_tpu.train.loop``.
 
-``make_train_step(cfg)`` returns ``train_step(state, batch) → (state,
-metrics)``: teacher-forced NLL, gradients by autograd (through the K5–K8
-kernels when the kernel flags are on), optax-style clip + adadelta/adam,
-and the bias-corrected EMA. PyTorch runs eagerly, so the step is a plain
+``make_train_step(cfg, frontend=None, vgg_spec=None)`` returns
+``train_step(state, batch) → (state, metrics)``: on a raw batch the frozen
+frontend first (VGG, and the MFCC through K3), then teacher-forced NLL,
+gradients by autograd (through the K5–K8 kernels when the kernel flags are
+on), optax-style clip + adadelta/adam, and the bias-corrected EMA. PyTorch runs eagerly, so the step is a plain
 function; it updates the parameters, the optimizer state and the EMA shadow
 in place (the JAX step donates its buffers to the same end) and returns the
 same ``state`` object. ``metrics`` holds 0-d device tensors: reading them
@@ -197,15 +198,41 @@ def init_train_state(params: MMBiDAF, cfg: Config, seed: int = 0) -> TrainState:
                       ema_params=ema, generator=gen)
 
 
-def make_train_step(cfg: Config) -> Callable:
+def make_train_step(cfg: Config, frontend=None, vgg_spec=None) -> Callable:
     """``train_step(state, batch) → (state, {"loss", "grad_norm"})`` for
     config ``cfg`` on feature batches (``synthetic_batch`` layout, tensors
     on the parameters' device). With ``grad_accum_steps > 1`` the batch is
     split into microbatches whose unnormalised NLLs and valid-step counts
-    sum to the full batch's, divided once: the full-batch gradient."""
+    sum to the full batch's, divided once: the full-batch gradient.
+
+    With a ``frontend`` (``data.frontend.Frontend``; ``vgg_spec`` its conv
+    spec, VGG-16 by default) a batch may be RAW — it carries ``frames`` or
+    ``waveform`` (``data.pipeline.VideoCorpus``'s schema): the frozen
+    frontend turns it into features inside the step, under
+    ``torch.no_grad()`` (not ``inference_mode``: its outputs enter the
+    model's autograd graph as constants), per microbatch under
+    accumulation so the VGG activations shrink by ``1/accum``. The frontend
+    draws nothing from ``state.generator``. Its VGG weights are held in the
+    compute dtype once, here (``cast_vgg_weights``)."""
     tx = make_optimizer(cfg)
     decay = cfg.train.ema_decay
     accum = cfg.train.grad_accum_steps
+    if frontend is not None:
+        from mmbidaf_tpu_torch.data.frontend import apply_frontend, cast_vgg_weights
+        from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
+
+        frontend = cast_vgg_weights(frontend, cfg.model.compute_dtype)
+        spec = vgg_spec or VGG16_SPEC
+
+    def featurize(part: Mapping[str, torch.Tensor]) -> Mapping[str, torch.Tensor]:
+        if "frames" not in part and "waveform" not in part:
+            return part
+        if frontend is None:
+            raise ValueError("a raw batch (frames / waveform) needs make_train_step(cfg, frontend)")
+        with torch.no_grad():
+            feat = apply_frontend(frontend, part, cfg, spec)
+        feat["targets"], feat["target_mask"] = part["targets"], part["target_mask"]
+        return feat
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         trainable = [p for _, p in trainable_parameters(state.params)]
@@ -219,6 +246,7 @@ def make_train_step(cfg: Config) -> Callable:
         mb = b_dim // accum
         for i in range(accum):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} if accum > 1 else batch
+            part = featurize(part)
             log_p = mmbidaf_apply(state.params, part, cfg, generator=state.generator)
             total, _ = nll_sum(log_p, part["targets"], part["target_mask"])
             (total / denom).backward()

@@ -45,16 +45,12 @@ class JsonlLogger:
 
 
 def rouge_scores(summary: str, reference: str) -> dict[str, float]:
-    """ROUGE-1/2/L F-measure via rouge_score (host-side, like the reference)."""
-    from rouge_score import rouge_scorer
+    """ROUGE-1/2/L F-measure, host-side like the reference: the JAX
+    package's ``rouge_score`` scorer (Porter-stemmed tokens), computed by the
+    port's own ``train/rouge.py``."""
+    from mmbidaf_tpu_torch.train.rouge import rouge_f
 
-    scorer = rouge_scorer.RougeScorer(["rouge1", "rouge2", "rougeL"], use_stemmer=True)
-    s = scorer.score(reference, summary)
-    return {
-        "ROUGE-1": s["rouge1"].fmeasure,
-        "ROUGE-2": s["rouge2"].fmeasure,
-        "ROUGE-L": s["rougeL"].fmeasure,
-    }
+    return rouge_f(summary, reference)
 
 
 def summary_from_picks(picks, sentences: list[str]) -> str:

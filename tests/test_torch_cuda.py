@@ -1171,3 +1171,86 @@ def test_bench_width_winograd_parity_with_jax(cuda_device):
     assert winograd_kernel.winograd_conv3x3_fused.launches - before == 12  # one VGG-16 pass
     np.testing.assert_array_equal(picks.cpu().numpy(), j_picks)
     np.testing.assert_allclose(lp.cpu().numpy(), j_lp, atol=1e-4, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_prefetch_uploads_on_a_side_stream(cuda_device):
+    """``DevicePrefetcher`` with ``batch_uploader`` on the card: 40 batches
+    of 8 MB, each read on the consumer's stream while that stream is still
+    busy with products, arrive in order and equal their host batches (a
+    batch read before its side-stream copy landed would not)."""
+    from mmbidaf_tpu_torch.data.prefetch import DevicePrefetcher, batch_uploader
+
+    rng = np.random.default_rng(0)
+    host = [{"x": rng.standard_normal((2048, 1024)).astype(np.float32),
+             "i": np.full((4,), i, np.int32)} for i in range(40)]
+    busy = torch.randn(2048, 2048, device=cuda_device)
+    with DevicePrefetcher(iter(host), batch_uploader(cuda_device), depth=3) as pf:
+        for i, (nb, dev) in enumerate(pf):
+            for _ in range(4):
+                busy = torch.tanh(busy @ busy)
+            assert dev["x"].is_cuda and int(nb["i"][0]) == i
+            assert torch.equal(dev["x"], torch.from_numpy(nb["x"]).to(cuda_device))
+            assert torch.equal(dev["i"].cpu(), torch.from_numpy(nb["i"]))
+    assert i == 39
+
+
+@pytest.mark.cuda
+def test_raw_train_step_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """One drop-0 step on a raw corpus batch (tiny widths, n_fft 64): the
+    frontend inside the step with K3 on its FFT route and K5-K8 on the card,
+    against the plain versions on the CPU from the same JAX weights; K3's
+    launch and route counters rise inside the step."""
+    import dataclasses
+    import importlib.util
+    from pathlib import Path
+
+    from mmbidaf_tpu.config import tiny_test_config as j_tiny
+    from mmbidaf_tpu.data.frontend import frontend_init as j_frontend_init
+    from mmbidaf_tpu.models.mmbidaf import mmbidaf_init as j_init
+    from mmbidaf_tpu.ops.vgg import TINY_SPEC as J_TINY
+    from mmbidaf_tpu_torch.config import tiny_test_config
+    from mmbidaf_tpu_torch.data.pipeline import VideoCorpus, collate
+    from mmbidaf_tpu_torch.data.vocab import vocab_from_corpus_dir
+    from mmbidaf_tpu_torch.interop.from_jax import frontend_from_jax, train_state_from_jax
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel
+    from mmbidaf_tpu_torch.ops.vgg import TINY_SPEC
+    from mmbidaf_tpu_torch.train.loop import make_train_step
+
+    repo = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "make_synthetic_corpus", repo / "examples" / "make_synthetic_corpus.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.make_corpus(str(tmp_path), videos=4, sentences=8, frames=5, seconds=0.3, seed=3)
+    cfg = tiny_test_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, audio_feat_dim=cfg.data.n_mfcc, use_pallas_lstm=True,
+        use_pallas_attention=True, use_pallas_melspec=True))
+    j_cfg = j_tiny()
+    j_cfg = dataclasses.replace(j_cfg, model=dataclasses.replace(
+        j_cfg.model, audio_feat_dim=cfg.data.n_mfcc))
+    w2i = vocab_from_corpus_dir(str(tmp_path))
+    vc = VideoCorpus(str(tmp_path), cfg, w2i, require_summary=True)
+    nb = collate([vc[i] for i in range(4)])
+    wv = np.random.default_rng(0).standard_normal(
+        (cfg.data.vocab_size, cfg.model.emb_dim)).astype(np.float32)
+    params = jax.tree.map(np.asarray, j_init(jax.random.key(0), j_cfg, jnp.asarray(wv)))
+    fe = jax.tree.map(np.asarray, j_frontend_init(jax.random.key(1), j_cfg, vgg_spec=J_TINY))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        state = train_state_from_jax(params, params, cfg, device=dev)
+        step = make_train_step(cfg, frontend_from_jax(fe, cfg, TINY_SPEC, device=dev), TINY_SPEC)
+        melspec_kernel.mfcc_fused.launches = 0
+        melspec_kernel.mfcc_fused.routes = {"fft": 0, "dense": 0}
+        state, m = step(state, {k: torch.from_numpy(v).to(dev) for k, v in nb.items()})
+        out[dev.type] = (float(m["loss"]), float(m["grad_norm"]),
+                         {k: v.cpu() for k, v in state.params.state_dict().items()})
+        if dev.type == "cuda":
+            assert melspec_kernel.mfcc_fused.launches == 1
+            assert melspec_kernel.mfcc_fused.routes == {"fft": 1, "dense": 0}
+    (lc, gc, pc), (lp, gp, pp) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(lc, lp, rtol=1e-5)
+    np.testing.assert_allclose(gc, gp, rtol=1e-4)
+    for k, v in pp.items():
+        torch.testing.assert_close(pc[k], v, atol=1e-5, rtol=0.0, msg=k)
