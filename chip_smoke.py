@@ -120,12 +120,36 @@ Phases, in order; any failure exits non-zero before the result line:
      (d) ``Summarizer.from_run(run_dir, seed=cfg.train.seed)`` answers the dev
          videos, K1-K3 launch, and its f32 picks through the kernels equal
          those through the plain versions.
+  9. the serving stack at the bench configuration (bf16, B=8) on a corpus of
+     240x320 videos: ``tools/load_test.py``'s quarter, half and full tiers
+     (with gold summaries), videos whose lengths are each diagonal rung
+     level of the default ladders, and two of 80 sentences; K1-K3's
+     launches are counted over (a)-(d), on their cluster / FFT routes only:
+     (a) in a fresh process each, a bucketed ``Summarizer``'s first request
+         cold and after ``warmup((240, 320), batch_size=8)`` (which must
+         shorten it); in this one, warmup, then a batch at each rung level
+         and at the caps, timed, K1-K3 launched by each, no kernel plan
+         checked that warmup had not; in f32, the picks of the kernels, the
+         plain versions, the bucketed and the cap shapes all equal;
+     (b) greedy, beam (width 4) and top-k (k=4) batch times at the caps,
+         the host's dispatch time of a batch against its whole; in f32,
+         beam's kernel picks equal the plain ones and width 1 equals
+         greedy; top-k valid and equal under one seed; ``summarize_long``
+         with ladders on the 80-sentence videos;
+     (c) ``tools/load_test.run_sweep`` against ``tools/serve.py``'s stack in
+         this process: five configurations, 8 clients, LOAD_REQUESTS
+         requests, dynamic batch 8, every answer equal to
+         ``Summarizer.summarize``'s; p50/p95/p99 and videos/s; then the
+         batcher alone on decoded rows at pipeline depth 1 and 0;
+     (d) ``infer.main`` on the tiers with ``--bucket_eval --prefetch 2``,
+         greedy and beam: finite ROUGE over every video.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The random weights come from seeds.
 """
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import copy
 import dataclasses
@@ -158,6 +182,11 @@ B_WINO = 16  # the Winograd serving batch (256 keyframes)
 CORPUS_TRAIN, CORPUS_DEV = 64, 16
 CORPUS_STEPS = 20
 PREFETCH_STEPS = 8
+# Phase 9's corpus (videos a length tier, videos at each diagonal rung level,
+# sentences of the two long videos) and the load test's requests a config.
+PER_TIER, LEVEL_VIDEOS, LONG_SENTENCES = 4, 8, 80
+LOAD_REQUESTS = 48
+BATCHER_BATCHES = 12
 # Published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
 # tensor cores, bf16 on the tensor cores (dense), and HBM3 bandwidth. A
 # bound counts operations at the peak of the units their operands are for.
@@ -1924,11 +1953,325 @@ def phase_corpus(dev, card: str) -> None:
         check(bool((picks_k == picks_p).all()), "(8d) kernel and plain picks of the trained run differ")
 
 
+def f32_configs(cfg):
+    """An f32 copy of ``cfg`` through the kernels and one through the plain versions."""
+    k = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+    p = dataclasses.replace(k, model=dataclasses.replace(
+        k.model, use_pallas_lstm=False, use_pallas_attention=False, use_pallas_melspec=False))
+    return k, p
+
+
+def write_serving_corpus(root: str, cfg) -> tuple[dict, list[list[str]], list[str]]:
+    """Phase 9's videos at 240x320: ``load_test.make_mixed_corpus``'s tiers
+    (a quarter, a half and all of the caps, PER_TIER each, with gold
+    summaries for ``infer``); LEVEL_VIDEOS for each diagonal rung level of
+    the default ladders, whose true lengths are that level's rungs; and two
+    videos of LONG_SENTENCES sentences."""
+    from mmbidaf_tpu_torch.data.text import sent_tokenize
+    from mmbidaf_tpu_torch.serving import bucket_ladder_levels, serving_bucket_ladders
+    from mmbidaf_tpu_torch.tools import load_test
+
+    d = cfg.data
+    cap_samples = d.max_audio_frames * d.hop_length + d.win_length
+    tiers = load_test.make_mixed_corpus(os.path.join(root, "mixed"), cfg, per_tier=PER_TIER,
+                                        res=FRAME_HW, seed=0)
+    for vd in (v for vds in tiers.values() for v in vds):
+        with open(os.path.join(vd, "transcript.txt")) as f:
+            sents = sent_tokenize(f.read())
+        with open(os.path.join(vd, "summary.txt"), "w") as f:
+            f.write(" ".join(sents[::3]))
+    rng = np.random.default_rng(1)
+    filler = "alpha beta gamma delta epsilon zeta eta theta iota kappa lambda mu".split()
+    levels = []
+    for i, lv in enumerate(bucket_ladder_levels(serving_bucket_ladders(cfg, True))):
+        levels.append([])
+        for v in range(LEVEL_VIDEOS):
+            vd = os.path.join(root, f"level{i}", f"video_{v}")
+            load_test.write_video_dir(vd, rng, n_frames=lv["keyframes"],
+                                      n_samples=lv["audio_frames"] * d.hop_length,
+                                      n_sents=lv["sentences"], res=FRAME_HW, sample_rate=d.sample_rate)
+            # lv["words"] tokens a sentence: "Clip", its number, filler, "ends", "."
+            words = " ".join(filler[:lv["words"] - 4])
+            with open(os.path.join(vd, "transcript.txt"), "w") as f:
+                f.write(" ".join(f"Clip {v * 100 + j} {words} ends.".replace("  ", " ")
+                                 for j in range(lv["sentences"])))
+            levels[-1].append(vd)
+    long_dirs = []
+    for v in range(2):
+        vd = os.path.join(root, "long", f"long_{v}")
+        load_test.write_video_dir(vd, rng, n_frames=d.max_keyframes, n_samples=cap_samples,
+                                  n_sents=LONG_SENTENCES, res=FRAME_HW, sample_rate=d.sample_rate)
+        long_dirs.append(vd)
+    return tiers, levels, long_dirs
+
+
+def first_request_main(mode: str, video_dir: str) -> None:
+    """In a fresh process (``chip_smoke.py --first-request cold|warm DIR``):
+    a bucketed bench-config Summarizer at batch 8 decodes ``video_dir`` once
+    on the host (the decoder's first call), then answers two requests for
+    it, after ``warmup((240, 320), batch_size=8)`` with ``warm``; prints the
+    seconds of each step as JSON."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from mmbidaf_tpu_torch.serving import Summarizer
+
+    rec = {}
+    t0 = time.perf_counter()
+    s = Summarizer.init_random(bench_config(), seed=0, device=torch.device("cuda", 0),
+                               serve_batch_size=8, serve_buckets=True)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s._raw_row(video_dir)  # the host's first decode (its imports), apart from the requests
+    rec["host_first_s"] = time.perf_counter() - t0
+    if mode == "warm":
+        t0 = time.perf_counter()
+        s.warmup(FRAME_HW, batch_size=8)
+        torch.cuda.synchronize()
+        rec["warmup_s"] = time.perf_counter() - t0
+    for key in ("first_s", "second_s"):
+        t0 = time.perf_counter()
+        s.summarize(video_dir)
+        rec[key] = time.perf_counter() - t0
+    print(json.dumps(rec), flush=True)
+
+
+def first_request(video_dir: str, warm: bool) -> dict:
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--first-request",
+                        "warm" if warm else "cold", video_dir],
+                       capture_output=True, text=True, cwd=ROOT, timeout=600)
+    check(r.returncode == 0, f"(9a) the first-request process failed: {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def batcher_videos_per_s(summarizer, rows: list, depth: int) -> float:
+    """Videos/s of a ``DynamicBatcher`` (batches of 8) whose queue already
+    holds BATCHER_BATCHES batches of decoded rows: its collate, upload,
+    dispatch and fetch, without the requests' host decode."""
+    from concurrent.futures import Future
+
+    from mmbidaf_tpu_torch.serving import DynamicBatcher
+
+    b = DynamicBatcher(summarizer, max_batch_size=8, max_wait_ms=1000.0, pipeline_depth=depth)
+    try:
+        items = [(*rows[i % len(rows)], Future()) for i in range(8 * BATCHER_BATCHES)]
+        t0 = time.perf_counter()
+        for it in items:
+            b._queue.put(it)
+        for it in items:
+            it[2].result(timeout=300)
+        dt = time.perf_counter() - t0
+    finally:
+        b.close()
+    check(b.stats["batches"] == BATCHER_BATCHES, f"(9c) the batcher ran {b.stats['batches']} batches")
+    return len(items) / dt
+
+
+def phase_serving(dev, card: str, records: list[dict]) -> None:
+    """Phase 9: the serving stack at the bench configuration: bucket ladders
+    and warmup, the decode modes, the daemon under load, and ``infer``."""
+    import io
+
+    import torch
+
+    from mmbidaf_tpu_torch import infer
+    from mmbidaf_tpu_torch.data.frontend import frontend_init
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+    from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
+    from mmbidaf_tpu_torch.serving import AXES, Summarizer
+    from mmbidaf_tpu_torch.tools import load_test
+
+    cfg = bench_config()
+    d = cfg.data
+    caps = (d.max_sentences, d.max_words, d.max_keyframes, d.max_audio_frames)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tiers, level_dirs, long_dirs = write_serving_corpus(tmp, cfg)
+        print(f"(9) corpus: {PER_TIER} videos a tier (quarter, half, full), {LEVEL_VIDEOS} at each of "
+              f"{len(level_dirs)} rung levels, 2 of "
+              f"{LONG_SENTENCES} sentences, frames {FRAME_HW[0]}x{FRAME_HW[1]}, written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        # (9a) a first request, cold and after warmup, each in a fresh process
+        # (a video on the top diagonal level, a shape warmup runs)
+        cold = first_request(level_dirs[-1][0], warm=False)
+        warm = first_request(level_dirs[-1][0], warm=True)
+        print(f"(9a) fresh process, bucketed Summarizer at batch 8 on {card}: cold: init "
+              f"{cold['init_s']:.3f} s, the host's first decode of the video {cold['host_first_s']:.3f} s, "
+              f"first request {cold['first_s']:.3f} s, second "
+              f"{cold['second_s']:.3f} s; warmed: init {warm['init_s']:.3f} s, warmup((240, 320), "
+              f"batch_size=8) {warm['warmup_s']:.3f} s, first request {warm['first_s']:.3f} s, second "
+              f"{warm['second_s']:.3f} s", flush=True)
+        check(warm["first_s"] < cold["first_s"], "(9a) warmup did not shorten the first request")
+
+        counters = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused)
+        for fn in counters:
+            fn.launches = 0
+        lstm_kernel.bilstm_cuda.routes = {"cluster": 0, "l2": 0}
+        bidaf_kernel.bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
+        melspec_kernel.mfcc_fused.routes = {"fft": 0, "dense": 0}
+
+        s = Summarizer.init_random(cfg, seed=0, device=dev, serve_buckets=True)
+        plain_s = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec)  # the caps
+        t0 = time.perf_counter()
+        s.warmup(FRAME_HW, batch_size=8)
+        torch.cuda.synchronize()
+        plans = (len(lstm_kernel._occupancy_checked), len(bidaf_kernel._occupancy_checked))
+        levels = [tuple(lv[k] for k in AXES) for lv in s.bucket_levels]
+        print(f"(9a) in-process warmup at batch 8, the caps and diagonal levels {levels}: "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        groups = [(f"level {i}", s, vids) for i, vids in enumerate(level_dirs)]
+        groups.append(("caps", plain_s, tiers["full"]))
+        level_raw = {}
+        for name, summ, vids in groups:
+            rows = [summ._raw_row(v)[0] for v in vids]
+            raw = summ._stack_rows((rows * 8)[:8])
+            level_raw[name] = (summ, raw, vids)
+            shape = tuple(raw[k].shape[-1] for k in ("sent_mask", "word_mask", "img_mask", "aud_mask"))
+            want = levels[int(name[-1])] if name.startswith("level") else caps
+            check(shape == want, f"(9a) {name}: the batch took {shape}, not {want}")
+            before = [fn.launches for fn in counters]
+            t = timed_batches(lambda: summ._decode_batch(raw))
+            grew = [fn.launches - n for fn, n in zip(counters, before)]
+            print(f"(9a) {name} {shape}, B=8: median batch {t * 1e3:.2f} ms ({8 / t:.2f} videos/s); "
+                  f"K1/K2/K3 launches {grew}", flush=True)
+            check(all(g > 0 for g in grew), f"(9a) {name}: K1-K3 did not all launch: {grew}")
+        check((len(lstm_kernel._occupancy_checked), len(bidaf_kernel._occupancy_checked)) == plans,
+              "(9a) a level's decode checked a plan that warmup had not")
+        print(f"(9a) bucket_stats {s.bucket_stats}; plan checks after warmup {plans}, unchanged by "
+              f"the level decodes", flush=True)
+
+        # f32 at every level: kernels vs plain, bucketed vs the same videos at the caps
+        cfg_k, cfg_p = f32_configs(cfg)
+        fe32 = frontend_init(cfg_k, VGG16_SPEC, dev, seed=1)  # init_random's weights, in f32
+        f32 = {(kern, b): Summarizer(s.model, fe32, s.word2idx, c, VGG16_SPEC, serve_buckets=b)
+               for kern, c in ((True, cfg_k), (False, cfg_p)) for b in (True, None)}
+        for name, _, vids in groups:
+            rows = [s._raw_row(v)[0] for v in vids]
+            rows = (rows * 8)[:8]
+            picks = {key: summ._decode_batch(summ._stack_rows(rows)) for key, summ in f32.items()}
+            same = {f"{'kernels' if k else 'plain'}{' bucketed' if b else ' caps'}":
+                    bool((p == picks[(True, True)]).all()) for (k, b), p in picks.items()}
+            print(f"(9a) f32 {name}: picks equal to the bucketed kernel path's: {same}", flush=True)
+            check(all(same.values()), f"(9a) f32 {name}: picks differ: {same}")
+        del f32, fe32
+
+        # (9b) the decode modes at B=8, the caps batch
+        raw8 = level_raw["caps"][1]
+        beam = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec, mode="beam", topk=4)
+        topk = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec, mode="topk", topk=4, seed=0)
+        times = {}
+        for name, summ in (("greedy", plain_s), ("beam", beam), ("topk", topk)):
+            times[name] = timed_batches(lambda: summ._decode_batch(raw8))
+        t0 = time.perf_counter()
+        out = plain_s._decode_batch_device(raw8)
+        t_dispatch = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_total = time.perf_counter() - t0
+        del out
+        print(f"(9b) B=8 at the caps (bf16) on {card}: median batch greedy {times['greedy'] * 1e3:.2f} ms, "
+              f"beam (width 4) {times['beam'] * 1e3:.2f} ms, top-k (k=4) {times['topk'] * 1e3:.2f} ms; "
+              f"a greedy batch's dispatch returns after {t_dispatch * 1e3:.2f} of its {t_total * 1e3:.2f} ms",
+              flush=True)
+        p1 = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec, mode="topk", topk=4,
+                        seed=0)._decode_batch(raw8)
+        p2 = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec, mode="topk", topk=4,
+                        seed=0)._decode_batch(raw8)
+        check(bool((p1 == p2).all()), "(9b) top-k picks differ under one seed")
+        sm = raw8["sent_mask"].cpu().numpy()
+        for b in range(8):
+            check(all(sm[b, p] == 1 for p in p1[b]) and len(set(p1[b].tolist())) == len(p1[b]),
+                  f"(9b) top-k row {b}: invalid picks {p1[b]}")
+        fe32 = frontend_init(cfg_k, VGG16_SPEC, dev, seed=1)
+        beam_k = Summarizer(s.model, fe32, s.word2idx, cfg_k, VGG16_SPEC, mode="beam", topk=4)
+        beam_p = Summarizer(s.model, fe32, s.word2idx, cfg_p, VGG16_SPEC, mode="beam", topk=4)
+        rows = [s._raw_row(v)[0] for v in (tiers["full"] * 8)[:8]]
+        raw32 = beam_k._stack_rows(rows)
+        (lp_k, pk), (lp_p, pp) = beam_k._decode_batch(raw32, with_scores=True), beam_p._decode_batch(
+            raw32, with_scores=True)
+        one = Summarizer(s.model, fe32, s.word2idx, cfg_k, VGG16_SPEC, mode="beam", topk=1)._decode_batch(raw32)
+        greedy = Summarizer(s.model, fe32, s.word2idx, cfg_k, VGG16_SPEC)._decode_batch(raw32)
+        print(f"(9b) f32 beam width 4: kernel picks equal plain: {bool((pk == pp).all())} (score "
+              f"max diff {float(np.abs(lp_k - lp_p).max()):.3e}); width 1 equals greedy: "
+              f"{bool((one == greedy).all())}; top-k reproducible under one seed and valid", flush=True)
+        check(bool((pk == pp).all()), "(9b) f32 beam: kernel and plain picks differ")
+        check(bool((one == greedy).all()), "(9b) f32 beam of width 1 differs from greedy")
+        del beam_k, beam_p, fe32
+        t0 = time.perf_counter()
+        long_out = [s.summarize_long(v) for v in long_dirs]
+        dt = time.perf_counter() - t0
+        check(all(isinstance(x, str) and x for x in long_out), "(9b) summarize_long: empty summary")
+        print(f"(9b) summarize_long with ladders: 2 videos of {LONG_SENTENCES} sentences in {dt:.2f} s; "
+              f"first: {long_out[0][:80]!r}", flush=True)
+
+        # (9c) the daemon under load
+        expected = {vd: plain_s.summarize(vd) for vds in tiers.values() for vd in vds}
+        rows = load_test.run_sweep(lambda buckets: s if buckets else plain_s, tiers, clients=8,
+                                   requests=LOAD_REQUESTS, dynamic_batch=8, batch_wait_ms=5.0)
+        for r in rows:
+            lm = r["latency_ms"]
+            print(f"(9c) {r['config']}: {r['ok']}/{r['requests']} answered, p50 {lm['p50']:.2f} ms, "
+                  f"p95 {lm['p95']:.2f} ms, p99 {lm['p99']:.2f} ms, sustained {r['sustained_vps']:.2f} "
+                  f"videos/s; batcher {r.get('batcher')} on {card}", flush=True)
+            check(r["ok"] == LOAD_REQUESTS and r["errors"] == 0, f"(9c) {r['config']}: failed requests")
+            wrong = [vd for vd, a in r["answers"].items() if a != [expected[vd]]]
+            check(not wrong, f"(9c) {r['config']}: answers differ from Summarizer.summarize: {wrong}")
+        by = {r["config"]: r for r in rows}
+        print(f"(9c) the pipelined fetch (batch) against the synchronous one (batch_sync): "
+              f"{by['batch']['sustained_vps']:.2f} against {by['batch_sync']['sustained_vps']:.2f} "
+              f"videos/s, p50 {by['batch']['latency_ms']['p50']:.2f} against "
+              f"{by['batch_sync']['latency_ms']['p50']:.2f} ms: batch "
+              f"{'beat' if by['batch']['sustained_vps'] > by['batch_sync']['sustained_vps'] else 'did not beat'}"
+              f" batch_sync", flush=True)
+
+        # the batcher alone, its queue filled with decoded rows: does the
+        # pipelined fetch overlap the next batch's collate, upload and dispatch?
+        rows = [plain_s._raw_row(v) for v in tiers["full"]]
+        vps = {}
+        for depth in (1, 0, 0, 1):
+            vps.setdefault(depth, []).append(batcher_videos_per_s(plain_s, rows, depth))
+        print(f"(9c) the batcher alone on decoded rows at the caps, {BATCHER_BATCHES} batches of 8: "
+              f"pipeline_depth 1 {vps[1][0]:.2f}, {vps[1][1]:.2f} videos/s; depth 0 {vps[0][0]:.2f}, "
+              f"{vps[0][1]:.2f} videos/s on {card}", flush=True)
+
+        # (9d) infer on the mixed corpus
+        cfg_path = os.path.join(tmp, "bench.json")
+        with open(cfg_path, "w") as f:
+            json.dump(dataclasses.asdict(cfg), f)
+        for extra in ((), ("--mode", "beam")):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                infer.main(["--device", str(dev), "--config_json", cfg_path, "--data_dir", os.path.join(tmp, "mixed"),
+                            "--batch_size", "8", "--bucket_eval", "--prefetch", "2", *extra])
+            line = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{'ROUGE-1'")][-1]
+            scores = ast.literal_eval(line.partition(" (")[0])
+            print(f"(9d) infer --bucket_eval --prefetch 2 {' '.join(extra)}: {line} in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            check(all(math.isfinite(v) for v in scores.values()) and f"({3 * PER_TIER} videos scored)" in line,
+                  f"(9d) infer printed {line}")
+
+    launches = {fn.__name__: fn.launches for fn in counters}
+    routes = {fn.__name__: dict(fn.routes) for fn in counters}
+    print(f"(9) launches over phase 9: {launches}; routes {routes}", flush=True)
+    check(routes["bilstm_cuda"] == {"cluster": launches["bilstm_cuda"], "l2": 0}, "(9) K1 left its cluster route")
+    check(routes["bidaf_attention_fused"] == {"cluster": launches["bidaf_attention_fused"], "K9": 0},
+          "(9) K2 left its cluster route")
+    check(routes["mfcc_fused"] == {"fft": launches["mfcc_fused"], "dense": 0}, "(9) K3 left its FFT route")
+    for rec, fn in zip(records, counters):
+        check(fn.launches > 0, f"(9) {fn.__name__} was never launched on the serving stack")
+        rec["launches"] += fn.launches
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs the card")
+    if sys.argv[1:2] == ["--first-request"]:
+        first_request_main(*sys.argv[2:4])
+        return
     sys.path.insert(0, ROOT)
     from mmbidaf_tpu_torch.data.frontend import make_end_to_end_decode
     from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, build, lstm_kernel, melspec_kernel
@@ -2034,6 +2377,9 @@ def main() -> None:
 
     # 8. the trainer on a real corpus, then the trained run served
     phase_corpus(dev, card)
+
+    # 9. the serving stack: bucket ladders, warmup, decode modes, the daemon, infer
+    phase_serving(dev, card, records)
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "mmbidaf_tpu")
                     or m.startswith(("jax.", "jaxlib", "mmbidaf_tpu.")))

@@ -2,11 +2,12 @@
 
 The JAX package ``mmbidaf_tpu`` stays the reference. This package ports two
 of its programs to PyTorch on one NVIDIA GPU: the serving program — raw
-video batch → VGG + MFCC frontend → trimodal BiDAF model → greedy
-sentence-pointer decode — and training, on feature batches or on a corpus
-of raw videos with the frozen frontend inside the step (``train/loop.py``,
-``python -m mmbidaf_tpu_torch.train.cli``), whose runs ``Summarizer.from_run``
-serves. The Pallas
+video batch → VGG + MFCC frontend → trimodal BiDAF model → sentence-pointer
+decode (greedy, top-k or beam) — and training, on feature batches or on a
+corpus of raw videos with the frozen frontend inside the step
+(``train/loop.py``, ``python -m mmbidaf_tpu_torch.train.cli``), whose runs
+``Summarizer.from_run`` serves, ``python -m mmbidaf_tpu_torch.infer`` scores
+and ``python -m mmbidaf_tpu_torch.tools.serve`` answers over HTTP. The Pallas
 kernels of those paths are rewritten as hand-written CUDA C++ kernels for
 Hopper (``sm_90a``) under ``csrc/``.
 
@@ -16,7 +17,8 @@ Layout mirrors the JAX package: ``ops/`` (plain functions on tensors),
 pytree paths), ``data/``, ``train/``, ``serving.py`` and
 ``interop/from_jax.py``. The port keeps its own copies of the JAX package's
 host-side modules (config, data decoding, corpus and batching, labels,
-text, vocab, synthetic data, metrics and ROUGE): it imports neither ``jax`` nor any module of ``mmbidaf_tpu``.
+text, vocab, synthetic data, benchmarks and subtitles, metrics and ROUGE):
+it imports neither ``jax`` nor any module of ``mmbidaf_tpu``.
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU, and raise where there is no card.
 """

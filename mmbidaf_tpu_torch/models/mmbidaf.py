@@ -37,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from mmbidaf_tpu_torch import resolve_device
 from mmbidaf_tpu_torch.config import Config
-from mmbidaf_tpu_torch.models.decoder import Decoder, decoder_apply
+from mmbidaf_tpu_torch.models.decoder import Decoder, decoder_apply, decoder_beam_search
 from mmbidaf_tpu_torch.models.embedding import Embedding, embedding_apply
 from mmbidaf_tpu_torch.ops.bidaf import BiDAFParams, bidaf_apply
 from mmbidaf_tpu_torch.ops.common import dropout_mask, mm, uniform_param, zeros_param
@@ -257,14 +257,20 @@ def mmbidaf_apply(params: MMBiDAF, batch: Mapping[str, torch.Tensor], cfg: Confi
 
 
 def mmbidaf_decode(params: MMBiDAF, batch: Mapping[str, torch.Tensor], cfg: Config,
-                   mode: str = "greedy") -> tuple[torch.Tensor, torch.Tensor]:
-    """Inference → ``(log_probs [B, K, T_s], picks [B, K])``, greedy."""
-    if mode in ("topk", "beam"):
-        raise NotImplementedError(f"{mode!r} decoding is not ported yet")
-    if mode != "greedy":
-        raise ValueError(f"unknown decode mode {mode!r}")
+                   mode: str = "greedy", topk: int = 4,
+                   generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inference → ``(log_probs [B, K, T_s], picks [B, K])``: greedy, top-k
+    sampling from the top ``topk`` sentences (noise from ``generator``), or
+    ``mode="beam"``, beam search of width ``topk``, which returns the best
+    beam's total log-prob ``[B]`` in the place of the per-step log-probs."""
+    if mode not in ("greedy", "topk", "beam"):
+        raise ValueError(f"unknown decode mode {mode!r}: expected 'greedy', 'beam', or 'topk'")
     M = mmbidaf_fused_reps(params, batch, cfg)
+    m = cfg.model
+    if mode == "beam":
+        return decoder_beam_search(params.decoder, M, batch["sent_mask"], num_steps=m.max_decode_steps,
+                                   beam_size=topk, mask_selected=m.mask_selected)
     return decoder_apply(
-        params.decoder, M, batch["sent_mask"], num_steps=cfg.model.max_decode_steps,
-        mask_selected=cfg.model.mask_selected,
+        params.decoder, M, batch["sent_mask"], num_steps=m.max_decode_steps,
+        mask_selected=m.mask_selected, mode=mode, topk=topk, generator=generator,
     )

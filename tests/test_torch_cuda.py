@@ -1254,3 +1254,92 @@ def test_raw_train_step_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     np.testing.assert_allclose(gc, gp, rtol=1e-4)
     for k, v in pp.items():
         torch.testing.assert_close(pc[k], v, atol=1e-5, rtol=0.0, msg=k)
+
+
+def _serving_videos(root, cfg, n=3):
+    """Short ragged videos at 12x16 whose sentences use the init_random
+    vocabulary ("w<i>"), so their embeddings are distinct."""
+    import wave as wave_mod
+
+    from PIL import Image
+
+    rng = np.random.default_rng(17)
+    d = cfg.data
+    dirs = []
+    for v in range(n):
+        vd = root / f"vid{v}"
+        (vd / "frames").mkdir(parents=True)
+        for i in range(2 + v):
+            Image.fromarray((rng.random((12, 16, 3)) * 255).astype(np.uint8)).save(vd / "frames" / f"f{i}.png")
+        n_samples = int((d.max_audio_frames * d.hop_length + d.win_length) * (0.3 + 0.3 * v))
+        with wave_mod.open(str(vd / "audio.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(d.sample_rate)
+            w.writeframes((rng.standard_normal(n_samples) * 8000).astype(np.int16).tobytes())
+        (vd / "transcript.txt").write_text(
+            " ".join(f"W{(7 * v + 2 * j) % 30} w{(7 * v + 2 * j + 1) % 30}." for j in range(3 + v)))
+        dirs.append(str(vd))
+    return dirs
+
+
+def _serving_pair(cuda_device, **kw):
+    """A tiny f32 Summarizer on the CPU (plain versions) and the same
+    weights on the card (the kernels)."""
+    import copy
+    import dataclasses
+
+    from mmbidaf_tpu_torch.config import tiny_test_config
+    from mmbidaf_tpu_torch.ops.vgg import TINY_SPEC
+    from mmbidaf_tpu_torch.serving import Summarizer
+
+    cfg = tiny_test_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, img_feat_dim=32, audio_feat_dim=cfg.data.n_mfcc, use_pallas_lstm=True,
+        use_pallas_attention=True, use_pallas_melspec=True))
+    cpu = Summarizer.init_random(cfg, seed=5, vgg_spec=TINY_SPEC, device="cpu", **kw)
+    card = Summarizer(copy.deepcopy(cpu.model).to(cuda_device),
+                      copy.deepcopy(cpu.frontend).to(cuda_device), cpu.word2idx, cfg, TINY_SPEC, **kw)
+    return cfg, cpu, card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["greedy", "beam"])
+def test_bucketed_serving_on_the_card_matches_the_cpu(cuda_device, tmp_path, mode):
+    """Bucket-ladder serving through K1-K3 at rung shapes equals the plain
+    versions on the CPU; the card batch records the same rung tuples."""
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+
+    kw = {"serve_buckets": True, "mode": mode, "topk": 3}
+    cfg, cpu, card = _serving_pair(cuda_device, **kw)
+    dirs = _serving_videos(tmp_path, cfg)
+    counters = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused)
+    before = [fn.launches for fn in counters]
+    assert card.summarize_batch(dirs) == cpu.summarize_batch(dirs)
+    assert card.summarize_batch(dirs[:1]) == cpu.summarize_batch(dirs[:1])
+    assert all(fn.launches > n for fn, n in zip(counters, before))
+    assert card.bucket_stats == cpu.bucket_stats
+    card.warmup(frame_hw=(12, 16), batch_size=2, include_long=True)
+    assert card.summarize(dirs[2]) == cpu.summarize(dirs[2])
+
+
+@pytest.mark.cuda
+def test_host_fetch_and_pipelined_batcher_on_the_card(cuda_device, tmp_path):
+    """``HostFetch`` copies into pinned memory behind an event; the batcher
+    at pipeline depth 1 (its completion thread fetching) and 0 answer as
+    ``summarize`` does."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mmbidaf_tpu_torch.serving import DynamicBatcher, HostFetch
+
+    t = torch.arange(24, device=cuda_device, dtype=torch.int32).reshape(4, 6)
+    fetch = HostFetch(t)
+    assert fetch.host.is_pinned() and fetch.event is not None
+    np.testing.assert_array_equal(fetch.numpy(), t.cpu().numpy())
+    cfg, _, card = _serving_pair(cuda_device)
+    dirs = _serving_videos(tmp_path, cfg)
+    want = [card.summarize(vd) for vd in dirs]
+    for depth in (1, 0):
+        with DynamicBatcher(card, max_batch_size=2, max_wait_ms=50.0, pipeline_depth=depth) as b:
+            with ThreadPoolExecutor(max_workers=3) as ex:
+                assert list(ex.map(b.submit, dirs)) == want

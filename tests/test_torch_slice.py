@@ -161,18 +161,19 @@ def test_summarizer_matches_jax(corpus):
 
 
 def test_unported_paths_raise(corpus):
+    """What the port still refuses: data-parallel serving and the
+    sequence-parallel audio decode; a misspelt decode mode is a ValueError
+    (top-k, beam and bucket-ladder serving are ported)."""
     from mmbidaf_tpu_torch.serving import Summarizer
 
     cfg = _cfg()
-    for kw in ({"mode": "topk"}, {"mode": "beam"}, {"data_parallel": True},
-               {"serve_buckets": True}):
-        with pytest.raises(NotImplementedError):
-            Summarizer.init_random(cfg, vgg_spec=TINY_SPEC, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Summarizer.init_random(cfg, vgg_spec=TINY_SPEC, device="cpu", data_parallel=True)
     with pytest.raises(ValueError):
         Summarizer.init_random(cfg, vgg_spec=TINY_SPEC, device="cpu", mode="greddy")
     s = Summarizer.init_random(cfg, vgg_spec=TINY_SPEC, device="cpu")
-    with pytest.raises(NotImplementedError):
-        mmbidaf_decode(s.model, {}, cfg, mode="beam")
+    with pytest.raises(ValueError, match="unknown decode mode"):
+        mmbidaf_decode(s.model, {}, cfg, mode="sample")
     with pytest.raises(NotImplementedError):
         make_end_to_end_decode(dataclasses.replace(
             cfg, mesh=dataclasses.replace(cfg.mesh, sp_audio=True)))

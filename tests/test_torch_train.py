@@ -618,6 +618,29 @@ def _entry_points():
             save_vocab({"--PAD--": 0}, wv, f"{run}/vocab.json", f"{run}/emb.npz")
             Summarizer.from_run(run)
 
+    def infer():
+        from mmbidaf_tpu_torch import infer as i
+
+        i.main(["--config_json", str(REPO / "examples" / "tiny_config.json")])
+
+    def serve():
+        import json
+        import tempfile
+
+        from mmbidaf_tpu_torch.data.vocab import save_vocab
+        from mmbidaf_tpu_torch.tools import serve as s
+
+        with tempfile.TemporaryDirectory() as run:
+            with open(f"{run}/config.json", "w") as f:
+                json.dump(dataclasses.asdict(cfg), f)
+            save_vocab({"--PAD--": 0}, wv, f"{run}/vocab.json", f"{run}/emb.npz")
+            s.main(["--run_dir", run])
+
+    def load_test():
+        from mmbidaf_tpu_torch.tools import load_test as lt
+
+        lt.main(["--tiny"])
+
     return {
         "mmbidaf_init": lambda: mmbidaf_init(cfg, wv),
         "frontend_init": frontend_init,
@@ -629,6 +652,9 @@ def _entry_points():
         "Summarizer.from_jax_params": summarizer_from_jax,
         "train.cli": cli,
         "Summarizer.from_run": from_run,
+        "infer": infer,
+        "tools.serve": serve,
+        "tools.load_test": load_test,
     }
 
 
