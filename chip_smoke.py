@@ -143,6 +143,28 @@ Phases, in order; any failure exits non-zero before the result line:
          batcher alone on decoded rows at pipeline depth 1 and 0;
      (d) ``infer.main`` on the tiers with ``--bucket_eval --prefetch 2``,
          greedy and beam: finite ROUGE over every video.
+ 10. the host side users bring data and weights through:
+     (a) the native decode runtime (``mmbidaf_tpu_torch/native``, built with
+         ``g++``): its codecs; it must have built where ``g++`` is present;
+         phase 9's image decodes counted natively and through PIL (with the
+         PNG codec, none through PIL); phase 9's full-tier PNG frames
+         decoded natively equal PIL's pixels, and frames/s through PIL and
+         the native pool at 1 and 4 threads;
+     (b) the torch oracle (``tests/oracles/torch_model.py``) at the bench
+         widths, saved as ``{"model_state": ...}``, converted by
+         ``tools/convert_torch_checkpoint.py`` and served by
+         ``Summarizer.from_run`` in f32 with the kernels on: greedy picks
+         equal to the oracle's own forward on a B=8 feature batch, the
+         log-prob distance, and K1-K3 launched on raw videos;
+     (c) ``tools/precompute_features.py``'s ``precompute`` over phase 8's
+         corpus (time, videos/s, K3 launched), then FEATURE_STEPS steps of
+         ``train.cli --data_dir`` on the ``features.npz`` files: K5-K8
+         launched, the frontend not, the step time beside phase 8's;
+     (d) the bench audio config with ``audio_fft="stockham"``: its MFCC's
+         distance from an f64 MFCC beside the matmul path's (plain and K3),
+         the time of each, and no kernel launched on the Stockham path;
+     (e) the (c) run's ``tb/`` event file parses with valid CRCs and holds
+         ``log.jsonl``'s scalars.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The random weights come from seeds.
 """
@@ -187,6 +209,9 @@ PREFETCH_STEPS = 8
 PER_TIER, LEVEL_VIDEOS, LONG_SENTENCES = 4, 8, 80
 LOAD_REQUESTS = 48
 BATCHER_BATCHES = 12
+# Phase 10's decode timing runs and train steps on precomputed features.
+DECODE_REPS = 5
+FEATURE_STEPS = 12
 # Published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
 # tensor cores, bf16 on the tensor cores (dense), and HBM3 bandwidth. A
 # bound counts operations at the peak of the units their operands are for.
@@ -1775,10 +1800,11 @@ def loop_step_s(rec) -> float:
     return statistics.median(b - a for a, b in zip(rec.starts[1:], rec.starts[2:]))
 
 
-def phase_corpus(dev, card: str) -> None:
+def phase_corpus(dev, card: str, tmp: str) -> float:
     """Phase 8: ``train.cli --data_dir`` on a corpus at the bench_train widths,
     raw frames through the frozen frontend inside the step, then the run
-    served by ``Summarizer.from_run``."""
+    served by ``Summarizer.from_run``. The corpus and runs go under ``tmp``
+    (phase 10 reuses the corpus); returns the median raw-corpus step, s."""
     import torch
 
     from mmbidaf_tpu_torch.data.frontend import frontend_init
@@ -1795,162 +1821,162 @@ def phase_corpus(dev, card: str) -> None:
     cfg = train_config()
     d = cfg.data
     seconds = (d.max_audio_frames * d.hop_length + d.win_length) / d.sample_rate + 0.05
-    with tempfile.TemporaryDirectory() as tmp:
+    t0 = time.perf_counter()
+    load_corpus_module().make_corpus(
+        os.path.join(tmp, "corpus"), videos=CORPUS_TRAIN + CORPUS_DEV, sentences=d.max_sentences,
+        frames=d.max_keyframes, seconds=seconds, seed=0, split=CORPUS_DEV)
+    cfg_path = os.path.join(tmp, "train.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    print(f"corpus: {CORPUS_TRAIN} training and {CORPUS_DEV} dev videos, {d.max_sentences} "
+          f"sentences, {d.max_keyframes} frames of 48x64, {seconds:.3f} s of audio each, "
+          f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # (a) the trainer, its steps timed and their launches counted
+    counters = (melspec_kernel.mfcc_fused, lstm_kernel.bilstm_train_forward,
+                lstm_kernel.bilstm_bptt, bidaf_kernel.bidaf_dropout_forward,
+                bidaf_kernel.bidaf_dropout_backward)
+    for fn in counters:
+        fn.launches = 0
+    melspec_kernel.mfcc_fused.routes = {"fft": 0, "dense": 0}
+    torch.cuda.reset_peak_memory_stats(dev)
+    run_dir = os.path.join(tmp, "run")
+    t0 = time.perf_counter()
+    with timed_train_steps(counters) as rec:
+        cli.main(corpus_cli_args(tmp, cfg_path, "run", "--num_steps", str(CORPUS_STEPS),
+                                 "--eval_steps", str(CORPUS_STEPS)))
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches = {fn.__name__: fn.launches for fn in counters}
+    step_s = rec.seconds
+    print(f"(8a) launches during the run: {launches}; inside the {len(step_s)} steps: "
+          f"{rec.launches}; K3 routes inside the steps: {rec.k3_routes}", flush=True)
+    check(len(step_s) == CORPUS_STEPS, f"(8a) {len(step_s)} train steps ran")
+    for name, n in rec.launches.items():
+        check(n > 0, f"(8a) {name} was never launched inside the real-corpus train step")
+    check(rec.k3_routes["fft"] > 0 and rec.k3_routes["dense"] == 0,
+          f"(8a) K3 left its FFT route inside the train step: {rec.k3_routes}")
+    logs = run_log(run_dir)
+    losses = [r["loss"] for r in logs if "loss" in r]
+    evals = [r for r in logs if "eval_loss" in r]
+    check(bool(losses) and all(math.isfinite(x) for x in losses), f"(8a) train losses {losses}")
+    check(len(evals) == 1 and math.isfinite(evals[0]["eval_loss"]), f"(8a) eval {evals}")
+    t_step = statistics.median(step_s[1:])
+    t_loop = loop_step_s(rec)
+    print(f"(8a) real-corpus train step (B={B_TRAIN}, raw frames, VGG-16 f32 + K3 in the step): "
+          f"median {t_step * 1e3:.2f} ms over {len(step_s) - 1} (first {step_s[0] * 1e3:.2f} ms) "
+          f"-> {B_TRAIN / t_step:.2f} videos/s on {card}; the loop's median step, host decode "
+          f"of the batch included, {t_loop * 1e3:.2f} ms ({B_TRAIN / t_loop:.2f} videos/s); "
+          f"the run {wall:.2f} s for "
+          f"{CORPUS_STEPS} steps, an eval of {CORPUS_DEV} dev videos and a save "
+          f"({CORPUS_STEPS * B_TRAIN / wall:.2f} videos/s end to end); peak memory {peak_gb:.2f} GB "
+          f"of {torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f}; "
+          f"mean loss {losses[-1]:.6f}, eval loss {evals[0]['eval_loss']:.6f}, "
+          f"ROUGE-L {evals[0]['ROUGE-L']:.4f}", flush=True)
+
+    # the host's share: decode of B_TRAIN examples, the first epoch's
+    # (gold labels computed) and later ones' (labels kept by the corpus)
+    train_dir = os.path.join(tmp, "corpus", "train")
+    w2i = vocab_from_corpus_dir(train_dir, max_size=d.vocab_size)
+    stream = batched_iterator(VideoCorpus(train_dir, cfg, w2i, require_summary=True), B_TRAIN,
+                              seed=cfg.train.seed)
+    decode_s = []
+    for _ in range(2 * CORPUS_TRAIN // B_TRAIN + 3):
         t0 = time.perf_counter()
-        load_corpus_module().make_corpus(
-            os.path.join(tmp, "corpus"), videos=CORPUS_TRAIN + CORPUS_DEV, sentences=d.max_sentences,
-            frames=d.max_keyframes, seconds=seconds, seed=0, split=CORPUS_DEV)
-        cfg_path = os.path.join(tmp, "train.json")
-        with open(cfg_path, "w") as f:
-            json.dump(dataclasses.asdict(cfg), f)
-        print(f"corpus: {CORPUS_TRAIN} training and {CORPUS_DEV} dev videos, {d.max_sentences} "
-              f"sentences, {d.max_keyframes} frames of 48x64, {seconds:.3f} s of audio each, "
-              f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+        nb = next(stream)
+        decode_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    first = decode_s[:CORPUS_TRAIN // B_TRAIN]
+    print(f"(8a) host decode of a B={B_TRAIN} batch: first epoch (labels computed) "
+          f"{statistics.median(first) * 1e3:.2f} ms, later epochs (labels kept) median "
+          f"{statistics.median(decode_s[CORPUS_TRAIN // B_TRAIN:]) * 1e3:.2f} ms over "
+          f"{len(decode_s) - len(first)}; its upload (pageable) {upload_ms:.2f} ms", flush=True)
 
-        # (a) the trainer, its steps timed and their launches counted
-        counters = (melspec_kernel.mfcc_fused, lstm_kernel.bilstm_train_forward,
-                    lstm_kernel.bilstm_bptt, bidaf_kernel.bidaf_dropout_forward,
-                    bidaf_kernel.bidaf_dropout_backward)
-        for fn in counters:
-            fn.launches = 0
-        melspec_kernel.mfcc_fused.routes = {"fft": 0, "dense": 0}
-        torch.cuda.reset_peak_memory_stats(dev)
-        run_dir = os.path.join(tmp, "run")
-        t0 = time.perf_counter()
-        with timed_train_steps(counters) as rec:
-            cli.main(corpus_cli_args(tmp, cfg_path, "run", "--num_steps", str(CORPUS_STEPS),
-                                     "--eval_steps", str(CORPUS_STEPS)))
-        wall = time.perf_counter() - t0
-        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-        launches = {fn.__name__: fn.launches for fn in counters}
-        step_s = rec.seconds
-        print(f"(8a) launches during the run: {launches}; inside the {len(step_s)} steps: "
-              f"{rec.launches}; K3 routes inside the steps: {rec.k3_routes}", flush=True)
-        check(len(step_s) == CORPUS_STEPS, f"(8a) {len(step_s)} train steps ran")
-        for name, n in rec.launches.items():
-            check(n > 0, f"(8a) {name} was never launched inside the real-corpus train step")
-        check(rec.k3_routes["fft"] > 0 and rec.k3_routes["dense"] == 0,
-              f"(8a) K3 left its FFT route inside the train step: {rec.k3_routes}")
-        logs = run_log(run_dir)
-        losses = [r["loss"] for r in logs if "loss" in r]
-        evals = [r for r in logs if "eval_loss" in r]
-        check(bool(losses) and all(math.isfinite(x) for x in losses), f"(8a) train losses {losses}")
-        check(len(evals) == 1 and math.isfinite(evals[0]["eval_loss"]), f"(8a) eval {evals}")
-        t_step = statistics.median(step_s[1:])
-        t_loop = loop_step_s(rec)
-        print(f"(8a) real-corpus train step (B={B_TRAIN}, raw frames, VGG-16 f32 + K3 in the step): "
-              f"median {t_step * 1e3:.2f} ms over {len(step_s) - 1} (first {step_s[0] * 1e3:.2f} ms) "
-              f"-> {B_TRAIN / t_step:.2f} videos/s on {card}; the loop's median step, host decode "
-              f"of the batch included, {t_loop * 1e3:.2f} ms ({B_TRAIN / t_loop:.2f} videos/s); "
-              f"the run {wall:.2f} s for "
-              f"{CORPUS_STEPS} steps, an eval of {CORPUS_DEV} dev videos and a save "
-              f"({CORPUS_STEPS * B_TRAIN / wall:.2f} videos/s end to end); peak memory {peak_gb:.2f} GB "
-              f"of {torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f}; "
-              f"mean loss {losses[-1]:.6f}, eval loss {evals[0]['eval_loss']:.6f}, "
-              f"ROUGE-L {evals[0]['ROUGE-L']:.4f}", flush=True)
+    # where a step's device time goes, on one raw corpus batch
+    wv = random_word_vectors(np.random.default_rng(3), len(w2i), cfg.model.emb_dim)
+    st = loop.init_train_state(mmbidaf_init(cfg, wv, dev, seed=3), cfg, seed=4)
+    step = loop.make_train_step(cfg, frontend_init(cfg, VGG16_SPEC, dev, seed=5), VGG16_SPEC)
+    profile_kernels(lambda x: step(x, batch)[0], st, t_step, "(8a)", "step",
+                    groups={"K3 (FFT pass)": "logmel_fft_kernel", "K3 (DCT pass)": "mfcc_dct_kernel",
+                            "K5": "bilstm_cluster_kernel", "K6 (b) walk": "bilstm_bptt_cluster_kernel",
+                            "K7": "bidaf_drop_fwd_cluster_kernel", "K8": "bidaf_drop_bwd_cluster_kernel",
+                            "cuDNN implicit-GEMM convs": "xmma_fprop",
+                            "cuDNN FFT convs": "DSE::", "cuDNN FFT products": "complex",
+                            "max-pool": "max_pool"})
+    del st, step
 
-        # the host's share: decode of B_TRAIN examples, the first epoch's
-        # (gold labels computed) and later ones' (labels kept by the corpus)
-        train_dir = os.path.join(tmp, "corpus", "train")
-        w2i = vocab_from_corpus_dir(train_dir, max_size=d.vocab_size)
-        stream = batched_iterator(VideoCorpus(train_dir, cfg, w2i, require_summary=True), B_TRAIN,
-                                  seed=cfg.train.seed)
-        decode_s = []
-        for _ in range(2 * CORPUS_TRAIN // B_TRAIN + 3):
-            t0 = time.perf_counter()
-            nb = next(stream)
-            decode_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
-        torch.cuda.synchronize()
-        upload_ms = (time.perf_counter() - t0) * 1e3
-        first = decode_s[:CORPUS_TRAIN // B_TRAIN]
-        print(f"(8a) host decode of a B={B_TRAIN} batch: first epoch (labels computed) "
-              f"{statistics.median(first) * 1e3:.2f} ms, later epochs (labels kept) median "
-              f"{statistics.median(decode_s[CORPUS_TRAIN // B_TRAIN:]) * 1e3:.2f} ms over "
-              f"{len(decode_s) - len(first)}; its upload (pageable) {upload_ms:.2f} ms", flush=True)
+    # (b) drop_prob 0, f32: one raw-batch step through the kernels and the plain versions
+    results = []
+    for kernels in (True, False):
+        cfg0 = train_config(drop_prob=0.0, kernels=kernels)
+        cfg0 = dataclasses.replace(cfg0, model=dataclasses.replace(cfg0.model,
+                                                                   use_pallas_melspec=kernels))
+        st = loop.init_train_state(mmbidaf_init(cfg0, wv, dev, seed=3), cfg0, seed=4)
+        fe = frontend_init(cfg0, VGG16_SPEC, dev, seed=5)
+        st, m = loop.make_train_step(cfg0, fe, VGG16_SPEC)(st, batch)
+        results.append((float(m["loss"]), float(m["grad_norm"]),
+                        dict(st.params.named_parameters()), dict(st.ema_params.named_parameters())))
+        del fe
+    (lk, gk, pk, ek), (lp, gp, pp, ep) = results
+    dp = max((pk[n] - pp[n]).abs().max().item() for n in pk)
+    de = max((ek[n] - ep[n]).abs().max().item() for n in ek)
+    print(f"(8b) f32 drop 0, one raw-batch step: loss kernels {lk:.7f} plain {lp:.7f}; grad norm "
+          f"{gk:.7f} vs {gp:.7f}; max param diff {dp:.3e}, max EMA diff {de:.3e} "
+          f"(bound {TRAIN_PARITY_ATOL})", flush=True)
+    check(abs(lk - lp) <= TRAIN_PARITY_ATOL and abs(gk - gp) <= TRAIN_PARITY_ATOL * max(1.0, gp),
+          "(8b) kernel and plain loss / grad norm differ")
+    check(dp <= TRAIN_PARITY_ATOL and de <= TRAIN_PARITY_ATOL, "(8b) kernel and plain parameters differ")
+    del results, pk, pp, ek, ep
 
-        # where a step's device time goes, on one raw corpus batch
-        wv = random_word_vectors(np.random.default_rng(3), len(w2i), cfg.model.emb_dim)
-        st = loop.init_train_state(mmbidaf_init(cfg, wv, dev, seed=3), cfg, seed=4)
-        step = loop.make_train_step(cfg, frontend_init(cfg, VGG16_SPEC, dev, seed=5), VGG16_SPEC)
-        profile_kernels(lambda x: step(x, batch)[0], st, t_step, "(8a)", "step",
-                        groups={"K3 (FFT pass)": "logmel_fft_kernel", "K3 (DCT pass)": "mfcc_dct_kernel",
-                                "K5": "bilstm_cluster_kernel", "K6 (b) walk": "bilstm_bptt_cluster_kernel",
-                                "K7": "bidaf_drop_fwd_cluster_kernel", "K8": "bidaf_drop_bwd_cluster_kernel",
-                                "cuDNN implicit-GEMM convs": "xmma_fprop",
-                                "cuDNN FFT convs": "DSE::", "cuDNN FFT products": "complex",
-                                "max-pool": "max_pool"})
-        del st, step
+    # (c) the same steps with and without the prefetch thread
+    loop_ms = {}
+    for name, depth in (("pf0", "0"), ("pf2", "2")):
+        with timed_train_steps(()) as rec:
+            cli.main(corpus_cli_args(tmp, cfg_path, name, "--num_steps", str(PREFETCH_STEPS),
+                                     "--eval_steps", "1000", "--prefetch", depth))
+        loop_ms[depth] = loop_step_s(rec) * 1e3
+    l0, l2 = run_log(os.path.join(tmp, "pf0")), run_log(os.path.join(tmp, "pf2"))
+    c0, c2 = final_checkpoint(os.path.join(tmp, "pf0")), final_checkpoint(os.path.join(tmp, "pf2"))
+    same = all(torch.equal(c0["params"][k], c2["params"][k]) for k in c0["params"])
+    print(f"(8c) {PREFETCH_STEPS} steps, prefetch 2 vs 0: logged losses "
+          f"{[r['loss'] for r in l2]} vs {[r['loss'] for r in l0]}; final params bit for bit "
+          f"equal: {same}; the loop's median step {loop_ms['2']:.2f} vs {loop_ms['0']:.2f} ms "
+          f"(host decode included; the second epoch on, labels kept) on {card}", flush=True)
+    check([r["loss"] for r in l0] == [r["loss"] for r in l2] and same,
+          "(8c) prefetch changed the losses or the parameters")
 
-        # (b) drop_prob 0, f32: one raw-batch step through the kernels and the plain versions
-        results = []
-        for kernels in (True, False):
-            cfg0 = train_config(drop_prob=0.0, kernels=kernels)
-            cfg0 = dataclasses.replace(cfg0, model=dataclasses.replace(cfg0.model,
-                                                                       use_pallas_melspec=kernels))
-            st = loop.init_train_state(mmbidaf_init(cfg0, wv, dev, seed=3), cfg0, seed=4)
-            fe = frontend_init(cfg0, VGG16_SPEC, dev, seed=5)
-            st, m = loop.make_train_step(cfg0, fe, VGG16_SPEC)(st, batch)
-            results.append((float(m["loss"]), float(m["grad_norm"]),
-                            dict(st.params.named_parameters()), dict(st.ema_params.named_parameters())))
-            del fe
-        (lk, gk, pk, ek), (lp, gp, pp, ep) = results
-        dp = max((pk[n] - pp[n]).abs().max().item() for n in pk)
-        de = max((ek[n] - ep[n]).abs().max().item() for n in ek)
-        print(f"(8b) f32 drop 0, one raw-batch step: loss kernels {lk:.7f} plain {lp:.7f}; grad norm "
-              f"{gk:.7f} vs {gp:.7f}; max param diff {dp:.3e}, max EMA diff {de:.3e} "
-              f"(bound {TRAIN_PARITY_ATOL})", flush=True)
-        check(abs(lk - lp) <= TRAIN_PARITY_ATOL and abs(gk - gp) <= TRAIN_PARITY_ATOL * max(1.0, gp),
-              "(8b) kernel and plain loss / grad norm differ")
-        check(dp <= TRAIN_PARITY_ATOL and de <= TRAIN_PARITY_ATOL, "(8b) kernel and plain parameters differ")
-        del results, pk, pp, ek, ep
-
-        # (c) the same steps with and without the prefetch thread
-        loop_ms = {}
-        for name, depth in (("pf0", "0"), ("pf2", "2")):
-            with timed_train_steps(()) as rec:
-                cli.main(corpus_cli_args(tmp, cfg_path, name, "--num_steps", str(PREFETCH_STEPS),
-                                         "--eval_steps", "1000", "--prefetch", depth))
-            loop_ms[depth] = loop_step_s(rec) * 1e3
-        l0, l2 = run_log(os.path.join(tmp, "pf0")), run_log(os.path.join(tmp, "pf2"))
-        c0, c2 = final_checkpoint(os.path.join(tmp, "pf0")), final_checkpoint(os.path.join(tmp, "pf2"))
-        same = all(torch.equal(c0["params"][k], c2["params"][k]) for k in c0["params"])
-        print(f"(8c) {PREFETCH_STEPS} steps, prefetch 2 vs 0: logged losses "
-              f"{[r['loss'] for r in l2]} vs {[r['loss'] for r in l0]}; final params bit for bit "
-              f"equal: {same}; the loop's median step {loop_ms['2']:.2f} vs {loop_ms['0']:.2f} ms "
-              f"(host decode included; the second epoch on, labels kept) on {card}", flush=True)
-        check([r["loss"] for r in l0] == [r["loss"] for r in l2] and same,
-              "(8c) prefetch changed the losses or the parameters")
-
-        # (d) serve the run
-        dev_dirs = sorted(os.path.join(tmp, "corpus", "dev", v)
-                          for v in os.listdir(os.path.join(tmp, "corpus", "dev")))
-        served = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused)
-        for fn in served:
-            fn.launches = 0
-        run_cfg = load_config(run_dir)
-        t0 = time.perf_counter()
-        s = Summarizer.from_run(run_dir, seed=run_cfg.train.seed)
-        summaries = s.summarize_batch(dev_dirs)
-        dt = time.perf_counter() - t0
-        raw, _ = s._raw_batch(dev_dirs)
-        picks_k = s._decode_batch(raw)
-        launches = {fn.__name__: fn.launches for fn in served}
-        check(len(summaries) == CORPUS_DEV and all(isinstance(x, str) and x for x in summaries),
-              "(8d) from_run: empty or missing summaries")
-        for name, n in launches.items():
-            check(n > 0, f"(8d) {name} was never launched serving the trained run")
-        plain_cfg = dataclasses.replace(run_cfg, model=dataclasses.replace(
-            run_cfg.model, use_pallas_lstm=False, use_pallas_attention=False, use_pallas_melspec=False))
-        sp = Summarizer.from_checkpoint(os.path.join(run_dir, "ckpts"), os.path.join(run_dir, "vocab.json"),
-                                        os.path.join(run_dir, "emb.npz"), plain_cfg, VGG16_SPEC,
-                                        seed=run_cfg.train.seed, device=dev)
-        picks_p = sp._decode_batch(raw)
-        print(f"(8d) Summarizer.from_run answered {CORPUS_DEV} dev videos in {dt:.2f} s (load included); "
-              f"launches {launches}; f32 picks through the kernels equal the plain versions': "
-              f"{bool((picks_k == picks_p).all())}; first: {summaries[0][:80]!r}", flush=True)
-        check(bool((picks_k == picks_p).all()), "(8d) kernel and plain picks of the trained run differ")
+    # (d) serve the run
+    dev_dirs = sorted(os.path.join(tmp, "corpus", "dev", v)
+                      for v in os.listdir(os.path.join(tmp, "corpus", "dev")))
+    served = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused)
+    for fn in served:
+        fn.launches = 0
+    run_cfg = load_config(run_dir)
+    t0 = time.perf_counter()
+    s = Summarizer.from_run(run_dir, seed=run_cfg.train.seed)
+    summaries = s.summarize_batch(dev_dirs)
+    dt = time.perf_counter() - t0
+    raw, _ = s._raw_batch(dev_dirs)
+    picks_k = s._decode_batch(raw)
+    launches = {fn.__name__: fn.launches for fn in served}
+    check(len(summaries) == CORPUS_DEV and all(isinstance(x, str) and x for x in summaries),
+          "(8d) from_run: empty or missing summaries")
+    for name, n in launches.items():
+        check(n > 0, f"(8d) {name} was never launched serving the trained run")
+    plain_cfg = dataclasses.replace(run_cfg, model=dataclasses.replace(
+        run_cfg.model, use_pallas_lstm=False, use_pallas_attention=False, use_pallas_melspec=False))
+    sp = Summarizer.from_checkpoint(os.path.join(run_dir, "ckpts"), os.path.join(run_dir, "vocab.json"),
+                                    os.path.join(run_dir, "emb.npz"), plain_cfg, VGG16_SPEC,
+                                    seed=run_cfg.train.seed, device=dev)
+    picks_p = sp._decode_batch(raw)
+    print(f"(8d) Summarizer.from_run answered {CORPUS_DEV} dev videos in {dt:.2f} s (load included); "
+          f"launches {launches}; f32 picks through the kernels equal the plain versions': "
+          f"{bool((picks_k == picks_p).all())}; first: {summaries[0][:80]!r}", flush=True)
+    check(bool((picks_k == picks_p).all()), "(8d) kernel and plain picks of the trained run differ")
+    return t_step
 
 
 def f32_configs(cfg):
@@ -2068,9 +2094,11 @@ def batcher_videos_per_s(summarizer, rows: list, depth: int) -> float:
     return len(items) / dt
 
 
-def phase_serving(dev, card: str, records: list[dict]) -> None:
+def phase_serving(dev, card: str, records: list[dict], tmp: str) -> dict:
     """Phase 9: the serving stack at the bench configuration: bucket ladders
-    and warmup, the decode modes, the daemon under load, and ``infer``."""
+    and warmup, the decode modes, the daemon under load, and ``infer``. The
+    corpus goes under ``tmp``; returns its load-test tiers (phase 10 reuses
+    their PNG frames)."""
     import io
 
     import torch
@@ -2085,172 +2113,171 @@ def phase_serving(dev, card: str, records: list[dict]) -> None:
     cfg = bench_config()
     d = cfg.data
     caps = (d.max_sentences, d.max_words, d.max_keyframes, d.max_audio_frames)
-    with tempfile.TemporaryDirectory() as tmp:
+    t0 = time.perf_counter()
+    tiers, level_dirs, long_dirs = write_serving_corpus(tmp, cfg)
+    print(f"(9) corpus: {PER_TIER} videos a tier (quarter, half, full), {LEVEL_VIDEOS} at each of "
+          f"{len(level_dirs)} rung levels, 2 of "
+          f"{LONG_SENTENCES} sentences, frames {FRAME_HW[0]}x{FRAME_HW[1]}, written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # (9a) a first request, cold and after warmup, each in a fresh process
+    # (a video on the top diagonal level, a shape warmup runs)
+    cold = first_request(level_dirs[-1][0], warm=False)
+    warm = first_request(level_dirs[-1][0], warm=True)
+    print(f"(9a) fresh process, bucketed Summarizer at batch 8 on {card}: cold: init "
+          f"{cold['init_s']:.3f} s, the host's first decode of the video {cold['host_first_s']:.3f} s, "
+          f"first request {cold['first_s']:.3f} s, second "
+          f"{cold['second_s']:.3f} s; warmed: init {warm['init_s']:.3f} s, warmup((240, 320), "
+          f"batch_size=8) {warm['warmup_s']:.3f} s, first request {warm['first_s']:.3f} s, second "
+          f"{warm['second_s']:.3f} s", flush=True)
+    check(warm["first_s"] < cold["first_s"], "(9a) warmup did not shorten the first request")
+
+    counters = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused)
+    for fn in counters:
+        fn.launches = 0
+    lstm_kernel.bilstm_cuda.routes = {"cluster": 0, "l2": 0}
+    bidaf_kernel.bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
+    melspec_kernel.mfcc_fused.routes = {"fft": 0, "dense": 0}
+
+    s = Summarizer.init_random(cfg, seed=0, device=dev, serve_buckets=True)
+    plain_s = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec)  # the caps
+    t0 = time.perf_counter()
+    s.warmup(FRAME_HW, batch_size=8)
+    torch.cuda.synchronize()
+    plans = (len(lstm_kernel._occupancy_checked), len(bidaf_kernel._occupancy_checked))
+    levels = [tuple(lv[k] for k in AXES) for lv in s.bucket_levels]
+    print(f"(9a) in-process warmup at batch 8, the caps and diagonal levels {levels}: "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    groups = [(f"level {i}", s, vids) for i, vids in enumerate(level_dirs)]
+    groups.append(("caps", plain_s, tiers["full"]))
+    level_raw = {}
+    for name, summ, vids in groups:
+        rows = [summ._raw_row(v)[0] for v in vids]
+        raw = summ._stack_rows((rows * 8)[:8])
+        level_raw[name] = (summ, raw, vids)
+        shape = tuple(raw[k].shape[-1] for k in ("sent_mask", "word_mask", "img_mask", "aud_mask"))
+        want = levels[int(name[-1])] if name.startswith("level") else caps
+        check(shape == want, f"(9a) {name}: the batch took {shape}, not {want}")
+        before = [fn.launches for fn in counters]
+        t = timed_batches(lambda: summ._decode_batch(raw))
+        grew = [fn.launches - n for fn, n in zip(counters, before)]
+        print(f"(9a) {name} {shape}, B=8: median batch {t * 1e3:.2f} ms ({8 / t:.2f} videos/s); "
+              f"K1/K2/K3 launches {grew}", flush=True)
+        check(all(g > 0 for g in grew), f"(9a) {name}: K1-K3 did not all launch: {grew}")
+    check((len(lstm_kernel._occupancy_checked), len(bidaf_kernel._occupancy_checked)) == plans,
+          "(9a) a level's decode checked a plan that warmup had not")
+    print(f"(9a) bucket_stats {s.bucket_stats}; plan checks after warmup {plans}, unchanged by "
+          f"the level decodes", flush=True)
+
+    # f32 at every level: kernels vs plain, bucketed vs the same videos at the caps
+    cfg_k, cfg_p = f32_configs(cfg)
+    fe32 = frontend_init(cfg_k, VGG16_SPEC, dev, seed=1)  # init_random's weights, in f32
+    f32 = {(kern, b): Summarizer(s.model, fe32, s.word2idx, c, VGG16_SPEC, serve_buckets=b)
+           for kern, c in ((True, cfg_k), (False, cfg_p)) for b in (True, None)}
+    for name, _, vids in groups:
+        rows = [s._raw_row(v)[0] for v in vids]
+        rows = (rows * 8)[:8]
+        picks = {key: summ._decode_batch(summ._stack_rows(rows)) for key, summ in f32.items()}
+        same = {f"{'kernels' if k else 'plain'}{' bucketed' if b else ' caps'}":
+                bool((p == picks[(True, True)]).all()) for (k, b), p in picks.items()}
+        print(f"(9a) f32 {name}: picks equal to the bucketed kernel path's: {same}", flush=True)
+        check(all(same.values()), f"(9a) f32 {name}: picks differ: {same}")
+    del f32, fe32
+
+    # (9b) the decode modes at B=8, the caps batch
+    raw8 = level_raw["caps"][1]
+    beam = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec, mode="beam", topk=4)
+    topk = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec, mode="topk", topk=4, seed=0)
+    times = {}
+    for name, summ in (("greedy", plain_s), ("beam", beam), ("topk", topk)):
+        times[name] = timed_batches(lambda: summ._decode_batch(raw8))
+    t0 = time.perf_counter()
+    out = plain_s._decode_batch_device(raw8)
+    t_dispatch = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    del out
+    print(f"(9b) B=8 at the caps (bf16) on {card}: median batch greedy {times['greedy'] * 1e3:.2f} ms, "
+          f"beam (width 4) {times['beam'] * 1e3:.2f} ms, top-k (k=4) {times['topk'] * 1e3:.2f} ms; "
+          f"a greedy batch's dispatch returns after {t_dispatch * 1e3:.2f} of its {t_total * 1e3:.2f} ms",
+          flush=True)
+    p1 = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec, mode="topk", topk=4,
+                    seed=0)._decode_batch(raw8)
+    p2 = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec, mode="topk", topk=4,
+                    seed=0)._decode_batch(raw8)
+    check(bool((p1 == p2).all()), "(9b) top-k picks differ under one seed")
+    sm = raw8["sent_mask"].cpu().numpy()
+    for b in range(8):
+        check(all(sm[b, p] == 1 for p in p1[b]) and len(set(p1[b].tolist())) == len(p1[b]),
+              f"(9b) top-k row {b}: invalid picks {p1[b]}")
+    fe32 = frontend_init(cfg_k, VGG16_SPEC, dev, seed=1)
+    beam_k = Summarizer(s.model, fe32, s.word2idx, cfg_k, VGG16_SPEC, mode="beam", topk=4)
+    beam_p = Summarizer(s.model, fe32, s.word2idx, cfg_p, VGG16_SPEC, mode="beam", topk=4)
+    rows = [s._raw_row(v)[0] for v in (tiers["full"] * 8)[:8]]
+    raw32 = beam_k._stack_rows(rows)
+    (lp_k, pk), (lp_p, pp) = beam_k._decode_batch(raw32, with_scores=True), beam_p._decode_batch(
+        raw32, with_scores=True)
+    one = Summarizer(s.model, fe32, s.word2idx, cfg_k, VGG16_SPEC, mode="beam", topk=1)._decode_batch(raw32)
+    greedy = Summarizer(s.model, fe32, s.word2idx, cfg_k, VGG16_SPEC)._decode_batch(raw32)
+    print(f"(9b) f32 beam width 4: kernel picks equal plain: {bool((pk == pp).all())} (score "
+          f"max diff {float(np.abs(lp_k - lp_p).max()):.3e}); width 1 equals greedy: "
+          f"{bool((one == greedy).all())}; top-k reproducible under one seed and valid", flush=True)
+    check(bool((pk == pp).all()), "(9b) f32 beam: kernel and plain picks differ")
+    check(bool((one == greedy).all()), "(9b) f32 beam of width 1 differs from greedy")
+    del beam_k, beam_p, fe32
+    t0 = time.perf_counter()
+    long_out = [s.summarize_long(v) for v in long_dirs]
+    dt = time.perf_counter() - t0
+    check(all(isinstance(x, str) and x for x in long_out), "(9b) summarize_long: empty summary")
+    print(f"(9b) summarize_long with ladders: 2 videos of {LONG_SENTENCES} sentences in {dt:.2f} s; "
+          f"first: {long_out[0][:80]!r}", flush=True)
+
+    # (9c) the daemon under load
+    expected = {vd: plain_s.summarize(vd) for vds in tiers.values() for vd in vds}
+    rows = load_test.run_sweep(lambda buckets: s if buckets else plain_s, tiers, clients=8,
+                               requests=LOAD_REQUESTS, dynamic_batch=8, batch_wait_ms=5.0)
+    for r in rows:
+        lm = r["latency_ms"]
+        print(f"(9c) {r['config']}: {r['ok']}/{r['requests']} answered, p50 {lm['p50']:.2f} ms, "
+              f"p95 {lm['p95']:.2f} ms, p99 {lm['p99']:.2f} ms, sustained {r['sustained_vps']:.2f} "
+              f"videos/s; batcher {r.get('batcher')} on {card}", flush=True)
+        check(r["ok"] == LOAD_REQUESTS and r["errors"] == 0, f"(9c) {r['config']}: failed requests")
+        wrong = [vd for vd, a in r["answers"].items() if a != [expected[vd]]]
+        check(not wrong, f"(9c) {r['config']}: answers differ from Summarizer.summarize: {wrong}")
+    by = {r["config"]: r for r in rows}
+    print(f"(9c) the pipelined fetch (batch) against the synchronous one (batch_sync): "
+          f"{by['batch']['sustained_vps']:.2f} against {by['batch_sync']['sustained_vps']:.2f} "
+          f"videos/s, p50 {by['batch']['latency_ms']['p50']:.2f} against "
+          f"{by['batch_sync']['latency_ms']['p50']:.2f} ms: batch "
+          f"{'beat' if by['batch']['sustained_vps'] > by['batch_sync']['sustained_vps'] else 'did not beat'}"
+          f" batch_sync", flush=True)
+
+    # the batcher alone, its queue filled with decoded rows: does the
+    # pipelined fetch overlap the next batch's collate, upload and dispatch?
+    rows = [plain_s._raw_row(v) for v in tiers["full"]]
+    vps = {}
+    for depth in (1, 0, 0, 1):
+        vps.setdefault(depth, []).append(batcher_videos_per_s(plain_s, rows, depth))
+    print(f"(9c) the batcher alone on decoded rows at the caps, {BATCHER_BATCHES} batches of 8: "
+          f"pipeline_depth 1 {vps[1][0]:.2f}, {vps[1][1]:.2f} videos/s; depth 0 {vps[0][0]:.2f}, "
+          f"{vps[0][1]:.2f} videos/s on {card}", flush=True)
+
+    # (9d) infer on the mixed corpus
+    cfg_path = os.path.join(tmp, "bench.json")
+    with open(cfg_path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    for extra in ((), ("--mode", "beam")):
+        buf = io.StringIO()
         t0 = time.perf_counter()
-        tiers, level_dirs, long_dirs = write_serving_corpus(tmp, cfg)
-        print(f"(9) corpus: {PER_TIER} videos a tier (quarter, half, full), {LEVEL_VIDEOS} at each of "
-              f"{len(level_dirs)} rung levels, 2 of "
-              f"{LONG_SENTENCES} sentences, frames {FRAME_HW[0]}x{FRAME_HW[1]}, written in "
+        with contextlib.redirect_stdout(buf):
+            infer.main(["--device", str(dev), "--config_json", cfg_path, "--data_dir", os.path.join(tmp, "mixed"),
+                        "--batch_size", "8", "--bucket_eval", "--prefetch", "2", *extra])
+        line = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{'ROUGE-1'")][-1]
+        scores = ast.literal_eval(line.partition(" (")[0])
+        print(f"(9d) infer --bucket_eval --prefetch 2 {' '.join(extra)}: {line} in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
-
-        # (9a) a first request, cold and after warmup, each in a fresh process
-        # (a video on the top diagonal level, a shape warmup runs)
-        cold = first_request(level_dirs[-1][0], warm=False)
-        warm = first_request(level_dirs[-1][0], warm=True)
-        print(f"(9a) fresh process, bucketed Summarizer at batch 8 on {card}: cold: init "
-              f"{cold['init_s']:.3f} s, the host's first decode of the video {cold['host_first_s']:.3f} s, "
-              f"first request {cold['first_s']:.3f} s, second "
-              f"{cold['second_s']:.3f} s; warmed: init {warm['init_s']:.3f} s, warmup((240, 320), "
-              f"batch_size=8) {warm['warmup_s']:.3f} s, first request {warm['first_s']:.3f} s, second "
-              f"{warm['second_s']:.3f} s", flush=True)
-        check(warm["first_s"] < cold["first_s"], "(9a) warmup did not shorten the first request")
-
-        counters = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused)
-        for fn in counters:
-            fn.launches = 0
-        lstm_kernel.bilstm_cuda.routes = {"cluster": 0, "l2": 0}
-        bidaf_kernel.bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
-        melspec_kernel.mfcc_fused.routes = {"fft": 0, "dense": 0}
-
-        s = Summarizer.init_random(cfg, seed=0, device=dev, serve_buckets=True)
-        plain_s = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec)  # the caps
-        t0 = time.perf_counter()
-        s.warmup(FRAME_HW, batch_size=8)
-        torch.cuda.synchronize()
-        plans = (len(lstm_kernel._occupancy_checked), len(bidaf_kernel._occupancy_checked))
-        levels = [tuple(lv[k] for k in AXES) for lv in s.bucket_levels]
-        print(f"(9a) in-process warmup at batch 8, the caps and diagonal levels {levels}: "
-              f"{time.perf_counter() - t0:.3f} s", flush=True)
-        groups = [(f"level {i}", s, vids) for i, vids in enumerate(level_dirs)]
-        groups.append(("caps", plain_s, tiers["full"]))
-        level_raw = {}
-        for name, summ, vids in groups:
-            rows = [summ._raw_row(v)[0] for v in vids]
-            raw = summ._stack_rows((rows * 8)[:8])
-            level_raw[name] = (summ, raw, vids)
-            shape = tuple(raw[k].shape[-1] for k in ("sent_mask", "word_mask", "img_mask", "aud_mask"))
-            want = levels[int(name[-1])] if name.startswith("level") else caps
-            check(shape == want, f"(9a) {name}: the batch took {shape}, not {want}")
-            before = [fn.launches for fn in counters]
-            t = timed_batches(lambda: summ._decode_batch(raw))
-            grew = [fn.launches - n for fn, n in zip(counters, before)]
-            print(f"(9a) {name} {shape}, B=8: median batch {t * 1e3:.2f} ms ({8 / t:.2f} videos/s); "
-                  f"K1/K2/K3 launches {grew}", flush=True)
-            check(all(g > 0 for g in grew), f"(9a) {name}: K1-K3 did not all launch: {grew}")
-        check((len(lstm_kernel._occupancy_checked), len(bidaf_kernel._occupancy_checked)) == plans,
-              "(9a) a level's decode checked a plan that warmup had not")
-        print(f"(9a) bucket_stats {s.bucket_stats}; plan checks after warmup {plans}, unchanged by "
-              f"the level decodes", flush=True)
-
-        # f32 at every level: kernels vs plain, bucketed vs the same videos at the caps
-        cfg_k, cfg_p = f32_configs(cfg)
-        fe32 = frontend_init(cfg_k, VGG16_SPEC, dev, seed=1)  # init_random's weights, in f32
-        f32 = {(kern, b): Summarizer(s.model, fe32, s.word2idx, c, VGG16_SPEC, serve_buckets=b)
-               for kern, c in ((True, cfg_k), (False, cfg_p)) for b in (True, None)}
-        for name, _, vids in groups:
-            rows = [s._raw_row(v)[0] for v in vids]
-            rows = (rows * 8)[:8]
-            picks = {key: summ._decode_batch(summ._stack_rows(rows)) for key, summ in f32.items()}
-            same = {f"{'kernels' if k else 'plain'}{' bucketed' if b else ' caps'}":
-                    bool((p == picks[(True, True)]).all()) for (k, b), p in picks.items()}
-            print(f"(9a) f32 {name}: picks equal to the bucketed kernel path's: {same}", flush=True)
-            check(all(same.values()), f"(9a) f32 {name}: picks differ: {same}")
-        del f32, fe32
-
-        # (9b) the decode modes at B=8, the caps batch
-        raw8 = level_raw["caps"][1]
-        beam = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec, mode="beam", topk=4)
-        topk = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec, mode="topk", topk=4, seed=0)
-        times = {}
-        for name, summ in (("greedy", plain_s), ("beam", beam), ("topk", topk)):
-            times[name] = timed_batches(lambda: summ._decode_batch(raw8))
-        t0 = time.perf_counter()
-        out = plain_s._decode_batch_device(raw8)
-        t_dispatch = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        t_total = time.perf_counter() - t0
-        del out
-        print(f"(9b) B=8 at the caps (bf16) on {card}: median batch greedy {times['greedy'] * 1e3:.2f} ms, "
-              f"beam (width 4) {times['beam'] * 1e3:.2f} ms, top-k (k=4) {times['topk'] * 1e3:.2f} ms; "
-              f"a greedy batch's dispatch returns after {t_dispatch * 1e3:.2f} of its {t_total * 1e3:.2f} ms",
-              flush=True)
-        p1 = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec, mode="topk", topk=4,
-                        seed=0)._decode_batch(raw8)
-        p2 = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec, mode="topk", topk=4,
-                        seed=0)._decode_batch(raw8)
-        check(bool((p1 == p2).all()), "(9b) top-k picks differ under one seed")
-        sm = raw8["sent_mask"].cpu().numpy()
-        for b in range(8):
-            check(all(sm[b, p] == 1 for p in p1[b]) and len(set(p1[b].tolist())) == len(p1[b]),
-                  f"(9b) top-k row {b}: invalid picks {p1[b]}")
-        fe32 = frontend_init(cfg_k, VGG16_SPEC, dev, seed=1)
-        beam_k = Summarizer(s.model, fe32, s.word2idx, cfg_k, VGG16_SPEC, mode="beam", topk=4)
-        beam_p = Summarizer(s.model, fe32, s.word2idx, cfg_p, VGG16_SPEC, mode="beam", topk=4)
-        rows = [s._raw_row(v)[0] for v in (tiers["full"] * 8)[:8]]
-        raw32 = beam_k._stack_rows(rows)
-        (lp_k, pk), (lp_p, pp) = beam_k._decode_batch(raw32, with_scores=True), beam_p._decode_batch(
-            raw32, with_scores=True)
-        one = Summarizer(s.model, fe32, s.word2idx, cfg_k, VGG16_SPEC, mode="beam", topk=1)._decode_batch(raw32)
-        greedy = Summarizer(s.model, fe32, s.word2idx, cfg_k, VGG16_SPEC)._decode_batch(raw32)
-        print(f"(9b) f32 beam width 4: kernel picks equal plain: {bool((pk == pp).all())} (score "
-              f"max diff {float(np.abs(lp_k - lp_p).max()):.3e}); width 1 equals greedy: "
-              f"{bool((one == greedy).all())}; top-k reproducible under one seed and valid", flush=True)
-        check(bool((pk == pp).all()), "(9b) f32 beam: kernel and plain picks differ")
-        check(bool((one == greedy).all()), "(9b) f32 beam of width 1 differs from greedy")
-        del beam_k, beam_p, fe32
-        t0 = time.perf_counter()
-        long_out = [s.summarize_long(v) for v in long_dirs]
-        dt = time.perf_counter() - t0
-        check(all(isinstance(x, str) and x for x in long_out), "(9b) summarize_long: empty summary")
-        print(f"(9b) summarize_long with ladders: 2 videos of {LONG_SENTENCES} sentences in {dt:.2f} s; "
-              f"first: {long_out[0][:80]!r}", flush=True)
-
-        # (9c) the daemon under load
-        expected = {vd: plain_s.summarize(vd) for vds in tiers.values() for vd in vds}
-        rows = load_test.run_sweep(lambda buckets: s if buckets else plain_s, tiers, clients=8,
-                                   requests=LOAD_REQUESTS, dynamic_batch=8, batch_wait_ms=5.0)
-        for r in rows:
-            lm = r["latency_ms"]
-            print(f"(9c) {r['config']}: {r['ok']}/{r['requests']} answered, p50 {lm['p50']:.2f} ms, "
-                  f"p95 {lm['p95']:.2f} ms, p99 {lm['p99']:.2f} ms, sustained {r['sustained_vps']:.2f} "
-                  f"videos/s; batcher {r.get('batcher')} on {card}", flush=True)
-            check(r["ok"] == LOAD_REQUESTS and r["errors"] == 0, f"(9c) {r['config']}: failed requests")
-            wrong = [vd for vd, a in r["answers"].items() if a != [expected[vd]]]
-            check(not wrong, f"(9c) {r['config']}: answers differ from Summarizer.summarize: {wrong}")
-        by = {r["config"]: r for r in rows}
-        print(f"(9c) the pipelined fetch (batch) against the synchronous one (batch_sync): "
-              f"{by['batch']['sustained_vps']:.2f} against {by['batch_sync']['sustained_vps']:.2f} "
-              f"videos/s, p50 {by['batch']['latency_ms']['p50']:.2f} against "
-              f"{by['batch_sync']['latency_ms']['p50']:.2f} ms: batch "
-              f"{'beat' if by['batch']['sustained_vps'] > by['batch_sync']['sustained_vps'] else 'did not beat'}"
-              f" batch_sync", flush=True)
-
-        # the batcher alone, its queue filled with decoded rows: does the
-        # pipelined fetch overlap the next batch's collate, upload and dispatch?
-        rows = [plain_s._raw_row(v) for v in tiers["full"]]
-        vps = {}
-        for depth in (1, 0, 0, 1):
-            vps.setdefault(depth, []).append(batcher_videos_per_s(plain_s, rows, depth))
-        print(f"(9c) the batcher alone on decoded rows at the caps, {BATCHER_BATCHES} batches of 8: "
-              f"pipeline_depth 1 {vps[1][0]:.2f}, {vps[1][1]:.2f} videos/s; depth 0 {vps[0][0]:.2f}, "
-              f"{vps[0][1]:.2f} videos/s on {card}", flush=True)
-
-        # (9d) infer on the mixed corpus
-        cfg_path = os.path.join(tmp, "bench.json")
-        with open(cfg_path, "w") as f:
-            json.dump(dataclasses.asdict(cfg), f)
-        for extra in ((), ("--mode", "beam")):
-            buf = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                infer.main(["--device", str(dev), "--config_json", cfg_path, "--data_dir", os.path.join(tmp, "mixed"),
-                            "--batch_size", "8", "--bucket_eval", "--prefetch", "2", *extra])
-            line = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{'ROUGE-1'")][-1]
-            scores = ast.literal_eval(line.partition(" (")[0])
-            print(f"(9d) infer --bucket_eval --prefetch 2 {' '.join(extra)}: {line} in "
-                  f"{time.perf_counter() - t0:.2f} s", flush=True)
-            check(all(math.isfinite(v) for v in scores.values()) and f"({3 * PER_TIER} videos scored)" in line,
-                  f"(9d) infer printed {line}")
+        check(all(math.isfinite(v) for v in scores.values()) and f"({3 * PER_TIER} videos scored)" in line,
+              f"(9d) infer printed {line}")
 
     launches = {fn.__name__: fn.launches for fn in counters}
     routes = {fn.__name__: dict(fn.routes) for fn in counters}
@@ -2262,6 +2289,274 @@ def phase_serving(dev, card: str, records: list[dict]) -> None:
     for rec, fn in zip(records, counters):
         check(fn.launches > 0, f"(9) {fn.__name__} was never launched on the serving stack")
         rec["launches"] += fn.launches
+    return tiers
+
+
+def decode_rates(blobs: list[bytes]) -> dict:
+    """Frames/s decoding ``blobs`` through PIL one by one, through the
+    native pool at 1 and 4 threads (PIL's per image where the build lacks
+    the codec), and, for the record, PIL in 4 Python threads (Pillow's
+    decoders release the GIL; the port does not decode so): the median of
+    DECODE_REPS runs each."""
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from mmbidaf_tpu_torch import native
+
+    def pil(b):
+        return np.asarray(Image.open(io.BytesIO(b)).convert("RGB"))
+
+    pool = ThreadPoolExecutor(4)
+    paths = {"PIL": lambda: [pil(b) for b in blobs],
+             "native x1": lambda: native.image_decode_batch(blobs, num_threads=1),
+             "native x4": lambda: native.image_decode_batch(blobs, num_threads=4),
+             "PIL in 4 threads (record only)": lambda: list(pool.map(pil, blobs))}
+    rates = {}
+    for name, fn in paths.items():
+        times = []
+        for _ in range(DECODE_REPS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        rates[name] = len(blobs) / statistics.median(times)
+    pool.shutdown()
+    return rates
+
+
+def host_batch_load(corpus, tag: str, reps: int = 3) -> float:
+    """The host's load of one B_TRAIN-example batch of ``corpus`` (collate
+    included) once its gold labels are kept: the median seconds over
+    ``reps`` loads, then cProfile's functions by own time over one more."""
+    import cProfile
+    import pstats
+
+    from mmbidaf_tpu_torch.data.pipeline import collate
+
+    def load():
+        return collate([corpus[i] for i in range(B_TRAIN)])
+
+    load()  # the gold labels computed and kept
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        load()
+        times.append(time.perf_counter() - t0)
+    prof = cProfile.Profile()
+    prof.runcall(load)
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:6]
+    print(f"{tag} host load of a B={B_TRAIN} batch (labels kept): median "
+          f"{statistics.median(times) * 1e3:.2f} ms over {reps}; by own time under cProfile: " +
+          "; ".join(f"{os.path.basename(f)}:{ln}({fn}) {tt * 1e3:.1f} ms x{nc}"
+                    for (f, ln, fn), (_, nc, tt, _, _) in top), flush=True)
+    return statistics.median(times)
+
+
+def oracle_inputs(batch: dict) -> dict:
+    """A feature batch as the torch oracle's forward takes it (on the CPU)."""
+    import torch
+
+    kw = {k: torch.from_numpy(batch[k]) for k in ("word_mask", "sent_mask", "images", "img_mask",
+                                                  "audio", "aud_mask")}
+    kw["text_ids"] = torch.from_numpy(batch["text_ids"]).long()
+    return kw
+
+
+def phase_host(dev, card: str, records: list[dict], train_records: list[dict], corpus_tmp: str,
+               raw_step_s: float, tiers: dict, decoded: dict) -> None:
+    """Phase 10: the host side users bring data and weights through: the
+    native decode runtime, a reference checkpoint converted and served,
+    features precomputed over phase 8's corpus and trained on, the Stockham
+    FFT, and the trainer's tensorboard file."""
+    import glob
+    import io
+    import shutil
+
+    import torch
+    from PIL import Image
+
+    from mmbidaf_tpu_torch import native
+    from mmbidaf_tpu_torch.data.frontend import frontend_init
+    from mmbidaf_tpu_torch.data.pipeline import VideoCorpus
+    from mmbidaf_tpu_torch.data.synthetic import random_word_vectors, synthetic_batch
+    from mmbidaf_tpu_torch.data.vocab import save_vocab, vocab_from_corpus_dir
+    from mmbidaf_tpu_torch.models.mmbidaf import mmbidaf_decode
+    from mmbidaf_tpu_torch.ops import audio as audio_ops
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+    from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
+    from mmbidaf_tpu_torch.serving import Summarizer
+    from mmbidaf_tpu_torch.tools import convert_torch_checkpoint
+    from mmbidaf_tpu_torch.tools.mfcc_variants import f64_mfcc
+    from mmbidaf_tpu_torch.tools.precompute_features import precompute
+    from mmbidaf_tpu_torch.train import cli
+    from mmbidaf_tpu_torch.train.metrics import read_tensorboard_scalars
+
+    # (10a) native decode: the build, phase 9's decodes, pixels and rates
+    codecs = native.native_codecs()
+    gxx = shutil.which("g++")
+    print(f"(10a) native decode runtime: codecs {codecs}; g++ {gxx}; {os.cpu_count()} host CPUs",
+          flush=True)
+    check(gxx is None or native.native_available(), "(10a) the native library did not build, "
+          "though g++ is present")
+    print(f"(10a) phase 9's host decodes: {decoded['native']} images natively, {decoded['pil']} "
+          f"through PIL", flush=True)
+    if "png" in codecs:
+        check(decoded["native"] > 0 and decoded["pil"] == 0,
+              f"(10a) phase 9's PNG frames did not all decode natively: {decoded}")
+    else:
+        print("(10a) this host's build lacks the PNG codec: phase 9 decoded its PNGs through PIL",
+              flush=True)
+    pngs = sorted(p for vd in tiers["full"] for p in glob.glob(os.path.join(vd, "frames", "*.png")))
+    blobs = []
+    for p in pngs:
+        with open(p, "rb") as f:
+            blobs.append(f.read())
+    ours = native.image_decode_batch(blobs, num_threads=4)
+    same = all(np.array_equal(a, np.asarray(Image.open(io.BytesIO(b)).convert("RGB")))
+               for a, b in zip(ours, blobs))
+    check(same, "(10a) native and PIL pixels differ on phase 9's PNG frames")
+    rates = decode_rates(blobs)
+    print(f"(10a) {len(blobs)} PNG frames of {FRAME_HW[0]}x{FRAME_HW[1]} (phase 9's full tier), "
+          f"pixels equal to PIL's: {same}; frames/s " +
+          ", ".join(f"{k} {v:.1f}" for k, v in rates.items()) + f" on {card}'s host", flush=True)
+
+    # (10b) the reference's own checkpoint: the oracle at the bench widths,
+    # saved as the starter saves it, converted, served by from_run in f32
+    spec = importlib.util.spec_from_file_location(
+        "torch_model", os.path.join(ROOT, "tests", "oracles", "torch_model.py"))
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+    cfg_k, _ = f32_configs(bench_config())
+    d, m = cfg_k.data, cfg_k.model
+    wv = random_word_vectors(np.random.default_rng(10), d.vocab_size, m.emb_dim)
+    torch.manual_seed(10)
+    tm = oracle.MMBiDAF(torch.from_numpy(wv), m.hidden_size, img_feat_dim=m.img_feat_dim,
+                        audio_feat_dim=m.audio_feat_dim, num_decode_steps=m.max_decode_steps,
+                        mask_selected=m.mask_selected, num_rnn_layers=m.num_rnn_layers).eval()
+    served = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"model_state": tm.state_dict(), "step": 0}, os.path.join(tmp, "best.pth.tar"))
+        with open(os.path.join(tmp, "cfg.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg_k), f)
+        save_vocab({f"w{i}": i for i in range(d.vocab_size)}, wv, os.path.join(tmp, "vocab.json"),
+                   os.path.join(tmp, "emb.npz"))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert_torch_checkpoint.main(["--torch_ckpt", os.path.join(tmp, "best.pth.tar"),
+                                           "--config_json", os.path.join(tmp, "cfg.json"),
+                                           "--out", os.path.join(tmp, "run"),
+                                           "--vocab", os.path.join(tmp, "vocab.json")])
+        t_convert = time.perf_counter() - t0
+        for fn in served:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        s = Summarizer.from_run(os.path.join(tmp, "run"), seed=0)
+        t_load = time.perf_counter() - t0
+    batch = synthetic_batch(np.random.default_rng(11), cfg_k, batch_size=8)
+    with torch.inference_mode():
+        lp, picks = mmbidaf_decode(s.model, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                                   cfg_k)
+    with torch.no_grad():
+        t_lp, t_picks = tm(**oracle_inputs(batch))
+    valid = np.broadcast_to(batch["sent_mask"][:, None, :] > 0, t_lp.shape)
+    dist = float(np.abs(lp.cpu().numpy()[valid] - t_lp.numpy()[valid]).max())
+    equal = bool((picks.cpu() == t_picks).all())
+    summaries = s.summarize_batch(tiers["full"])
+    launches = [fn.launches for fn in served]
+    print(f"(10b) the oracle at the bench widths ({sum(p.numel() for p in tm.parameters()) / 1e6:.2f}M "
+          f"parameters) as {{'model_state': ...}}: converted in {t_convert:.2f} s, from_run on the card "
+          f"in {t_load:.2f} s; f32, kernels on, B=8 feature batch: greedy picks equal to the oracle's "
+          f"forward: {equal}, max log-prob distance {dist:.3e}; {len(summaries)} raw videos summarized; "
+          f"K1/K2/K3 launches {launches} on {card}", flush=True)
+    check(equal, "(10b) the converted checkpoint's picks differ from the oracle's")
+    check(all(isinstance(x, str) and x for x in summaries), "(10b) empty summaries")
+    for rec, n in zip(records, launches):
+        check(n > 0, f"(10b) {rec['name']} was never launched serving the converted checkpoint")
+        rec["launches"] += n
+    del s, tm
+
+    # (10c) features precomputed over phase 8's corpus, then the trainer on them
+    cfg = train_config()
+    k3 = melspec_kernel.mfcc_fused
+    k3.launches = 0
+    fe = frontend_init(cfg, VGG16_SPEC, dev, seed=cfg.train.seed + 2)
+    t0 = time.perf_counter()
+    n = precompute(os.path.join(corpus_tmp, "corpus"), cfg, fe, VGG16_SPEC, batch=16,
+                   log=lambda _: None)
+    dt = time.perf_counter() - t0
+    del fe
+    print(f"(10c) precompute_features over phase 8's corpus (VGG-16 f32 at 224^2 + K3, batches of "
+          f"16): {n} videos in {dt:.2f} s ({n / dt:.2f} videos/s), K3 launches {k3.launches} on "
+          f"{card}", flush=True)
+    check(n == CORPUS_TRAIN + CORPUS_DEV and k3.launches > 0, f"(10c) {n} videos, K3 {k3.launches}")
+    records[2]["launches"] += k3.launches
+    counters = (lstm_kernel.bilstm_train_forward, lstm_kernel.bilstm_bptt,
+                bidaf_kernel.bidaf_dropout_forward, bidaf_kernel.bidaf_dropout_backward)
+    k3.launches = 0
+    with timed_train_steps(counters) as rec:
+        cli.main(corpus_cli_args(corpus_tmp, os.path.join(corpus_tmp, "train.json"), "features",
+                 "--num_steps", str(FEATURE_STEPS), "--eval_steps", str(FEATURE_STEPS)))
+    step_s = rec.seconds
+    check(len(step_s) == FEATURE_STEPS, f"(10c) {len(step_s)} train steps ran")
+    check(k3.launches == 0, "(10c) the frontend ran on the feature batches")
+    for name, c in rec.launches.items():
+        check(c > 0, f"(10c) {name} was never launched inside the feature-batch train step")
+    for r in train_records:
+        r["launches"] += rec.launches[r["name"]]
+    t_step, t_loop = statistics.median(step_s[1:]), loop_step_s(rec)
+    logs = run_log(os.path.join(corpus_tmp, "features"))
+    check(all(math.isfinite(r.get("loss", 0.0)) for r in logs), f"(10c) losses {logs}")
+    print(f"(10c) train.cli --data_dir on features.npz, B={B_TRAIN} f32 drop 0.2: median step "
+          f"{t_step * 1e3:.2f} ms over {len(step_s) - 1} ({B_TRAIN / t_step:.2f} videos/s), the loop's "
+          f"{t_loop * 1e3:.2f} ms (host load of the batch included), against phase 8's raw-corpus "
+          f"step {raw_step_s * 1e3:.2f} ms; launches inside the steps {rec.launches} on {card}",
+          flush=True)
+
+    # where the loop's host time goes: a raw batch and a feature batch
+    train_dir = os.path.join(corpus_tmp, "corpus", "train")
+    w2i = vocab_from_corpus_dir(train_dir, max_size=cfg.data.vocab_size)
+    for tag, precomputed in (("(10c) raw corpus:", False), ("(10c) features.npz:", True)):
+        host_batch_load(VideoCorpus(train_dir, cfg, w2i, use_precomputed=precomputed,
+                                    require_summary=True), tag)
+
+    # (10e) the trainer's tensorboard file holds log.jsonl's scalars, CRCs valid
+    tb_dir = os.path.join(corpus_tmp, "features", "tb")
+    (tb_file,) = os.listdir(tb_dir)
+    version, triples = read_tensorboard_scalars(os.path.join(tb_dir, tb_file))
+    want = [(k, r["step"], float(np.float32(v))) for r in logs for k, v in r.items()
+            if k not in ("step", "time")]
+    print(f"(10e) {tb_file}: {version}, {len(triples)} scalars over steps "
+          f"{sorted({st for _, st, _ in triples})}, CRCs valid, equal to log.jsonl's: "
+          f"{triples == want}", flush=True)
+    check(triples == want and version == "brain.Event:2", "(10e) the tensorboard file differs")
+
+    # (10d) the Stockham FFT at the bench audio config, against an f64 MFCC
+    d = bench_config().data
+    cfg_s = dataclasses.replace(bench_config(), data=dataclasses.replace(d, audio_fft="stockham"))
+    consts = audio_ops.make_audio_frontend_consts(d.sample_rate, d.n_fft, d.win_length, d.n_mels,
+                                                  d.n_mfcc, d.fmin, d.fmax, device=dev)
+    T = d.max_audio_frames
+    sig = torch.from_numpy((np.random.default_rng(12).standard_normal(
+        (B, (T - 1) * d.hop_length + d.win_length)) * 0.1).astype(np.float32)).to(dev)
+    ref = f64_mfcc(audio_ops.frame_signal(sig, d.win_length, d.hop_length, T), consts)
+    paths = {"stockham": dict(fused=cfg_s.model.use_pallas_melspec, fft=cfg_s.data.audio_fft),
+             "matmul (plain)": dict(fused=False, fft="matmul"),
+             "matmul (K3)": dict(fused=True, fft="matmul")}
+    out = {}
+    for name, kw in paths.items():
+        fn = lambda: audio_ops.waveform_to_features(sig, consts, d.win_length, d.hop_length, T, **kw)  # noqa: E731
+        k3.launches = 0
+        x = fn()
+        launched = k3.launches
+        out[name] = (float(np.abs(x.double().cpu().numpy() - ref).max()), time_ms(fn, 10), launched)
+    print(f"(10d) MFCC of B={B} x {T} frames (n_fft {d.n_fft}), max distance from an f64 MFCC and "
+          f"time: " + "; ".join(f"{k} {v[0]:.3e}, {v[1]:.4f} ms" for k, v in out.items())
+          + f" on {card}", flush=True)
+    check(out["stockham"][2] == 0, "(10d) a kernel ran on the Stockham path")
+    check(out["stockham"][0] <= melspec_kernel.TOLERANCE["atol"],
+          f"(10d) Stockham MFCC {out['stockham'][0]:.3e} from the f64 MFCC")
 
 
 def main() -> None:
@@ -2375,11 +2670,21 @@ def main() -> None:
     vgg_records = phase_vgg_kernels(dev, tool_launches)
     phase_winograd(dev, card, vgg_records[-1])
 
-    # 8. the trainer on a real corpus, then the trained run served
-    phase_corpus(dev, card)
+    with tempfile.TemporaryDirectory() as corpus_root, tempfile.TemporaryDirectory() as serving_root:
+        # 8. the trainer on a real corpus, then the trained run served
+        raw_step_s = phase_corpus(dev, card, corpus_root)
 
-    # 9. the serving stack: bucket ladders, warmup, decode modes, the daemon, infer
-    phase_serving(dev, card, records)
+        # 9. the serving stack: bucket ladders, warmup, decode modes, the
+        # daemon, infer; the host's image decodes counted over it
+        from mmbidaf_tpu_torch import native
+
+        native.decode_counts.update(native=0, pil=0)
+        tiers = phase_serving(dev, card, records, serving_root)
+        decoded = dict(native.decode_counts)
+
+        # 10. the host side: native decode, a reference checkpoint, precomputed
+        # features, the Stockham FFT, the tensorboard file
+        phase_host(dev, card, records, train_records, corpus_root, raw_step_s, tiers, decoded)
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "mmbidaf_tpu")
                     or m.startswith(("jax.", "jaxlib", "mmbidaf_tpu.")))

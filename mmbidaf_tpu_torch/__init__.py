@@ -16,9 +16,11 @@ Layout mirrors the JAX package: ``ops/`` (plain functions on tensors),
 ``models/`` (``nn.Module`` parameter containers whose names follow the JAX
 pytree paths), ``data/``, ``train/``, ``serving.py`` and
 ``interop/from_jax.py``. The port keeps its own copies of the JAX package's
-host-side modules (config, data decoding, corpus and batching, labels,
-text, vocab, synthetic data, benchmarks and subtitles, metrics and ROUGE):
-it imports neither ``jax`` nor any module of ``mmbidaf_tpu``.
+host-side modules (config, data decoding with the C++ decode runtime of
+``native/``, corpus and batching, labels, text, vocab, synthetic data,
+benchmarks and subtitles, metrics and ROUGE, the reference-checkpoint
+bridge ``interop/torch_port.py``, the corpus tools): it imports neither
+``jax`` nor any module of ``mmbidaf_tpu``.
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU, and raise where there is no card.
 """

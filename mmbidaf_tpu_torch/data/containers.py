@@ -1,6 +1,6 @@
 """Vendored video-container codecs: YUV4MPEG2 (.y4m), MJPEG-AVI (.avi) and
 MJPEG-in-MP4 (.mp4/.mov, ISO BMFF) — the port's copy of
-``mmbidaf_tpu.data.containers``, with JPEG frames decoded by PIL.
+``mmbidaf_tpu.data.containers``.
 
 The reference's I/O contract starts at "raw video (mp4 + transcript)"
 (SURVEY.md §1); its decode stage shells out to ffmpeg/OpenCV. This image
@@ -13,8 +13,9 @@ can run:
   a text header + raw planar YUV frames. Decoder handles C420*/C422/C444/
   Cmono with BT.601 limited-range YUV→RGB.
 - **MJPEG-AVI** — RIFF/AVI with JPEG-compressed video chunks ('00dc') and
-  optional PCM audio ('NNwb'). JPEG blobs decode through PIL; PCM parses
-  from the stream's WAVEFORMATEX.
+  optional PCM audio ('NNwb'). JPEG blobs decode through the native
+  thread pool (`mmbidaf_tpu_torch.native.image_decode_batch`, PIL
+  fallback); PCM parses from the stream's WAVEFORMATEX.
 - **MJPEG-in-MP4** — the contract's literally-named container (SURVEY.md
   §1 "raw video (mp4 + transcript)"): a full ISO 14496-12 box-tree walk
   (moov/trak/stbl sample tables) decoding 'jpeg' video samples and
@@ -263,13 +264,10 @@ def decode_avi(
 
 
 def _decode_jpegs(blobs: Sequence[bytes]) -> list[np.ndarray]:
-    """JPEG blobs → RGB arrays via PIL (the JAX package's copy tries its
-    native thread pool first)."""
-    import io
+    """JPEG blobs → RGB arrays via the native thread pool, PIL fallback."""
+    from mmbidaf_tpu_torch.native import image_decode_batch
 
-    from PIL import Image
-
-    return [np.asarray(Image.open(io.BytesIO(b)).convert("RGB")) for b in blobs]
+    return image_decode_batch(list(blobs))
 
 
 def write_mjpeg_avi(

@@ -5,9 +5,10 @@ mel) runs inside jit (data/frontend.py).
 
 The reference shells out to ffmpeg/OpenCV per video. This image has neither;
 decode is a plug-in surface with built-in decoders for what the environment
-supports (image files via PIL, WAV via stdlib ``wave``, ``.npy``/``.npz``
-pre-extracted arrays), plus an optional ffmpeg path that activates when an
-``ffmpeg`` binary exists. Keyframe *sampling* policy (every-N) lives here.
+supports (PNG/JPEG through the native runtime, other image files via PIL,
+WAV via stdlib ``wave``, ``.npy``/``.npz`` pre-extracted arrays), plus an
+optional ffmpeg path that activates when an ``ffmpeg`` binary exists.
+Keyframe *sampling* policy (every-N) lives here.
 """
 
 from __future__ import annotations
@@ -71,19 +72,23 @@ IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".ppm", ".bmp")
 def load_image_dir(path: str) -> np.ndarray:
     """Directory of image files (sorted) → ``[T, H, W, 3] uint8``.
 
-    Every format decodes through PIL (the JAX package sends PNG/JPEG
-    directories through its C++ thread pool; PNG decodes to the same pixels
-    either way).
+    PNG/JPEG directories decode through the C++ thread pool
+    (`native.image_decode_batch`, off the GIL); anything else via PIL.
     """
     names = sorted(
         f for f in os.listdir(path) if f.lower().endswith(IMAGE_EXTS)
     )
     if not names:
         raise FileNotFoundError(f"no images in {path}")
-    from PIL import Image
+    from mmbidaf_tpu_torch.native import loader
 
-    frames = [np.asarray(Image.open(os.path.join(path, n)).convert("RGB")) for n in names]
-    return np.stack(frames).astype(np.uint8)
+    blobs = []
+    for n in names:
+        with open(os.path.join(path, n), "rb") as f:
+            blobs.append(f.read())
+    if all(n.lower().endswith((".png", ".jpg", ".jpeg")) for n in names):
+        return np.stack(loader.image_decode_batch(blobs)).astype(np.uint8)
+    return np.stack([loader.pil_decode(b) for b in blobs]).astype(np.uint8)
 
 
 def load_wav(path: str) -> tuple[np.ndarray, int]:

@@ -226,11 +226,11 @@ def main(argv=None) -> None:
     if a.load_dir:
         from mmbidaf_tpu_torch.train.checkpoint import CheckpointManager
 
-        restored = CheckpointManager(a.load_dir).restore_latest(state)
-        if restored is None:
+        # the weights alone: a run saved on another device loads here too
+        step = CheckpointManager(a.load_dir).warm_start(state)
+        if step is None:
             raise SystemExit(f"no checkpoint found in {a.load_dir}")
-        state = restored
-        print(f"loaded step {state.step}")
+        print(f"loaded step {step}")
     params = state.ema_params
 
     if a.long:

@@ -1,5 +1,5 @@
-"""Audio frontend: framing → windowed matmul-DFT → mel → dB → DCT (MFCC),
-the port of ``mmbidaf_tpu.ops.audio``.
+"""Audio frontend: framing → windowed matmul-DFT (or the Stockham FFT) → mel
+→ dB → DCT (MFCC), the port of ``mmbidaf_tpu.ops.audio``.
 
 The numpy constant functions are the JAX module's, line for line (they are
 numpy there too), so the port's constants are bitwise equal to the
@@ -15,6 +15,8 @@ DCT tail here; ``audio_features="logmel"`` takes K4's log mode.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -130,15 +132,78 @@ def frame_signal(signal: torch.Tensor, win_length: int, hop_length: int,
     return signal.unfold(1, win_length, hop_length)[:, :num_frames]
 
 
-def power_spectrum(frames: torch.Tensor, consts: dict) -> torch.Tensor:
-    """Windowed rfft-as-matmul power spectrum ``[B, T, win] → [B, T, bins]``."""
+def power_spectrum(frames: torch.Tensor, consts: dict, fft: str = "matmul") -> torch.Tensor:
+    """Windowed rfft-as-matmul power spectrum ``[B, T, win] → [B, T, bins]``.
+
+    ``fft="stockham"`` computes the same quantity with the radix-2 Stockham
+    FFT (``DataConfig.audio_fft``), the JAX package's accuracy-first path:
+    O(N log N) elementwise passes in f32 in place of the two products."""
+    if fft == "stockham":
+        return stockham_power_spectrum(frames, consts)
+    if fft != "matmul":
+        raise ValueError(f"unknown fft {fft!r} (matmul | stockham)")
     re = mm(frames, consts["cos"])
     im = mm(frames, consts["sin"])
     return re * re + im * im
 
 
-def melspectrogram(frames: torch.Tensor, consts: dict) -> torch.Tensor:
-    return mm(power_spectrum(frames, consts), consts["mel_fb"])
+def stockham_stages(n_fft: int) -> list:
+    """Per-stage twiddle constants (n, m, wr, wi) for the autosort radix-2
+    Stockham FFT — no bit reversal: every stage is a reshape + butterfly +
+    twiddle multiply (numpy, as in the JAX package)."""
+    stages = []
+    n = n_fft
+    while n > 1:
+        m = n // 2
+        ang = -2.0 * np.pi * np.arange(m) / n
+        stages.append((n, m,
+                       np.cos(ang).astype(np.float32)[:, None],
+                       np.sin(ang).astype(np.float32)[:, None]))
+        n = m
+    return stages
+
+
+@functools.lru_cache(maxsize=8)
+def _stockham_consts(n_fft: int, win: int, device: torch.device):
+    """The zero-padded window and each stage's twiddles as tensors on ``device``."""
+    window = np.zeros(n_fft, np.float32)
+    window[:win] = hann_window(win)
+    stages = [(n, m, torch.from_numpy(wr).to(device), torch.from_numpy(wi).to(device))
+              for n, m, wr, wi in stockham_stages(n_fft)]
+    return torch.from_numpy(window).to(device), stages
+
+
+def stockham_power_spectrum(frames: torch.Tensor, consts: dict) -> torch.Tensor:
+    """Windowed power spectrum via the Stockham FFT: ``[..., win] →
+    [..., n_fft//2+1]``. The Hann window and the win → n_fft zero pad fold
+    into the first touch, mirroring the folded-window matmul-DFT consts."""
+    n_bins = consts["cos"].shape[1]
+    n_fft = 2 * (n_bins - 1)
+    if n_fft & (n_fft - 1):
+        raise ValueError(f"stockham needs a power-of-two n_fft, got {n_fft}")
+    win = frames.shape[-1]
+    window, stages = _stockham_consts(n_fft, win, frames.device)
+    lead = frames.shape[:-1]
+    N = int(np.prod(lead))
+    re = torch.nn.functional.pad(frames.reshape(N, win), (0, n_fft - win)) * window
+    im = torch.zeros_like(re)
+    s = 1
+    for n, m, wr, wi in stages:
+        ar = re.reshape(N, n, s)[:, :m]
+        ai = im.reshape(N, n, s)[:, :m]
+        br = re.reshape(N, n, s)[:, m:]
+        bi = im.reshape(N, n, s)[:, m:]
+        # butterfly: top = a + b ; bottom = (a - b) * w
+        dr, di = ar - br, ai - bi
+        re = torch.stack([ar + br, dr * wr - di * wi], dim=2).reshape(N, n_fft)
+        im = torch.stack([ai + bi, dr * wi + di * wr], dim=2).reshape(N, n_fft)
+        s *= 2
+    out = re[:, :n_bins] ** 2 + im[:, :n_bins] ** 2
+    return out.reshape(*lead, n_bins)
+
+
+def melspectrogram(frames: torch.Tensor, consts: dict, fft: str = "matmul") -> torch.Tensor:
+    return mm(power_spectrum(frames, consts, fft=fft), consts["mel_fb"])
 
 
 def log_power(s: torch.Tensor) -> torch.Tensor:
@@ -153,14 +218,15 @@ def power_to_db(s: torch.Tensor, top_db: float = 80.0) -> torch.Tensor:
     return torch.clamp_min(log_spec - ref, -top_db)
 
 
-def log_mel(frames: torch.Tensor, consts: dict, eps: float = 1e-6) -> torch.Tensor:
+def log_mel(frames: torch.Tensor, consts: dict, eps: float = 1e-6,
+            fft: str = "matmul") -> torch.Tensor:
     """Natural-log mel (the common NN frontend variant)."""
-    return torch.log(melspectrogram(frames, consts) + eps)
+    return torch.log(melspectrogram(frames, consts, fft=fft) + eps)
 
 
-def mfcc(frames: torch.Tensor, consts: dict) -> torch.Tensor:
+def mfcc(frames: torch.Tensor, consts: dict, fft: str = "matmul") -> torch.Tensor:
     """MFCC: DCT-II(ortho) over power-dB mel (per-example max reference)."""
-    return mm(power_to_db(melspectrogram(frames, consts)), consts["dct"])
+    return mm(power_to_db(melspectrogram(frames, consts, fft=fft)), consts["dct"])
 
 
 def waveform_to_features(
@@ -175,15 +241,15 @@ def waveform_to_features(
 ) -> torch.Tensor:
     """``[B, N] → [B, T, n_feat]``. ``fused=True`` takes the hand-written
     kernels with the JAX package's dispatch: ``logmel`` → K4 (log); MFCC →
-    K3 while ``mfcc_fused_fits`` holds, else K4's raw mel, then dB and DCT."""
-    if fft == "stockham":
-        raise NotImplementedError("the Stockham FFT path is not ported yet (audio_fft='stockham')")
-    if fft != "matmul":
+    K3 while ``mfcc_fused_fits`` holds, else K4's raw mel, then dB and DCT.
+    ``fft="stockham"`` drops ``fused``, as the JAX package does: the
+    accuracy-first FFT runs on the plain chain, through no kernel."""
+    if fft not in ("matmul", "stockham"):
         raise ValueError(f"unknown fft {fft!r} (matmul | stockham)")
     if feature not in ("mfcc", "logmel"):
         raise ValueError(f"unknown feature {feature!r}")
     frames = frame_signal(signal, win_length, hop_length, num_frames)
-    if fused:
+    if fused and fft == "matmul":
         from mmbidaf_tpu_torch.ops.cuda.melspec_kernel import (
             log_mel_fused,
             mfcc_fused,
@@ -197,5 +263,5 @@ def waveform_to_features(
             return mfcc_fused(frames, consts)
         return mm(power_to_db(log_mel_fused(frames, consts, log=False)), consts["dct"])
     if feature == "mfcc":
-        return mfcc(frames, consts)
-    return log_mel(frames, consts)
+        return mfcc(frames, consts, fft=fft)
+    return log_mel(frames, consts, fft=fft)

@@ -395,13 +395,26 @@ class Summarizer:
 
         word2idx, table = load_vocab(vocab_path, emb_path)
         model = mmbidaf_init(cfg, table, device, seed=seed)
-        restored = CheckpointManager(ckpt_dir).restore_latest(
-            init_train_state(model, cfg, seed=seed + 1))
-        if restored is None:
+        # the weights alone: a run saved on another device serves here too
+        restored = init_train_state(model, cfg, seed=seed + 1)
+        if CheckpointManager(ckpt_dir).warm_start(restored) is None:
             raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
         fe = frontend_init(cfg, vgg_spec, device, seed=seed + 2)
         served = restored.ema_params if use_ema else restored.params
         return cls(served, fe, word2idx, cfg, vgg_spec, **kw)
+
+    @classmethod
+    def from_torch_state_dict(cls, sd: Mapping, word2idx: dict[str, int], cfg: Config,
+                              vgg_spec=VGG16_SPEC, seed: int = 0, device="cuda", **kw):
+        """Serve the reference's own weights (SURVEY §4.5): its torch
+        ``state_dict`` (tensors or numpy arrays) mapped straight into the
+        port's model (``interop/torch_port.py``). The frozen frontend is
+        seeded from ``seed + 2``, as ``from_checkpoint`` seeds it."""
+        from mmbidaf_tpu_torch.interop.torch_port import model_from_state_dict
+
+        model = model_from_state_dict(sd, cfg, device)
+        fe = frontend_init(cfg, vgg_spec, device, seed=seed + 2)
+        return cls(model, fe, word2idx, cfg, vgg_spec, **kw)
 
     @classmethod
     def from_run(cls, run_dir: str, mesh_overrides: dict | None = None, **kw):

@@ -117,7 +117,9 @@ class CheckpointManager:
         ``template`` (its modules, in place), keeping its step, optimizer
         state and dropout generator: another run's weights under a fresh
         schedule. Returns the source step, or None if there is no
-        checkpoint."""
+        checkpoint. Serving loads a run this way too: the dropout
+        generator's state is the saving device's (a CUDA generator's cannot
+        enter a CPU one), and serving needs only the weights."""
         step = self.latest_step()
         return None if step is None else int(self._load_weights(step, template)["step"])
 

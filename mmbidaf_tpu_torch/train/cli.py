@@ -23,7 +23,8 @@ VGG variant, so ``serving.Summarizer.from_run`` serves it.
 
 Writes ``<save_dir>/<name>/``: ``config.json``, ``log.jsonl`` (train loss,
 grad norm, lr, steps/s and the padding shares every 50 steps and at the last;
-eval loss and ROUGE at every ``eval_steps``), and ``ckpts/`` (ranked by
+eval loss and ROUGE at every ``eval_steps``), the same scalars as a
+tensorboard event file under ``tb/``, and ``ckpts/`` (ranked by
 ``--metric_name`` at each eval, plus unranked resume points). ``--num_steps``
 counts the run's total steps. A rerun with the same ``--save_dir`` and
 ``--name`` resumes from the newest checkpoint, the data stream fast-forwarded
@@ -33,7 +34,7 @@ where grain loads). ``--load_path`` warm-starts a new run from another run's
 
 Not ported yet: the mesh flags (``--num_seq``, ``--sp_audio``,
 ``--num_model``, ``--tp_vgg``, and the same fields of a ``--config_json``
-raise ``NotImplementedError``) and ``train.py``'s tensorboard writer.
+raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -281,7 +282,7 @@ def _train(a, cfg: Config, dev: torch.device) -> None:
     from mmbidaf_tpu_torch.train import checkpoint as ckpt
     from mmbidaf_tpu_torch.train.loop import (init_train_state, make_eval_step,
                                               make_lr_schedule, make_train_step)
-    from mmbidaf_tpu_torch.train.metrics import AverageMeter, JsonlLogger
+    from mmbidaf_tpu_torch.train.metrics import AverageMeter, JsonlLogger, TensorboardWriter
 
     run_dir = os.path.join(cfg.train.save_dir, cfg.train.name)
     os.makedirs(run_dir, exist_ok=True)
@@ -388,6 +389,7 @@ def _train(a, cfg: Config, dev: torch.device) -> None:
         pad_meters["word"].update(1.0 - float((wm * sm).sum()) / max(float(sm.sum()) * wm.shape[2], 1.0))
 
     logger = JsonlLogger(os.path.join(run_dir, "log.jsonl"))
+    tb = TensorboardWriter(os.path.join(run_dir, "tb"))
     preempted = []  # SIGTERM / SIGINT: the loop saves and returns at the next step
 
     def request_stop(signum, frame):
@@ -416,6 +418,7 @@ def _train(a, cfg: Config, dev: torch.device) -> None:
                            **{f"pad_frac_{k}": m.avg for k, m in pad_meters.items()
                               if k != "sent" and m.count}}
                 logger.log(step, scalars)
+                tb.log(step, scalars)
                 print(f"step {step}: loss {scalars['loss']:.4f} pad_frac {scalars['pad_frac']:.3f}")
                 loss_sum, n, t_window = 0.0, 0, now
                 for m in pad_meters.values():
@@ -423,6 +426,7 @@ def _train(a, cfg: Config, dev: torch.device) -> None:
             if step % cfg.train.eval_steps == 0:
                 scalars = evaluate(eval_step, state.ema_params, eval_batches, cfg)
                 logger.log(step, scalars)
+                tb.log(step, scalars)
                 print(f"step {step}: eval_loss {scalars['eval_loss']:.4f} "
                       f"ROUGE-L {scalars['ROUGE-L']:.3f}")
                 manager.save(state, {"loss": scalars["eval_loss"],
@@ -444,6 +448,7 @@ def _train(a, cfg: Config, dev: torch.device) -> None:
         if prefetcher is not None:
             prefetcher.close()
         logger.close()
+        tb.close()
     print("done")
 
 

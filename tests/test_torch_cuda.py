@@ -1343,3 +1343,94 @@ def test_host_fetch_and_pipelined_batcher_on_the_card(cuda_device, tmp_path):
         with DynamicBatcher(card, max_batch_size=2, max_wait_ms=50.0, pipeline_depth=depth) as b:
             with ThreadPoolExecutor(max_workers=3) as ex:
                 assert list(ex.map(b.submit, dirs)) == want
+
+
+def _oracle_tiny(cuda_device):
+    """The torch oracle at tiny widths (seeded) and the port's f32 config
+    with the kernel flags on; raw audio needs ``audio_feat_dim = n_mfcc``."""
+    import dataclasses
+    import importlib.util
+    from pathlib import Path
+
+    from mmbidaf_tpu_torch.config import tiny_test_config
+
+    # by path: a host may have another top-level ``tests`` package installed
+    spec = importlib.util.spec_from_file_location(
+        "torch_model", Path(__file__).resolve().parent / "oracles" / "torch_model.py")
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+    cfg = tiny_test_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, img_feat_dim=32, audio_feat_dim=cfg.data.n_mfcc, use_pallas_lstm=True,
+        use_pallas_attention=True, use_pallas_melspec=True))
+    m = cfg.model
+    rng = np.random.default_rng(11)
+    wv = rng.standard_normal((cfg.data.vocab_size, m.emb_dim)).astype(np.float32)
+    torch.manual_seed(11)
+    tm = oracle.MMBiDAF(torch.from_numpy(wv), m.hidden_size, img_feat_dim=m.img_feat_dim,
+                        audio_feat_dim=m.audio_feat_dim, num_decode_steps=m.max_decode_steps,
+                        mask_selected=m.mask_selected).eval()
+    return cfg, tm
+
+
+@pytest.mark.cuda
+def test_from_torch_state_dict_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """The reference's state dict served on the card (K1-K3) and on the CPU
+    (plain versions): the same summaries, and the card's launches rise."""
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+    from mmbidaf_tpu_torch.ops.vgg import TINY_SPEC
+    from mmbidaf_tpu_torch.serving import Summarizer
+
+    cfg, tm = _oracle_tiny(cuda_device)
+    w2i = {f"w{i}": i for i in range(cfg.data.vocab_size)}
+    dirs = _serving_videos(tmp_path, cfg)
+    counters = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused,
+                melspec_kernel.mfcc_fused)
+    got = {}
+    for dev in ("cpu", cuda_device):
+        s = Summarizer.from_torch_state_dict(tm.state_dict(), w2i, cfg, TINY_SPEC, seed=3,
+                                             device=dev)
+        before = [fn.launches for fn in counters]
+        got[str(dev)] = s.summarize_batch(dirs)
+        launched = [fn.launches - n for fn, n in zip(counters, before)]
+        assert all(launched) if dev != "cpu" else not any(launched)
+    assert got["cpu"] == got[str(cuda_device)]
+
+
+@pytest.mark.cuda
+def test_precompute_features_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """``precompute_features`` with one frontend on the card (K3) and on the
+    CPU, over copies of a corpus: equal files, masks equal, features within
+    ``test_bench_width_parity_with_jax``'s bounds (VGG 1e-4, MFCC 5e-4)."""
+    import copy
+    import importlib.util
+    import shutil
+    from pathlib import Path
+
+    from mmbidaf_tpu_torch.data.frontend import frontend_init
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel
+    from mmbidaf_tpu_torch.ops.vgg import TINY_SPEC
+    from mmbidaf_tpu_torch.tools.precompute_features import precompute
+
+    cfg, _ = _oracle_tiny(cuda_device)
+    repo = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "make_synthetic_corpus", repo / "examples" / "make_synthetic_corpus.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.make_corpus(str(tmp_path / "cpu"), videos=5, sentences=6, ragged=True, frames=4,
+                    seconds=0.3, seed=3, split=2)
+    shutil.copytree(tmp_path / "cpu", tmp_path / "card")
+    fe = frontend_init(cfg, TINY_SPEC, "cpu", seed=9)
+    assert precompute(str(tmp_path / "cpu"), cfg, fe, TINY_SPEC, batch=2, log=lambda s: None) == 5
+    before = melspec_kernel.mfcc_fused.launches
+    assert precompute(str(tmp_path / "card"), cfg, copy.deepcopy(fe).to(cuda_device), TINY_SPEC,
+                      batch=2, log=lambda s: None) == 5
+    assert melspec_kernel.mfcc_fused.launches == before + 3
+    for f in sorted((tmp_path / "cpu").rglob("features.npz")):
+        a = np.load(f)
+        b = np.load(tmp_path / "card" / f.relative_to(tmp_path / "cpu"))
+        for k in ("img_mask", "aud_mask"):
+            np.testing.assert_array_equal(a[k], b[k])
+        np.testing.assert_allclose(b["images"], a["images"], atol=1e-4)
+        np.testing.assert_allclose(b["audio"], a["audio"], atol=5e-4, rtol=1e-5)

@@ -211,10 +211,11 @@ def test_max_queue_sheds_load(serving_setup, monkeypatch):
     ServerOverloadedError, never its OSError); the queued requests complete
     once the dispatch frees up."""
     s, dirs, bad = serving_setup
-    release = threading.Event()
+    release, entered = threading.Event(), threading.Event()
     orig = s._decode_batch_device
 
     def slow_decode(raw, **kw):
+        entered.set()
         assert release.wait(timeout=60)
         return orig(raw, **kw)
 
@@ -222,9 +223,10 @@ def test_max_queue_sheds_load(serving_setup, monkeypatch):
     with DynamicBatcher(s, max_batch_size=1, max_wait_ms=1.0, max_queue=1) as b:
         with ThreadPoolExecutor(max_workers=2) as ex:
             f0 = ex.submit(b.submit, dirs[0])  # → the blocked batch
+            # the batcher holds f0's row (its host decode runs off the GIL,
+            # so f0 may reach the queue after f1 is submitted unless waited for)
+            assert entered.wait(timeout=30)
             deadline = time.time() + 30
-            while b._queue.qsize() > 0 and time.time() < deadline:
-                time.sleep(0.01)
             assert b._queue.qsize() == 0
             f1 = ex.submit(b.submit, dirs[1])  # fills the one-slot queue
             while b._queue.qsize() < 1 and time.time() < deadline:
