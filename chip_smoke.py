@@ -165,6 +165,36 @@ Phases, in order; any failure exits non-zero before the result line:
          the time of each, and no kernel launched on the Stockham path;
      (e) the (c) run's ``tb/`` event file parses with valid CRCs and holds
          ``log.jsonl``'s scalars.
+ 11. frozen serving artifacts (``mmbidaf_tpu_torch/export.py``), after the
+     custom ops' dispatch cost (K1 and K2 at small shapes, host µs a call
+     through ``torch.ops.mmbidaf`` against the CUDA implementation called
+     directly):
+     (a) the bench configuration at B=64, bf16, random weights from seed 0:
+         exported (its time, the artifact's and each file's size, no kernel
+         launched while tracing), then in a fresh process
+         (``--artifact-decode``) loaded and run on phase 4's seeded batch:
+         the first call cold, the median batch over 5 beside phase 4a's,
+         K1-K3 launched 5 / 2 / 1 a batch on their cluster / FFT routes, no
+         module of the model's code (nor jax) imported, picks equal to
+         ``make_end_to_end_decode``'s;
+     (b) an f32 copy at B=2, cuDNN's TF32 flag at its default: picks equal
+         to the live f32 path's, log-probs within 1e-5;
+     (c) beam (width 4) at B=8 against the live beam decode; a bucketed
+         greedy artifact at B=8 over phase 9's rung-level videos and its
+         full tier: ``ExportedSummarizer.summarize_batch`` answers equal the
+         live bucketed ``Summarizer``'s, each level used, each level's batch
+         timed beside the live program's in turns, and the first request
+         cold and after ``warmup()`` in fresh processes
+         (``--artifact-first-request``);
+     (d) the long-audio configuration and the Winograd one at B=2: K1, K2
+         with K9 and K4 launched (not K3), K14 12 times a VGG pass; picks
+         equal to the live program's;
+     (e) ``tools/export_artifact.py --random --vgg vgg16 --verify``,
+         ``infer --artifact`` on phase 9's tiers (finite ROUGE), and
+         ``tools/serve.py --artifact --dynamic_batch 8 --warmup 240x320`` in a
+         subprocess answering ``tools/load_test.py``'s requests, every answer
+         equal to ``ExportedSummarizer.summarize``'s, ``/healthz`` showing the
+         artifact.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The random weights come from seeds.
 """
@@ -175,11 +205,14 @@ import ast
 import contextlib
 import copy
 import dataclasses
+import http.client
 import importlib.util
 import json
 import math
 import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2098,7 +2131,7 @@ def phase_serving(dev, card: str, records: list[dict], tmp: str) -> dict:
     """Phase 9: the serving stack at the bench configuration: bucket ladders
     and warmup, the decode modes, the daemon under load, and ``infer``. The
     corpus goes under ``tmp``; returns its load-test tiers (phase 10 reuses
-    their PNG frames)."""
+    their PNG frames) and its rung-level videos (phase 11 reuses both)."""
     import io
 
     import torch
@@ -2289,7 +2322,7 @@ def phase_serving(dev, card: str, records: list[dict], tmp: str) -> dict:
     for rec, fn in zip(records, counters):
         check(fn.launches > 0, f"(9) {fn.__name__} was never launched on the serving stack")
         rec["launches"] += fn.launches
-    return tiers
+    return tiers, level_dirs
 
 
 def decode_rates(blobs: list[bytes]) -> dict:
@@ -2559,6 +2592,434 @@ def phase_host(dev, card: str, records: list[dict], train_records: list[dict], c
           f"(10d) Stockham MFCC {out['stockham'][0]:.3e} from the f64 MFCC")
 
 
+# -- phase 11: frozen serving artifacts ------------------------------------------
+
+
+ARTIFACT_CALLS = 6  # a fresh process's decodes of the bench artifact: one cold, then 5 timed
+
+
+def artifact_decode_main(art: str, raw_path: str, out_path: str) -> None:
+    """In a fresh process (``chip_smoke.py --artifact-decode ART RAW OUT``):
+    ``ExportedDecoder`` loads the artifact, decodes the raw batch once cold
+    and ARTIFACT_CALLS - 1 times more (median), and prints as JSON the
+    times, K1-K3's launches and routes in this process, the MFCC kernel's
+    cached FFT operands and any model-code module imported; the outputs go
+    to ``out_path``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from mmbidaf_tpu_torch.export import ExportedDecoder, _file_sha256
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+
+    dev = torch.device("cuda", 0)
+    rec = {}
+    # the load's parts, each once (their files read from disk the first
+    # time), then the whole load as ExportedDecoder does it
+    t0 = time.perf_counter()
+    for f in sorted(os.listdir(art)):
+        _file_sha256(os.path.join(art, f))
+    t1 = time.perf_counter()
+    torch.load(os.path.join(art, "weights.pt"), weights_only=True, map_location=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    torch.export.load(os.path.join(art, "decode.pt2")).module()
+    t3 = time.perf_counter()
+    rec["load_parts_s"] = {"sha256": t1 - t0, "weights": t2 - t1, "program": t3 - t2}
+    t0 = time.perf_counter()
+    dec = ExportedDecoder(art, device=dev)
+    rec["load_s"] = time.perf_counter() - t0
+    raw = {k: torch.from_numpy(v).to(dev) for k, v in np.load(raw_path).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    log_p, picks = dec.run(raw)
+    torch.cuda.synchronize()
+    rec["cold_s"] = time.perf_counter() - t0
+    rec["batch_s"] = timed_batches(lambda: dec.run(raw), ARTIFACT_CALLS - 1)
+    counters = {"K1": lstm_kernel.bilstm_cuda, "K2": bidaf_kernel.bidaf_attention_fused,
+                "K3": melspec_kernel.mfcc_fused}
+    rec["launches"] = {k: fn.launches for k, fn in counters.items()}
+    rec["routes"] = {k: dict(fn.routes) for k, fn in counters.items()}
+    rec["fft_operand_caches"] = len(melspec_kernel._WINDOWS)
+    rec["leaked"] = sorted(m for m in sys.modules if m in (
+        "jax", "mmbidaf_tpu", "mmbidaf_tpu_torch.models", "mmbidaf_tpu_torch.serving",
+        "mmbidaf_tpu_torch.data.frontend") or m.startswith(("jax.", "mmbidaf_tpu.",
+                                                            "mmbidaf_tpu_torch.models.")))
+    np.savez(out_path, log_p=log_p.float().cpu().numpy(), picks=picks.cpu().numpy())
+    print(json.dumps(rec), flush=True)
+
+
+def artifact_first_request_main(mode: str, art: str, video_dir: str) -> None:
+    """In a fresh process (``chip_smoke.py --artifact-first-request cold|warm
+    ART DIR``): ``ExportedSummarizer`` loads the artifact, decodes the video
+    once on the host, then answers two requests for it, after ``warmup()``
+    with ``warm``; prints the seconds of each step as JSON."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from mmbidaf_tpu_torch.export import ExportedSummarizer
+
+    rec = {}
+    t0 = time.perf_counter()
+    s = ExportedSummarizer(art, device=torch.device("cuda", 0))
+    rec["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s._raw_row(video_dir)
+    rec["host_first_s"] = time.perf_counter() - t0
+    if mode == "warm":
+        t0 = time.perf_counter()
+        s.warmup()
+        torch.cuda.synchronize()
+        rec["warmup_s"] = time.perf_counter() - t0
+    for key in ("first_s", "second_s"):
+        t0 = time.perf_counter()
+        s.summarize(video_dir)
+        rec[key] = time.perf_counter() - t0
+    print(json.dumps(rec), flush=True)
+
+
+def release_cached_memory() -> None:
+    """Hand the caching allocator's unused blocks back to the card, so a
+    process started next (a fresh artifact process, the daemon) finds the
+    memory that phases 1-10 left reserved in this one."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def artifact_child(*args: str) -> dict:
+    release_cached_memory()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), *args], capture_output=True,
+                       text=True, cwd=ROOT, timeout=600)
+    check(r.returncode == 0, f"(11) {args[0]} process failed: {r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def dir_sizes(path: str) -> dict:
+    return {f: os.path.getsize(os.path.join(path, f)) for f in sorted(os.listdir(path))}
+
+
+def dispatch_cost_us(dev) -> dict:
+    """Host microseconds a call of K1 and K2 at small shapes, through the
+    custom op (``torch.ops.mmbidaf.*``: the dispatcher, then the CUDA
+    implementation) and through that implementation called directly, in
+    turns (op, direct, direct, op), 400 calls a turn; the difference is
+    the custom op's dispatch cost. Launches here time the dispatch, outside
+    the main path."""
+    import torch
+
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    gates = torch.randn(4, 8, 8 * 128, device=dev, generator=g)
+    mask = torch.ones(4, 8, device=dev)
+    w_h = torch.randn(2, 128, 512, device=dev, generator=g) * 0.05
+    c, q = torch.randn(2, 8, 256, device=dev, generator=g), torch.randn(2, 8, 256, device=dev, generator=g)
+    cm, qm = torch.ones(2, 8, device=dev), torch.ones(2, 8, device=dev)
+    w = [torch.randn(256, device=dev, generator=g) for _ in range(3)] + [torch.zeros((), device=dev)]
+    pairs = {"K1": (lambda: torch.ops.mmbidaf.bilstm(gates, mask, w_h),
+                    lambda: lstm_kernel._bilstm_launch(gates, mask, w_h)),
+             "K2": (lambda: torch.ops.mmbidaf.bidaf(c, q, cm, qm, *w),
+                    lambda: bidaf_kernel._bidaf_launch(c, q, cm, qm, *w))}
+    out = {}
+    for name, (op, direct) in pairs.items():
+        times = {"op": [], "direct": []}
+        for kind in ("op", "direct", "direct", "op"):
+            fn = op if kind == "op" else direct
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(400):
+                fn()
+            times[kind].append((time.perf_counter() - t0) / 400 * 1e6)
+            torch.cuda.synchronize()
+        out[name] = {k: min(v) for k, v in times.items()}
+    return out
+
+
+def phase_export(dev, card: str, tmp: str, serving_root: str, tiers: dict, level_dirs: list,
+                 t_batch_4a: float, all_records: list[dict]) -> None:
+    """Phase 11: frozen serving artifacts (``export.py``) on the card: the
+    bench configuration at B=64 in a fresh process, an f32 copy at B=2, beam
+    and bucketed greedy artifacts at B=8 over phase 9's videos, the
+    long-audio and Winograd configurations at B=2, and the CLIs and the
+    daemon over an artifact, on phase 9's videos (``write_serving_corpus``
+    under ``serving_root``: load-test tiers and rung-level videos).
+    ``all_records`` gain the in-process launches."""
+    import io
+
+    import torch
+
+    from mmbidaf_tpu_torch import infer
+    from mmbidaf_tpu_torch.data.frontend import make_end_to_end_decode
+    from mmbidaf_tpu_torch.export import ExportedDecoder, ExportedSummarizer, export_summarizer
+    from mmbidaf_tpu_torch.ops.cuda import (bidaf_kernel, lstm_kernel, melspec_kernel,
+                                            winograd_kernel)
+    from mmbidaf_tpu_torch.serving import AXES, Summarizer
+    from mmbidaf_tpu_torch.tools import export_artifact, load_test
+
+    cfg = bench_config()
+    cost = dispatch_cost_us(dev)
+    print("(11) custom-op dispatch, host µs a call (op / direct): " + "; ".join(
+        f"{k} {v['op']:.2f} / {v['direct']:.2f} (+{v['op'] - v['direct']:.2f})" for k, v in cost.items())
+        + f" on {card}", flush=True)
+
+    counters = {"bilstm": lstm_kernel.bilstm_cuda, "bidaf_attention": bidaf_kernel.bidaf_attention_fused,
+                "mfcc": melspec_kernel.mfcc_fused, "log_mel": melspec_kernel.log_mel_fused,
+                "bidaf_attention_tiled": bidaf_kernel.bidaf_attention_tiled,
+                "winograd_conv3x3": winograd_kernel.winograd_conv3x3_fused}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+        lstm_kernel.bilstm_cuda.routes = {"cluster": 0, "l2": 0}
+        bidaf_kernel.bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
+        melspec_kernel.mfcc_fused.routes = {"fft": 0, "dense": 0}
+        melspec_kernel.log_mel_fused.routes = {"fft": 0, "dense": 0}
+
+    total = {k: 0 for k in counters}
+
+    def collect() -> dict:
+        got = {k: fn.launches for k, fn in counters.items()}
+        for k, n in got.items():
+            total[k] += n
+        return got
+
+    # (11a) the bench configuration at B=64, bf16, in a fresh process
+    s = Summarizer.init_random(cfg, seed=0, device=dev)
+    raw_np = raw_batch(cfg, np.random.default_rng(0), B)
+    raw = {k: torch.from_numpy(v).to(dev) for k, v in raw_np.items()}
+    live_lp, live_picks = make_end_to_end_decode(cfg)(s.model, s.frontend, raw)
+    live_lp, live_picks = live_lp.float().cpu().numpy(), live_picks.cpu().numpy()
+    art = os.path.join(tmp, "bench")
+    zero()
+    t0 = time.perf_counter()
+    manifest = export_summarizer(s, art, batch_size=B, frame_hw=FRAME_HW)
+    t_export = time.perf_counter() - t0
+    check(all(fn.launches == 0 for fn in counters.values()), "(11a) the export launched a kernel")
+    sizes = dir_sizes(art)
+    print(f"(11a) bench config B={B} bf16: exported in {t_export:.2f} s (no kernel launched), "
+          f"{sum(sizes.values()) / 1e6:.2f} MB: {sizes}; VGG frame chunk traced "
+          f"{manifest['vgg_frame_chunk']}", flush=True)
+    raw_path, out_path = os.path.join(tmp, "raw64.npz"), os.path.join(tmp, "out64.npz")
+    np.savez(raw_path, **raw_np)
+    rec = artifact_child("--artifact-decode", art, raw_path, out_path)
+    got = np.load(out_path)
+    dist = float(np.abs(got["log_p"] - live_lp).max())
+    print(f"(11a) fresh process: load {rec['load_s']:.2f} s (its parts alone, files read cold: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in rec["load_parts_s"].items()) + f"), first call {rec['cold_s'] * 1e3:.2f} ms, "
+          f"median batch {rec['batch_s'] * 1e3:.2f} ms over {ARTIFACT_CALLS - 1} "
+          f"({B / rec['batch_s']:.2f} videos/s) against phase 4a's live {t_batch_4a * 1e3:.2f} ms on {card}; "
+          f"launches {rec['launches']}, routes {rec['routes']}, cached FFT operands "
+          f"{rec['fft_operand_caches']}; picks equal to make_end_to_end_decode's: "
+          f"{bool((got['picks'] == live_picks).all())}, log-prob max abs diff {dist:.3e}", flush=True)
+    check(not rec["leaked"], f"(11a) the artifact's process imported the model's code: {rec['leaked']}")
+    n = ARTIFACT_CALLS
+    check(rec["launches"] == {"K1": 5 * n, "K2": 2 * n, "K3": n},
+          f"(11a) launches {rec['launches']} != 5 / 2 / 1 a batch over {n} batches")
+    check(rec["routes"] == {"K1": {"cluster": 5 * n, "l2": 0}, "K2": {"cluster": 2 * n, "K9": 0},
+                            "K3": {"fft": n, "dense": 0}}, f"(11a) routes {rec['routes']}")
+    check(rec["fft_operand_caches"] == 1, "(11a) K3's FFT operands were not cached once")
+    check(bool((got["picks"] == live_picks).all()), "(11a) the artifact's picks differ from the live program's")
+    check_decode(got["log_p"], got["picks"], raw_np, cfg, "(11a) artifact")
+    shutil.rmtree(art)
+
+    # (11b) an f32 copy at B=2, cuDNN's TF32 flag at its default
+    check(torch.backends.cudnn.allow_tf32, "(11b) cuDNN's TF32 flag is not its default (on)")
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32"))
+    s32 = Summarizer.init_random(cfg32, seed=0, device=dev)
+    raw2_np = {k: v[:2] for k, v in raw_np.items()}
+    raw2 = {k: v[:2] for k, v in raw.items()}
+    art32 = os.path.join(tmp, "f32")
+    export_summarizer(s32, art32, batch_size=2, frame_hw=FRAME_HW)
+    lp32, picks32 = ExportedDecoder(art32, device=dev).decode_raw(raw2_np)
+    l_lp, l_picks = make_end_to_end_decode(cfg32)(s32.model, s32.frontend, raw2)
+    d32 = float(np.abs(lp32 - l_lp.cpu().numpy()).max())
+    print(f"(11b) f32 B=2, cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}: picks equal "
+          f"{bool((picks32 == l_picks.cpu().numpy()).all())}, log-prob max abs diff {d32:.3e} "
+          f"(bound 1e-5), {sum(dir_sizes(art32).values()) / 1e6:.2f} MB", flush=True)
+    check(bool((picks32 == l_picks.cpu().numpy()).all()) and d32 <= 1e-5,
+          "(11b) the f32 artifact differs from the live f32 path")
+    del s32
+    shutil.rmtree(art32)
+
+    # (11c) beam (width 4) at B=8, and a bucketed greedy artifact at B=8
+    zero()
+    beam = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec, mode="beam", topk=4)
+    art_beam = os.path.join(tmp, "beam")
+    export_summarizer(beam, art_beam, batch_size=8, frame_hw=FRAME_HW)
+    dec_beam = ExportedDecoder(art_beam, device=dev)
+    raw8_np = {k: v[:8] for k, v in raw_np.items()}
+    raw8 = {k: v[:8] for k, v in raw.items()}
+    b_lp, b_picks = dec_beam.decode_raw(raw8_np)
+    lb_lp, lb_picks = beam._decode_batch_device(raw8)
+    t_art = timed_batches(lambda: dec_beam.run(raw8))
+    t_live = timed_batches(lambda: beam._decode_batch_device(raw8))
+    print(f"(11c) beam width 4 B=8: picks equal {bool((b_picks == lb_picks.cpu().numpy()).all())}, "
+          f"score max abs diff {float(np.abs(b_lp - lb_lp.float().cpu().numpy()).max()):.3e}; median "
+          f"batch artifact {t_art * 1e3:.2f} ms, live {t_live * 1e3:.2f} ms on {card}", flush=True)
+    check(bool((b_picks == lb_picks.cpu().numpy()).all()), "(11c) beam artifact picks differ")
+    del dec_beam
+    shutil.rmtree(art_beam)
+
+    live_b = Summarizer(s.model, s.frontend, s.word2idx, cfg, s.vgg_spec, serve_buckets=True,
+                        serve_batch_size=8)
+    art_b = os.path.join(tmp, "bucketed")
+    t0 = time.perf_counter()
+    man_b = export_summarizer(live_b, art_b, batch_size=8, frame_hw=FRAME_HW, buckets=True)
+    t_export_b = time.perf_counter() - t0
+    art_s = ExportedSummarizer(art_b, device=dev)
+    levels = [tuple(lv[k] for k in AXES) for lv in art_s.bucket_levels]
+    check(len(levels) == len(level_dirs), f"(11c) {len(levels)} frozen levels, {len(level_dirs)} in phase 9")
+    d = cfg.data
+    caps = (d.max_sentences, d.max_words, d.max_keyframes, d.max_audio_frames)
+    print(f"(11c) bucketed greedy B=8: {1 + len(man_b['bucket_programs'])} programs (levels {levels} "
+          f"and the caps) exported in {t_export_b:.2f} s, {sum(dir_sizes(art_b).values()) / 1e6:.2f} MB",
+          flush=True)
+    for name, vids in [(f"level {i}", v) for i, v in enumerate(level_dirs)] + [("caps", tiers["full"])]:
+        vids = (vids * 8)[:8]
+        check(art_s.summarize_batch(vids) == live_b.summarize_batch(vids),
+              f"(11c) {name}: the bucketed artifact's answers differ from the live Summarizer's")
+        # one trimmed batch on the card, through both programs in turns
+        raw_l = {k: torch.from_numpy(v).to(dev)
+                 for k, v in art_s._stack_rows([art_s._raw_row(v)[0] for v in vids]).items()}
+        t = {"artifact": [], "live": []}
+        dispatch = {"artifact": [], "live": []}
+        for kind in ("artifact", "live", "live", "artifact"):
+            fn = art_s.decoder.run if kind == "artifact" else live_b._decode_batch_device
+            t[kind].append(timed_batches(lambda: fn(raw_l)))
+            for _ in range(5):  # the host's dispatch alone: until the call returns
+                t0 = time.perf_counter()
+                fn(raw_l)
+                dispatch[kind].append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+        d_ms = {k: statistics.median(v) * 1e3 for k, v in dispatch.items()}
+        print(f"(11c) {name}: answers equal the live bucketed Summarizer's; median batch (B=8, on "
+              f"the card) artifact {t['artifact'][0] * 1e3:.2f}, {t['artifact'][1] * 1e3:.2f} ms, live "
+              f"{t['live'][0] * 1e3:.2f}, {t['live'][1] * 1e3:.2f} ms; the host's dispatch of a batch "
+              f"artifact {d_ms['artifact']:.2f} ms, live {d_ms['live']:.2f} ms", flush=True)
+    print(f"(11c) bucket_stats {art_s.bucket_stats}", flush=True)
+    check(set(art_s.bucket_stats) == set(levels) | {caps}, "(11c) a frozen level went unused")
+    cold = artifact_child("--artifact-first-request", "cold", art_b, level_dirs[-1][0])
+    warm = artifact_child("--artifact-first-request", "warm", art_b, level_dirs[-1][0])
+    print(f"(11c) fresh process, bucketed artifact at batch 8: cold: load {cold['load_s']:.3f} s, first "
+          f"request {cold['first_s']:.3f} s, second {cold['second_s']:.3f} s; warmed: load "
+          f"{warm['load_s']:.3f} s, warmup() {warm['warmup_s']:.3f} s, first request "
+          f"{warm['first_s']:.3f} s, second {warm['second_s']:.3f} s", flush=True)
+    check(warm["first_s"] < cold["first_s"], "(11c) warmup did not shorten the first request")
+    print(f"(11a-c) launches in this process over (b)-(c): {collect()}", flush=True)
+
+    # (11d) long audio and the Winograd frontend, each at B=2
+    zero()
+    cfg_l = long_config()
+    s_l = Summarizer.init_random(cfg_l, seed=0, device=dev)
+    raw_l_np = raw_batch(cfg_l, np.random.default_rng(6), 2)
+    raw_l = {k: torch.from_numpy(v).to(dev) for k, v in raw_l_np.items()}
+    art_l = os.path.join(tmp, "long")
+    export_summarizer(s_l, art_l, batch_size=2, frame_hw=FRAME_HW)
+    zero()
+    lp_a, picks_a = ExportedDecoder(art_l, device=dev).decode_raw(raw_l_np)
+    got = collect()
+    routes = {"K1": dict(lstm_kernel.bilstm_cuda.routes), "K2": dict(bidaf_kernel.bidaf_attention_fused.routes),
+              "K4": dict(melspec_kernel.log_mel_fused.routes)}
+    l_lp, l_picks = make_end_to_end_decode(cfg_l)(s_l.model, s_l.frontend, raw_l)
+    print(f"(11d) long audio B=2: artifact launches {got}, routes {routes}; picks equal the live "
+          f"program's {bool((picks_a == l_picks.cpu().numpy()).all())}, log-prob max abs diff "
+          f"{float(np.abs(lp_a - l_lp.float().cpu().numpy()).max()):.3e}", flush=True)
+    check(got["bilstm"] == 5 and got["bidaf_attention"] == 1 and got["bidaf_attention_tiled"] == 1
+          and got["log_mel"] >= 1 and got["mfcc"] == 0,
+          f"(11d) the long-audio artifact did not launch K1, K2, K9 and K4 (and not K3): {got}")
+    check(routes["K2"] == {"cluster": 1, "K9": 1}, f"(11d) K2's routes {routes['K2']}")
+    check(bool((picks_a == l_picks.cpu().numpy()).all()), "(11d) long-audio artifact picks differ")
+    del s_l
+    shutil.rmtree(art_l)
+    cfg_w = winograd_config()
+    s_w = Summarizer.init_random(cfg_w, seed=0, device=dev)
+    raw_w_np = raw_batch(cfg_w, np.random.default_rng(7), 2)
+    raw_w = {k: torch.from_numpy(v).to(dev) for k, v in raw_w_np.items()}
+    art_w = os.path.join(tmp, "winograd")
+    man_w = export_summarizer(s_w, art_w, batch_size=2, frame_hw=FRAME_HW)
+    zero()
+    lp_a, picks_a = ExportedDecoder(art_w, device=dev).decode_raw(raw_w_np)
+    got = collect()
+    frames = 2 * cfg_w.data.max_keyframes
+    passes = -(-frames // man_w["vgg_frame_chunk"]) if man_w["vgg_frame_chunk"] else 1
+    w_lp, w_picks = make_end_to_end_decode(cfg_w)(s_w.model, s_w.frontend, raw_w)
+    print(f"(11d) Winograd B=2: artifact launches {got} ({passes} VGG pass(es)); picks equal the "
+          f"live program's {bool((picks_a == w_picks.cpu().numpy()).all())}, log-prob max abs diff "
+          f"{float(np.abs(lp_a - w_lp.float().cpu().numpy()).max()):.3e}", flush=True)
+    check(got["winograd_conv3x3"] == 12 * passes, f"(11d) K14 launched {got['winograd_conv3x3']} times")
+    check(bool((picks_a == w_picks.cpu().numpy()).all()), "(11d) Winograd artifact picks differ")
+    del s_w
+    shutil.rmtree(art_w)
+
+    # (11e) the CLIs and the daemon over an artifact
+    zero()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        export_artifact.main(["--random", "--vgg", "vgg16", "--verify", "--out", os.path.join(tmp, "cli")])
+    print(f"(11e) export_artifact --random --vgg vgg16 --verify: "
+          f"{' | '.join(buf.getvalue().strip().splitlines())} ({time.perf_counter() - t0:.2f} s)", flush=True)
+    check("verify ok" in buf.getvalue(), "(11e) export_artifact --verify did not pass")
+    shutil.rmtree(os.path.join(tmp, "cli"))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        infer.main(["--artifact", art_b, "--data_dir", os.path.join(serving_root, "mixed")])
+    line = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{'ROUGE-1'")][-1]
+    scores = ast.literal_eval(line.partition(" (")[0])
+    print(f"(11e) infer --artifact on phase 9's tiers: {line} in {time.perf_counter() - t0:.2f} s", flush=True)
+    check(all(math.isfinite(v) for v in scores.values()) and f"({3 * PER_TIER} videos scored)" in line,
+          f"(11e) infer --artifact printed {line}")
+    expected = {vd: art_s.summarize(vd) for vds in tiers.values() for vd in vds}
+    print(f"(11e) launches in this process over (d)-(e): {collect()}", flush=True)
+    release_cached_memory()
+    p = subprocess.Popen([sys.executable, "-u", "-m", "mmbidaf_tpu_torch.tools.serve", "--artifact", art_b,
+                          "--dynamic_batch", "8", "--port", "0", "--warmup", "240x320"],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    try:
+        lines = []
+        for ln in p.stdout:
+            lines.append(ln)
+            if ln.startswith("serving "):
+                break
+        if not (lines and lines[-1].startswith("serving ")):
+            fail(f"(11e) the daemon did not start: {''.join(lines)} {p.stderr.read()[-3000:]}")
+        port = int(lines[-1].split("http://127.0.0.1:")[1].split()[0])
+        for vds in tiers.values():  # one request a tier outside the measured window
+            load_test.post(port, vds[0], 600)
+        r = load_test.drive(port, tiers, clients=8, requests=LOAD_REQUESTS, timeout=600)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+        p.send_signal(signal.SIGTERM)
+        check(p.wait(timeout=120) == 0, "(11e) the daemon did not drain on SIGTERM")
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        p.stdout.close()
+        p.stderr.close()
+    lm = r["latency_ms"]
+    print(f"(11e) serve --artifact --dynamic_batch 8 ({''.join(lines[:-1]).strip()}): "
+          f"{r['ok']}/{r['requests']} answered, p50 {lm['p50']:.2f} ms, p95 {lm['p95']:.2f} ms, p99 "
+          f"{lm['p99']:.2f} ms, sustained {r['sustained_vps']:.2f} videos/s on {card}; /healthz artifact "
+          f"{health.get('artifact')}, batcher {health.get('batcher')}", flush=True)
+    check(r["ok"] == LOAD_REQUESTS and r["errors"] == 0, "(11e) the daemon failed requests")
+    wrong = [vd for vd, a in r["answers"].items() if a != [expected[vd]]]
+    check(not wrong, f"(11e) the daemon's answers differ from ExportedSummarizer.summarize's: {wrong}")
+    check(health.get("artifact", {}).get("format_version") == 1, "(11e) /healthz shows no artifact format")
+    shutil.rmtree(art_b)
+    for rec_ in all_records:
+        rec_["launches"] += total.get(rec_["name"], 0)
+    print(f"(11) launches in this process over phase 11 (added to the records): {total}", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -2566,6 +3027,12 @@ def main() -> None:
         fail("no CUDA device: this smoke run needs the card")
     if sys.argv[1:2] == ["--first-request"]:
         first_request_main(*sys.argv[2:4])
+        return
+    if sys.argv[1:2] == ["--artifact-decode"]:
+        artifact_decode_main(*sys.argv[2:5])
+        return
+    if sys.argv[1:2] == ["--artifact-first-request"]:
+        artifact_first_request_main(*sys.argv[2:5])
         return
     sys.path.insert(0, ROOT)
     from mmbidaf_tpu_torch.data.frontend import make_end_to_end_decode
@@ -2679,12 +3146,17 @@ def main() -> None:
         from mmbidaf_tpu_torch import native
 
         native.decode_counts.update(native=0, pil=0)
-        tiers = phase_serving(dev, card, records, serving_root)
+        tiers, level_dirs = phase_serving(dev, card, records, serving_root)
         decoded = dict(native.decode_counts)
 
         # 10. the host side: native decode, a reference checkpoint, precomputed
         # features, the Stockham FFT, the tensorboard file
         phase_host(dev, card, records, train_records, corpus_root, raw_step_s, tiers, decoded)
+
+        # 11. frozen serving artifacts: export, a fresh process, the CLIs and the daemon
+        with tempfile.TemporaryDirectory() as export_root:
+            phase_export(dev, card, export_root, serving_root, tiers, level_dirs, t_batch,
+                         records + long_records + vgg_records)
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "mmbidaf_tpu")
                     or m.startswith(("jax.", "jaxlib", "mmbidaf_tpu.")))

@@ -49,6 +49,19 @@ def _auto_vgg_chunk(n_frames: int, image_size: int, first_ch: int, itemsize: int
     return fit // 128 * 128 or max(1, fit)
 
 
+def vgg_frame_chunk(cfg: Config, n_frames: int, vgg_spec, device: torch.device) -> int:
+    """Frames a VGG pass takes at once for ``n_frames`` frames (0: all):
+    ``ModelConfig.vgg_frame_chunk``, or with 0 there the automatic choice for
+    the card's memory (:func:`_auto_vgg_chunk`)."""
+    chunk = cfg.model.vgg_frame_chunk
+    if chunk == 0:
+        itemsize = torch.finfo(torch_dtype(cfg.model.compute_dtype)).bits // 8
+        chunk = _auto_vgg_chunk(n_frames, cfg.data.image_size,
+                                next(c for c in vgg_spec if isinstance(c, int)), itemsize,
+                                vgg_act_budget(device))
+    return chunk
+
+
 class Frontend(nn.Module):
     """Frontend params: ``vgg`` (when images are on) and the audio constants
     ``audio_consts`` (buffers rebuilt from the config, never loaded)."""
@@ -110,13 +123,7 @@ def apply_frontend(fe: Frontend, raw: Mapping[str, torch.Tensor], cfg: Config,
         vgg = fe.vgg
         if vgg.fc1_w.dtype != compute_dtype:
             vgg = copy.deepcopy(vgg).to(compute_dtype)
-        chunk = m.vgg_frame_chunk
-        if chunk == 0:
-            chunk = _auto_vgg_chunk(
-                flat.shape[0], d.image_size, next(c for c in vgg_spec if isinstance(c, int)),
-                torch.empty((), dtype=compute_dtype).element_size(), vgg_act_budget(flat.device),
-            )
-        step = chunk or flat.shape[0]
+        step = vgg_frame_chunk(cfg, flat.shape[0], vgg_spec, flat.device) or flat.shape[0]
         feats = torch.cat([
             vgg_ops.vgg_features(
                 vgg, vgg_ops.preprocess_frames(flat[i:i + step], d.image_size, compute_dtype),

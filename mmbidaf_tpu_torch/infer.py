@@ -6,6 +6,7 @@
         --mode beam --topk 4 --bucket_eval --prefetch 2
     python -m mmbidaf_tpu_torch.infer --load_dir runs/NAME/ckpts --data_dir corpus --long
     python -m mmbidaf_tpu_torch.infer --config_json examples/tiny_config.json --device cpu
+    python -m mmbidaf_tpu_torch.infer --artifact artifact/ --data_dir corpus [--long]
 
 ``--load_dir`` reads a ``train.cli`` run's checkpoints (``train/checkpoint.py``)
 and the ``config.json`` beside them, and decodes with the EMA parameters.
@@ -23,8 +24,14 @@ true lengths (``serving.trim_raw_batch``; the picks do not change);
 ``--long`` decodes through ``Summarizer.summarize_long``. ``--device``
 defaults to the card.
 
-Not ported: ``--artifact`` (export) and the mesh flags (``--sp_audio``,
-``--num_seq``, ``--tp_vgg``, ``--num_model``) raise ``NotImplementedError``.
+``--artifact DIR`` scores a frozen artifact (``tools/export_artifact.py``)
+on ``--data_dir`` through ``export.ExportedSummarizer``: its config,
+vocabulary, decode mode and batch live in the artifact, so ``--load_dir``,
+``--mode``, ``--config_json``, ``--vgg``, ``--bucket_eval`` and the mesh
+flags are conflicts.
+
+Not ported: the mesh flags (``--sp_audio``, ``--num_seq``, ``--tp_vgg``,
+``--num_model``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -99,7 +106,8 @@ def summarizer_corpus_eval(s, corpus, use_long: bool, print_summaries: bool) -> 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--load_dir", default=None, help="a train.cli run's checkpoints (runs/NAME/ckpts)")
-    ap.add_argument("--artifact", default=None, metavar="DIR", help="not ported: raises")
+    ap.add_argument("--artifact", default=None, metavar="DIR",
+                    help="score a frozen artifact (export.py) on --data_dir")
     ap.add_argument("--hidden_size", type=int, default=128)
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--num_batches", type=int, default=1)
@@ -184,7 +192,8 @@ def main(argv=None) -> None:
     a = parse_args(argv)
     bucket_spec = read_bucket_ladders(a)
     if a.artifact:
-        raise NotImplementedError("--artifact: exported artifacts are not ported yet (ROADMAP Queue 1)")
+        artifact_eval(a)
+        return
     if any(v is not None for v in (a.sp_audio, a.num_seq, a.tp_vgg, a.num_model)):
         raise NotImplementedError("the mesh layouts (--sp_audio, --num_seq, --tp_vgg, --num_model) "
                                   "are not ported yet (ROADMAP Queue 1)")
@@ -211,11 +220,10 @@ def main(argv=None) -> None:
         from mmbidaf_tpu_torch.ops.vgg import spec_for_variant
 
         vgg_spec = spec_for_variant(a.vgg or cfg.model.vgg_variant)
-        vocab_dir = decode_dir = a.data_dir
+        vocab_dir = a.data_dir
         if os.path.isdir(os.path.join(a.data_dir, "train")):
             vocab_dir = os.path.join(a.data_dir, "train")
-            dev_dir = os.path.join(a.data_dir, "dev")
-            decode_dir = dev_dir if os.path.isdir(dev_dir) else vocab_dir
+        decode_dir = dev_split(a.data_dir)
         w2i = vocab_from_corpus_dir(vocab_dir, max_size=cfg.data.vocab_size)
         corpus = VideoCorpus(decode_dir, cfg, w2i, use_precomputed=True)
         frontend = frontend_init(cfg, vgg_spec, dev, seed=a.seed + 2)
@@ -254,6 +262,39 @@ def main(argv=None) -> None:
         corpus_eval(a, cfg, corpus, frontend, vgg_spec, dev, decode, bucket_spec)
     else:
         synthetic_eval(a, cfg, dev, decode)
+
+
+def dev_split(data_dir: str) -> str:
+    """The split a corpus is scored on: ``dev/`` (else ``train/``) where the
+    corpus is split, else the root."""
+    if os.path.isdir(os.path.join(data_dir, "train")):
+        dev = os.path.join(data_dir, "dev")
+        return dev if os.path.isdir(dev) else os.path.join(data_dir, "train")
+    return data_dir
+
+
+def artifact_eval(a) -> None:
+    """``--artifact``: every video of the corpus's scored split through the
+    frozen program. Everything about the model (config, vocabulary, decode
+    mode, layout) lives in the artifact, so flags that would rebuild or
+    re-parameterize it are conflicts."""
+    if not a.data_dir:
+        raise SystemExit("--artifact evaluates against a corpus: pass --data_dir")
+    for flag, name in ((a.load_dir, "--load_dir"), (a.mode != "greedy", "--mode"),
+                       (a.config_json, "--config_json"), (a.vgg, "--vgg"),
+                       (a.bucket_eval, "--bucket_eval"), (a.sp_audio is not None, "--sp_audio"),
+                       (a.num_seq is not None, "--num_seq"), (a.tp_vgg is not None, "--tp_vgg"),
+                       (a.num_model is not None, "--num_model")):
+        if flag:
+            raise SystemExit(f"{name} is fixed inside the artifact — re-export it, or evaluate a "
+                             "checkpoint via --load_dir without --artifact")
+    from mmbidaf_tpu_torch.data.pipeline import VideoCorpus
+    from mmbidaf_tpu_torch.export import ExportedSummarizer
+
+    s = ExportedSummarizer(a.artifact, device=a.device)
+    corpus = VideoCorpus(dev_split(a.data_dir), s.cfg, s.word2idx, use_precomputed=False)
+    print(f"artifact decode_mode={s.decoder.decode_mode} batch={s.decoder.batch_size}", flush=True)
+    summarizer_corpus_eval(s, corpus, a.long, a.print_summaries)
 
 
 def corpus_eval(a, cfg, corpus, frontend, vgg_spec, dev, decode, bucket_spec) -> None:

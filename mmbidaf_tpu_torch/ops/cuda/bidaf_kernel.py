@@ -39,7 +39,10 @@ version on a CPU tensor and launches its kernel on a CUDA tensor, or raises
 — K7/K8 also, before any launch, for shapes with no cluster plan (at T_c=32,
 D=256, T_q past 1088), K9 for shapes with no walk plan (at D=256, T_c past
 4288), and K2, K7, K8 and K9 where the card holds none of the plan's
-clusters. ``<wrapper>.launches`` counts launches of its own kernel.
+clusters. ``<wrapper>.launches`` counts launches of its own kernel. K2's
+wrapper calls the custom op ``torch.ops.mmbidaf.bidaf`` (CPU: the plain
+version; CUDA: K2's or K9's launch, which alone moves the counters; fake:
+the output's shape), so ``torch.export`` keeps the block as one node.
 
 Tolerances of kernel vs plain on the card: K2/K7/K9 form Q2C as
 ``(s_row·s_colᵀ)·c`` where the plain version contracts ``s_row, s_col, c``
@@ -295,13 +298,34 @@ def _operands(params, c, q, c_mask, q_mask) -> list[torch.Tensor]:
 
 def bidaf_attention_fused(params, c, q, c_mask, q_mask) -> torch.Tensor:
     """The whole BiDAF block through a hand kernel → f32 ``[B, T_c, 4D]``:
-    K2 on its cluster route, or K9 where :func:`bidaf_route` says so.
-    ``bidaf_attention_fused.launches`` counts K2's launches,
-    ``bidaf_attention_fused.routes`` the calls of each route."""
-    if c.device.type == "cpu":
-        return bidaf_reference(params, c, q, c_mask, q_mask)
-    if c.device.type != "cuda":
-        raise ValueError(f"bidaf_attention_fused: unsupported device {c.device}")
+    K2 on its cluster route, or K9 where :func:`bidaf_route` says so, through
+    the custom op ``torch.ops.mmbidaf.bidaf`` (one node in an exported
+    program). ``bidaf_attention_fused.launches`` counts K2's launches,
+    ``bidaf_attention_fused.routes`` the calls of each route; both move only
+    where a kernel launches."""
+    build.check_device(c, "bidaf_attention_fused")
+    return torch.ops.mmbidaf.bidaf(c, q, c_mask, q_mask, params.w_c, params.w_q, params.w_cq,
+                                   params.bias)
+
+
+bidaf_attention_fused.launches = 0
+bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
+
+
+@torch.library.custom_op("mmbidaf::bidaf", mutates_args=(), device_types="cpu")
+def bidaf_op(c: torch.Tensor, q: torch.Tensor, c_mask: torch.Tensor, q_mask: torch.Tensor,
+             w_c: torch.Tensor, w_q: torch.Tensor, w_cq: torch.Tensor,
+             bias: torch.Tensor) -> torch.Tensor:
+    """K2 (and K9 past its plan) as a custom op: ``c [B, T_c, D]``, ``q [B,
+    T_q, D]``, their masks, ``w_c``, ``w_q``, ``w_cq [D]`` and the scalar
+    ``bias`` → f32 ``[B, T_c, 4D]``. On the CPU, the plain version."""
+    p = types.SimpleNamespace(w_c=w_c, w_q=w_q, w_cq=w_cq, bias=bias)
+    return bidaf_reference(p, c, q, c_mask, q_mask).contiguous()
+
+
+@bidaf_op.register_kernel("cuda")
+def _bidaf_launch(c, q, c_mask, q_mask, w_c, w_q, w_cq, bias):
+    params = types.SimpleNamespace(w_c=w_c, w_q=w_q, w_cq=w_cq, bias=bias)
     B, T_c, D = c.shape
     T_q = q.shape[1]
     route = bidaf_route(T_c, T_q, D)
@@ -322,8 +346,10 @@ def bidaf_attention_fused(params, c, q, c_mask, q_mask) -> torch.Tensor:
     return out
 
 
-bidaf_attention_fused.launches = 0
-bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
+@bidaf_op.register_fake
+def _bidaf_fake(c, q, c_mask, q_mask, w_c, w_q, w_cq, bias):
+    B, T_c, D = c.shape
+    return c.new_empty(B, T_c, 4 * D, dtype=torch.float32)
 
 
 def bidaf_attention_tiled(params, c, q, c_mask, q_mask, tc_blk: int = 128,
@@ -336,10 +362,9 @@ def bidaf_attention_tiled(params, c, q, c_mask, q_mask, tc_blk: int = 128,
     ``tc_blk`` keeps the JAX signature and does nothing on the card, where
     every tile holds all T_c rows (the column softmax is exact inside it).
     ``bidaf_attention_tiled.launches`` counts kernel launches."""
+    build.check_device(c, "bidaf_attention_tiled")
     if c.device.type == "cpu":
         return bidaf_tiled_reference(params, c, q, c_mask, q_mask)
-    if c.device.type != "cuda":
-        raise ValueError(f"bidaf_attention_tiled: unsupported device {c.device}")
     B, T_c, D = c.shape
     T_q = q.shape[1]
     plan = tiled_plan(T_c, T_q, D, tq_blk)

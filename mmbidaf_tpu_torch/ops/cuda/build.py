@@ -225,6 +225,13 @@ def ptxas_resources(log: str) -> dict[str, dict[str, int]]:
     return out
 
 
+def check_device(t, name: str) -> None:
+    """Raise for a tensor on neither the CPU (the plain version) nor the card
+    (the kernel): no kernel or plain version runs there."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
 def check_tensor(t, name: str, shape: tuple, device, dtype=None) -> None:
     """Validate a kernel operand before its pointer goes to C: a contiguous
     tensor of ``dtype`` (f32 when not given) and ``shape`` on ``device``."""

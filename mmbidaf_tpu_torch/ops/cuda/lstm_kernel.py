@@ -37,6 +37,10 @@ the gates in its backward; the Function keeps the f32 gates it was given.
 Each wrapper (``bilstm_cuda`` K1, ``bilstm_train_forward`` K5,
 ``bilstm_bptt`` K6) runs its plain version on a CPU tensor and launches its
 kernel on a CUDA tensor, or raises; ``<wrapper>.launches`` counts launches.
+K1's recurrence is the custom op ``torch.ops.mmbidaf.bilstm`` (CPU: the
+plain version; CUDA: the launch, which alone moves the counters; fake: the
+outputs' shapes), so ``torch.export`` keeps it as one node and a loaded
+program launches the same kernel.
 
 Tolerances of kernel vs plain on the card (``TOLERANCE``, ``BPTT_TOLERANCE``):
 the kernels sum their products in their own order (K6's walk sums
@@ -207,21 +211,39 @@ def bilstm_reference(params, x: torch.Tensor, mask: torch.Tensor):
 
 def bilstm_cuda(params, x: torch.Tensor, mask: torch.Tensor):
     """One BiLSTM layer through the hand kernel (``bilstm_pallas``'s
-    contract), on the route :func:`serving_route` picks.
+    contract), on the route :func:`serving_route` picks: the input
+    projection here, the recurrence through the custom op
+    ``torch.ops.mmbidaf.bilstm`` (one node in an exported program).
     ``bilstm_cuda.launches`` counts kernel launches, ``bilstm_cuda.routes``
-    those of each route."""
-    if x.device.type == "cpu":
-        return bilstm_reference(params, x, mask)
-    if x.device.type != "cuda":
-        raise ValueError(f"bilstm_cuda: unsupported device {x.device}")
-    B, T, _ = x.shape
-    H = params.fwd.w_h.shape[0]
-    dev = x.device
+    those of each route; both move only where the kernel launches."""
+    build.check_device(x, "bilstm_cuda")
     gates = _projection(params, x).contiguous()
-    m = mask.float().contiguous()
     w_h = torch.stack([params.fwd.w_h, params.bwd.w_h]).float().contiguous()
+    out, h_last, c_last = torch.ops.mmbidaf.bilstm(gates, mask.float().contiguous(), w_h)
+    return out, (h_last, c_last)
+
+
+bilstm_cuda.launches = 0
+bilstm_cuda.routes = {"cluster": 0, "l2": 0}
+
+
+@torch.library.custom_op("mmbidaf::bilstm", mutates_args=(), device_types="cpu")
+def bilstm_op(gates: torch.Tensor, mask: torch.Tensor,
+              w_h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's recurrence as a custom op: f32 ``gates [B, T, 8H]``, ``mask
+    [B, T]``, ``w_h [2, H, 4H]`` → ``(out [B, T, 2H], h_last, c_last
+    [B, 2H])``. On the CPU, the plain version."""
+    out, h_last, c_last, _, _ = bilstm_train_forward_reference(gates, mask, w_h)
+    return out, h_last.contiguous(), c_last.contiguous()
+
+
+@bilstm_op.register_kernel("cuda")
+def _bilstm_launch(gates: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor):
+    B, T, _ = gates.shape
+    H = w_h.shape[1]
+    dev = gates.device
     build.check_tensor(gates, "gates", (B, T, 8 * H), dev)
-    build.check_tensor(m, "mask", (B, T), dev)
+    build.check_tensor(mask, "mask", (B, T), dev)
     build.check_tensor(w_h, "w_h", (2, H, 4 * H), dev)
     out = torch.empty(B, T, 2 * H, device=dev)
     h_last = torch.empty(B, 2 * H, device=dev)
@@ -231,18 +253,23 @@ def bilstm_cuda(params, x: torch.Tensor, mask: torch.Tensor):
     if route == "cluster":
         _check_cluster(lib, "mmb_bilstm_forward", B, H)
     rc = lib.mmb_bilstm_forward(
-        gates.data_ptr(), m.data_ptr(), w_h.data_ptr(), out.data_ptr(),
+        gates.data_ptr(), mask.data_ptr(), w_h.data_ptr(), out.data_ptr(),
         h_last.data_ptr(), c_last.data_ptr(), B, T, H,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(lib, rc, "mmb_bilstm_forward")
     bilstm_cuda.launches += 1
     bilstm_cuda.routes[route] += 1
-    return out, (h_last, c_last)
+    return out, h_last, c_last
 
 
-bilstm_cuda.launches = 0
-bilstm_cuda.routes = {"cluster": 0, "l2": 0}
+@bilstm_op.register_fake
+def _bilstm_fake(gates: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor):
+    B, T, _ = gates.shape
+    H = w_h.shape[1]
+    f32 = torch.float32
+    return gates.new_empty(B, T, 2 * H, dtype=f32), gates.new_empty(B, 2 * H, dtype=f32), \
+        gates.new_empty(B, 2 * H, dtype=f32)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,12 @@ be a strided view of the waveform (``ops.audio.frame_signal``): the kernel
 reads them through their strides, so only the last stride must be 1.
 
 ``mfcc_fused`` is the wrapper: on a CPU tensor it runs
-:func:`mfcc_reference`, on a CUDA tensor it launches the kernel or raises.
+:func:`mfcc_reference`, on a CUDA tensor it launches the kernel or raises,
+through the custom op ``torch.ops.mmbidaf.mfcc`` (K4's wrapper through
+``torch.ops.mmbidaf.log_mel``): one node in an exported program, whose CUDA
+implementation alone launches and moves the counters, and whose FFT
+operands (window, twiddles, mel ranges) are built and cached there, on the
+real tensors.
 K3 has two routes, picked by :func:`mfcc_route` (K4's rule) and counted in
 ``mfcc_fused.routes``: ``fft`` (``csrc/mfcc.cu::logmel_fft_kernel<kDb>``:
 K4's FFT body in f64 with a dB epilogue and the block maxima) and ``dense``
@@ -98,18 +103,40 @@ def mfcc_route(win: int, bins: int) -> str:
 
 def mfcc_fused(frames: torch.Tensor, consts: dict) -> torch.Tensor:
     """MFCC of ``frames [B, T, win]`` through the hand kernel, on the route
-    :func:`mfcc_route` picks. ``mfcc_fused.launches`` counts launches (one
-    per call; the kernel runs as two passes), ``mfcc_fused.routes`` those
-    of each route."""
-    if frames.device.type == "cpu":
-        return mfcc_reference(frames, consts)
-    if frames.device.type != "cuda":
-        raise ValueError(f"mfcc_fused: unsupported device {frames.device}")
-    route = mfcc_route(frames.shape[-1], consts["cos"].shape[1])
+    :func:`mfcc_route` picks, through the custom op ``torch.ops.mmbidaf.mfcc``
+    (one node in an exported program). ``mfcc_fused.launches`` counts
+    launches (one per call; the kernel runs as two passes),
+    ``mfcc_fused.routes`` those of each route; both move only where the
+    kernel launches."""
+    build.check_device(frames, "mfcc_fused")
+    return torch.ops.mmbidaf.mfcc(frames, consts["cos"], consts["sin"], consts["mel_fb"],
+                                  consts["dct"])
+
+
+@torch.library.custom_op("mmbidaf::mfcc", mutates_args=(), device_types="cpu")
+def mfcc_op(frames: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, mel_fb: torch.Tensor,
+            dct: torch.Tensor) -> torch.Tensor:
+    """K3 as a custom op: ``frames [B, T, win]`` (a strided view will do)
+    and the frontend's bases → f32 ``[B, T, n_mfcc]``. On the CPU, the plain
+    version."""
+    consts = {"cos": cos, "sin": sin, "mel_fb": mel_fb, "dct": dct}
+    return mfcc_reference(frames, consts).contiguous()
+
+
+@mfcc_op.register_kernel("cuda")
+def _mfcc_cuda(frames, cos, sin, mel_fb, dct):
+    consts = {"cos": cos, "sin": sin, "mel_fb": mel_fb, "dct": dct}
+    route = mfcc_route(frames.shape[-1], cos.shape[1])
     out = _mfcc_launch(frames, consts, route)
     mfcc_fused.launches += 1
     mfcc_fused.routes[route] += 1
     return out
+
+
+@mfcc_op.register_fake
+def _mfcc_fake(frames, cos, sin, mel_fb, dct):
+    B, T, _ = frames.shape
+    return frames.new_empty(B, T, dct.shape[1], dtype=torch.float32)
 
 
 def _mfcc_launch(frames: torch.Tensor, consts: dict, route: str) -> torch.Tensor:
@@ -243,12 +270,19 @@ _NONZEROS = WeakIdKeyDictionary()  # mel_fb -> (its version, ranges, weights)
 _TWIDDLES: dict = {}              # (n_fft, device, dtype) -> twiddles
 
 
+def _version(t: torch.Tensor) -> int:
+    """``t``'s version counter; an inference tensor (made or loaded under
+    ``torch.inference_mode``, as weights may be) tracks none and counts as
+    unchanged."""
+    return -1 if t.is_inference() else t._version
+
+
 def _fft_operands(consts: dict, dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, ...]:
     """The FFT route's window, twiddles (in ``dtype``), mel ranges and packed
     mel weights for ``consts``, cached per tensor; raises ``ValueError`` if
     ``cos``/``sin`` are not the window's DFT basis."""
     cos, sin, mel_fb = consts["cos"], consts["sin"], consts["mel_fb"]
-    key = (cos._version, sin._version, id(sin))
+    key = (_version(cos), _version(sin), id(sin))
     hit = _WINDOWS.get(cos)
     if hit is None or hit[0] != key:
         err = dft_basis_error(cos, sin)
@@ -260,8 +294,8 @@ def _fft_operands(consts: dict, dtype: torch.dtype = torch.float32) -> tuple[tor
         hit = (key, cos[:, 0].contiguous())
         _WINDOWS[cos] = hit
     nonzeros = _NONZEROS.get(mel_fb)
-    if nonzeros is None or nonzeros[0] != mel_fb._version:
-        nonzeros = (mel_fb._version, *mel_nonzeros(mel_fb))
+    if nonzeros is None or nonzeros[0] != _version(mel_fb):
+        nonzeros = (_version(mel_fb), *mel_nonzeros(mel_fb))
         _NONZEROS[mel_fb] = nonzeros
     key = (2 * (cos.shape[1] - 1), cos.device, dtype)
     if key not in _TWIDDLES:
@@ -272,12 +306,30 @@ def _fft_operands(consts: dict, dtype: torch.dtype = torch.float32) -> tuple[tor
 def log_mel_fused(frames: torch.Tensor, consts: dict, log: bool = True) -> torch.Tensor:
     """``[..., win] → [..., n_mels]`` through the hand kernel: natural-log mel
     (``log=True``) or the raw mel power, on the route :func:`log_mel_route`
-    picks. ``log_mel_fused.launches`` counts launches,
-    ``log_mel_fused.routes`` those of each route."""
-    if frames.device.type == "cpu":
-        return log_mel_reference(frames, consts, log)
-    if frames.device.type != "cuda":
-        raise ValueError(f"log_mel_fused: unsupported device {frames.device}")
+    picks, through the custom op ``torch.ops.mmbidaf.log_mel`` (one node in
+    an exported program). ``log_mel_fused.launches`` counts launches,
+    ``log_mel_fused.routes`` those of each route; both move only where the
+    kernel launches."""
+    build.check_device(frames, "log_mel_fused")
+    return torch.ops.mmbidaf.log_mel(frames, consts["cos"], consts["sin"], consts["mel_fb"], log)
+
+
+log_mel_fused.launches = 0
+log_mel_fused.routes = {"fft": 0, "dense": 0}
+
+
+@torch.library.custom_op("mmbidaf::log_mel", mutates_args=(), device_types="cpu")
+def log_mel_op(frames: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, mel_fb: torch.Tensor,
+               log: bool) -> torch.Tensor:
+    """K4 as a custom op: ``frames [..., win]`` and the frontend's bases →
+    f32 ``[..., n_mels]``, the log mel (``log``) or the raw mel. On the CPU,
+    the plain version."""
+    consts = {"cos": cos, "sin": sin, "mel_fb": mel_fb}
+    return log_mel_reference(frames, consts, log).contiguous()
+
+
+@log_mel_op.register_kernel("cuda")
+def _log_mel_cuda(frames, cos, sin, mel_fb, log):
     *lead, win = frames.shape
     # [B, T, win] views (frame_signal's) keep their strides; other ranks are
     # reshaped to [rows, T, win], which copies only where the view needs it.
@@ -287,8 +339,9 @@ def log_mel_fused(frames: torch.Tensor, consts: dict, log: bool = True) -> torch
         x = x.contiguous()
     dev = x.device
     B, T, _ = x.shape
-    bins = consts["cos"].shape[1]
-    n_mels = consts["mel_fb"].shape[1]
+    bins = cos.shape[1]
+    n_mels = mel_fb.shape[1]
+    consts = {"cos": cos, "sin": sin, "mel_fb": mel_fb}
     for name, shape in (("cos", (win, bins)), ("sin", (win, bins)), ("mel_fb", (bins, n_mels))):
         build.check_tensor(consts[name], name, shape, dev)
     out = torch.empty(B, T, n_mels, device=dev)
@@ -305,9 +358,8 @@ def log_mel_fused(frames: torch.Tensor, consts: dict, log: bool = True) -> torch
         build.check_launch(lib, rc, "mmb_log_mel_fft_forward")
     else:
         rc = lib.mmb_log_mel_forward(
-            x.data_ptr(), x.stride(0), x.stride(1), consts["cos"].data_ptr(),
-            consts["sin"].data_ptr(), consts["mel_fb"].data_ptr(), out.data_ptr(),
-            B, T, win, bins, n_mels, int(log), stream,
+            x.data_ptr(), x.stride(0), x.stride(1), cos.data_ptr(), sin.data_ptr(),
+            mel_fb.data_ptr(), out.data_ptr(), B, T, win, bins, n_mels, int(log), stream,
         )
         build.check_launch(lib, rc, "mmb_log_mel_forward")
     log_mel_fused.launches += 1
@@ -315,5 +367,6 @@ def log_mel_fused(frames: torch.Tensor, consts: dict, log: bool = True) -> torch
     return out.reshape(*lead, n_mels)
 
 
-log_mel_fused.launches = 0
-log_mel_fused.routes = {"fft": 0, "dense": 0}
+@log_mel_op.register_fake
+def _log_mel_fake(frames, cos, sin, mel_fb, log):
+    return frames.new_empty(*frames.shape[:-1], mel_fb.shape[1], dtype=torch.float32)

@@ -25,7 +25,10 @@ gives the design and what bounds it.
 
 ``winograd_conv3x3_fused`` is the wrapper: on a CPU tensor it runs the plain
 version, on a CUDA tensor it launches the kernel or raises;
-``winograd_conv3x3_fused.launches`` counts launches.
+``winograd_conv3x3_fused.launches`` counts launches. It calls the custom op
+``torch.ops.mmbidaf.winograd_conv3x3`` (CPU: the plain version; CUDA: the
+launch, which alone moves the counter; fake: the output's shape), so
+``torch.export`` keeps each conv as one node.
 
 Tolerance of kernel vs plain on the card (``TOLERANCE``, by dtype): both
 form V and U with the same f32 operations and the same roundings, so they
@@ -62,11 +65,27 @@ def winograd_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None 
 def winograd_conv3x3_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
                            relu: bool = False) -> torch.Tensor:
     """3x3 SAME conv (+bias, +ReLU) via the Winograd kernel:
-    ``x [N, H, W, C]``, ``w [3, 3, C, K]`` → ``[N, H, W, K]``."""
-    if x.device.type == "cpu":
-        return winograd_reference(x, w, b, relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"winograd_conv3x3_fused: unsupported device {x.device}")
+    ``x [N, H, W, C]``, ``w [3, 3, C, K]`` → ``[N, H, W, K]``, through the
+    custom op ``torch.ops.mmbidaf.winograd_conv3x3`` (one node in an
+    exported program); ``winograd_conv3x3_fused.launches`` moves only where
+    the kernel launches."""
+    build.check_device(x, "winograd_conv3x3_fused")
+    return torch.ops.mmbidaf.winograd_conv3x3(x, w, b, relu)
+
+
+winograd_conv3x3_fused.launches = 0
+
+
+@torch.library.custom_op("mmbidaf::winograd_conv3x3", mutates_args=(), device_types="cpu")
+def winograd_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+                relu: bool) -> torch.Tensor:
+    """K14 as a custom op (the wrapper's contract). On the CPU, the plain
+    version."""
+    return winograd_reference(x, w, b, relu).contiguous()
+
+
+@winograd_op.register_kernel("cuda")
+def _winograd_launch(x, w, b, relu):
     if x.dtype not in TOLERANCE:
         raise ValueError(f"winograd_conv3x3_fused: x must be f32 or bf16, got {x.dtype}")
     N, H, W, C = x.shape
@@ -90,4 +109,7 @@ def winograd_conv3x3_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | N
     return out
 
 
-winograd_conv3x3_fused.launches = 0
+@winograd_op.register_fake
+def _winograd_fake(x, w, b, relu):
+    N, H, W, _ = x.shape
+    return x.new_empty(N, H, W, w.shape[-1])

@@ -6,11 +6,14 @@ HTTP only) — the counterpart of the repository's ``tools/serve.py``.
         [--bucket_serving [--bucket_ladders ladders.json]] \\
         [--dynamic_batch 8 --batch_wait_ms 5 --max_queue 64 --pipeline_depth 1] \\
         [--warmup 240x320] [--device cuda]
+    python -m mmbidaf_tpu_torch.tools.serve --artifact artifact/ [--dynamic_batch B] \\
+        [--warmup HxW] [--long] [--device cuda]
 
 Endpoints:
     GET  /healthz          → {"ok": true, "backend": ..., "decode_mode": ...,
                               "latency": {endpoint: count, errors, p50_ms, p95_ms},
-                              "batcher": {...}, "buckets": {"TsxWxTixTa": n}}
+                              "batcher": {...}, "buckets": {"TsxWxTixTa": n},
+                              "artifact": {"format_version": ..., ...}}
     POST /summarize        {"video_dir": "/path"}        → {"summary": ...}
     POST /summarize_batch  {"video_dirs": ["/a", "/b"]}  → {"summaries": [...]}
 
@@ -24,8 +27,16 @@ card is answered with a summary. SIGTERM drains like Ctrl-C. ``--warmup``
 runs every serving shape once (``Summarizer.warmup``) before the daemon
 listens.
 
-Not ported: ``--artifact``, ``--data_parallel``, ``--tp_vgg`` and
-``--num_model`` raise ``NotImplementedError``.
+``--artifact DIR`` serves a frozen artifact (``tools/export_artifact.py``)
+through ``export.ExportedSummarizer``: its decode mode, batch and bucket
+levels were fixed at export, so ``--mode``, ``--serve_batch_size``,
+``--bucket_serving`` and ``--bucket_ladders`` are conflicts,
+``--dynamic_batch`` must equal the artifact's batch, and ``--warmup`` runs
+the artifact's programs at its frame size. ``/healthz`` then shows the
+artifact's format.
+
+Not ported: ``--data_parallel``, ``--tp_vgg`` and ``--num_model`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -75,6 +86,13 @@ def make_handler(summarizer, use_long: bool, batcher=None):
 
     backend = summarizer.device.type
     latency = LatencyStats()
+    dec = getattr(summarizer, "decoder", None)  # a frozen artifact
+    artifact = None if dec is None else {
+        k: dec.manifest[k] for k in ("format_version", "device", "torch_version", "batch_size",
+                                     "frame_hw", "compute_dtype", "decode_mode", "beam_width")}
+    if artifact is not None:
+        artifact["bucket_programs"] = len(dec.bucket_levels)
+    bucketed = dec.bucket_levels if dec is not None else summarizer._ladders is not None
 
     class Handler(BaseHTTPRequestHandler):
         # one request at a time on the card keeps its memory bounded; the
@@ -104,7 +122,9 @@ def make_handler(summarizer, use_long: bool, batcher=None):
                        "latency": latency.snapshot()}
             if batcher is not None:
                 payload["batcher"] = dict(batcher.stats)
-            if summarizer._ladders is not None:
+            if artifact is not None:
+                payload["artifact"] = artifact
+            if bucketed:
                 with summarizer._stats_lock:
                     payload["buckets"] = {"x".join(map(str, k)): v
                                           for k, v in summarizer.bucket_stats.items()}
@@ -172,7 +192,7 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--run_dir", help="a train.cli run directory (config, vocab, ckpts)")
-    src.add_argument("--artifact", help="not ported: raises")
+    src.add_argument("--artifact", help="a frozen artifact directory (export.py)")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--mode", default="greedy", choices=["greedy", "topk", "beam"])
@@ -208,11 +228,20 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     ap, a = parse_args(argv)
-    if a.artifact:
-        raise NotImplementedError("--artifact: exported artifacts are not ported yet (ROADMAP Queue 1)")
     if a.data_parallel or a.tp_vgg is not None or a.num_model is not None:
         raise NotImplementedError("--data_parallel, --tp_vgg and --num_model: the mesh layouts "
                                   "are not ported yet (ROADMAP Queue 1)")
+    if a.artifact:
+        # the artifact is the program: its mode, batch and levels were fixed
+        # at export (--dynamic_batch must equal its batch; --long windows
+        # through the frozen program)
+        for flag, name in ((a.mode != "greedy", "--mode"),
+                           (a.serve_batch_size, "--serve_batch_size"),
+                           (a.bucket_serving, "--bucket_serving"),
+                           (a.bucket_ladders, "--bucket_ladders")):
+            if flag:
+                ap.error(f"{name} is fixed at export time — re-export the artifact (or serve "
+                         "interactively via --run_dir)")
     if a.dynamic_batch and a.long:
         ap.error("--dynamic_batch batches whole-video requests; --long's windowed decode "
                  "batches internally — pick one")
@@ -261,26 +290,39 @@ def main(argv=None) -> None:
 
     previous = signal.signal(signal.SIGTERM, _sigterm)
     try:
-        run(a, serve_buckets, warmup_hw)
+        run(a, serve_buckets, warmup_hw, ap)
     finally:  # a caller that runs main in-process keeps its own handler
         signal.signal(signal.SIGTERM, previous)
 
 
-def run(a, serve_buckets, warmup_hw) -> None:
+def run(a, serve_buckets, warmup_hw, ap) -> None:
     from mmbidaf_tpu_torch.serving import DynamicBatcher, Summarizer
 
     batcher = None
     try:
-        s = Summarizer.from_run(a.run_dir, mode=a.mode, topk=a.topk,
-                                serve_batch_size=a.serve_batch_size, serve_buckets=serve_buckets,
-                                device=a.device)
+        if a.artifact:
+            from mmbidaf_tpu_torch.export import ExportedSummarizer
+
+            s = ExportedSummarizer(a.artifact, device=a.device)
+            if warmup_hw is not None and warmup_hw != s.decoder.frame_hw:
+                ap.error(f"--warmup {a.warmup} != the artifact's frame_hw {s.decoder.frame_hw}")
+            if a.dynamic_batch and a.dynamic_batch != s.fixed_batch_size:
+                ap.error(f"--dynamic_batch {a.dynamic_batch} != the artifact's batch "
+                         f"{s.fixed_batch_size}, fixed at export time")
+        else:
+            s = Summarizer.from_run(a.run_dir, mode=a.mode, topk=a.topk,
+                                    serve_batch_size=a.serve_batch_size,
+                                    serve_buckets=serve_buckets, device=a.device)
         # the batcher before the warmup: its checks fail fast
         if a.dynamic_batch:
             batcher = DynamicBatcher(s, max_batch_size=a.dynamic_batch, max_wait_ms=a.batch_wait_ms,
                                      max_queue=a.max_queue or None, pipeline_depth=a.pipeline_depth)
         if warmup_hw is not None:
             t0 = time.monotonic()
-            s.warmup(warmup_hw, batch_size=a.dynamic_batch or None, include_long=a.long)
+            if a.artifact:
+                s.warmup()
+            else:
+                s.warmup(warmup_hw, batch_size=a.dynamic_batch or None, include_long=a.long)
             print(f"warmup: serving shapes run in {time.monotonic() - t0:.1f} s", flush=True)
     except KeyboardInterrupt:
         if batcher is not None:
@@ -288,8 +330,8 @@ def run(a, serve_buckets, warmup_hw) -> None:
         print("stopped during startup")
         return
     srv = serve(s, port=a.port, host=a.host, use_long=a.long, batcher=batcher)
-    print(f"serving {a.run_dir} on http://{a.host}:{srv.server_address[1]} "
-          f"(mode={a.mode}, device={s.device}{', long' if a.long else ''}"
+    print(f"serving {a.run_dir or a.artifact} on http://{a.host}:{srv.server_address[1]} "
+          f"(mode={s.mode}, device={s.device}{', long' if a.long else ''}"
           f"{f', dynamic_batch={a.dynamic_batch}' if batcher else ''})", flush=True)
     try:
         srv.serve_forever()

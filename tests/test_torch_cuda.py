@@ -1434,3 +1434,90 @@ def test_precompute_features_on_the_card_matches_the_cpu(cuda_device, tmp_path):
             np.testing.assert_array_equal(a[k], b[k])
         np.testing.assert_allclose(b["images"], a["images"], atol=1e-4)
         np.testing.assert_allclose(b["audio"], a["audio"], atol=5e-4, rtol=1e-5)
+
+
+def _port_bench_f32_config():
+    """The bench widths in f32 with the three kernel flags on, in the port's
+    own Config (the artifact's ``config.json`` loads through it)."""
+    from mmbidaf_tpu_torch.config import Config as PConfig
+    from mmbidaf_tpu_torch.config import DataConfig as PDataConfig
+    from mmbidaf_tpu_torch.config import ModelConfig as PModelConfig
+
+    data = PDataConfig(max_sentences=32, max_words=16, max_keyframes=16, max_audio_frames=512,
+                       vocab_size=20000, image_size=224)
+    model = PModelConfig(hidden_size=128, img_feat_dim=4096, audio_feat_dim=40, drop_prob=0.0,
+                         max_decode_steps=4, use_pallas_attention=True, use_pallas_lstm=True,
+                         use_pallas_melspec=True)
+    return PConfig(model=model, data=data)
+
+
+@pytest.mark.cuda
+def test_f32_artifact_on_the_card_equals_the_live_path(cuda_device, tmp_path):
+    """An f32 artifact at the bench widths (VGG-16 at 224², B=2), exported
+    and loaded on the card and run with cuDNN's TF32 flag at its default
+    (on): its picks equal the live f32 path's and its log-probs are within
+    1e-5. The graph records the convolutions but not the full-f32 pin the
+    live path sets around them; the loader sets it around each call."""
+    from mmbidaf_tpu_torch.export import ExportedDecoder, _raw_specs, export_summarizer
+    from mmbidaf_tpu_torch.serving import Summarizer
+
+    cfg = _port_bench_f32_config()
+    summ = Summarizer.init_random(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(0)
+    raw = {}
+    for k, s in _raw_specs(cfg, 2, (240, 320)).items():
+        if k == "text_ids":
+            raw[k] = rng.integers(1, cfg.data.vocab_size, s.shape).astype(np.int32)
+        elif k == "frames":
+            raw[k] = (rng.random(s.shape) * 255).astype(np.uint8)
+        elif k == "waveform":
+            raw[k] = (rng.standard_normal(s.shape) * 0.1).astype(np.float32)
+        else:
+            m = np.ones(s.shape, np.float32)
+            m[1, ..., s.shape[-1] // 2:] = 0.0
+            raw[k] = m
+    cudnn = torch.backends.cudnn
+    prior = cudnn.allow_tf32
+    try:
+        cudnn.allow_tf32 = True
+        export_summarizer(summ, str(tmp_path), batch_size=2, frame_hw=(240, 320))
+        lp, picks = ExportedDecoder(str(tmp_path), device=cuda_device).decode_raw(raw)
+        live_lp, live_picks = summ._decode_batch_device(summ._to_device(raw))
+        assert cudnn.allow_tf32 and cudnn.conv.fp32_precision != "ieee"
+    finally:
+        cudnn.allow_tf32 = prior
+    np.testing.assert_array_equal(picks, live_picks.cpu().numpy())
+    np.testing.assert_allclose(lp, live_lp.cpu().numpy(), atol=1e-5, rtol=0.0)
+
+
+@pytest.mark.cuda
+def test_artifact_counts_launches_on_the_card_not_while_tracing(cuda_device, tmp_path):
+    """Exporting on the card traces with fake tensors and launches nothing;
+    each call of the loaded program launches K1 five times (one a BiLSTM
+    layer), K2 twice and K3 once, on their routes, and its picks equal the
+    live path's."""
+    import dataclasses
+
+    from mmbidaf_tpu_torch.config import tiny_test_config
+    from mmbidaf_tpu_torch.export import ExportedDecoder, _raw_specs, export_summarizer
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+    from mmbidaf_tpu_torch.ops.vgg import TINY_SPEC
+    from mmbidaf_tpu_torch.serving import Summarizer
+
+    cfg = tiny_test_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, img_feat_dim=32, audio_feat_dim=cfg.data.n_mfcc, use_pallas_lstm=True,
+        use_pallas_attention=True, use_pallas_melspec=True))
+    summ = Summarizer.init_random(cfg, seed=3, vgg_spec=TINY_SPEC, device=cuda_device)
+    fns = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused)
+    before = [fn.launches for fn in fns]
+    export_summarizer(summ, str(tmp_path), batch_size=2, frame_hw=(12, 16))
+    assert [fn.launches for fn in fns] == before
+    dec = ExportedDecoder(str(tmp_path), device=cuda_device)
+    raw = {k: (np.ones if k.endswith("_mask") else np.zeros)(s.shape, s.dtype)
+           for k, s in _raw_specs(cfg, 2, (12, 16)).items()}
+    raw["waveform"] = np.random.default_rng(0).standard_normal(raw["waveform"].shape).astype(np.float32)
+    _, picks = dec.decode_raw(raw)
+    assert [fn.launches - n for fn, n in zip(fns, before)] == [5, 2, 1]
+    _, live = summ._decode_batch_device(summ._to_device(raw))
+    np.testing.assert_array_equal(picks, live.cpu().numpy())

@@ -218,8 +218,14 @@ def test_checks_before_any_load(run, tmp_path):
     with pytest.raises(SystemExit, match="no checkpoint"):
         infer.main(["--device", "cpu", "--load_dir", str(tmp_path / "none"),
                     "--config_json", str(REPO / "examples" / "tiny_config.json")])
-    for flags in (["--artifact", "x"], ["--sp_audio", "1"], ["--num_seq", "2"], ["--tp_vgg", "1"],
-                  ["--num_model", "2"]):
+    # --artifact scores a corpus, and the artifact fixes the model's flags
+    with pytest.raises(SystemExit, match="pass --data_dir"):
+        infer.main(["--device", "cpu", "--artifact", "x"])
+    for flags, name in ((base, "--load_dir"), (["--device", "cpu", "--mode", "beam"], "--mode"),
+                        (["--device", "cpu", "--vgg", "tiny"], "--vgg")):
+        with pytest.raises(SystemExit, match=f"{name} is fixed inside the artifact"):
+            infer.main(flags + ["--artifact", "x", "--data_dir", run["corpus"]])
+    for flags in (["--sp_audio", "1"], ["--num_seq", "2"], ["--tp_vgg", "1"], ["--num_model", "2"]):
         with pytest.raises(NotImplementedError):
             infer.main(base + flags)
 

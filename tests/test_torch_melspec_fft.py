@@ -126,6 +126,19 @@ def test_the_frontend_bases_pass_the_basis_check(cfg):
     assert mk.dft_basis_error(consts["cos"], consts["sin"]) <= mk._BASIS_RTOL
 
 
+def test_fft_operands_of_inference_tensors():
+    """Bases made (or weights loaded) under ``torch.inference_mode`` track no
+    version counter: the FFT operands are built from them and cached once
+    per tensor all the same, equal to those of ordinary tensors."""
+    with torch.inference_mode():
+        frozen = _consts(16000, 512, 400, 64)
+    plain = _consts(16000, 512, 400, 64)
+    got = mk._fft_operands(frozen, torch.float64)
+    assert mk._fft_operands(frozen, torch.float64)[0] is got[0]  # cached
+    for a, b in zip(got, mk._fft_operands(plain, torch.float64)):
+        torch.testing.assert_close(a, b, atol=0.0, rtol=0.0)
+
+
 def test_other_bases_fail_the_basis_check():
     """A perturbed entry, the zero pad at the start instead of the end, and
     the basis of another n_fft are not the window's DFT basis of n_fft."""

@@ -297,10 +297,16 @@ def test_daemon_process_warms_serves_and_drains(run_dir, server):
 
 
 def test_daemon_flags_checked_before_the_load(run_dir, tmp_path, capsys):
-    for flags in (["--artifact", "x"], ["--run_dir", run_dir, "--data_parallel"],
-                  ["--run_dir", run_dir, "--tp_vgg", "1"], ["--run_dir", run_dir, "--num_model", "2"]):
+    for flags in (["--run_dir", run_dir, "--data_parallel"], ["--run_dir", run_dir, "--tp_vgg", "1"],
+                  ["--run_dir", run_dir, "--num_model", "2"]):
         with pytest.raises(NotImplementedError):
             serve_tool.main(flags)
+    # an artifact fixes its decode mode, batch and levels at export
+    for flags, name in ((["--mode", "beam"], "--mode"), (["--serve_batch_size", "2"], "--serve_batch_size"),
+                        (["--bucket_serving"], "--bucket_serving")):
+        with pytest.raises(SystemExit):
+            serve_tool.main(["--artifact", "x", *flags])
+        assert f"{name} is fixed at export time" in capsys.readouterr().err
     bad = tmp_path / "ladders.json"
     bad.write_text(json.dumps({"frames": [2]}))
     for flags, msg in ((["--bucket_serving", "--bucket_ladders", str(bad)], "unknown serve_buckets"),
