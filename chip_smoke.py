@@ -195,6 +195,26 @@ Phases, in order; any failure exits non-zero before the result line:
          subprocess answering ``tools/load_test.py``'s requests, every answer
          equal to ``ExportedSummarizer.summarize``'s, ``/healthz`` showing the
          artifact.
+ 12. the mesh layouts (``parallel/``) at world size 1 through NCCL (one
+     card; a process group from ``parallel.mesh.initialize_distributed`` on a
+     ``file://`` store), every collective a one-rank NCCL call:
+     (a) the bench configuration's ``Summarizer(data_parallel=True)`` at
+         B=64 bf16, timed beside phase 4(a), K1-K3's launches and routes;
+     (b) f32 at B=8: ``data_parallel``, ``tp_vgg`` at ``num_model=1`` and
+         both together, log-probs and picks bit for bit those of the
+         Summarizer without a mesh;
+     (c) the long-audio configuration with ``sp_audio`` at ``num_seq=1``
+         (the SP chain: plain MFCC, wavefront BiLSTM, ring BiDAF): f32 B=2
+         picks equal to the path without a mesh, kernels off (the SP chain's
+         functions) and on; bf16 B=16 timed beside phase 6(a);
+     (d) ``make_train_step`` with the mesh at the phase-5 configuration:
+         two steps at drop 0.2 bit for bit the steps without it, then its
+         median step and the step's without a mesh, timed in turns;
+         ``train.cli`` on the synthetic stream with and without
+         ``--num_data 1`` in turns, and ``train.cli --num_data 1 --sp_audio
+         --num_seq 1 --tp_vgg --num_model 1`` on phase 8's corpus (raw
+         waveforms, not its ``features.npz``) beside phase 8, K5-K8 counted
+         inside their steps.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The random weights come from seeds.
 """
@@ -1159,10 +1179,10 @@ def profile_kernels(fn, arg, t_ref: float, tag: str, unit: str, groups: dict | N
     return arg
 
 
-def phase_long(dev, card: str, long_records: list[dict]) -> None:
+def phase_long(dev, card: str, long_records: list[dict]) -> float:
     """Phase 6: long-video serving at the long-audio configuration, then the
     log-mel configuration. K4's and K9's launches are counted over (a), (b)
-    and the B=64 batch of (d)."""
+    and the B=64 batch of (d). Returns (a)'s median batch, s."""
     import torch
 
     from mmbidaf_tpu_torch.data.frontend import apply_frontend, make_end_to_end_decode
@@ -1196,6 +1216,7 @@ def phase_long(dev, card: str, long_records: list[dict]) -> None:
     torch.cuda.synchronize()
     check_decode(lp.cpu().numpy(), picks.cpu().numpy(), raw_np, cfg, "long-audio bf16")
     t_batch = timed_batches(lambda: end_to_end(s.model, s.frontend, raw))
+    t_6a = t_batch
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"(6a) end-to-end B={B_LONG}, {d.max_audio_frames} audio frames: median batch "
           f"{t_batch * 1e3:.2f} ms over 5 -> {B_LONG / t_batch:.3f} videos/s on {card}; "
@@ -1275,6 +1296,7 @@ def phase_long(dev, card: str, long_records: list[dict]) -> None:
           f"{t_batch * 1e3:.2f} ms over 3 -> {B / t_batch:.2f} videos/s on {card}", flush=True)
     f32_kernels_vs_plain(lm, s, {k: v[:2] for k, v in raw.items()},
                          {k: v[:2] for k, v in raw_np.items()}, "(6d) logmel")
+    return t_6a
 
 
 def winograd_config():
@@ -1701,8 +1723,9 @@ def train_state(cfg, dev, seed: int):
     return state, batch
 
 
-def phase_train(dev, card: str, records: list[dict]) -> None:
-    """Phase 5: the training step at the bench_train configuration."""
+def phase_train(dev, card: str, records: list[dict]) -> float:
+    """Phase 5: the training step at the bench_train configuration; returns
+    its median step, s."""
     import torch
 
     from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel
@@ -1765,6 +1788,7 @@ def phase_train(dev, card: str, records: list[dict]) -> None:
     check(abs(lk - lp) <= TRAIN_PARITY_ATOL and abs(gk - gp) <= TRAIN_PARITY_ATOL * max(1.0, gp),
           "(5b) kernel and plain loss / grad norm differ")
     check(dp <= TRAIN_PARITY_ATOL and de <= TRAIN_PARITY_ATOL, "(5b) kernel and plain parameters differ")
+    return t_step
 
 
 def corpus_cli_args(tmp: str, cfg_path: str, name: str, *extra: str) -> list[str]:
@@ -3020,6 +3044,220 @@ def phase_export(dev, card: str, tmp: str, serving_root: str, tiers: dict, level
     print(f"(11) launches in this process over phase 11 (added to the records): {total}", flush=True)
 
 
+
+# -- phase 12: the mesh layouts at world size 1 ----------------------------------
+
+
+def serving_counters():
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+
+    fns = {"K1": lstm_kernel.bilstm_cuda, "K2": bidaf_kernel.bidaf_attention_fused,
+           "K3": melspec_kernel.mfcc_fused, "K4": melspec_kernel.log_mel_fused,
+           "K9": bidaf_kernel.bidaf_attention_tiled}
+    for fn in fns.values():
+        fn.launches = 0
+    lstm_kernel.bilstm_cuda.routes = {"cluster": 0, "l2": 0}
+    bidaf_kernel.bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
+    melspec_kernel.mfcc_fused.routes = {"fft": 0, "dense": 0}
+    return fns
+
+
+def read_counters(fns: dict) -> tuple[dict, dict]:
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+
+    return ({k: fn.launches for k, fn in fns.items()},
+            {"K1": dict(lstm_kernel.bilstm_cuda.routes),
+             "K2": dict(bidaf_kernel.bidaf_attention_fused.routes),
+             "K3": dict(melspec_kernel.mfcc_fused.routes)})
+
+
+def mesh_cfg(cfg, **mesh):
+    return dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, **mesh))
+
+
+def phase_mesh(dev, card: str, tmp: str, corpus_root: str, t_batch: float, t_step5: float,
+               t_long: float, raw_step_s: float) -> None:
+    """Phase 12: the mesh layouts at world size 1, each collective a
+    one-rank NCCL call; every layout against the path without a mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel
+    from mmbidaf_tpu_torch.parallel.mesh import initialize_distributed
+    from mmbidaf_tpu_torch.serving import Summarizer
+    from mmbidaf_tpu_torch.train import cli, loop
+
+    env = {"COORDINATOR_ADDRESS": f"file://{os.path.join(tmp, 'store')}", "NUM_PROCESSES": "1",
+           "PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        check(initialize_distributed("cuda"), "(12) initialize_distributed started no group")
+        print(f"(12) process group: backend {dist.get_backend()}, world size "
+              f"{dist.get_world_size()}, rank {dist.get_rank()}", flush=True)
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "(12) not one NCCL rank")
+
+        # (a) data-parallel serving at the bench configuration, B=64 bf16
+        cfg = bench_config()
+        raw_np = raw_batch(cfg, np.random.default_rng(0))
+        raw = {k: torch.from_numpy(v).to(dev) for k, v in raw_np.items()}
+        s = Summarizer.init_random(cfg, seed=0, device=dev, serve_batch_size=B, data_parallel=True)
+        print(f"(12a) Summarizer(data_parallel=True): mesh {dict(s._mesh.shape)}", flush=True)
+        fns = serving_counters()
+        lp, picks = s._decode_batch_device(raw)
+        torch.cuda.synchronize()
+        check_decode(lp.cpu().numpy(), picks.cpu().numpy(), raw_np, cfg, "(12a) data-parallel bf16")
+        t_dp = timed_batches(lambda: s._decode_batch_device(raw))
+        launches, routes = read_counters(fns)
+        print(f"(12a) data-parallel B={B} bf16: median batch {t_dp * 1e3:.2f} ms over 5 -> "
+              f"{B / t_dp:.2f} videos/s, beside phase 4(a)'s {t_batch * 1e3:.2f} ms, on {card}; "
+              f"launches {launches}, routes {routes}", flush=True)
+        for k in ("K1", "K2", "K3"):
+            check(launches[k] > 0, f"(12a) {k} was never launched under data_parallel")
+        check(routes["K1"]["l2"] == 0 and routes["K2"]["K9"] == 0 and routes["K3"]["dense"] == 0,
+              f"(12a) a kernel left its route: {routes}")
+        del s
+
+        # (b) f32, B=8: every serving layout bit for bit the path without a mesh
+        k32, _ = f32_configs(cfg)
+        raw8 = {k: v[:8] for k, v in raw.items()}
+        ref = None
+        for name, c, dp in (("none", k32, False), ("data_parallel", k32, True),
+                            ("tp_vgg num_model=1", mesh_cfg(k32, tp_vgg=True, num_model=1), False),
+                            ("data_parallel + tp_vgg", mesh_cfg(k32, tp_vgg=True, num_model=1),
+                             True)):
+            s = Summarizer.init_random(c, seed=0, device=dev, serve_batch_size=8,
+                                       data_parallel=dp)
+            fns = serving_counters()
+            out = [t.cpu() for t in s._decode_batch_device(raw8)]
+            launches, _ = read_counters(fns)
+            if ref is None:
+                ref = out
+                continue
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            print(f"(12b) f32 B=8 {name}: log-probs and picks bit for bit the path without a "
+                  f"mesh: {same}; launches {launches}", flush=True)
+            check(same, f"(12b) {name} differs from the path without a mesh")
+            check(all(launches[k] > 0 for k in ("K1", "K2", "K3")), f"(12b) {name}: {launches}")
+            if "tp_vgg" in name:
+                check(getattr(s.frontend.vgg, "tp", None) is not None,
+                      f"(12b) {name}: the classifier was not split")
+            del s
+
+        # (c) sp_audio at num_seq=1, the long-audio configuration
+        lcfg = long_config()
+        lk32, lp32 = f32_configs(lcfg)
+        raw2_np = raw_batch(lcfg, np.random.default_rng(1), 2)
+        raw2 = {k: torch.from_numpy(v).to(dev) for k, v in raw2_np.items()}
+        res = {}
+        for name, c in (("plain", lp32), ("kernels", lk32),
+                        ("sp", mesh_cfg(lp32, sp_audio=True, num_seq=1))):
+            s = Summarizer.init_random(c, seed=0, device=dev)
+            fns = serving_counters()
+            res[name] = [t.cpu() for t in s._decode_batch_device(raw2)]
+            res[name + ".launches"] = read_counters(fns)[0]
+            del s
+        for other in ("plain", "kernels"):
+            same = torch.equal(res["sp"][1], res[other][1])
+            diff = (res["sp"][0] - res[other][0]).abs().max().item()
+            print(f"(12c) f32 B=2, {lcfg.data.max_audio_frames} audio frames, sp_audio at "
+                  f"num_seq=1 against the path without a mesh ({other}): picks equal {same}, "
+                  f"max log-prob diff {diff:.3e}", flush=True)
+            check(same, f"(12c) sp_audio picks differ from the {other} path")
+        sp_launches = res["sp.launches"]
+        print(f"(12c) launches under sp_audio: {sp_launches} (the SP chain is plain: no K3, K4, K9)",
+              flush=True)
+        s = Summarizer.init_random(mesh_cfg(lcfg, sp_audio=True, num_seq=1), seed=0, device=dev)
+        raw16 = {k: torch.from_numpy(v).to(dev)
+                 for k, v in raw_batch(lcfg, np.random.default_rng(1), B_LONG).items()}
+        fns = serving_counters()
+        lp, picks = s._decode_batch_device(raw16)
+        torch.cuda.synchronize()
+        t_sp = timed_batches(lambda: s._decode_batch_device(raw16), n=3)
+        launches, routes = read_counters(fns)
+        print(f"(12c) sp_audio B={B_LONG} bf16, {lcfg.data.max_audio_frames} frames: median batch "
+              f"{t_sp * 1e3:.2f} ms over 3, beside phase 6(a)'s {t_long * 1e3:.2f} ms on the "
+              f"kernels, on {card}; launches {launches}", flush=True)
+        check(launches["K1"] > 0 and launches["K2"] > 0, f"(12c) K1/K2 not launched: {launches}")
+        check(launches["K4"] == 0 and launches["K9"] == 0 and launches["K3"] == 0,
+              f"(12c) the SP tower reached an audio kernel: {launches}")
+        del s
+
+        # (d) training: the step with the mesh, then train.cli with the mesh flags
+        from mmbidaf_tpu_torch.parallel.mesh import make_mesh
+
+        tcfg = train_config()
+        mesh = make_mesh(mesh_cfg(tcfg, num_data=1).mesh, dev)
+        runs = {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            state, batch = train_state(tcfg, dev, seed=0)
+            step = loop.make_train_step(tcfg, mesh=m)
+            for _ in range(2):
+                state, _ = step(state, batch)
+            runs[name] = [state, batch, step, []]
+        same = all(torch.equal(runs["plain"][0].params.state_dict()[k], v)
+                   for k, v in runs["mesh"][0].params.state_dict().items())
+        print(f"(12d) two steps at drop 0.2 with the mesh (flat-gradient all-reduce through NCCL) "
+              f"bit for bit the steps without it: {same}", flush=True)
+        check(same, "(12d) the data-parallel step differs from the step without a mesh")
+        # in turns (plain, mesh, mesh, plain, twice), 15 steps each: the step
+        # is held by the host, whose state drifts over a long process
+        for name in ("plain", "mesh", "mesh", "plain") * 2:
+            state, batch, step, times = runs[name]
+            for _ in range(15):
+                t0 = time.perf_counter()
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            runs[name][0] = state
+        t_plain, t_mesh = (statistics.median(runs[k][3]) for k in ("plain", "mesh"))
+        print(f"(12d) make_train_step in turns, 60 steps each: median {t_mesh * 1e3:.2f} ms with "
+              f"the mesh, {t_plain * 1e3:.2f} ms without; phase 5's {t_step5 * 1e3:.2f} ms; on "
+              f"{card}", flush=True)
+        del runs, state, batch
+
+        counters = (lstm_kernel.bilstm_train_forward, lstm_kernel.bilstm_bptt,
+                    bidaf_kernel.bidaf_dropout_forward, bidaf_kernel.bidaf_dropout_backward)
+        cfg_path = os.path.join(tmp, "train.json")
+        with open(cfg_path, "w") as f:
+            json.dump(dataclasses.asdict(tcfg), f)
+        cli_s = {"plain": [], "mesh": []}
+        for i, name in enumerate(("plain", "mesh", "mesh", "plain")):
+            flags = ["--num_data", "1"] if name == "mesh" else []
+            with timed_train_steps(counters) as rec:
+                cli.main(["--config_json", cfg_path, "--device", "cuda", "--num_steps", "30",
+                          "--eval_steps", "30", "--save_dir", tmp, "--name", f"{name}{i}",
+                          *flags])
+            cli_s[name] += rec.seconds[1:]
+            check(len(rec.seconds) == 30 and all(n > 0 for n in rec.launches.values()),
+                  f"(12d) train.cli {flags}: {len(rec.seconds)} steps, {rec.launches}")
+            losses = [r["loss"] for r in run_log(os.path.join(tmp, f"{name}{i}")) if "loss" in r]
+            check(bool(losses) and all(math.isfinite(x) for x in losses), f"(12d) losses {losses}")
+        t_cli, t_cli0 = (statistics.median(cli_s[k]) for k in ("mesh", "plain"))
+        print(f"(12d) train.cli on the synthetic stream (B={B_TRAIN}), in turns, 58 steps each: "
+              f"median step {t_cli * 1e3:.2f} ms with --num_data 1, {t_cli0 * 1e3:.2f} ms without; "
+              f"launches inside the last run's steps {rec.launches}", flush=True)
+        with timed_train_steps(counters) as rec:
+            cli.main(corpus_cli_args(corpus_root, os.path.join(corpus_root, "train.json"), "mesh",
+                                     "--num_steps", "4", "--eval_steps", "4", "--num_data", "1",
+                                     "--sp_audio", "--num_seq", "1", "--tp_vgg",
+                                     "--num_model", "1"))
+        t_raw = statistics.median(rec.seconds[1:])
+        logs = run_log(os.path.join(corpus_root, "mesh"))
+        evals = [r for r in logs if "eval_loss" in r]
+        print(f"(12d) train.cli on phase 8's corpus with --sp_audio --num_seq 1 --tp_vgg "
+              f"--num_model 1 --num_data 1: median step {t_raw * 1e3:.2f} ms over "
+              f"{len(rec.seconds) - 1}, beside phase 8's {raw_step_s * 1e3:.2f} ms; launches "
+              f"inside the steps {rec.launches}; eval {evals}", flush=True)
+        check(len(rec.seconds) == 4 and all(n > 0 for n in rec.launches.values()),
+              f"(12d) the corpus run: {len(rec.seconds)} steps, {rec.launches}")
+        check(len(evals) == 1 and math.isfinite(evals[0]["eval_loss"]), f"(12d) eval {evals}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+
+
 def main() -> None:
     import torch
 
@@ -3127,10 +3365,10 @@ def main() -> None:
     del s
 
     # 5. the training step
-    phase_train(dev, card, train_records)
+    t_step5 = phase_train(dev, card, train_records)
 
     # 6. long-video serving
-    phase_long(dev, card, long_records)
+    t_long = phase_long(dev, card, long_records)
 
     # 7. the kernel-parity tool, K10-K14 alone, and Winograd serving
     tool_launches = phase_parity_tool(dev)
@@ -3157,6 +3395,10 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as export_root:
             phase_export(dev, card, export_root, serving_root, tiers, level_dirs, t_batch,
                          records + long_records + vgg_records)
+
+        # 12. the mesh layouts at world size 1 through NCCL
+        with tempfile.TemporaryDirectory() as mesh_root:
+            phase_mesh(dev, card, mesh_root, corpus_root, t_batch, t_step5, t_long, raw_step_s)
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "mmbidaf_tpu")
                     or m.startswith(("jax.", "jaxlib", "mmbidaf_tpu.")))

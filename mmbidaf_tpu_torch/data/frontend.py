@@ -102,12 +102,15 @@ def cast_vgg_weights(fe: Frontend, compute_dtype: str) -> Frontend:
 
 
 def apply_frontend(fe: Frontend, raw: Mapping[str, torch.Tensor], cfg: Config,
-                   vgg_spec=vgg_ops.VGG16_SPEC) -> dict:
+                   vgg_spec=vgg_ops.VGG16_SPEC, sp_audio: bool = False) -> dict:
     """Raw batch → model-ready feature batch.
 
     Raw schema: ``frames [B, T_i, H, W, 3] uint8``, ``waveform [B, N] f32``,
     ``text_ids``/``word_mask``/``sent_mask``/``img_mask``/``aud_mask``.
-    Precomputed ``images`` / ``audio`` features pass through.
+    Precomputed ``images`` / ``audio`` features pass through. With
+    ``sp_audio`` (``MeshConfig.sp_audio``) the waveform passes through raw:
+    the sequence-parallel tower (``parallel/sp_tower.py``) featurizes it
+    inside the model, frame-sharded over the mesh's ``seq`` axis.
     """
     d, m = cfg.data, cfg.model
     compute_dtype = torch_dtype(m.compute_dtype)
@@ -133,7 +136,9 @@ def apply_frontend(fe: Frontend, raw: Mapping[str, torch.Tensor], cfg: Config,
         ])
         out["images"] = feats.float().reshape(B, T_i, -1) * raw["img_mask"][:, :, None]
         out["img_mask"] = raw["img_mask"]
-    if m.use_audio and "waveform" in raw:
+    if m.use_audio and "waveform" in raw and sp_audio:
+        out["waveform"], out["aud_mask"] = raw["waveform"], raw["aud_mask"]
+    elif m.use_audio and "waveform" in raw:
         # the frame count follows the batch's audio axis, as in the JAX package
         feats = audio_ops.waveform_to_features(
             raw["waveform"], fe.audio_consts, d.win_length, d.hop_length,
@@ -145,16 +150,16 @@ def apply_frontend(fe: Frontend, raw: Mapping[str, torch.Tensor], cfg: Config,
     return out
 
 
-def make_end_to_end_decode(cfg: Config, vgg_spec=vgg_ops.VGG16_SPEC):
+def make_end_to_end_decode(cfg: Config, vgg_spec=vgg_ops.VGG16_SPEC, audio_g_fn=None):
     """The serving program: raw video batch → ``(log_probs [B, K, T_s],
     picks [B, K])``, greedy. ``end_to_end(model, frontend, raw)`` runs
-    eagerly under ``torch.inference_mode``."""
-    if cfg.mesh.sp_audio:
-        raise NotImplementedError("the sequence-parallel audio tower is not ported yet")
+    eagerly under ``torch.inference_mode``. ``audio_g_fn`` routes the audio
+    tower through the sequence-parallel chain (``MeshConfig.sp_audio``); the
+    frontend then passes the raw waveform through to it."""
 
     @torch.inference_mode()
     def end_to_end(model, fe: Frontend, raw: Mapping[str, torch.Tensor]):
-        batch = apply_frontend(fe, raw, cfg, vgg_spec)
-        return mmbidaf_decode(model, batch, cfg)
+        batch = apply_frontend(fe, raw, cfg, vgg_spec, sp_audio=audio_g_fn is not None)
+        return mmbidaf_decode(model, batch, cfg, audio_g_fn=audio_g_fn)
 
     return end_to_end

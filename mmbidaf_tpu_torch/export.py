@@ -34,8 +34,9 @@ around each call), as the live path does: the graph records the
 convolutions, not the cuDNN setting the live path pins around them.
 
 Scope: greedy and beam on one device. Top-k (it carries a generator) and
-``sp_audio`` are refused as in the JAX package; the mesh layouts raise
-``NotImplementedError`` until the port has them.
+``sp_audio`` are refused as in the JAX package; data-parallel and
+tensor-parallel artifacts raise ``NotImplementedError`` (the live
+``Summarizer`` runs those layouts; their artifacts are the next slice).
 """
 
 from __future__ import annotations
@@ -192,8 +193,9 @@ def export_summarizer(summ, out_dir: str, batch_size: int = 1,
         raise ValueError("sp_audio serving programs route through shard_map chains and are not "
                          "exportable; export a non-SP Summarizer")
     if summ._dp_shards != 1 or mesh.tp_vgg or mesh.num_model != 1 or mesh.num_seq != 1:
-        raise NotImplementedError("mesh layouts (data-parallel, tp_vgg, num_model, num_seq) are "
-                                  "not ported yet: artifacts are single-device (ROADMAP Queue 1)")
+        raise NotImplementedError("mesh layouts (data-parallel, tp_vgg, num_model, num_seq) in an "
+                                  "artifact are the next slice (ROADMAP Queue 1, item 0): artifacts "
+                                  "are single-device; the live Summarizer runs the layouts")
     dev = summ.device
     served = _Served(summ)
     named = dict(served.named_parameters())

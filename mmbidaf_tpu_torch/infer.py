@@ -30,8 +30,13 @@ vocabulary, decode mode and batch live in the artifact, so ``--load_dir``,
 ``--mode``, ``--config_json``, ``--vgg``, ``--bucket_eval`` and the mesh
 flags are conflicts.
 
-Not ported: the mesh flags (``--sp_audio``, ``--num_seq``, ``--tp_vgg``,
-``--num_model``) raise ``NotImplementedError``.
+Mesh flags override the run config's ``MeshConfig`` (serving hardware
+rarely matches training hardware): ``--sp_audio 1 --num_seq N`` runs the
+audio tower sequence-parallel over the ``seq`` axis, on raw waveforms
+(``features.npz`` shortcuts are skipped); ``--tp_vgg 1 --num_model N`` splits
+the VGG classifier over the ``model`` axis. Under ``torchrun`` each process
+drives one device and every rank scores the whole corpus (the batch is not
+split). ``0`` forces a layout off where the run config has it on.
 """
 
 from __future__ import annotations
@@ -124,10 +129,16 @@ def parse_args(argv=None):
     ap.add_argument("--long", action="store_true",
                     help="windowed decode past max_sentences (Summarizer.summarize_long); "
                          "needs --data_dir")
-    ap.add_argument("--sp_audio", type=int, choices=[0, 1], default=None, help="not ported: raises")
-    ap.add_argument("--num_seq", type=int, default=None, help="not ported: raises")
-    ap.add_argument("--tp_vgg", type=int, choices=[0, 1], default=None, help="not ported: raises")
-    ap.add_argument("--num_model", type=int, default=None, help="not ported: raises")
+    ap.add_argument("--sp_audio", type=int, choices=[0, 1], default=None,
+                    help="1: sequence-parallel audio tower over the 'seq' mesh axis (needs "
+                         "--data_dir); 0: the local tower even if the run config has sp_audio")
+    ap.add_argument("--num_seq", type=int, default=None,
+                    help="devices on the 'seq' mesh axis (overrides the run config)")
+    ap.add_argument("--tp_vgg", type=int, choices=[0, 1], default=None,
+                    help="1: VGG classifier tensor-parallel over the 'model' mesh axis (needs "
+                         "--data_dir); 0: replicated weights even if the run config has tp_vgg")
+    ap.add_argument("--num_model", type=int, default=None,
+                    help="devices on the 'model' mesh axis (overrides the run config)")
     ap.add_argument("--bucket_eval", action="store_true",
                     help="trim each eval batch to the quarter/half/full rungs covering its "
                          "true lengths (picks and ROUGE unchanged)")
@@ -194,17 +205,33 @@ def main(argv=None) -> None:
     if a.artifact:
         artifact_eval(a)
         return
-    if any(v is not None for v in (a.sp_audio, a.num_seq, a.tp_vgg, a.num_model)):
-        raise NotImplementedError("the mesh layouts (--sp_audio, --num_seq, --tp_vgg, --num_model) "
-                                  "are not ported yet (ROADMAP Queue 1)")
     if a.long and not a.data_dir:
         raise SystemExit("--long requires --data_dir")
     cfg = load_infer_config(a)
-    mesh = cfg.mesh
-    if mesh.sp_audio or mesh.tp_vgg or mesh.num_seq != 1 or mesh.num_model != 1:
-        raise NotImplementedError("the config asks for a mesh layout (sp_audio, tp_vgg, num_seq, "
-                                  "num_model), which is not ported yet (ROADMAP Queue 1)")
-    dev = resolve_device(a.device)
+    over = {k: (bool(v) if k in ("sp_audio", "tp_vgg") else v)
+            for k, v in (("sp_audio", a.sp_audio), ("num_seq", a.num_seq),
+                         ("tp_vgg", a.tp_vgg), ("num_model", a.num_model)) if v is not None}
+    if over:
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, **over))
+    sp = cfg.mesh.sp_audio and cfg.model.use_audio
+    if sp and not a.data_dir:
+        raise SystemExit("--sp_audio needs raw waveform batches: pass --data_dir "
+                         "(or --sp_audio 0 to force the local tower)")
+    if cfg.mesh.tp_vgg:
+        if not a.data_dir:
+            raise SystemExit("--tp_vgg shards the frontend's VGG classifier: pass --data_dir "
+                             "(or --tp_vgg 0 to force replicated weights)")
+        if not cfg.model.use_images:
+            raise SystemExit("--tp_vgg requires the image tower")
+    from mmbidaf_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    mesh = None
+    m = cfg.mesh
+    if initialize_distributed(a.device) or sp or m.tp_vgg or m.num_seq > 1 or m.num_model > 1:
+        mesh = make_mesh(cfg.mesh, a.device)
+        dev = mesh.device
+    else:
+        dev = resolve_device(a.device)
 
     from mmbidaf_tpu_torch.data.synthetic import random_word_vectors
     from mmbidaf_tpu_torch.models.mmbidaf import mmbidaf_init
@@ -225,7 +252,10 @@ def main(argv=None) -> None:
             vocab_dir = os.path.join(a.data_dir, "train")
         decode_dir = dev_split(a.data_dir)
         w2i = vocab_from_corpus_dir(vocab_dir, max_size=cfg.data.vocab_size)
-        corpus = VideoCorpus(decode_dir, cfg, w2i, use_precomputed=True)
+        # the SP tower and the split classifier featurize raw assets: no
+        # features.npz shortcuts under them
+        corpus = VideoCorpus(decode_dir, cfg, w2i,
+                             use_precomputed=not (sp or cfg.mesh.tp_vgg))
         frontend = frontend_init(cfg, vgg_spec, dev, seed=a.seed + 2)
         wv = random_word_vectors(np_rng, len(w2i), cfg.model.emb_dim)
     else:
@@ -240,6 +270,16 @@ def main(argv=None) -> None:
             raise SystemExit(f"no checkpoint found in {a.load_dir}")
         print(f"loaded step {step}")
     params = state.ema_params
+    g_fn = None
+    if mesh is not None:
+        from mmbidaf_tpu_torch.parallel.mesh import shard_params
+
+        params = shard_params(params, mesh)
+        if sp:
+            from mmbidaf_tpu_torch.parallel.sp_tower import make_sp_audio_tower
+
+            # the batch stays whole inside the SP stages (eval batches of any size)
+            g_fn = make_sp_audio_tower(mesh, cfg, use_batch_axis=False)
 
     if a.long:
         from mmbidaf_tpu_torch.serving import Summarizer
@@ -256,10 +296,16 @@ def main(argv=None) -> None:
 
     @torch.inference_mode()
     def decode(batch):
-        return mmbidaf_decode(params, batch, cfg, mode=a.mode, topk=a.topk, generator=generator)[1]
+        return mmbidaf_decode(params, batch, cfg, mode=a.mode, topk=a.topk, generator=generator,
+                              audio_g_fn=g_fn)[1]
 
     if corpus is not None:
-        corpus_eval(a, cfg, corpus, frontend, vgg_spec, dev, decode, bucket_spec)
+        if mesh is not None:
+            from mmbidaf_tpu_torch.parallel.mesh import shard_frontend
+
+            frontend = shard_frontend(frontend, mesh, cfg.mesh.tp_vgg)
+        corpus_eval(a, cfg, corpus, frontend, vgg_spec, dev, decode, bucket_spec,
+                    sp_audio=g_fn is not None)
     else:
         synthetic_eval(a, cfg, dev, decode)
 
@@ -297,7 +343,8 @@ def artifact_eval(a) -> None:
     summarizer_corpus_eval(s, corpus, a.long, a.print_summaries)
 
 
-def corpus_eval(a, cfg, corpus, frontend, vgg_spec, dev, decode, bucket_spec) -> None:
+def corpus_eval(a, cfg, corpus, frontend, vgg_spec, dev, decode, bucket_spec,
+                sp_audio: bool = False) -> None:
     """Every corpus video once, in order, in batches whose tail wraps onto
     the last video; the picks map back to the on-disk transcript sentences."""
     from mmbidaf_tpu_torch.data.frontend import apply_frontend, cast_vgg_weights
@@ -354,7 +401,7 @@ def corpus_eval(a, cfg, corpus, frontend, vgg_spec, dev, decode, bucket_spec) ->
     try:
         for (idxs, n_real, _), raw in items:
             with torch.inference_mode():
-                batch = apply_frontend(fe, raw, cfg, vgg_spec)
+                batch = apply_frontend(fe, raw, cfg, vgg_spec, sp_audio=sp_audio)
             pending.append((HostFetch(decode(batch)), idxs, n_real))
             if len(pending) > 1:
                 consume(*pending.popleft())

@@ -79,10 +79,13 @@ def decoder_apply(
     mode: str = "greedy",
     topk: int = 4,
     generator: torch.Generator | None = None,
+    rows: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Decode ``num_steps`` pointers over ``M [B, T_s, d]`` →
     ``(log_probs [B, K, T_s], picks [B, K] int32)``. ``mode="topk"`` samples
-    from the top ``topk`` sentences with noise from ``generator``."""
+    from the top ``topk`` sentences with noise from ``generator``; with
+    ``rows = (start, stop, total)`` (a data-parallel rank's rows) the noise
+    is drawn for all ``total`` rows and cut to these."""
     if mode not in ("greedy", "topk"):
         raise ValueError(f"unknown decode mode {mode!r}")
     if mode == "topk" and generator is None:
@@ -93,6 +96,7 @@ def decoder_apply(
     dtype = M.dtype
     sent_mask = sent_mask.to(dtype)
     M_keys = mm(M, params.w_m)  # [B, T_s, a], hoisted out of the loop
+    start, stop, total = rows if rows is not None else (0, B, B)
     rows = torch.arange(B, device=M.device)
     h = torch.zeros(B, d, dtype=dtype, device=M.device)
     c = torch.zeros_like(h)
@@ -103,7 +107,7 @@ def decoder_apply(
         avail = sent_mask * (1.0 - selected) if mask_selected else sent_mask
         h, c, log_p = _step(params, M_keys, inp, h, c, avail)
         if mode == "topk":
-            pick = topk_pick(log_p, topk, gumbel_noise((B, T_s), generator, dtype))
+            pick = topk_pick(log_p, topk, gumbel_noise((total, T_s), generator, dtype)[start:stop])
         else:
             pick = torch.argmax(log_p, dim=-1)
         feed = targets[:, k].long() if teacher_forcing else pick

@@ -167,16 +167,24 @@ def _cast_compute(params: MMBiDAF, batch: Mapping[str, torch.Tensor], dtype: tor
 
 
 def draw_dropout_masks(batch: Mapping[str, torch.Tensor], cfg: Config,
-                       generator: torch.Generator) -> dict:
+                       generator: torch.Generator, rows: tuple | None = None) -> dict:
     """Every dropout mask of one training forward, drawn up front from
     ``generator`` in a fixed order: the GloVe rows (``emb``) and the c / q
-    operands of each BiDAF similarity (``img``, ``aud`` or ``self``)."""
+    operands of each BiDAF similarity (``img``, ``aud`` or ``self``). With
+    ``rows = (start, stop, total)`` (a data-parallel rank's rows of a batch
+    of ``total``) each mask is drawn for the whole batch and cut to the
+    rows, so every rank draws what one process draws on the whole batch."""
     m, drop = cfg.model, cfg.model.drop_prob
     ids = batch["text_ids"]
     dev = ids.device
     B, T_s, W = ids.shape
     D = 2 * m.hidden_size
-    masks = {"emb": dropout_mask((B, T_s, W, m.emb_dim), drop, generator, dev)}
+    start, stop, B = rows if rows is not None else (0, B, B)
+
+    def draw(shape):
+        return dropout_mask(shape, drop, generator, dev)[start:stop]
+
+    masks = {"emb": draw((B, T_s, W, m.emb_dim))}
     q_lens = {}
     if m.use_images:
         q_lens["img"] = batch["img_mask"].shape[1]
@@ -185,19 +193,24 @@ def draw_dropout_masks(batch: Mapping[str, torch.Tensor], cfg: Config,
     if not q_lens:
         q_lens["self"] = T_s
     for name, T_q in q_lens.items():
-        masks[name] = (dropout_mask((B, T_s, D), drop, generator, dev),
-                       dropout_mask((B, T_q, D), drop, generator, dev))
+        masks[name] = (draw((B, T_s, D)), draw((B, T_q, D)))
     return masks
 
 
 def mmbidaf_fused_reps(params: MMBiDAF, batch: Mapping[str, torch.Tensor], cfg: Config,
-                       generator: torch.Generator | None = None) -> torch.Tensor:
+                       generator: torch.Generator | None = None, audio_g_fn=None,
+                       rows: tuple | None = None) -> torch.Tensor:
     """Everything up to the fused sentence reps ``M [B, T_s, 2h]`` (f32). A
     ``generator`` means training: trainable kernels, dropout at
-    ``drop_prob`` drawn from it, and ``remat_towers`` if set."""
+    ``drop_prob`` drawn from it (``rows``: see ``draw_dropout_masks``), and
+    ``remat_towers`` if set. ``audio_g_fn`` (``parallel.sp_tower.
+    make_sp_audio_tower``, under ``MeshConfig.sp_audio``) replaces the audio
+    tower with the sequence-parallel chain; the batch then carries the raw
+    ``waveform`` in place of ``audio`` features."""
     m = cfg.model
     train = generator is not None
-    masks = draw_dropout_masks(batch, cfg, generator) if train and m.drop_prob > 0.0 else {}
+    masks = (draw_dropout_masks(batch, cfg, generator, rows)
+             if train and m.drop_prob > 0.0 else {})
     compute_dtype = torch_dtype(m.compute_dtype)
     if compute_dtype != torch.float32:
         params, batch = _cast_compute(params, batch, compute_dtype)
@@ -234,7 +247,10 @@ def mmbidaf_fused_reps(params: MMBiDAF, batch: Mapping[str, torch.Tensor], cfg: 
     if m.use_images:
         gs.append(run(tower(params.img_lstm, params.att_img, "img"), text_enc,
                       batch["images"], batch["img_mask"]))
-    if m.use_audio:
+    if m.use_audio and audio_g_fn is not None:
+        # the SP chain carries its own collectives: no remat inside it
+        gs.append(audio_g_fn(params, text_enc, batch, masks.get("aud")))
+    elif m.use_audio:
         gs.append(run(tower(params.aud_lstm, params.att_aud, "aud"), text_enc,
                       batch["audio"], batch["aud_mask"]))
     if not gs:
@@ -244,10 +260,11 @@ def mmbidaf_fused_reps(params: MMBiDAF, batch: Mapping[str, torch.Tensor], cfg: 
 
 
 def mmbidaf_apply(params: MMBiDAF, batch: Mapping[str, torch.Tensor], cfg: Config,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
+                  generator: torch.Generator | None = None, audio_g_fn=None,
+                  rows: tuple | None = None) -> torch.Tensor:
     """Teacher-forced forward → log-probs ``[B, K, T_s]`` (the training
     forward with a ``generator``; the eval loss without one)."""
-    M = mmbidaf_fused_reps(params, batch, cfg, generator)
+    M = mmbidaf_fused_reps(params, batch, cfg, generator, audio_g_fn, rows)
     log_p, _ = decoder_apply(
         params.decoder, M, batch["sent_mask"], targets=batch["targets"],
         num_steps=cfg.model.max_decode_steps, teacher_forcing=True,
@@ -258,19 +275,22 @@ def mmbidaf_apply(params: MMBiDAF, batch: Mapping[str, torch.Tensor], cfg: Confi
 
 def mmbidaf_decode(params: MMBiDAF, batch: Mapping[str, torch.Tensor], cfg: Config,
                    mode: str = "greedy", topk: int = 4,
-                   generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                   generator: torch.Generator | None = None, audio_g_fn=None,
+                   rows: tuple | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Inference → ``(log_probs [B, K, T_s], picks [B, K])``: greedy, top-k
-    sampling from the top ``topk`` sentences (noise from ``generator``), or
-    ``mode="beam"``, beam search of width ``topk``, which returns the best
-    beam's total log-prob ``[B]`` in the place of the per-step log-probs."""
+    sampling from the top ``topk`` sentences (noise from ``generator``; with
+    ``rows``, drawn for the whole batch and cut to a data-parallel rank's
+    rows), or ``mode="beam"``, beam search of width ``topk``, which returns
+    the best beam's total log-prob ``[B]`` in the place of the per-step
+    log-probs."""
     if mode not in ("greedy", "topk", "beam"):
         raise ValueError(f"unknown decode mode {mode!r}: expected 'greedy', 'beam', or 'topk'")
-    M = mmbidaf_fused_reps(params, batch, cfg)
+    M = mmbidaf_fused_reps(params, batch, cfg, audio_g_fn=audio_g_fn)
     m = cfg.model
     if mode == "beam":
         return decoder_beam_search(params.decoder, M, batch["sent_mask"], num_steps=m.max_decode_steps,
                                    beam_size=topk, mask_selected=m.mask_selected)
     return decoder_apply(
         params.decoder, M, batch["sent_mask"], num_steps=m.max_decode_steps,
-        mask_selected=m.mask_selected, mode=mode, topk=topk, generator=generator,
+        mask_selected=m.mask_selected, mode=mode, topk=topk, generator=generator, rows=rows,
     )

@@ -211,10 +211,14 @@ def log_power(s: torch.Tensor) -> torch.Tensor:
     return 10.0 * torch.log10(torch.clamp_min(s, 1e-10))
 
 
-def power_to_db(s: torch.Tensor, top_db: float = 80.0) -> torch.Tensor:
-    """librosa.power_to_db with ref = max over each example's spectrogram."""
+def power_to_db(s: torch.Tensor, top_db: float = 80.0,
+                ref: torch.Tensor | None = None) -> torch.Tensor:
+    """librosa.power_to_db with ref = max over each example's spectrogram
+    (pass ``ref`` when the max comes from elsewhere: the sequence-parallel
+    frontend's max over every rank's frames)."""
     log_spec = log_power(s)
-    ref = log_spec.amax(dim=(-2, -1), keepdim=True)
+    if ref is None:
+        ref = log_spec.amax(dim=(-2, -1), keepdim=True)
     return torch.clamp_min(log_spec - ref, -top_db)
 
 

@@ -98,7 +98,10 @@ class VGG(nn.Module):
 def vgg_features(params: VGG, images: torch.Tensor, spec: Sequence = VGG16_SPEC,
                  winograd: bool = False) -> torch.Tensor:
     """``[N, H, W, 3]`` float images → ``[N, fc_dim]`` fc2-ReLU features;
-    ``winograd`` sends every conv with C_in >= 32 to K14."""
+    ``winograd`` sends every conv with C_in >= 32 to K14. A VGG that
+    ``parallel.mesh.shard_frontend`` split over the mesh's ``model`` axis
+    (its ``tp``) runs the classifier Megatron-style: the local fc1 columns,
+    ReLU, the local fc2 rows, then one all-reduce before fc2's bias."""
     x = images.permute(0, 3, 1, 2)  # NHWC storage read as channels-last NCHW
     ci = 0
     for item in spec:
@@ -119,7 +122,13 @@ def vgg_features(params: VGG, images: torch.Tensor, spec: Sequence = VGG16_SPEC,
             ci += 1
     x = x.reshape(x.shape[0], -1)  # NCHW flatten order (torchvision classifier)
     x = torch.relu(mm(x, params.fc1_w) + params.fc1_b)
-    return torch.relu(mm(x, params.fc2_w) + params.fc2_b)
+    x = mm(x, params.fc2_w)
+    tp = getattr(params, "tp", None)
+    if tp is not None:
+        # tensor-parallel classifier (parallel.mesh.shard_frontend): this
+        # rank's fc1 columns and fc2 rows; one sum of the partial products
+        x = tp.all_reduce(x)
+    return torch.relu(x + params.fc2_b)
 
 
 def resize_matrix(dst: int, src: int) -> np.ndarray:

@@ -25,8 +25,13 @@ of a ladder covering its true lengths (the masks carry them, so the answer
 does not change) before the upload; ``summarize_long`` featurizes a video's
 media once, trimmed likewise, and decodes overlapping transcript windows
 against it. ``DynamicBatcher`` coalesces concurrent requests into device
-batches. One device only: data-parallel serving raises
-``NotImplementedError``.
+batches.
+
+Mesh layouts (``parallel/``, one process a device under ``torchrun``):
+``data_parallel=True`` decodes each rank's rows of every batch, which every
+rank is given whole, and all-gathers the picks; ``MeshConfig.tp_vgg`` splits
+the VGG classifier over ``model``; ``MeshConfig.sp_audio`` runs the audio
+tower sequence-parallel over ``seq``. Every rank returns every answer.
 
 Threads: every dispatch to the card, and top-k's draws from its generator,
 hold the summarizer's lock, so one ``Summarizer`` may be shared by request
@@ -313,8 +318,6 @@ class Summarizer:
         if mode not in ("greedy", "beam", "topk"):
             # a typo ("greddy") must not silently become sampling
             raise ValueError(f"unknown decode mode {mode!r}: expected 'greedy', 'beam', or 'topk'")
-        if data_parallel:
-            raise NotImplementedError("data-parallel serving is not ported yet")
         if serve_batch_size is not None and serve_batch_size < 1:
             raise ValueError(f"serve_batch_size must be >= 1, got {serve_batch_size}")
         self.device = model.embedding.table.device  # raw batches go where the weights are
@@ -337,25 +340,82 @@ class Summarizer:
         self.bucket_levels = bucket_ladder_levels(self._ladders) if self._ladders else []
         self.bucket_stats: dict[tuple, int] = {}  # rung tuple -> device batches
         self._stats_lock = threading.Lock()
-        self._dp_shards = 1  # no data-parallel layout yet
+        self._mesh_layout(data_parallel)
         # held by every dispatch to the device and by top-k's draws
         self._lock = threading.Lock()
         self._generator = (torch.Generator(self.device).manual_seed(seed)
                            if mode == "topk" else None)
         self._upload = batch_uploader(self.device)
+        g_fn = self._audio_g_fn
         if mode == "greedy":
-            greedy = make_end_to_end_decode(cfg, vgg_spec)
-            self._decode = lambda model, fe, raw, generator: greedy(model, fe, raw)
+            greedy = make_end_to_end_decode(cfg, vgg_spec, audio_g_fn=g_fn)
+            decode = lambda model, fe, raw, generator, rows=None: greedy(model, fe, raw)  # noqa: E731
         else:
-            if cfg.mesh.sp_audio:
-                raise NotImplementedError("the sequence-parallel audio tower is not ported yet")
-
             @torch.inference_mode()
-            def decode(model, fe, raw, generator):
-                batch = apply_frontend(fe, raw, cfg, vgg_spec)
-                return mmbidaf_decode(model, batch, cfg, mode=mode, topk=topk, generator=generator)
+            def decode(model, fe, raw, generator, rows=None):
+                batch = apply_frontend(fe, raw, cfg, vgg_spec, sp_audio=g_fn is not None)
+                return mmbidaf_decode(model, batch, cfg, mode=mode, topk=topk, generator=generator,
+                                      audio_g_fn=g_fn, rows=rows)
 
-            self._decode = decode
+        self._decode = self._data_parallel(decode) if self._dp else decode
+
+    def _mesh_layout(self, data_parallel: bool) -> None:
+        """The mesh layouts, as the JAX ``Summarizer`` checks and builds them:
+        ``data_parallel`` (each rank decodes its rows of every batch, which
+        every rank is given whole, then the picks are all-gathered in
+        order), ``MeshConfig.tp_vgg`` (the VGG classifier split over
+        ``model``) and ``MeshConfig.sp_audio`` (the sequence-parallel audio
+        tower over ``seq``; under DP on the rank's rows, else on the whole
+        request batch)."""
+        cfg = self.cfg
+        self._mesh = self._audio_g_fn = None
+        self._dp = bool(data_parallel)
+        self._dp_shards = 1
+        sp_on = cfg.mesh.sp_audio and cfg.model.use_audio
+        tp_on = cfg.mesh.tp_vgg
+        if tp_on and not cfg.model.use_images:
+            raise ValueError("tp_vgg shards the VGG classifier but the image tower is disabled "
+                             "(use_images=False)")
+        if not (sp_on or self._dp or tp_on):
+            return
+        from mmbidaf_tpu_torch.parallel.mesh import (data_shard_count, make_mesh, shard_frontend,
+                                                     shard_params)
+
+        self._mesh = make_mesh(cfg.mesh, self.device)
+        if self._dp:
+            n = data_shard_count(self._mesh)
+            if self.serve_batch_size is None or self.serve_batch_size % n != 0:
+                raise ValueError(f"data_parallel serving shards the batch over {n} device(s): "
+                                 f"pass serve_batch_size as a multiple of {n} "
+                                 f"(got {self.serve_batch_size!r})")
+            self._dp_shards = n
+        if self._dp or tp_on:
+            self.model = shard_params(self.model, self._mesh)
+            self.frontend = shard_frontend(self.frontend, self._mesh, tp_on)
+        if sp_on:
+            from mmbidaf_tpu_torch.parallel.sp_tower import make_sp_audio_tower
+
+            self._audio_g_fn = make_sp_audio_tower(self._mesh, cfg, use_batch_axis=self._dp)
+
+    def _data_parallel(self, decode):
+        """``decode`` on this rank's rows of the batch, then every rank's
+        log-probs and picks gathered in row order. A batch the data axes do
+        not divide (``summarize_long``'s B=1 decodes) runs whole on every rank."""
+        from mmbidaf_tpu_torch.parallel.mesh import _data_axes, all_gather, batch_rows
+
+        group = self._mesh.group(_data_axes(self._mesh))
+
+        def dp_decode(model, fe, raw, generator, rows=None):
+            b = next(iter(raw.values())).shape[0]
+            mine = batch_rows(self._mesh, b)
+            if mine is None:
+                return decode(model, fe, raw, generator)
+            start, stop = mine
+            log_p, picks = decode(model, fe, {k: v[start:stop] for k, v in raw.items()},
+                                  generator, rows=(start, stop, b))
+            return all_gather(log_p, group), all_gather(picks, group)
+
+        return dp_decode
 
     # -- constructors -------------------------------------------------------
 
@@ -427,9 +487,13 @@ class Summarizer:
         from mmbidaf_tpu_torch.ops.vgg import spec_for_variant
         from mmbidaf_tpu_torch.train.checkpoint import load_config
 
-        if mesh_overrides:
-            raise NotImplementedError("mesh layouts are not ported yet (ROADMAP Queue 1)")
         cfg = load_config(run_dir)
+        if mesh_overrides:
+            import dataclasses
+
+            # serving hardware rarely matches training hardware: the layout
+            # is a deploy-time choice (e.g. {"tp_vgg": True, "num_model": 2})
+            cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, **mesh_overrides))
         vgg_spec = kw.pop("vgg_spec", None) or spec_for_variant(cfg.model.vgg_variant)
         return cls.from_checkpoint(os.path.join(run_dir, "ckpts"),
                                    os.path.join(run_dir, "vocab.json"),
@@ -542,9 +606,11 @@ class Summarizer:
         return self._stack_rows(rows), sentences
 
     def _featurize(self, media: Mapping) -> dict:
-        """The frontend alone on a media batch (``summarize_long``)."""
+        """The frontend alone on a media batch (``summarize_long``); under
+        ``sp_audio`` the waveform stays raw, for the SP tower of each window."""
         with self._lock, torch.inference_mode():
-            return apply_frontend(self.frontend, self._to_device(media), self.cfg, self.vgg_spec)
+            return apply_frontend(self.frontend, self._to_device(media), self.cfg, self.vgg_spec,
+                                  sp_audio=self._audio_g_fn is not None)
 
     def _decode_batch_device(self, raw: Mapping[str, torch.Tensor],
                              generator: torch.Generator | None = None):

@@ -20,7 +20,7 @@ frontend (seeded from the run's ``train.seed``). ``--verify``
 reloads the artifact and checks every program's picks against the live
 ``Summarizer`` at that program's shapes. The mesh flags
 (``--data_parallel``, ``--tp_vgg``, ``--num_model``) raise
-``NotImplementedError``: the port has no mesh layouts yet.
+``NotImplementedError``: mesh-layout artifacts are the next slice.
 """
 
 from __future__ import annotations
@@ -107,8 +107,8 @@ def verify(summ, out: str, batch: int, frame_hw: tuple[int, int]) -> int:
 def main(argv=None) -> None:
     a = parse_args(argv)
     if a.data_parallel or a.tp_vgg is not None or a.num_model is not None:
-        raise NotImplementedError("--data_parallel, --tp_vgg and --num_model: the mesh layouts "
-                                  "are not ported yet (ROADMAP Queue 1)")
+        raise NotImplementedError("--data_parallel, --tp_vgg and --num_model: mesh-layout "
+                                  "artifacts are the next slice (ROADMAP Queue 1, item 0)")
     try:
         h, w = (int(x) for x in a.frame_hw.lower().split("x"))
     except ValueError:

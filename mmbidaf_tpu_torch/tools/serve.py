@@ -35,8 +35,8 @@ levels were fixed at export, so ``--mode``, ``--serve_batch_size``,
 the artifact's programs at its frame size. ``/healthz`` then shows the
 artifact's format.
 
-Not ported: ``--data_parallel``, ``--tp_vgg`` and ``--num_model`` raise
-``NotImplementedError``.
+Not ported: the daemon under a mesh (``--data_parallel``, ``--tp_vgg``,
+``--num_model`` raise ``NotImplementedError``; the next slice).
 """
 
 from __future__ import annotations
@@ -229,8 +229,9 @@ def parse_args(argv=None):
 def main(argv=None) -> None:
     ap, a = parse_args(argv)
     if a.data_parallel or a.tp_vgg is not None or a.num_model is not None:
-        raise NotImplementedError("--data_parallel, --tp_vgg and --num_model: the mesh layouts "
-                                  "are not ported yet (ROADMAP Queue 1)")
+        raise NotImplementedError("--data_parallel, --tp_vgg and --num_model: the daemon under a "
+                                  "mesh is the next slice (ROADMAP Queue 1, item 0; rank 0 must "
+                                  "broadcast each batch)")
     if a.artifact:
         # the artifact is the program: its mode, batch and levels were fixed
         # at export (--dynamic_batch must equal its batch; --long windows

@@ -32,9 +32,18 @@ to the same batch (grain's own iterator state, saved beside every checkpoint,
 where grain loads). ``--load_path`` warm-starts a new run from another run's
 ``ckpts/``. SIGTERM or SIGINT saves an unranked checkpoint and returns.
 
-Not ported yet: the mesh flags (``--num_seq``, ``--sp_audio``,
-``--num_model``, ``--tp_vgg``, and the same fields of a ``--config_json``
-raise ``NotImplementedError``).
+Mesh layouts (``parallel/``): under ``torchrun`` (or the JAX package's
+``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``) every process
+drives one device, NCCL on the card and gloo on the CPU, and the run is
+data-parallel over ``--num_dcn`` × ``--num_data`` (multi-host is the ``dcn``
+axis: the same code over more processes). ``--sp_audio`` with ``--num_seq``
+runs the audio tower sequence-parallel on raw waveforms (``--data_dir``);
+``--tp_vgg`` with ``--num_model`` splits the frozen VGG classifier. Every
+rank reads the same global batch and keeps its rows; rank 0 alone writes the
+checkpoints, logs and tensorboard events, and a SIGTERM on any rank stops
+every rank at the next 50-step or eval boundary, where they agree.
+
+    torchrun --nproc_per_node 1 -m mmbidaf_tpu_torch.train.cli --num_data 1 --num_steps 20
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ from mmbidaf_tpu_torch.config import Config, config_from_json
 
 _MODEL_KEYS = ("hidden_size", "num_rnn_layers", "drop_prob", "max_decode_steps")
 _DATA_KEYS = ("max_sentences", "max_words")
-_MESH_KEYS = ("num_seq", "sp_audio", "num_model", "tp_vgg")
+_MESH_KEYS = ("num_data", "num_dcn", "num_seq", "sp_audio", "num_model", "tp_vgg")
 _TRAIN_KEYS = ("batch_size", "lr", "optimizer", "max_grad_norm", "grad_accum_steps",
                "remat_towers", "ema_decay", "l2_wd", "eval_steps", "seed", "save_dir",
                "load_path", "name", "max_checkpoints", "metric_name")
@@ -113,10 +122,20 @@ def parse_args(argv=None):
     ap.add_argument("--glove_path", default=None, help="GloVe .txt for --data_dir")
     ap.add_argument("--vgg", default="vgg16", choices=["vgg16", "vgg19", "tiny"],
                     help="frontend conv spec (tiny = fast CPU runs)")
-    ap.add_argument("--num_seq", type=int, default=1, help=argparse.SUPPRESS)
-    ap.add_argument("--sp_audio", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--num_model", type=int, default=1, help=argparse.SUPPRESS)
-    ap.add_argument("--tp_vgg", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--num_data", type=int, default=-1,
+                    help="devices on the 'data' mesh axis (-1: those the other axes leave)")
+    ap.add_argument("--num_dcn", type=int, default=1,
+                    help="hosts on the 'dcn' mesh axis (multi-host data parallelism)")
+    ap.add_argument("--num_seq", type=int, default=1,
+                    help="devices on the 'seq' mesh axis (audio-tower sequence parallelism)")
+    ap.add_argument("--sp_audio", action="store_true",
+                    help="route the audio tower through the sequence-parallel chain (SP-MFCC -> "
+                         "SP-BiLSTM -> ring BiDAF) over the seq axis; needs --data_dir")
+    ap.add_argument("--num_model", type=int, default=1,
+                    help="devices on the 'model' mesh axis (VGG-classifier tensor parallelism)")
+    ap.add_argument("--tp_vgg", action="store_true",
+                    help="split the VGG classifier over the model axis (fc1 column- / fc2 "
+                         "row-parallel); needs --data_dir")
     ap.add_argument("--config_json", default=None, help="full Config overlay")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap.parse_args(argv), {a.dest: a.default for a in ap._actions}
@@ -170,10 +189,14 @@ def parse_buckets(s: str | None):
     return tuple(int(b) for b in s.split(","))
 
 
-def make_stream_factory(a, cfg: Config, corpus, run_dir: str):
+def make_stream_factory(a, cfg: Config, corpus, run_dir: str, mesh=None):
     """``stream_factory(skip=0)``: the training batch stream fast-forwarded
-    by ``skip`` batches — bucketed, grain or the plain iterator."""
+    by ``skip`` batches — bucketed, grain or the plain iterator. Under a
+    mesh the bucketed stream decodes only this process's rows (the other
+    rows stay zero: ``host_rows`` drops them) and rounds its audio buckets
+    up to ``num_seq`` under ``sp_audio``."""
     from mmbidaf_tpu_torch.data import pipeline
+    from mmbidaf_tpu_torch.parallel.mesh import local_batch_rows
 
     bs, seed = cfg.train.batch_size, cfg.train.seed
     auto_axis = {}
@@ -191,7 +214,9 @@ def make_stream_factory(a, cfg: Config, corpus, run_dir: str):
         return lambda skip=0: pipeline.bucketed_iterator(
             corpus, bs, buckets, seed, skip=skip,
             word_buckets=axis(a.word_buckets, "word"), img_buckets=axis(a.img_buckets, "img"),
-            aud_buckets=axis(a.aud_buckets, "aud"))
+            aud_buckets=axis(a.aud_buckets, "aud"),
+            decode_rows=None if mesh is None else local_batch_rows(mesh, bs),
+            seq_align=cfg.mesh.num_seq if cfg.mesh.sp_audio else 1)
     if a.loader_workers > 0:
         def grain_stream(skip=0):
             it = iter(pipeline.make_grain_loader(corpus, bs, seed, worker_count=a.loader_workers))
@@ -235,7 +260,7 @@ def restore_grain_state(it, step: int, workers: int, batch_size: int, run_dir: s
 
 
 def featurize_eval_set(corpus, frontend, cfg: Config, vgg_spec, device,
-                       max_videos: int) -> list[tuple[dict, list]]:
+                       max_videos: int, sp_audio: bool = False) -> list[tuple[dict, list]]:
     """Every dev video (up to ``max_videos``) featurized once, in batches of
     the train batch size whose tails wrap onto the last video: a list of
     ``(feature batch on device, [(sentences, summary)] of the real rows,
@@ -253,30 +278,69 @@ def featurize_eval_set(corpus, frontend, cfg: Config, vgg_spec, device,
         raw = {k: torch.from_numpy(v).to(device)
                for k, v in collate([corpus[i] for i in idxs]).items()}
         with torch.no_grad():
-            feat = apply_frontend(fe, raw, cfg, vgg_spec)
+            feat = apply_frontend(fe, raw, cfg, vgg_spec, sp_audio=sp_audio)
         feat["targets"], feat["target_mask"] = raw["targets"], raw["target_mask"]
         texts = [corpus.example_text(i) for i in idxs[:min(bs, n_eval - start)]]
         out.append((feat, texts, None))
     return out
 
 
+def check_mesh_flags(a, cfg: Config) -> None:
+    """``train.py``'s checks of the mesh flags, before any mesh is built."""
+    m = cfg.mesh
+    if m.sp_audio:
+        if not a.data_dir:
+            raise SystemExit("--sp_audio needs raw waveform batches: pass --data_dir (the "
+                             "synthetic stream carries precomputed audio features)")
+        if not cfg.model.use_audio:
+            raise SystemExit("--sp_audio requires the audio tower (drop --no_audio)")
+        aud = parse_buckets(a.aud_buckets) or ()
+        if any(b % max(m.num_seq, 1) for b in aud):
+            raise SystemExit(f"--aud_buckets {list(aud)}: with --sp_audio pass multiples of "
+                             f"--num_seq {m.num_seq}")
+    if m.tp_vgg:
+        if not a.data_dir:
+            raise SystemExit("--tp_vgg shards the frontend's VGG classifier: pass --data_dir "
+                             "(the synthetic stream carries precomputed image features, no VGG "
+                             "in the step)")
+        if not cfg.model.use_images:
+            raise SystemExit("--tp_vgg requires the image tower (drop --no_images)")
+
+
 def main(argv=None) -> None:
     a, defaults = parse_args(argv)
     cfg = build_config(a, defaults)
-    mesh = cfg.mesh
-    if mesh.sp_audio or mesh.tp_vgg or mesh.num_seq != 1 or mesh.num_model != 1:
-        raise NotImplementedError("the mesh layouts (--num_seq, --sp_audio, --num_model, "
-                                  "--tp_vgg) are not ported yet (ROADMAP Queue 1)")
-    dev = resolve_device(a.device)
+    check_mesh_flags(a, cfg)
+    from mmbidaf_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+    distributed = initialize_distributed(a.device)
+    m = cfg.mesh
+    mesh = None
+    if distributed or m.sp_audio or m.tp_vgg or m.num_data > 0 or m.num_dcn > 1 or \
+            m.num_seq > 1 or m.num_model > 1:
+        mesh = make_mesh(m, a.device)
+        dev = mesh.device
+    else:
+        dev = resolve_device(a.device)
     previous = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
     try:
-        _train(a, cfg, dev)
+        _train(a, cfg, dev, mesh)
     finally:  # callers that run main in-process keep their own handlers
         for s, handler in previous.items():
             signal.signal(s, handler)
 
 
-def _train(a, cfg: Config, dev: torch.device) -> None:
+class _NullSink:
+    """The logger / tensorboard writer of a rank other than 0."""
+
+    def log(self, *args, **kw):
+        pass
+
+    def close(self):
+        pass
+
+
+def _train(a, cfg: Config, dev: torch.device, mesh=None) -> None:
     from mmbidaf_tpu_torch.data.synthetic import batch_stream, random_word_vectors
     from mmbidaf_tpu_torch.models.mmbidaf import mmbidaf_init
     from mmbidaf_tpu_torch.train import checkpoint as ckpt
@@ -284,6 +348,17 @@ def _train(a, cfg: Config, dev: torch.device) -> None:
                                               make_lr_schedule, make_train_step)
     from mmbidaf_tpu_torch.train.metrics import AverageMeter, JsonlLogger, TensorboardWriter
 
+    from mmbidaf_tpu_torch.parallel import mesh as pmesh
+
+    # rank 0 alone writes the run's files; every rank computes
+    proc0 = mesh is None or mesh.rank == 0
+    say = print if proc0 else (lambda *args, **kw: None)
+    if mesh is not None:
+        n_data = pmesh.data_shard_count(mesh)
+        if cfg.train.batch_size % n_data:
+            raise SystemExit(f"--batch_size {cfg.train.batch_size} must be a multiple of the "
+                             f"{n_data}-way data axes (every rank keeps its rows)")
+        say(f"mesh: {dict(mesh.shape)} over {pmesh.world()[1]} process(es) on {dev.type}")
     run_dir = os.path.join(cfg.train.save_dir, cfg.train.name)
     os.makedirs(run_dir, exist_ok=True)
     np_rng = np.random.default_rng(cfg.train.seed)
@@ -303,18 +378,25 @@ def _train(a, cfg: Config, dev: torch.device) -> None:
         vgg_spec = spec_for_variant(a.vgg)
         # the variant and the vocab go with the run: Summarizer.from_run
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, vgg_variant=a.vgg))
-        save_vocab(w2i, np.asarray(wv), os.path.join(run_dir, "vocab.json"),
-                   os.path.join(run_dir, "emb.npz"))
-        corpus = VideoCorpus(train_dir, cfg, w2i, require_summary=True)
+        if proc0:
+            save_vocab(w2i, np.asarray(wv), os.path.join(run_dir, "vocab.json"),
+                       os.path.join(run_dir, "emb.npz"))
+        # the SP tower featurizes raw waveforms: no features.npz shortcuts
+        use_pre = not cfg.mesh.sp_audio
+        corpus = VideoCorpus(train_dir, cfg, w2i, require_summary=True, use_precomputed=use_pre)
         eval_corpus = (corpus if dev_dir == train_dir
-                       else VideoCorpus(dev_dir, cfg, w2i, require_summary=True))
-        stream_factory = make_stream_factory(a, cfg, corpus, run_dir)
+                       else VideoCorpus(dev_dir, cfg, w2i, require_summary=True,
+                                        use_precomputed=use_pre))
+        stream_factory = make_stream_factory(a, cfg, corpus, run_dir, mesh)
         frontend = frontend_init(cfg, vgg_spec, dev, seed=cfg.train.seed + 2)
+        if mesh is not None:
+            frontend = pmesh.shard_frontend(frontend, mesh, cfg.mesh.tp_vgg)
     else:
         wv = random_word_vectors(np_rng, cfg.data.vocab_size, cfg.model.emb_dim)
     state = init_train_state(mmbidaf_init(cfg, wv, dev, seed=cfg.train.seed), cfg,
                              seed=cfg.train.seed + 1)
-    ckpt.save_config(run_dir, cfg)
+    if proc0:
+        ckpt.save_config(run_dir, cfg)
     maximize = (cfg.train.maximize_metric if cfg.train.maximize_metric is not None
                 else cfg.train.metric_name != "loss")
     manager = ckpt.CheckpointManager(os.path.join(run_dir, "ckpts"), cfg.train.max_checkpoints,
@@ -322,38 +404,55 @@ def _train(a, cfg: Config, dev: torch.device) -> None:
     restored = manager.restore_latest(state)
     if restored is not None:
         state = restored
-        print(f"resumed from step {state.step}")
+        say(f"resumed from step {state.step}")
     elif cfg.train.load_path:
         src_step = ckpt.CheckpointManager(cfg.train.load_path).warm_start(state)
         if src_step is None:
             raise SystemExit(f"no checkpoint found in {cfg.train.load_path}")
-        print(f"warm-started params from {cfg.train.load_path} (source step {src_step})")
-    train_step = make_train_step(cfg, frontend, vgg_spec)
-    eval_step = make_eval_step(cfg)
+        say(f"warm-started params from {cfg.train.load_path} (source step {src_step})")
+    g_fn = None
+    if mesh is not None:
+        pmesh.shard_params(state.params, mesh)  # the ranks start from the same weights
+        if cfg.mesh.sp_audio:
+            from mmbidaf_tpu_torch.parallel.sp_tower import make_sp_audio_tower
+
+            g_fn = make_sp_audio_tower(mesh, cfg)
+    train_step = make_train_step(cfg, frontend, vgg_spec, mesh=mesh, audio_g_fn=g_fn)
+    eval_step = make_eval_step(cfg, g_fn)
     schedule = make_lr_schedule(cfg)
+    rows = None if mesh is None else pmesh.batch_rows(mesh, cfg.train.batch_size)
+
+    def host_rows(nb):
+        """This rank's rows of a global host batch."""
+        return nb if rows is None else {k: v[rows[0]:rows[1]] for k, v in nb.items()}
+
+    def to_dev_full(nb):
+        return {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
 
     def to_dev(nb):
-        return {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+        return to_dev_full(host_rows(nb))
 
     resumed = state.step
     if a.data_dir:
         # the data order resumes where the run stopped (index-only skipping)
         stream = stream_factory(skip=resumed)
         eval_batches = featurize_eval_set(eval_corpus, frontend, cfg, vgg_spec, dev,
-                                          a.max_eval_videos)
+                                          a.max_eval_videos, sp_audio=g_fn is not None)
     else:
         stream = batch_stream(cfg.train.seed, cfg)
         nb0 = next(stream)
-        eval_batches = [(to_dev(nb0), None, nb0["targets"])]
+        eval_batches = [(to_dev_full(nb0), None, nb0["targets"])]
         for _ in range(resumed):  # the stream as far as the resumed run had read it
             next(stream)
     if resumed:
-        print(f"data stream fast-forwarded {resumed} batches")
+        say(f"data stream fast-forwarded {resumed} batches")
     prefetcher = None
     if a.prefetch > 0:
         from mmbidaf_tpu_torch.data.prefetch import DevicePrefetcher, batch_uploader
 
-        prefetcher = stream = DevicePrefetcher(stream, batch_uploader(dev), depth=a.prefetch)
+        uploader = batch_uploader(dev)
+        prefetcher = stream = DevicePrefetcher(stream, lambda nb: uploader(host_rows(nb)),
+                                               depth=a.prefetch)
 
     if a.num_steps is not None:
         num_steps = a.num_steps
@@ -361,11 +460,13 @@ def _train(a, cfg: Config, dev: torch.device) -> None:
         epochs = a.num_epochs or cfg.train.num_epochs
         per_epoch = max(1, len(corpus) // cfg.train.batch_size)
         num_steps = epochs * per_epoch
-        print(f"training {epochs} epochs x {per_epoch} steps/epoch = {num_steps} steps")
+        say(f"training {epochs} epochs x {per_epoch} steps/epoch = {num_steps} steps")
     else:
         num_steps = 1000
 
     def save_loader_state():
+        if not proc0:
+            return
         # grain's iterator state next to every save: exact data order on
         # resume (the prefetcher reports the last DELIVERED batch's state)
         st = stream.get_state() if hasattr(stream, "get_state") else None
@@ -388,25 +489,42 @@ def _train(a, cfg: Config, dev: torch.device) -> None:
         wm, sm = nb["word_mask"], nb["sent_mask"][:, :, None]
         pad_meters["word"].update(1.0 - float((wm * sm).sum()) / max(float(sm.sum()) * wm.shape[2], 1.0))
 
-    logger = JsonlLogger(os.path.join(run_dir, "log.jsonl"))
-    tb = TensorboardWriter(os.path.join(run_dir, "tb"))
+    logger = JsonlLogger(os.path.join(run_dir, "log.jsonl")) if proc0 else _NullSink()
+    tb = TensorboardWriter(os.path.join(run_dir, "tb")) if proc0 else _NullSink()
     preempted = []  # SIGTERM / SIGINT: the loop saves and returns at the next step
 
     def request_stop(signum, frame):
         preempted.append(signum)
 
+    distributed = mesh is not None and mesh.device_mesh is not None
+
+    def stop_requested(sync: bool) -> bool:
+        """A signal lands on one process; the ranks agree on it (a maximum
+        over the world) at 50-step and eval boundaries, so every rank stops
+        at the same step. One process acts at once."""
+        if not distributed:
+            return bool(preempted)
+        if not sync:
+            return False
+        flag = torch.tensor([float(bool(preempted))], device=dev)
+        return bool(pmesh.all_reduce(flag, torch.distributed.group.WORLD,
+                                     torch.distributed.ReduceOp.MAX).item())
+
     signal.signal(signal.SIGTERM, request_stop)
     signal.signal(signal.SIGINT, request_stop)
-    print(f"training from step {resumed} to step {num_steps}", flush=True)
+    say(f"training from step {resumed} to step {num_steps}", flush=True)
     last_saved = resumed  # a resumed state is on disk already
     loss_sum, n, t_window = 0.0, 0, time.monotonic()
+    stopped = False
     try:
         while state.step < num_steps:
-            if preempted:
+            if stop_requested(state.step % LOG_EVERY == 0
+                              or state.step % cfg.train.eval_steps == 0):
+                stopped = True
                 break
             item = next(stream)
             nb, batch = item if prefetcher is not None else (item, to_dev(item))
-            update_pad_meters(nb)
+            update_pad_meters(host_rows(nb))
             state, metrics = train_step(state, batch)
             loss_sum, n = loss_sum + metrics["loss"], n + 1
             step = state.step
@@ -419,7 +537,7 @@ def _train(a, cfg: Config, dev: torch.device) -> None:
                               if k != "sent" and m.count}}
                 logger.log(step, scalars)
                 tb.log(step, scalars)
-                print(f"step {step}: loss {scalars['loss']:.4f} pad_frac {scalars['pad_frac']:.3f}")
+                say(f"step {step}: loss {scalars['loss']:.4f} pad_frac {scalars['pad_frac']:.3f}")
                 loss_sum, n, t_window = 0.0, 0, now
                 for m in pad_meters.values():
                     m.reset()
@@ -427,29 +545,33 @@ def _train(a, cfg: Config, dev: torch.device) -> None:
                 scalars = evaluate(eval_step, state.ema_params, eval_batches, cfg)
                 logger.log(step, scalars)
                 tb.log(step, scalars)
-                print(f"step {step}: eval_loss {scalars['eval_loss']:.4f} "
+                say(f"step {step}: eval_loss {scalars['eval_loss']:.4f} "
                       f"ROUGE-L {scalars['ROUGE-L']:.3f}")
-                manager.save(state, {"loss": scalars["eval_loss"],
-                                     **{k: v for k, v in scalars.items() if k != "eval_loss"}})
+                if proc0:
+                    manager.save(state, {"loss": scalars["eval_loss"],
+                                         **{k: v for k, v in scalars.items() if k != "eval_loss"}})
                 save_loader_state()
                 last_saved = step
-        if preempted:
-            manager.save_unranked(state)
+        if stopped:
+            if proc0:
+                manager.save_unranked(state)
             save_loader_state()
-            print(f"preempted (signal {preempted[0]}): saved step {state.step}; "
+            sig = f"signal {preempted[0]}" if preempted else "a signal on another rank"
+            say(f"preempted ({sig}): saved step {state.step}; "
                   "rerun with the same --save_dir to resume")
             return
         if state.step != last_saved:
             # a run that ends between evals still leaves a resume point
-            manager.save_unranked(state)
+            if proc0:
+                manager.save_unranked(state)
             save_loader_state()
-            print(f"saved final state at step {state.step}")
+            say(f"saved final state at step {state.step}")
     finally:
         if prefetcher is not None:
             prefetcher.close()
         logger.close()
         tb.close()
-    print("done")
+    say("done")
 
 
 def evaluate(eval_step, params, eval_batches, cfg: Config) -> dict:

@@ -38,6 +38,7 @@ import torch
 
 from mmbidaf_tpu_torch.config import Config
 from mmbidaf_tpu_torch.models.mmbidaf import MMBiDAF, mmbidaf_apply, mmbidaf_decode
+from mmbidaf_tpu_torch.parallel.mesh import _data_axes, all_reduce, grad_axes
 
 _ADADELTA_RHO, _ADADELTA_EPS = 0.9, 1e-6
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
@@ -198,7 +199,8 @@ def init_train_state(params: MMBiDAF, cfg: Config, seed: int = 0) -> TrainState:
                       ema_params=ema, generator=gen)
 
 
-def make_train_step(cfg: Config, frontend=None, vgg_spec=None) -> Callable:
+def make_train_step(cfg: Config, frontend=None, vgg_spec=None, mesh=None,
+                    audio_g_fn: Callable | None = None) -> Callable:
     """``train_step(state, batch) → (state, {"loss", "grad_norm"})`` for
     config ``cfg`` on feature batches (``synthetic_batch`` layout, tensors
     on the parameters' device). With ``grad_accum_steps > 1`` the batch is
@@ -213,7 +215,20 @@ def make_train_step(cfg: Config, frontend=None, vgg_spec=None) -> Callable:
     model's autograd graph as constants), per microbatch under
     accumulation so the VGG activations shrink by ``1/accum``. The frontend
     draws nothing from ``state.generator``. Its VGG weights are held in the
-    compute dtype once, here (``cast_vgg_weights``)."""
+    compute dtype once, here (``cast_vgg_weights``).
+
+    With a ``mesh`` (``parallel.mesh.make_mesh``) the step is data-parallel:
+    ``batch`` is this rank's rows of the global batch (``shard_batch``), the
+    dropout masks are drawn for the global batch and cut to them, the loss
+    is normalised by the global valid-step count, and one all-reduce of the
+    flat gradient buffer (the trainable leaves in order) sums the gradients
+    over every axis but ``model`` before the clip takes the global norm.
+    ``audio_g_fn`` (``parallel.sp_tower``, ``MeshConfig.sp_audio``) runs the
+    audio tower sequence-parallel on raw waveform batches; the ranks along
+    ``seq`` hold the same rows, each counts ``1/num_seq`` of their loss, and
+    the same all-reduce sums their shares of the tower's gradients. At world
+    size 1 without a process group every collective is skipped, and the step
+    is the step without a mesh."""
     tx = make_optimizer(cfg)
     decay = cfg.train.ema_decay
     accum = cfg.train.grad_accum_steps
@@ -223,14 +238,24 @@ def make_train_step(cfg: Config, frontend=None, vgg_spec=None) -> Callable:
 
         frontend = cast_vgg_weights(frontend, cfg.model.compute_dtype)
         spec = vgg_spec or VGG16_SPEC
+    elif audio_g_fn is not None:
+        raise ValueError("audio_g_fn (MeshConfig.sp_audio) needs raw waveform batches — pass "
+                         "the frontend so the train step featurizes them")
+    group = mesh.group(grad_axes(mesh)) if mesh is not None else None
+    n_data = 1 if mesh is None else mesh.axis_size(_data_axes(mesh))
+    i_data = 0 if mesh is None else mesh.axis_index(_data_axes(mesh))
 
     def featurize(part: Mapping[str, torch.Tensor]) -> Mapping[str, torch.Tensor]:
+        if audio_g_fn is not None and "waveform" not in part:
+            raise ValueError("MeshConfig.sp_audio: the batch must carry the raw 'waveform' "
+                             "(precomputed-feature batches cannot feed the sequence-parallel "
+                             "frontend)")
         if "frames" not in part and "waveform" not in part:
             return part
         if frontend is None:
             raise ValueError("a raw batch (frames / waveform) needs make_train_step(cfg, frontend)")
         with torch.no_grad():
-            feat = apply_frontend(frontend, part, cfg, spec)
+            feat = apply_frontend(frontend, part, cfg, spec, sp_audio=audio_g_fn is not None)
         feat["targets"], feat["target_mask"] = part["targets"], part["target_mask"]
         return feat
 
@@ -241,17 +266,25 @@ def make_train_step(cfg: Config, frontend=None, vgg_spec=None) -> Callable:
         b_dim = next(iter(batch.values())).shape[0]
         if b_dim % accum:
             raise ValueError(f"grad_accum_steps {accum} must divide batch size {b_dim}")
-        denom = torch.clamp(batch["target_mask"].sum(), min=1.0)
+        denom = torch.clamp(all_reduce(batch["target_mask"].sum(), group), min=1.0)
         loss = 0.0
         mb = b_dim // accum
+        rows = (i_data * mb, (i_data + 1) * mb, n_data * mb) if n_data > 1 else None
         for i in range(accum):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} if accum > 1 else batch
             part = featurize(part)
-            log_p = mmbidaf_apply(state.params, part, cfg, generator=state.generator)
+            log_p = mmbidaf_apply(state.params, part, cfg, generator=state.generator,
+                                  audio_g_fn=audio_g_fn, rows=rows)
             total, _ = nll_sum(log_p, part["targets"], part["target_mask"])
             (total / denom).backward()
             loss = loss + total.detach()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in trainable]
+        if group is not None:
+            # one all-reduce of the flat gradient buffer, leaves in order
+            flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+            grads = [g.view_as(p) for g, p in
+                     zip(torch.split(flat, [p.numel() for p in trainable]), trainable)]
+            loss = all_reduce(torch.as_tensor(loss, device=denom.device).clone(), group)
         with torch.no_grad():
             grad_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
         tx.update(state.params, grads, state.opt_state)
@@ -272,16 +305,18 @@ def make_train_step(cfg: Config, frontend=None, vgg_spec=None) -> Callable:
     return train_step
 
 
-def make_eval_step(cfg: Config) -> Callable:
+def make_eval_step(cfg: Config, audio_g_fn: Callable | None = None) -> Callable:
     """``eval_step(params, batch) → {"loss", "picks"}``: the teacher-forced
     loss (greedy decode masks picked sentences, so the gold index may be
-    masked there) and the greedy picks, without gradients."""
+    masked there) and the greedy picks, without gradients. ``audio_g_fn``:
+    the sequence-parallel audio tower (the batch then carries ``waveform``);
+    every rank of the mesh evaluates the whole batch."""
 
     @torch.no_grad()
     def eval_step(params: MMBiDAF, batch: Mapping[str, torch.Tensor]):
-        log_p_tf = mmbidaf_apply(params, batch, cfg)
+        log_p_tf = mmbidaf_apply(params, batch, cfg, audio_g_fn=audio_g_fn)
         loss = nll_loss(log_p_tf, batch["targets"], batch["target_mask"])
-        _, picks = mmbidaf_decode(params, batch, cfg)
+        _, picks = mmbidaf_decode(params, batch, cfg, audio_g_fn=audio_g_fn)
         return {"loss": loss, "picks": picks}
 
     return eval_step

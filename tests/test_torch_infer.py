@@ -191,6 +191,20 @@ def test_long_and_topk_answer(capsys, run, args):
     assert "keyshot-F1" in got
 
 
+@pytest.mark.parametrize("long", [False, True], ids=["batches", "long"])
+def test_sp_audio_flag_scores_as_jax(capsys, run, long):
+    """``--sp_audio 1 --num_seq 1``: the sequence-parallel audio tower on one
+    process (the run's audio-only model; ``features.npz`` shortcuts skipped)
+    scores the dev videos as JAX's path without a mesh does; ``--long``
+    through the Summarizer's SP tower answers."""
+    got, n = _infer(capsys, run, "--sp_audio", "1", "--num_seq", "1", *(("--long",) if long else ()))
+    assert n == 3
+    if long:
+        assert all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in got.values())
+    else:
+        assert got == _jax_scores(run)[0]
+
+
 def test_synthetic_stream(capsys):
     for mode in ("greedy", "beam", "topk"):
         infer.main(["--device", "cpu", "--config_json", str(REPO / "examples" / "tiny_config.json"),
@@ -225,8 +239,12 @@ def test_checks_before_any_load(run, tmp_path):
                         (["--device", "cpu", "--vgg", "tiny"], "--vgg")):
         with pytest.raises(SystemExit, match=f"{name} is fixed inside the artifact"):
             infer.main(flags + ["--artifact", "x", "--data_dir", run["corpus"]])
-    for flags in (["--sp_audio", "1"], ["--num_seq", "2"], ["--tp_vgg", "1"], ["--num_model", "2"]):
-        with pytest.raises(NotImplementedError):
+    # the mesh flags: raw assets needed, and one process holds one device
+    for flags, err, msg in ((["--sp_audio", "1"], SystemExit, "needs raw waveform"),
+                            (["--tp_vgg", "1"], SystemExit, "pass --data_dir"),
+                            (["--num_seq", "2"], ValueError, "2 devices, have 1"),
+                            (["--num_model", "2"], ValueError, "2 devices, have 1")):
+        with pytest.raises(err, match=msg):
             infer.main(base + flags)
 
 

@@ -161,22 +161,28 @@ def test_summarizer_matches_jax(corpus):
 
 
 def test_unported_paths_raise(corpus):
-    """What the port still refuses: data-parallel serving and the
-    sequence-parallel audio decode; a misspelt decode mode is a ValueError
-    (top-k, beam and bucket-ladder serving are ported)."""
+    """What the port refuses, as the JAX package does: data-parallel serving
+    without a static batch the data axes divide, ``tp_vgg`` without the
+    image tower, a misspelt decode mode (data-parallel, tensor-parallel and
+    sequence-parallel serving are ported: ``tests/test_torch_parallel.py``)."""
     from mmbidaf_tpu_torch.serving import Summarizer
 
     cfg = _cfg()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="serve_batch_size"):
         Summarizer.init_random(cfg, vgg_spec=TINY_SPEC, device="cpu", data_parallel=True)
+    no_img = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, use_images=False),
+                                 mesh=dataclasses.replace(cfg.mesh, tp_vgg=True))
+    with pytest.raises(ValueError, match="image tower is disabled"):
+        Summarizer.init_random(no_img, vgg_spec=TINY_SPEC, device="cpu")
     with pytest.raises(ValueError):
         Summarizer.init_random(cfg, vgg_spec=TINY_SPEC, device="cpu", mode="greddy")
     s = Summarizer.init_random(cfg, vgg_spec=TINY_SPEC, device="cpu")
     with pytest.raises(ValueError, match="unknown decode mode"):
         mmbidaf_decode(s.model, {}, cfg, mode="sample")
-    with pytest.raises(NotImplementedError):
-        make_end_to_end_decode(dataclasses.replace(
-            cfg, mesh=dataclasses.replace(cfg.mesh, sp_audio=True)))
+    with pytest.raises(ValueError, match="2 devices, have 1"):
+        Summarizer.init_random(dataclasses.replace(
+            cfg, mesh=dataclasses.replace(cfg.mesh, sp_audio=True, num_seq=2)),
+            vgg_spec=TINY_SPEC, device="cpu")
 
 
 def test_sentence_split_without_nltk(monkeypatch):

@@ -483,7 +483,7 @@ def test_cli_trains_logs_and_resumes(tmp_path):
     logs = [json.loads(line) for line in (run / "log.jsonl").read_text().splitlines()]
     assert [r["step"] for r in logs if "eval_loss" in r] == [2, 4]
     assert all(np.isfinite(r.get("loss", 0.0)) for r in logs)
-    with pytest.raises(NotImplementedError):  # a mesh flag: not ported yet
+    with pytest.raises(SystemExit, match="needs raw waveform batches"):  # train.py's check
         cli.main(args + ["--sp_audio"])
 
 

@@ -174,8 +174,8 @@ def run_a(corpus, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("runs")
     picks = []
 
-    def recording(cfg):
-        inner = make_eval_step(cfg)
+    def recording(cfg, audio_g_fn=None):
+        inner = make_eval_step(cfg, audio_g_fn)
 
         def eval_step(params, batch):
             out = inner(params, batch)
@@ -244,8 +244,13 @@ def test_from_run_serves_the_trainers_eval_picks(corpus, run_a):
     raw, _ = s._raw_batch(dev)
     np.testing.assert_array_equal(s._decode_batch(raw), picks[-1][:len(dev)])
     assert all(isinstance(x, str) and x for x in s.summarize_batch(dev))
-    with pytest.raises(NotImplementedError):
-        Summarizer.from_run(str(run), mesh_overrides={"tp_vgg": True}, device="cpu")
+    # a layout chosen at deploy time: the classifier split over a 1-wide
+    # model axis on one process is the plain path, bit for bit
+    tp = Summarizer.from_run(str(run), mesh_overrides={"tp_vgg": True}, seed=cfg.train.seed,
+                             device="cpu")
+    np.testing.assert_array_equal(tp._decode_batch(raw), picks[-1][:len(dev)])
+    with pytest.raises(TypeError):
+        Summarizer.from_run(str(run), mesh_overrides={"bogus_axis": 3}, device="cpu")
     with pytest.raises(FileNotFoundError):
         Summarizer.from_checkpoint(str(run / "none"), str(run / "vocab.json"),
                                    str(run / "emb.npz"), cfg, TINY_SPEC, device="cpu")
@@ -350,12 +355,19 @@ def test_cli_sigterm_saves_and_resumes(corpus, tmp_path, capsys):
 
 
 def test_cli_mesh_layouts_raise(corpus, tmp_path):
-    for flag in (["--sp_audio"], ["--num_seq", "2"], ["--tp_vgg"], ["--num_model", "2"]):
-        with pytest.raises(NotImplementedError):
+    """A layout asking for more devices than processes raises, as JAX's
+    ``make_mesh`` does (nothing falls back to one device), and so do
+    ``train.py``'s flag checks; the layouts run on one process at axis size 1
+    (``tests/test_torch_parallel_cli.py`` runs them across processes)."""
+    for flag in (["--num_seq", "2"], ["--num_model", "2"], ["--num_data", "2"]):
+        with pytest.raises(ValueError, match="2 devices, have 1"):
             cli.main(_args(corpus, tmp_path, "m", "--num_steps", "1", *flag))
+    with pytest.raises(SystemExit, match="multiples of --num_seq 2"):
+        cli.main(_args(corpus, tmp_path, "m", "--num_steps", "1", "--sp_audio", "--num_seq", "2",
+                       "--buckets", "4", "--aud_buckets", "3"))
     path = tmp_path / "mesh.json"
     path.write_text(json.dumps({"mesh": {"sp_audio": True, "num_seq": 2}}))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(SystemExit, match="needs raw waveform batches"):
         cli.main(["--config_json", str(path), "--device", "cpu", "--num_steps", "1",
                   "--save_dir", str(tmp_path)])
 
