@@ -215,6 +215,25 @@ Phases, in order; any failure exits non-zero before the result line:
          --num_seq 1 --tp_vgg --num_model 1`` on phase 8's corpus (raw
          waveforms, not its ``features.npz``) beside phase 8, K5-K8 counted
          inside their steps.
+ 13. mesh artifacts, the daemon under a mesh and the device-op profiler, at
+     world size 1 through NCCL (``file://`` stores):
+     (a) the bench configuration (B=64, bf16) exported as a data-parallel
+         artifact and as a DP x TP one (``tp_vgg`` at ``num_model=1``: the
+         classifier's head and tail programs, the all-reduce between them),
+         each loaded and run in a fresh process of its own group: picks and
+         log-probs equal to the live DP path (distance 0), the median batch
+         beside phase 12a's and 4a's, K1-K3 launched 5 / 2 / 1 a batch on
+         their cluster / FFT routes;
+     (b) ``tools/serve.py --data_parallel`` in a process of its own over the
+         DP artifact (``--dynamic_batch 64``) and over a run at the bench
+         configuration (``--serve_batch_size 8 --dynamic_batch 8``), each
+         with ``--warmup 240x320`` and MESH_REQUESTS requests from 4
+         clients over phase 9's tiers: every answer equal to
+         ``summarize``'s, ``/healthz``'s ``parallelism`` printed, exit 0 on
+         SIGTERM;
+     (c) ``tools/device_profile.py`` at the bench shapes, serve and train
+         (kernels on): the top of each table, K1-K3 and K5-K8 with device
+         time, the serving MFU (``utils.flops`` over ``peak_bf16_tflops``).
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The random weights come from seeds.
 """
@@ -262,6 +281,8 @@ PREFETCH_STEPS = 8
 PER_TIER, LEVEL_VIDEOS, LONG_SENTENCES = 4, 8, 80
 LOAD_REQUESTS = 48
 BATCHER_BATCHES = 12
+# Phase 13's requests to each daemon under a mesh.
+MESH_REQUESTS = 16
 # Phase 10's decode timing runs and train steps on precomputed features.
 DECODE_REPS = 5
 FEATURE_STEPS = 12
@@ -303,15 +324,9 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
 
 
 def bench_config():
-    from mmbidaf_tpu_torch.config import Config, DataConfig, ModelConfig
+    from mmbidaf_tpu_torch.utils.bench_config import build_bench_config
 
-    data = DataConfig(max_sentences=32, max_words=16, max_keyframes=16, max_audio_frames=512,
-                      vocab_size=20000, image_size=224)
-    model = ModelConfig(hidden_size=128, img_feat_dim=4096, audio_feat_dim=40, drop_prob=0.0,
-                        max_decode_steps=4, compute_dtype="bfloat16",
-                        use_pallas_attention=True, use_pallas_lstm=True,
-                        use_pallas_melspec=True)
-    return Config(model=model, data=data)
+    return build_bench_config(quick=False)
 
 
 def long_config():
@@ -1147,34 +1162,22 @@ def timed_batches(fn, n: int = 5) -> float:
 
 
 def profile_kernels(fn, arg, t_ref: float, tag: str, unit: str, groups: dict | None = None):
-    """``torch.profiler`` over 3 calls ``arg = fn(arg)`` after a warm-up
-    window (which pays CUPTI's start-up): device kernel time per call, the
-    device's idle share of ``t_ref`` (the unprofiled median, seconds: the
-    profiler slows the host), the top kernels by device time, and the
-    device time of the kernels whose names contain each of ``groups``'
-    substrings. Returns the last ``arg``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """``tools/device_profile.py``'s device-op table over 3 calls ``arg =
+    fn(arg)`` after its warm-up calls (one pays CUPTI's start-up): device
+    kernel time per call, the device's idle share of ``t_ref`` (the
+    unprofiled median, seconds: the profiler slows the host), the top
+    kernels by device time, and the device time of the kernels whose names
+    contain each of ``groups``' substrings. Returns the last ``arg``."""
+    from mmbidaf_tpu_torch.tools.device_profile import group_ms, profile_ops
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-        arg = fn(arg)
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            arg = fn(arg)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 3e3
+    rows, dev_ms, arg = profile_ops(fn, arg, 3, on_card=True)
     print(f"{tag} torch.profiler over 3 calls: device kernel time {dev_ms:.2f} ms a {unit}, "
           f"device idle {max(0.0, 1 - dev_ms / (t_ref * 1e3)):.1%} of the median {unit}; "
           f"kernels by device time:", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"    {e.self_device_time_total / 3e3:9.3f} ms/{unit}  x{e.count // 3:<5d} {e.key[:90]}",
-              flush=True)
-    for name, sub in (groups or {}).items():
-        ms = sum(e.self_device_time_total for e in kernels if sub in e.key) / 3e3
-        print(f"{tag} {name} (kernels named *{sub}*): {ms:.3f} ms a {unit}, "
+    for r in rows[:15]:
+        print(f"    {r['ms']:9.3f} ms/{unit}  x{int(r['calls']):<5d} {r['name'][:90]}", flush=True)
+    for name, ms in group_ms(rows, {k: (sub,) for k, sub in (groups or {}).items()}).items():
+        print(f"{tag} {name} (kernels named *{groups[name]}*): {ms:.3f} ms a {unit}, "
               f"{ms / dev_ms:.1%} of the device time", flush=True)
     return arg
 
@@ -2634,9 +2637,12 @@ def artifact_decode_main(art: str, raw_path: str, out_path: str) -> None:
     sys.path.insert(0, ROOT)
     from mmbidaf_tpu_torch.export import ExportedDecoder, _file_sha256
     from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+    from mmbidaf_tpu_torch.parallel.mesh import initialize_distributed
 
     dev = torch.device("cuda", 0)
-    rec = {}
+    # a mesh artifact (phase 13) loads under the process group its
+    # COORDINATOR_ADDRESS names; without one, none is started
+    rec = {"group": initialize_distributed("cuda")}
     # the load's parts, each once (their files read from disk the first
     # time), then the whole load as ExportedDecoder does it
     t0 = time.perf_counter()
@@ -2664,11 +2670,16 @@ def artifact_decode_main(art: str, raw_path: str, out_path: str) -> None:
     rec["launches"] = {k: fn.launches for k, fn in counters.items()}
     rec["routes"] = {k: dict(fn.routes) for k, fn in counters.items()}
     rec["fft_operand_caches"] = len(melspec_kernel._WINDOWS)
+    rec["layout"] = dec.layout
     rec["leaked"] = sorted(m for m in sys.modules if m in (
         "jax", "mmbidaf_tpu", "mmbidaf_tpu_torch.models", "mmbidaf_tpu_torch.serving",
         "mmbidaf_tpu_torch.data.frontend") or m.startswith(("jax.", "mmbidaf_tpu.",
                                                             "mmbidaf_tpu_torch.models.")))
     np.savez(out_path, log_p=log_p.float().cpu().numpy(), picks=picks.cpu().numpy())
+    if rec["group"]:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     print(json.dumps(rec), flush=True)
 
 
@@ -2713,10 +2724,10 @@ def release_cached_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def artifact_child(*args: str) -> dict:
+def artifact_child(*args: str, env: dict | None = None) -> dict:
     release_cached_memory()
     r = subprocess.run([sys.executable, os.path.abspath(__file__), *args], capture_output=True,
-                       text=True, cwd=ROOT, timeout=600)
+                       text=True, cwd=ROOT, timeout=600, env={**os.environ, **(env or {})})
     check(r.returncode == 0, f"(11) {args[0]} process failed: {r.stderr[-3000:]}")
     return json.loads(r.stdout.strip().splitlines()[-1])
 
@@ -3076,9 +3087,10 @@ def mesh_cfg(cfg, **mesh):
 
 
 def phase_mesh(dev, card: str, tmp: str, corpus_root: str, t_batch: float, t_step5: float,
-               t_long: float, raw_step_s: float) -> None:
+               t_long: float, raw_step_s: float) -> float:
     """Phase 12: the mesh layouts at world size 1, each collective a
-    one-rank NCCL call; every layout against the path without a mesh."""
+    one-rank NCCL call; every layout against the path without a mesh.
+    Returns (a)'s median data-parallel batch, s."""
     import torch
     import torch.distributed as dist
 
@@ -3256,6 +3268,210 @@ def phase_mesh(dev, card: str, tmp: str, corpus_root: str, t_batch: float, t_ste
             dist.destroy_process_group()
         for k in env:
             os.environ.pop(k, None)
+    return t_dp
+
+
+# -- phase 13: mesh artifacts, the daemon under a mesh, the device-op profiler ----
+
+
+def group_env(tmp: str, name: str) -> dict:
+    """A one-process group's variables on a fresh ``file://`` store."""
+    return {"COORDINATOR_ADDRESS": f"file://{os.path.join(tmp, name)}", "NUM_PROCESSES": "1",
+            "PROCESS_ID": "0"}
+
+
+def write_run_dir(root: str, cfg) -> str:
+    """A ``train.cli``-shaped run at ``cfg`` (config, vocabulary, one
+    checkpoint of random weights from seed 0) for the daemon's live path."""
+    from mmbidaf_tpu_torch.data.synthetic import random_word_vectors
+    from mmbidaf_tpu_torch.data.vocab import save_vocab
+    from mmbidaf_tpu_torch.models.mmbidaf import mmbidaf_init
+    from mmbidaf_tpu_torch.train.checkpoint import CheckpointManager, save_config
+    from mmbidaf_tpu_torch.train.loop import init_train_state
+
+    os.makedirs(root)
+    w2i = {f"w{i}": i for i in range(cfg.data.vocab_size)}
+    wv = random_word_vectors(np.random.default_rng(0), cfg.data.vocab_size, cfg.model.emb_dim)
+    save_vocab(w2i, wv, os.path.join(root, "vocab.json"), os.path.join(root, "emb.npz"))
+    CheckpointManager(os.path.join(root, "ckpts")).save_unranked(
+        init_train_state(mmbidaf_init(cfg, wv, "cpu", seed=0), cfg, seed=1))
+    save_config(root, cfg)
+    return root
+
+
+def daemon_answers(args: list[str], env: dict, tiers: dict, expected: dict, tag: str) -> str:
+    """``tools/serve.py`` with ``args`` in a process of its own under the
+    group ``env`` names: MESH_REQUESTS requests over phase 9's tiers, each
+    answer against ``expected``, then SIGTERM; returns the result line."""
+    from mmbidaf_tpu_torch.tools import load_test
+
+    release_cached_memory()
+    p = subprocess.Popen([sys.executable, "-u", "-m", "mmbidaf_tpu_torch.tools.serve", *args,
+                          "--port", "0", "--warmup", "240x320"], stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True, cwd=ROOT, env={**os.environ, **env})
+    try:
+        lines = []
+        for ln in p.stdout:
+            lines.append(ln)
+            if ln.startswith("serving "):
+                break
+        if not (lines and lines[-1].startswith("serving ")):
+            fail(f"{tag} the daemon did not start: {''.join(lines)} {p.stderr.read()[-3000:]}")
+        port = int(lines[-1].split("http://127.0.0.1:")[1].split()[0])
+        r = load_test.drive(port, tiers, clients=4, requests=MESH_REQUESTS, timeout=600)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+        p.send_signal(signal.SIGTERM)
+        check(p.wait(timeout=120) == 0, f"{tag} the daemon did not exit 0 on SIGTERM")
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        p.stdout.close()
+        p.stderr.close()
+    check(r["ok"] == MESH_REQUESTS and r["errors"] == 0, f"{tag} the daemon failed requests: {r}")
+    wrong = [vd for vd, a in r["answers"].items() if a != [expected[vd]]]
+    check(not wrong, f"{tag} answers differ from summarize's: {wrong}")
+    lm = r["latency_ms"]
+    return (f"{r['ok']}/{r['requests']} answered, each equal to summarize's, p50 {lm['p50']:.2f} "
+            f"ms, p95 {lm['p95']:.2f} ms, {r['sustained_vps']:.2f} videos/s; /healthz "
+            f"parallelism {health.get('parallelism')}")
+
+
+def phase_mesh_serving(dev, card: str, tmp: str, tiers: dict, t_batch: float, t_dp: float,
+                       t_step5: float, all_records: list[dict]) -> None:
+    """Phase 13 at world size 1 over NCCL: (a) the bench configuration
+    exported as a data-parallel and a DP x TP artifact, each loaded and run
+    in a fresh process against the live DP path; (b) the daemon with
+    ``--data_parallel`` over the DP artifact and over a run, on phase 9's
+    videos; (c) ``tools/device_profile.py`` at the bench shapes, serve and
+    train. ``all_records`` gain this process's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from mmbidaf_tpu_torch.export import ExportedSummarizer, export_summarizer
+    from mmbidaf_tpu_torch.parallel.mesh import initialize_distributed
+    from mmbidaf_tpu_torch.serving import Summarizer
+    from mmbidaf_tpu_torch.tools import device_profile
+
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel
+
+    fns = {**serving_counters(),
+           "K5": lstm_kernel.bilstm_train_forward, "K6": lstm_kernel.bilstm_bptt,
+           "K7": bidaf_kernel.bidaf_dropout_forward, "K8": bidaf_kernel.bidaf_dropout_backward}
+    for fn in fns.values():
+        fn.launches = 0
+    env = group_env(tmp, "store")
+    os.environ.update(env)
+    try:
+        check(initialize_distributed("cuda"), "(13) initialize_distributed started no group")
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "(13) not one NCCL rank")
+
+        # (a) the bench configuration as DP and DP x TP artifacts, B=64 bf16
+        cfg = bench_config()
+        raw_np = raw_batch(cfg, np.random.default_rng(0))
+        raw = {k: torch.from_numpy(v).to(dev) for k, v in raw_np.items()}
+        raw_path = os.path.join(tmp, "raw64.npz")
+        np.savez(raw_path, **raw_np)
+        live = None
+        for name, c in (("DP", cfg), ("DP x TP", mesh_cfg(cfg, tp_vgg=True, num_model=1))):
+            s = Summarizer.init_random(c, seed=0, device=dev, serve_batch_size=B,
+                                       data_parallel=True)
+            lp, picks = s._decode_batch_device(raw)
+            if live is None:  # the live DP path: phase 12a's program
+                live = (lp.float().cpu().numpy(), picks.cpu().numpy())
+            art = os.path.join(tmp, name.replace(" ", ""))
+            t0 = time.perf_counter()
+            manifest = export_summarizer(s, art, batch_size=B, frame_hw=FRAME_HW)
+            t_export = time.perf_counter() - t0
+            del s
+            out_path = os.path.join(tmp, "out.npz")
+            rec = artifact_child("--artifact-decode", art, raw_path, out_path,
+                                 env=group_env(tmp, f"store_{name.replace(' ', '')}"))
+            got = np.load(out_path)
+            d_lp = float(np.abs(got["log_p"] - live[0]).max())
+            same = bool((got["picks"] == live[1]).all())
+            print(f"(13a) {name} artifact, bench config B={B} bf16: mesh {manifest['mesh']}, head "
+                  f"program {manifest['head_file']}, exported in {t_export:.2f} s, "
+                  f"{sum(dir_sizes(art).values()) / 1e6:.2f} MB; fresh process (NCCL world size "
+                  f"1, layout {rec['layout']['axis_names']}): load {rec['load_s']:.2f} s, first "
+                  f"call {rec['cold_s'] * 1e3:.2f} ms, median batch {rec['batch_s'] * 1e3:.2f} ms "
+                  f"over {ARTIFACT_CALLS - 1} ({B / rec['batch_s']:.2f} videos/s) beside phase "
+                  f"12a's live DP {t_dp * 1e3:.2f} ms and 4a's {t_batch * 1e3:.2f} ms on {card}; "
+                  f"launches {rec['launches']}, routes {rec['routes']}; against the live DP path: "
+                  f"picks equal {same}, log-prob distance {d_lp:.3e}", flush=True)
+            n = ARTIFACT_CALLS
+            check(rec["group"] and not rec["leaked"],
+                  f"(13a) {name}: group {rec['group']}, model code imported {rec['leaked']}")
+            check(rec["launches"] == {"K1": 5 * n, "K2": 2 * n, "K3": n},
+                  f"(13a) {name}: launches {rec['launches']} != 5 / 2 / 1 a batch over {n}")
+            check(rec["routes"] == {"K1": {"cluster": 5 * n, "l2": 0},
+                                    "K2": {"cluster": 2 * n, "K9": 0},
+                                    "K3": {"fft": n, "dense": 0}}, f"(13a) routes {rec['routes']}")
+            check(same and d_lp == 0.0, f"(13a) the {name} artifact differs from the live DP path")
+            if name == "DP":
+                art_dp = art
+            else:
+                shutil.rmtree(art)
+
+        # (b) the daemon under the mesh flags, over the DP artifact and over a run
+        art_s = ExportedSummarizer(art_dp, device=dev)
+        expected = {vd: art_s.summarize(vd) for vds in tiers.values() for vd in vds}
+        del art_s
+        line = daemon_answers(["--artifact", art_dp, "--data_parallel", "--dynamic_batch", str(B)],
+                              group_env(tmp, "store_daemon_art"), tiers, expected, "(13b)")
+        print(f"(13b) serve --artifact (DP, B={B}) --data_parallel --dynamic_batch {B}: {line} "
+              f"on {card}", flush=True)
+        shutil.rmtree(art_dp)
+        run = write_run_dir(os.path.join(tmp, "run"), cfg)
+        s = Summarizer.from_run(run, device=dev, serve_batch_size=8, data_parallel=True)
+        expected = {vd: s.summarize(vd) for vds in tiers.values() for vd in vds}
+        del s
+        line = daemon_answers(["--run_dir", run, "--data_parallel", "--serve_batch_size", "8",
+                               "--dynamic_batch", "8"], group_env(tmp, "store_daemon_live"), tiers,
+                              expected, "(13b)")
+        print(f"(13b) serve --run_dir (bench config) --data_parallel --serve_batch_size 8 "
+              f"--dynamic_batch 8: {line} on {card}", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+
+    # (c) the device-op profiler at the bench shapes
+    release_cached_memory()
+    before = {k: fn.launches for k, fn in fns.items()}
+    for mode, want in (("serve", ("K1 bilstm", "K2 bidaf", "K3 mfcc")),
+                       ("train", ("K5 bilstm forward", "K6 bilstm backward", "K7 bidaf forward",
+                                  "K8 bidaf backward"))):
+        res = device_profile.run(mode, steps=3, kernels=True, device="cuda",
+                                 trace_dir=os.path.join(tmp, f"trace_{mode}"))
+        print("\n".join(f"(13c) {ln}" for ln in device_profile.format_table(res, top=12)),
+              flush=True)
+        mfu = ("none (an f32 program)" if res["mfu"] is None
+               else f"{res['mfu']:.2%} of {res['peak_bf16_tflops']} bf16 TFLOP/s")
+        ref = ("phase 4a", t_batch) if mode == "serve" else ("phase 5a", t_step5)
+        print(f"(13c) {mode}: step {res['step_s'] * 1e3:.2f} ms beside {ref[0]}'s "
+              f"{ref[1] * 1e3:.2f} ms; {res['tflops']:.2f} TFLOP/s of utils.flops' count, MFU "
+              f"{mfu} on {card}", flush=True)
+        missing = [k for k in want if not res["kernels"][k] > 0]
+        check(not missing, f"(13c) {mode}: no device time under {missing}")
+        if mode == "serve":
+            check(res["mfu"] is not None, f"(13c) no bf16 peak for {res['device']}")
+    profiled = {k: fn.launches - before[k] for k, fn in fns.items()}
+    print(f"(13c) launches over the profiler's runs: {profiled}", flush=True)
+    check(all(profiled[k] > 0 for k in ("K1", "K2", "K3", "K5", "K6", "K7", "K8")),
+          f"(13c) a kernel of the profiled programs was never launched: {profiled}")
+    names = {"K1": "bilstm", "K2": "bidaf_attention", "K3": "mfcc", "K4": "log_mel",
+             "K9": "bidaf_attention_tiled", "K5": "bilstm_train_forward", "K6": "bilstm_bptt",
+             "K7": "bidaf_dropout_forward", "K8": "bidaf_dropout_backward"}
+    total = {k: fn.launches for k, fn in fns.items()}
+    for rec in all_records:
+        rec["launches"] += sum(n for k, n in total.items() if names[k] == rec["name"])
+    print(f"(13) launches in this process over phase 13 (added to the records): {total}",
+          flush=True)
 
 
 def main() -> None:
@@ -3398,7 +3614,13 @@ def main() -> None:
 
         # 12. the mesh layouts at world size 1 through NCCL
         with tempfile.TemporaryDirectory() as mesh_root:
-            phase_mesh(dev, card, mesh_root, corpus_root, t_batch, t_step5, t_long, raw_step_s)
+            t_dp = phase_mesh(dev, card, mesh_root, corpus_root, t_batch, t_step5, t_long,
+                              raw_step_s)
+
+        # 13. mesh artifacts, the daemon under a mesh, the device-op profiler
+        with tempfile.TemporaryDirectory() as mesh_root:
+            phase_mesh_serving(dev, card, mesh_root, tiers, t_batch, t_dp, t_step5,
+                               records + train_records + long_records + vgg_records)
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "mmbidaf_tpu")
                     or m.startswith(("jax.", "jaxlib", "mmbidaf_tpu.")))

@@ -113,28 +113,14 @@ def apply_frontend(fe: Frontend, raw: Mapping[str, torch.Tensor], cfg: Config,
     inside the model, frame-sharded over the mesh's ``seq`` axis.
     """
     d, m = cfg.data, cfg.model
-    compute_dtype = torch_dtype(m.compute_dtype)
     out = {k: raw[k] for k in ("text_ids", "word_mask", "sent_mask") if k in raw}
     if m.use_images and "images" in raw and "frames" not in raw:
         out["images"], out["img_mask"] = raw["images"], raw["img_mask"]
     if m.use_audio and "audio" in raw and "waveform" not in raw:
         out["audio"], out["aud_mask"] = raw["audio"], raw["aud_mask"]
     if m.use_images and "frames" in raw:
-        frames = raw["frames"]
-        B, T_i = frames.shape[:2]
-        flat = frames.reshape((B * T_i,) + tuple(frames.shape[2:]))
-        vgg = fe.vgg
-        if vgg.fc1_w.dtype != compute_dtype:
-            vgg = copy.deepcopy(vgg).to(compute_dtype)
-        step = vgg_frame_chunk(cfg, flat.shape[0], vgg_spec, flat.device) or flat.shape[0]
-        feats = torch.cat([
-            vgg_ops.vgg_features(
-                vgg, vgg_ops.preprocess_frames(flat[i:i + step], d.image_size, compute_dtype),
-                vgg_spec, winograd=m.use_winograd_conv,
-            )
-            for i in range(0, flat.shape[0], step)
-        ])
-        out["images"] = feats.float().reshape(B, T_i, -1) * raw["img_mask"][:, :, None]
+        feats = frames_through_vgg(fe, raw["frames"], cfg, vgg_spec)
+        out["images"] = masked_image_features(feats, raw["img_mask"])
         out["img_mask"] = raw["img_mask"]
     if m.use_audio and "waveform" in raw and sp_audio:
         out["waveform"], out["aud_mask"] = raw["waveform"], raw["aud_mask"]
@@ -148,6 +134,32 @@ def apply_frontend(fe: Frontend, raw: Mapping[str, torch.Tensor], cfg: Config,
         out["audio"] = feats * raw["aud_mask"][:, :, None]
         out["aud_mask"] = raw["aud_mask"]
     return out
+
+
+def frames_through_vgg(fe: Frontend, frames: torch.Tensor, cfg: Config, vgg_spec,
+                       features=vgg_ops.vgg_features) -> torch.Tensor:
+    """``[B, T_i, H, W, 3]`` uint8 frames → ``[B·T_i, fc]``: the resize and
+    ``features`` (the whole stack, or ``vgg_ops.vgg_fc2_partial``) over
+    frame chunks of ``vgg_frame_chunk``, in the compute dtype."""
+    d, m = cfg.data, cfg.model
+    compute_dtype = torch_dtype(m.compute_dtype)
+    B, T_i = frames.shape[:2]
+    flat = frames.reshape((B * T_i,) + tuple(frames.shape[2:]))
+    vgg = fe.vgg
+    if vgg.fc1_w.dtype != compute_dtype:
+        vgg = copy.deepcopy(vgg).to(compute_dtype)
+    step = vgg_frame_chunk(cfg, flat.shape[0], vgg_spec, flat.device) or flat.shape[0]
+    return torch.cat([
+        features(vgg, vgg_ops.preprocess_frames(flat[i:i + step], d.image_size, compute_dtype),
+                 vgg_spec, winograd=m.use_winograd_conv)
+        for i in range(0, flat.shape[0], step)
+    ])
+
+
+def masked_image_features(feats: torch.Tensor, img_mask: torch.Tensor) -> torch.Tensor:
+    """``[B·T_i, fc]`` VGG features → ``[B, T_i, fc]`` f32, padded frames zeroed."""
+    B, T_i = img_mask.shape
+    return feats.float().reshape(B, T_i, -1) * img_mask[:, :, None]
 
 
 def make_end_to_end_decode(cfg: Config, vgg_spec=vgg_ops.VGG16_SPEC, audio_g_fn=None):

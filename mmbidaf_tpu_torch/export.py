@@ -33,10 +33,30 @@ artifact runs its convolutions in full f32 (``ops.common.full_f32_convs``
 around each call), as the live path does: the graph records the
 convolutions, not the cuDNN setting the live path pins around them.
 
-Scope: greedy and beam on one device. Top-k (it carries a generator) and
-``sp_audio`` are refused as in the JAX package; data-parallel and
-tensor-parallel artifacts raise ``NotImplementedError`` (the live
-``Summarizer`` runs those layouts; their artifacts are the next slice).
+Scope: greedy and beam, on one device or on a mesh (``parallel/``: one
+process a device under ``torchrun``) — data-parallel, the tensor-parallel
+VGG classifier (``MeshConfig.tp_vgg``), or both. Top-k (it carries a
+generator) and ``sp_audio`` are refused as in the JAX package.
+
+A mesh artifact freezes the per-rank program, one file every rank loads,
+and keeps every collective OUT of the graph (``torch.export`` records a
+collective's group by a name that is only the order in which the process
+made its groups, so a loader that made its groups in another order would
+reduce over the wrong ranks without a sign). Its manifest (format 2)
+records the mesh (axis names, shape, the batch axes) and, per weight leaf,
+``null`` or the dim and axis it is split on; ``weights.pt`` holds every
+leaf once, whole, and each rank cuts its own shard at load. The loader
+rebuilds the mesh over its own process group (``parallel.mesh``) and runs
+the collectives in Python around the programs: under data parallelism each
+rank runs its rows of the batch, which every rank is given whole, and the
+log-probs and picks are all-gathered over the batch axes, as the live
+``Summarizer(data_parallel=True)`` does; a split classifier is frozen as
+two programs, split at its one all-reduce — ``decode.head.pt2`` (frames →
+this rank's fc2 partial product) and ``decode.pt2`` (the summed product,
+the other inputs → picks) — and the loader sums the partial products over
+``model`` between them. A TP artifact whose batch the data axes do not
+divide replicates the batch (``batch_axes`` empty). The loader refuses a
+process group of another size than the mesh's.
 """
 
 from __future__ import annotations
@@ -59,8 +79,9 @@ _PROGRAM = "decode.pt2"
 _WEIGHTS = "weights.pt"
 _CONFIG = "config.json"
 _VOCAB = "vocab.json"
-_FORMAT_VERSION = 1
-_SUPPORTED_VERSIONS = (1,)
+_FORMAT_VERSION = 1  # a single-device program
+_FORMAT_VERSION_MESH = 2  # a mesh's per-rank program(s): "mesh", "weight_shards", "head_file"
+_SUPPORTED_VERSIONS = (1, 2)
 
 # Raw-input call order is pinned by the manifest, not by dict iteration.
 _RAW_KEYS = (
@@ -68,6 +89,12 @@ _RAW_KEYS = (
     "frames", "img_mask", "waveform", "aud_mask",
 )
 _MASKS = ("word_mask", "sent_mask", "img_mask", "aud_mask")
+# a split classifier's programs: the head takes the frames, the tail the
+# other raw inputs and the partial products summed over ``model``
+_SUM = "fc2_sum"
+_PART_KEYS = {"whole": _RAW_KEYS, "head": ("frames",),
+              "tail": tuple(k for k in _RAW_KEYS if k != "frames") + (_SUM,)}
+_TP_SPLIT = {"frontend.vgg.fc1_w": 1, "frontend.vgg.fc1_b": 0, "frontend.vgg.fc2_w": 0}
 
 
 class RawSpec(NamedTuple):
@@ -125,7 +152,10 @@ def _bucket_levels(cfg, buckets) -> list[dict[str, int]]:
 
 class _Served(torch.nn.Module):
     """The summarizer's model and frontend under one module, whose forward is
-    the serving program on a raw batch."""
+    the serving program on a raw batch (``part="whole"``), or one of the two
+    halves of a split classifier's program: ``"head"`` (frames → this rank's
+    fc2 partial product, ``[B·T_i, fc]``) and ``"tail"`` (the summed product
+    in place of the frames → picks)."""
 
     def __init__(self, summ):
         super().__init__()
@@ -133,36 +163,74 @@ class _Served(torch.nn.Module):
         self.frontend = summ.frontend
         self.cfg, self.vgg_spec, self.mode, self.width = summ.cfg, summ.vgg_spec, summ.mode, summ.topk
 
-    def forward(self, raw: dict):
-        from mmbidaf_tpu_torch.data.frontend import apply_frontend
+    def forward(self, raw: dict, part: str = "whole"):
+        from mmbidaf_tpu_torch.data.frontend import (apply_frontend, frames_through_vgg,
+                                                     masked_image_features)
         from mmbidaf_tpu_torch.models.mmbidaf import mmbidaf_decode
+        from mmbidaf_tpu_torch.ops.vgg import vgg_fc2_finish, vgg_fc2_partial
 
+        if part == "head":
+            return frames_through_vgg(self.frontend, raw["frames"], self.cfg, self.vgg_spec,
+                                      features=vgg_fc2_partial)
+        if part == "tail":
+            raw = dict(raw)
+            feats = vgg_fc2_finish(self.frontend.vgg, raw.pop(_SUM))
+            raw["images"] = masked_image_features(feats, raw["img_mask"])
         batch = apply_frontend(self.frontend, raw, self.cfg, self.vgg_spec)
         return mmbidaf_decode(self.model, batch, self.cfg, mode=self.mode, topk=self.width)
 
 
 class _FlatProgram(torch.nn.Module):
-    """``forward(*weight_leaves, *raw_leaves)``: the weights go in as
-    arguments (``functional_call``), as the JAX package's ``flat_fn`` takes
-    them, so no program holds a copy of them. The served module sits in a
-    list, out of ``torch.export``'s reach as parameters."""
+    """``forward(*weight_leaves, *inputs)``: the weights go in as arguments
+    (``functional_call``), as the JAX package's ``flat_fn`` takes them, so
+    no program holds a copy of them; the inputs are ``_PART_KEYS[part]``.
+    The served module sits in a list, out of ``torch.export``'s reach as
+    parameters."""
 
-    def __init__(self, served: _Served, names: Sequence[str]):
+    def __init__(self, served: _Served, names: Sequence[str], part: str = "whole"):
         super().__init__()
         self._served = [served]
         self.names = list(names)
+        self.part = part
 
     def forward(self, *leaves):
         n = len(self.names)
         weights = dict(zip(self.names, leaves[:n]))
-        raw = dict(zip(_RAW_KEYS, leaves[n:]))
-        return torch.func.functional_call(self._served[0], weights, (raw,), strict=True)
+        raw = dict(zip(_PART_KEYS[self.part], leaves[n:]))
+        return torch.func.functional_call(self._served[0], weights, (raw, self.part), strict=True)
 
 
 def _example_raw(specs: Mapping[str, RawSpec], device) -> list[torch.Tensor]:
     """A batch at ``specs``' shapes on ``device``: zeros, masks all ones."""
     return [torch.from_numpy((np.ones if k in _MASKS else np.zeros)(specs[k].shape, specs[k].dtype))
             .to(device) for k in _RAW_KEYS]
+
+
+def _mesh_layout(summ, batch_size: int) -> dict | None:
+    """The manifest's ``mesh`` for a summarizer on a mesh (None on one
+    device), with the JAX package's checks."""
+    mesh = summ._mesh
+    if mesh is None:
+        return None
+    from mmbidaf_tpu_torch.parallel.mesh import _data_axes, data_shard_count
+
+    if summ._dp and batch_size % summ._dp_shards != 0:
+        raise ValueError(f"data_parallel export shards the batch over {summ._dp_shards} devices: "
+                         f"batch_size must be a multiple (got {batch_size})")
+    n = data_shard_count(mesh)
+    # a TP-only artifact may pin a batch the data axes do not divide: every
+    # rank then takes the whole batch
+    return {"axis_names": list(mesh.axis_names),
+            "shape": [mesh.shape[a] for a in mesh.axis_names],
+            "batch_axes": list(_data_axes(mesh)) if batch_size % n == 0 else []}
+
+
+def _rank_rows(layout: Mapping | None, batch_size: int) -> int:
+    """Rows of the batch one rank's program takes."""
+    if not layout or not layout["batch_axes"]:
+        return batch_size
+    sizes = dict(zip(layout["axis_names"], layout["shape"]))
+    return batch_size // int(np.prod([sizes[a] for a in layout["batch_axes"]]))
 
 
 def export_summarizer(summ, out_dir: str, batch_size: int = 1,
@@ -176,8 +244,14 @@ def export_summarizer(summ, out_dir: str, batch_size: int = 1,
     live path's ``serve_buckets``: ``True`` for the quarter/half/full
     ladders, or a ladder dict) also freezes one program per diagonal bucket
     level; ``ExportedSummarizer`` trims each batch to the smallest level
-    covering its true lengths."""
+    covering its true lengths.
+
+    A summarizer on a mesh exports its per-rank program(s) (the module's
+    docstring): every rank of the group calls this (the split classifier's
+    leaves are gathered whole), rank 0 traces and writes the files, and
+    every rank returns the manifest."""
     from mmbidaf_tpu_torch.data.frontend import vgg_frame_chunk
+    from mmbidaf_tpu_torch.models.mmbidaf import torch_dtype
     from mmbidaf_tpu_torch.serving import Summarizer
     from mmbidaf_tpu_torch.train.checkpoint import save_config
 
@@ -188,74 +262,150 @@ def export_summarizer(summ, out_dir: str, batch_size: int = 1,
             f"only the deterministic paths export (mode={summ.mode!r}): greedy and beam are pure "
             "functions of weights + raw batch; top-k carries an rng stream — serve it "
             "interactively via Summarizer")
-    mesh = summ.cfg.mesh
-    if mesh.sp_audio:
+    cfg = summ.cfg
+    if cfg.mesh.sp_audio:
         raise ValueError("sp_audio serving programs route through shard_map chains and are not "
                          "exportable; export a non-SP Summarizer")
-    if summ._dp_shards != 1 or mesh.tp_vgg or mesh.num_model != 1 or mesh.num_seq != 1:
-        raise NotImplementedError("mesh layouts (data-parallel, tp_vgg, num_model, num_seq) in an "
-                                  "artifact are the next slice (ROADMAP Queue 1, item 0): artifacts "
-                                  "are single-device; the live Summarizer runs the layouts")
+    layout = _mesh_layout(summ, batch_size)
+    rows = _rank_rows(layout, batch_size)
+    split = getattr(getattr(summ.frontend, "vgg", None), "tp", None) is not None
     dev = summ.device
     served = _Served(summ)
     named = dict(served.named_parameters())
     named.update(served.named_buffers())
     names = list(named)
     weights = [named[n].detach() for n in names]
-    flat = _FlatProgram(served, names)
-    cfg = summ.cfg
+    shards = [_TP_SPLIT.get(n) if split else None for n in names]
+    whole = _whole_leaves(summ, weights, shards)
 
-    def export_program(specs, fname: str) -> dict:
-        path = os.path.join(out_dir, fname)
+    def export_part(part: str, inputs: list, fname: str) -> None:
         with torch.no_grad():
-            ep = torch.export.export(flat, tuple(weights + _example_raw(specs, dev)), strict=False)
+            ep = torch.export.export(_FlatProgram(served, names, part), tuple(weights + inputs),
+                                     strict=False)
         ep.example_inputs = None  # they hold the weights: weights.pt holds them once
-        torch.export.save(ep, path)
-        n_frames = specs["frames"].shape[0] * specs["frames"].shape[1]
-        return {"file": fname, "raw_inputs": _spec_entries(specs),
-                "vgg_frame_chunk": vgg_frame_chunk(cfg, n_frames, summ.vgg_spec, dev)
-                if cfg.model.use_images else None}
+        torch.export.save(ep, os.path.join(out_dir, fname))
 
-    os.makedirs(out_dir, exist_ok=True)
-    main = export_program(_raw_specs(cfg, batch_size, frame_hw), _PROGRAM)
-    bucket_manifest = None
-    if buckets:
-        bucket_manifest = []
-        for i, rungs in enumerate(_bucket_levels(cfg, buckets)):
-            entry = export_program(_raw_specs(cfg, batch_size, frame_hw, rungs=rungs),
-                                   f"decode.b{i}.pt2")
-            bucket_manifest.append({**entry, "rungs": rungs})
-    torch.save(dict(zip(names, (w.cpu() for w in weights))), os.path.join(out_dir, _WEIGHTS))
-    save_config(out_dir, cfg)
-    with open(os.path.join(out_dir, _VOCAB), "w") as f:
-        json.dump(summ.word2idx, f)
-    files = [_WEIGHTS, _PROGRAM, _CONFIG, _VOCAB] + [e["file"] for e in bucket_manifest or []]
-    manifest = {
-        "format_version": _FORMAT_VERSION,
-        "torch_version": torch.__version__,
-        # the files are opaque binaries with no check of their own pairing: a
-        # swapped, corrupted or partly copied file fails at load
-        "sha256": {f: _file_sha256(os.path.join(out_dir, f)) for f in files},
-        "device": dev.type,
-        "batch_size": batch_size,
-        "frame_hw": list(frame_hw),
-        "compute_dtype": cfg.model.compute_dtype,
-        "n_weight_leaves": len(names),
-        "weight_names": names,
-        "weight_dtypes": [str(w.dtype).removeprefix("torch.") for w in weights],
-        "raw_inputs": main["raw_inputs"],
-        "vgg_frame_chunk": main["vgg_frame_chunk"],
-        # greedy: log_p per step [B, K, T_s]; beam: the best beam's total
-        # sequence log-prob [B], its width fixed at export
-        "decode_mode": summ.mode,
-        "beam_width": summ.topk if summ.mode == "beam" else None,
-        "outputs": ["log_p", "picks"],
-        "mesh": None,  # single-device program
-        "bucket_programs": bucket_manifest,
-    }
-    with open(os.path.join(out_dir, _MANIFEST), "w") as f:
-        json.dump(manifest, f, indent=1)
-    return manifest
+    def export_level(fname: str, rungs=None) -> dict:
+        example = dict(zip(_RAW_KEYS, _example_raw(_raw_specs(cfg, rows, frame_hw, rungs), dev)))
+        n_frames = rows * (rungs or {}).get("keyframes", cfg.data.max_keyframes)
+        head = None
+        if split:
+            head = fname.replace(".pt2", ".head.pt2")
+            export_part("head", [example["frames"]], head)
+            summed = torch.zeros(n_frames, summ.frontend.vgg.fc2_w.shape[1], device=dev,
+                                 dtype=torch_dtype(cfg.model.compute_dtype))
+            export_part("tail", [example[k] for k in _PART_KEYS["tail"][:-1]] + [summed], fname)
+        else:
+            export_part("whole", [example[k] for k in _RAW_KEYS], fname)
+        entry = {"file": fname,
+                 "raw_inputs": _spec_entries(_raw_specs(cfg, batch_size, frame_hw, rungs)),
+                 "vgg_frame_chunk": vgg_frame_chunk(cfg, n_frames, summ.vgg_spec, dev)
+                 if cfg.model.use_images else None}
+        if layout is not None:
+            entry["head_file"] = head
+        return entry
+
+    def write() -> dict:
+        os.makedirs(out_dir, exist_ok=True)
+        main = export_level(_PROGRAM)
+        bucket_manifest = None
+        if buckets:
+            bucket_manifest = [{**export_level(f"decode.b{i}.pt2", rungs), "rungs": rungs}
+                               for i, rungs in enumerate(_bucket_levels(cfg, buckets))]
+        torch.save(dict(zip(names, whole)), os.path.join(out_dir, _WEIGHTS))
+        save_config(out_dir, cfg)
+        with open(os.path.join(out_dir, _VOCAB), "w") as f:
+            json.dump(summ.word2idx, f)
+        files = [_WEIGHTS, _PROGRAM, _CONFIG, _VOCAB]
+        files += [e["head_file"] for e in [main] if e.get("head_file")]
+        for e in bucket_manifest or []:
+            files += [e["file"]] + ([e["head_file"]] if e.get("head_file") else [])
+        manifest = {
+            "format_version": _FORMAT_VERSION if layout is None else _FORMAT_VERSION_MESH,
+            "torch_version": torch.__version__,
+            # the files are opaque binaries with no check of their own pairing: a
+            # swapped, corrupted or partly copied file fails at load
+            "sha256": {f: _file_sha256(os.path.join(out_dir, f)) for f in files},
+            "device": dev.type,
+            "batch_size": batch_size,
+            "frame_hw": list(frame_hw),
+            "compute_dtype": cfg.model.compute_dtype,
+            "n_weight_leaves": len(names),
+            "weight_names": names,
+            "weight_dtypes": [str(w.dtype).removeprefix("torch.") for w in whole],
+            "raw_inputs": main["raw_inputs"],
+            "vgg_frame_chunk": main["vgg_frame_chunk"],
+            # greedy: log_p per step [B, K, T_s]; beam: the best beam's total
+            # sequence log-prob [B], its width fixed at export
+            "decode_mode": summ.mode,
+            "beam_width": summ.topk if summ.mode == "beam" else None,
+            "outputs": ["log_p", "picks"],
+            "mesh": layout,  # null: a single-device program
+            "bucket_programs": bucket_manifest,
+        }
+        if layout is not None:
+            manifest["head_file"] = main["head_file"]
+            # per leaf: null (whole on every rank) or the dim it is split on
+            # over the model axis, in rank order
+            manifest["weight_shards"] = [None if d is None else {"dim": d, "axis": "model"}
+                                         for d in shards]
+        with open(os.path.join(out_dir, _MANIFEST), "w") as f:
+            json.dump(manifest, f, indent=1)
+        return manifest
+
+    if layout is None or summ._mesh.device_mesh is None:
+        return write()
+    return _on_rank0(write)
+
+
+def _whole_leaves(summ, weights: list, shards: list) -> list:
+    """The weights whole on the host: a split leaf's shards gathered over
+    ``model`` (every rank takes part)."""
+    from mmbidaf_tpu_torch.parallel.mesh import MODEL_AXIS, all_gather
+
+    group = summ._mesh.group(MODEL_AXIS) if summ._mesh is not None else None
+    return [(w if d is None else all_gather(w, group, dim=d)).cpu()
+            for w, d in zip(weights, shards)]
+
+
+def _on_rank0(fn):
+    """``fn()`` on rank 0 of the default group; every rank returns its result
+    or raises its error."""
+    import torch.distributed as dist
+
+    out: list = [None]
+    if dist.get_rank() == 0:
+        try:
+            out[0] = ("ok", fn())
+        except Exception as e:  # the other ranks must not wait forever
+            out[0] = ("error", f"{type(e).__name__}: {e}")
+            dist.broadcast_object_list(out, src=0)
+            raise
+    dist.broadcast_object_list(out, src=0)
+    status, value = out[0]
+    if status != "ok":
+        raise RuntimeError(f"rank 0 failed to export the artifact: {value}")
+    return value
+
+
+def layout_flag_conflict(manifest: Mapping, data_parallel=None, tp_vgg=None, num_model=None,
+                         sp_audio=None, num_seq=None) -> str | None:
+    """Why a mesh flag given to a CLI with ``--artifact`` disagrees with the
+    layout the artifact froze, or None when every given flag (not None)
+    matches it."""
+    layout = manifest.get("mesh") or {"axis_names": [], "shape": [], "batch_axes": []}
+    sizes = dict(zip(layout["axis_names"], layout["shape"]))
+    split = any(manifest.get("weight_shards") or [])
+    frozen = {"--data_parallel": bool(layout["batch_axes"]), "--tp_vgg": int(split),
+              "--num_model": sizes.get("model", 1), "--sp_audio": 0, "--num_seq": 1}
+    given = {"--data_parallel": data_parallel, "--tp_vgg": tp_vgg, "--num_model": num_model,
+             "--sp_audio": sp_audio, "--num_seq": num_seq}
+    for flag, value in given.items():
+        if value is not None and value != frozen[flag]:
+            return (f"{flag} {value} does not match the artifact's layout (mesh {sizes or 'none'}, "
+                    f"batch axes {layout['batch_axes']}, classifier split: {split}): the layout "
+                    "is fixed at export time — re-export it")
+    return None
 
 
 class ExportedDecoder:
@@ -264,11 +414,20 @@ class ExportedDecoder:
     Imports torch, numpy and the serving kernels' custom ops, and nothing of
     the model's code, so a serving host runs it without ``models``,
     ``serving`` or ``data.frontend`` (``tests/test_torch_export.py`` proves
-    it in a fresh process). Every file's sha256 is checked before anything
-    is loaded. Each program runs under ``torch.inference_mode`` and, for an
-    f32 artifact, with cuDNN's convolutions pinned to full f32. Dispatches
-    hold one lock, so request threads may share a decoder. Host-side
-    preprocessing lives in ``ExportedSummarizer``."""
+    it in a fresh process; a mesh artifact adds ``parallel.mesh``). Every
+    file's sha256 is checked before anything is loaded. Each program runs
+    under ``torch.inference_mode`` and, for an f32 artifact, with cuDNN's
+    convolutions pinned to full f32. Dispatches hold one lock, so request
+    threads may share a decoder. Host-side preprocessing lives in
+    ``ExportedSummarizer``.
+
+    A mesh artifact loads on every rank of a process group of the mesh's
+    size (one rank without a group when the mesh holds one), each rank its
+    own shards; every rank is then given the same whole batch. Under a
+    serving daemon, ``feed`` (``serving.MeshFeed``) is set on rank 0, which
+    then sends each batch to the other ranks before running it."""
+
+    feed = None
 
     def __init__(self, artifact_dir: str, device="cuda"):
         with open(os.path.join(artifact_dir, _MANIFEST)) as f:
@@ -281,18 +440,27 @@ class ExportedDecoder:
             raise ValueError(f"the artifact was exported for device {m['device']!r}; it cannot "
                              f"run on {want!r}: its graph fixes the device (re-export it there)")
         self.device = resolve_device(device)
+        self.layout = m.get("mesh")
+        shards = m.get("weight_shards") or [None] * m["n_weight_leaves"]
+        if len(shards) != m["n_weight_leaves"]:
+            # zip() below would leave the tail leaves whole
+            raise ValueError(f"manifest weight_shards has {len(shards)} entries for "
+                             f"{m['n_weight_leaves']} weight leaves — corrupted or mixed "
+                             "artifact")
+        self._mesh = self._make_mesh() if self.layout is not None else None
         for fname, digest in m["sha256"].items():
             if _file_sha256(os.path.join(artifact_dir, fname)) != digest:
                 raise ValueError(f"{fname} does not match the manifest's sha256 — the artifact is "
                                  "corrupted or its files were mixed from different exports; "
                                  "re-export or re-copy it")
+        split = any(shards)
         tensors = torch.load(os.path.join(artifact_dir, _WEIGHTS), weights_only=True,
-                             map_location=self.device)
+                             map_location="cpu" if split else self.device)
         names = m["weight_names"]
         if len(names) != m["n_weight_leaves"] or set(names) != set(tensors):
             raise ValueError("the manifest's weight names do not match weights.pt — corrupted or "
                              "mixed artifact")
-        self._weights = [tensors[n] for n in names]
+        self._weights = [self._shard(tensors[n], spec) for n, spec in zip(names, shards)]
         for n, w, dt in zip(names, self._weights, m["weight_dtypes"]):
             if str(w.dtype).removeprefix("torch.") != dt:
                 raise ValueError(f"weight {n!r} is {w.dtype}, the manifest says {dt}")
@@ -304,12 +472,36 @@ class ExportedDecoder:
         # FIRST covering level, so the manifest's entry order must not decide
         buckets = sorted(m.get("bucket_programs") or [],
                          key=lambda e: int(np.prod(list(e["rungs"].values()))))
-        self._programs = [{"file": _PROGRAM, "raw_inputs": m["raw_inputs"], "rungs": None}]
+        self._programs = [{"file": _PROGRAM, "raw_inputs": m["raw_inputs"], "rungs": None,
+                           "head_file": m.get("head_file")}]
         self._programs += [dict(e) for e in buckets]
         for prog in self._programs:
-            prog["run"] = torch.export.load(os.path.join(artifact_dir, prog["file"])).module()
+            for key, fname in (("run", prog["file"]), ("head", prog.get("head_file"))):
+                prog[key] = (torch.export.load(os.path.join(artifact_dir, fname)).module()
+                             if fname else None)
         self.bucket_levels = [e["rungs"] for e in buckets]
         self._lock = threading.Lock()
+
+    def _make_mesh(self):
+        """The exporting mesh's axes over this process group, which must have
+        the mesh's size."""
+        from mmbidaf_tpu_torch.parallel.mesh import mesh_from_axes, world
+
+        names, shape = self.layout["axis_names"], self.layout["shape"]
+        n = int(np.prod(shape))
+        if world()[1] != n:
+            raise ValueError(f"the artifact was exported for a {dict(zip(names, shape))} mesh of "
+                             f"{n} processes; this process group has {world()[1]} (start "
+                             f"{n} processes, e.g. torchrun --nproc_per_node {n})")
+        return mesh_from_axes(names, shape, self.device)
+
+    def _shard(self, w: torch.Tensor, spec: Mapping | None) -> torch.Tensor:
+        """This rank's shard of a whole leaf, on the device."""
+        if spec is not None:
+            n, k = self._mesh.shape[spec["axis"]], self._mesh.coords[spec["axis"]]
+            size = w.shape[spec["dim"]] // n
+            w = w.narrow(spec["dim"], k * size, size).contiguous()
+        return w.to(self.device)
 
     def _select_program(self, raw: Mapping) -> dict:
         """The program whose input shapes match ``raw`` exactly."""
@@ -341,10 +533,40 @@ class ExportedDecoder:
         """Dispatch the program matching the batch's shapes → ``(log_p,
         picks)`` on the device, without waiting for them."""
         prog = self._select_program(raw)
-        args = [self._arg(raw[s["name"]], s) for s in prog["raw_inputs"]]
+        args = {s["name"]: self._arg(raw[s["name"]], s) for s in prog["raw_inputs"]}
+        with self._lock:
+            if self.feed is not None:
+                self.feed.send("decode", args)
+            return self._call(prog, args)
+
+    def _call(self, prog: dict, args: Mapping[str, torch.Tensor]):
+        """One program on a batch on the device; on a mesh, this rank's
+        share of it and the collectives around the programs."""
         dtype = torch.float32 if self.compute_dtype == "float32" else None
-        with self._lock, torch.inference_mode(), full_f32_convs(dtype):
-            return prog["run"](*self._weights, *args)
+        with torch.inference_mode(), full_f32_convs(dtype):
+            if self._mesh is None:
+                return prog["run"](*self._weights, *(args[k] for k in _RAW_KEYS))
+            from mmbidaf_tpu_torch.parallel.mesh import MODEL_AXIS, all_gather, all_reduce
+
+            batch_axes = self.layout["batch_axes"]
+            if batch_axes:
+                per = self.batch_size // self._mesh.axis_size(batch_axes)
+                start = self._mesh.axis_index(batch_axes) * per
+                args = {k: v[start:start + per] for k, v in args.items()}
+            if prog["head"] is not None:
+                part = prog["head"](*self._weights, args["frames"])
+                args = {**args, _SUM: all_reduce(part, self._mesh.group(MODEL_AXIS))}
+                out = prog["run"](*self._weights, *(args[k] for k in _PART_KEYS["tail"]))
+            else:
+                out = prog["run"](*self._weights, *(args[k] for k in _RAW_KEYS))
+            if batch_axes:
+                group = self._mesh.group(batch_axes)
+                out = tuple(all_gather(t, group) for t in out)
+            return out
+
+    def follow(self, kind: str, arrays: Mapping[str, torch.Tensor], gen_state=None) -> None:
+        """A rank past 0 of a serving daemon: the device call rank 0 sent."""
+        self._call(self._select_program(arrays), arrays)
 
     def decode_raw(self, raw: Mapping) -> tuple[np.ndarray, np.ndarray]:
         """Run the program matching the batch's shapes → numpy ``(log_p, picks)``."""
@@ -371,12 +593,13 @@ class ExportedSummarizer:
     shape). Shares the private surface ``DynamicBatcher`` reads with
     ``Summarizer``."""
 
-    _dp_shards = 1  # a single-device program
-
     def __init__(self, artifact_dir: str, device="cuda"):
         from mmbidaf_tpu_torch.config import config_from_json
 
         self.decoder = ExportedDecoder(artifact_dir, device)
+        # the batcher's check: a batch the ranks split evenly
+        self._dp_shards = (self.decoder._mesh.axis_size(self.decoder.layout["batch_axes"])
+                           if self.decoder.layout else 1)
         self.cfg = config_from_json(os.path.join(artifact_dir, _CONFIG))
         with open(os.path.join(artifact_dir, _VOCAB)) as f:
             self.word2idx = json.load(f)
@@ -388,6 +611,26 @@ class ExportedSummarizer:
     @property
     def device(self) -> torch.device:
         return self.decoder.device
+
+    @property
+    def feed(self):
+        """``serving.MeshFeed`` of a daemon's rank 0 (None: no other rank)."""
+        return self.decoder.feed
+
+    @feed.setter
+    def feed(self, feed) -> None:
+        self.decoder.feed = feed
+
+    def follow(self, kind: str, arrays: Mapping[str, torch.Tensor], gen_state=None) -> None:
+        self.decoder.follow(kind, arrays, gen_state)
+
+    def parallelism(self) -> dict | None:
+        """The frozen mesh (``/healthz``), or None for a single-device program."""
+        layout = self.decoder.layout
+        if layout is None:
+            return None
+        return {"mesh_axes": dict(zip(layout["axis_names"], layout["shape"])),
+                "artifact_format": self.decoder.manifest["format_version"]}
 
     @property
     def mode(self) -> str:

@@ -27,8 +27,13 @@ defaults to the card.
 ``--artifact DIR`` scores a frozen artifact (``tools/export_artifact.py``)
 on ``--data_dir`` through ``export.ExportedSummarizer``: its config,
 vocabulary, decode mode and batch live in the artifact, so ``--load_dir``,
-``--mode``, ``--config_json``, ``--vgg``, ``--bucket_eval`` and the mesh
-flags are conflicts.
+``--mode``, ``--config_json``, ``--vgg`` and ``--bucket_eval`` are
+conflicts, and the mesh flags, given, must match the layout it froze. A
+mesh artifact is scored under ``torchrun`` with as many processes as its
+mesh holds; every rank reads the same corpus batches:
+
+    torchrun --nproc_per_node 2 -m mmbidaf_tpu_torch.infer --artifact mesh_artifact/ \\
+        --data_dir corpus --device cpu
 
 Mesh flags override the run config's ``MeshConfig`` (serving hardware
 rarely matches training hardware): ``--sp_audio 1 --num_seq N`` runs the
@@ -328,15 +333,20 @@ def artifact_eval(a) -> None:
         raise SystemExit("--artifact evaluates against a corpus: pass --data_dir")
     for flag, name in ((a.load_dir, "--load_dir"), (a.mode != "greedy", "--mode"),
                        (a.config_json, "--config_json"), (a.vgg, "--vgg"),
-                       (a.bucket_eval, "--bucket_eval"), (a.sp_audio is not None, "--sp_audio"),
-                       (a.num_seq is not None, "--num_seq"), (a.tp_vgg is not None, "--tp_vgg"),
-                       (a.num_model is not None, "--num_model")):
+                       (a.bucket_eval, "--bucket_eval")):
         if flag:
             raise SystemExit(f"{name} is fixed inside the artifact — re-export it, or evaluate a "
                              "checkpoint via --load_dir without --artifact")
     from mmbidaf_tpu_torch.data.pipeline import VideoCorpus
-    from mmbidaf_tpu_torch.export import ExportedSummarizer
+    from mmbidaf_tpu_torch.export import ExportedSummarizer, layout_flag_conflict
+    from mmbidaf_tpu_torch.parallel.mesh import initialize_distributed
 
+    with open(os.path.join(a.artifact, "manifest.json")) as f:
+        conflict = layout_flag_conflict(json.load(f), tp_vgg=a.tp_vgg, num_model=a.num_model,
+                                        sp_audio=a.sp_audio, num_seq=a.num_seq)
+    if conflict:
+        raise SystemExit(conflict)
+    initialize_distributed(a.device)
     s = ExportedSummarizer(a.artifact, device=a.device)
     corpus = VideoCorpus(dev_split(a.data_dir), s.cfg, s.word2idx, use_precomputed=False)
     print(f"artifact decode_mode={s.decoder.decode_mode} batch={s.decoder.batch_size}", flush=True)

@@ -102,6 +102,25 @@ def vgg_features(params: VGG, images: torch.Tensor, spec: Sequence = VGG16_SPEC,
     ``parallel.mesh.shard_frontend`` split over the mesh's ``model`` axis
     (its ``tp``) runs the classifier Megatron-style: the local fc1 columns,
     ReLU, the local fc2 rows, then one all-reduce before fc2's bias."""
+    x = vgg_fc2_partial(params, images, spec, winograd)
+    tp = getattr(params, "tp", None)
+    if tp is not None:
+        # tensor-parallel classifier (parallel.mesh.shard_frontend): this
+        # rank's fc1 columns and fc2 rows; one sum of the partial products
+        x = tp.all_reduce(x)
+    return vgg_fc2_finish(params, x)
+
+
+def vgg_fc2_finish(params: VGG, x: torch.Tensor) -> torch.Tensor:
+    """fc2's bias and ReLU on its (summed) product."""
+    return torch.relu(x + params.fc2_b)
+
+
+def vgg_fc2_partial(params: VGG, images: torch.Tensor, spec: Sequence = VGG16_SPEC,
+                    winograd: bool = False) -> torch.Tensor:
+    """The stack up to fc2's product, before its bias: ``[N, fc_dim]``; on a
+    split classifier this rank's partial product, which the ranks along
+    ``model`` sum."""
     x = images.permute(0, 3, 1, 2)  # NHWC storage read as channels-last NCHW
     ci = 0
     for item in spec:
@@ -122,13 +141,7 @@ def vgg_features(params: VGG, images: torch.Tensor, spec: Sequence = VGG16_SPEC,
             ci += 1
     x = x.reshape(x.shape[0], -1)  # NCHW flatten order (torchvision classifier)
     x = torch.relu(mm(x, params.fc1_w) + params.fc1_b)
-    x = mm(x, params.fc2_w)
-    tp = getattr(params, "tp", None)
-    if tp is not None:
-        # tensor-parallel classifier (parallel.mesh.shard_frontend): this
-        # rank's fc1 columns and fc2 rows; one sum of the partial products
-        x = tp.all_reduce(x)
-    return torch.relu(x + params.fc2_b)
+    return mm(x, params.fc2_w)
 
 
 def resize_matrix(dst: int, src: int) -> np.ndarray:

@@ -2,7 +2,8 @@
 the device mesh with data parallelism and the VGG classifier's tensor
 parallelism (``mesh.py``), and the sequence-parallel audio tower
 (``audio_sp.py`` → ``sp_lstm.py`` → ``ring_attention.py``, wired by
-``sp_tower.py``)."""
+``sp_tower.py``). Importing the package imports ``mesh.py`` alone (a mesh
+artifact's loader needs no model code); the SP modules load on first use."""
 
 from mmbidaf_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -14,5 +15,15 @@ from mmbidaf_tpu_torch.parallel.mesh import (  # noqa: F401
     shard_frontend,
     shard_params,
 )
-from mmbidaf_tpu_torch.parallel.sp_lstm import make_sp_bilstm  # noqa: F401
-from mmbidaf_tpu_torch.parallel.sp_tower import make_sp_audio_tower  # noqa: F401
+
+
+def __getattr__(name: str):
+    if name == "make_sp_bilstm":
+        from mmbidaf_tpu_torch.parallel.sp_lstm import make_sp_bilstm
+
+        return make_sp_bilstm
+    if name == "make_sp_audio_tower":
+        from mmbidaf_tpu_torch.parallel.sp_tower import make_sp_audio_tower
+
+        return make_sp_audio_tower
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

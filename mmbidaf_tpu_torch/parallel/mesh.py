@@ -169,6 +169,16 @@ def make_mesh(cfg: MeshConfig = MeshConfig(), device=None) -> Mesh:
     if num_model > 1 or cfg.tp_vgg:
         shape.append(num_model)
         names.append(cfg.model_axis)
+    return mesh_from_axes(names, shape, device)
+
+
+def mesh_from_axes(names: Sequence[str], sizes: Sequence[int], device=None) -> Mesh:
+    """The mesh of the given axes (outer to inner) over the processes of the
+    default group, with a group for each axis, for the batch axes and for
+    the gradient axes; every process calls it alike (group creation is
+    collective); the caller has checked that the axes hold every process.
+    ``device`` defaults to the card, or to the CPU under a gloo group."""
+    rank = world()[0]
     if device is None:
         gloo = dist.is_available() and dist.is_initialized() and dist.get_backend() == "gloo"
         device = "cpu" if gloo else "cuda"
@@ -179,8 +189,8 @@ def make_mesh(cfg: MeshConfig = MeshConfig(), device=None) -> Mesh:
     if dist.is_available() and dist.is_initialized():
         from torch.distributed.device_mesh import init_device_mesh
 
-        device_mesh = init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(names))
-    mesh = Mesh(names, shape, rank, dev, device_mesh)
+        device_mesh = init_device_mesh(dev.type, tuple(sizes), mesh_dim_names=tuple(names))
+    mesh = Mesh(names, sizes, rank, dev, device_mesh)
     for a in names:
         mesh._make_group((a,))
     mesh._make_group(_data_axes(mesh))

@@ -31,7 +31,12 @@ Mesh layouts (``parallel/``, one process a device under ``torchrun``):
 ``data_parallel=True`` decodes each rank's rows of every batch, which every
 rank is given whole, and all-gathers the picks; ``MeshConfig.tp_vgg`` splits
 the VGG classifier over ``model``; ``MeshConfig.sp_audio`` runs the audio
-tower sequence-parallel over ``seq``. Every rank returns every answer.
+tower sequence-parallel over ``seq``. Every rank returns every answer. A
+server takes requests on rank 0 only: ``lead`` gives rank 0's summarizer a
+``MeshFeed``, which sends every device call (its kind, then its arrays by
+``dist.broadcast``) to the other ranks before rank 0 runs it, and ``follow``
+runs them there, so every rank joins the same collectives in the same
+order; ``MeshFeed.stop`` ends the followers.
 
 Threads: every dispatch to the card, and top-k's draws from its generator,
 hold the summarizer's lock, so one ``Summarizer`` may be shared by request
@@ -300,7 +305,81 @@ class HostFetch:
         return self.host.numpy()
 
 
+class MeshFeed:
+    """Rank 0 of a serving mesh → the other ranks: each device call, as a
+    header (``broadcast_object_list``: the kind — ``"decode"``,
+    ``"featurize"`` or ``"stop"`` —, each array's name, shape and dtype, and
+    the state of the caller's generator when it passed one), then each array
+    by ``dist.broadcast`` from the caller's device (the card under NCCL, the
+    CPU under gloo). Rank 0 sends under the summarizer's lock, right before
+    its own call, so the calls reach every rank in one order."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def send(self, kind: str, arrays: Mapping[str, torch.Tensor] | None = None,
+             generator: torch.Generator | None = None) -> None:
+        import torch.distributed as dist
+
+        arrays = {k: v.contiguous() for k, v in (arrays or {}).items()}
+        header = {"kind": kind,
+                  "arrays": [(k, tuple(v.shape), str(v.dtype).removeprefix("torch."))
+                             for k, v in arrays.items()],
+                  "gen_state": None if generator is None else generator.get_state()}
+        dist.broadcast_object_list([header], src=0)
+        for v in arrays.values():
+            dist.broadcast(v, src=0)
+
+    def recv(self) -> tuple[str, dict, torch.Tensor | None]:
+        """``(kind, arrays, gen_state)`` of rank 0's next call."""
+        import torch.distributed as dist
+
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        header = box[0]
+        arrays = {}
+        for k, shape, dtype in header["arrays"]:
+            arrays[k] = torch.empty(shape, dtype=getattr(torch, dtype), device=self.device)
+            dist.broadcast(arrays[k], src=0)
+        return header["kind"], arrays, header["gen_state"]
+
+    def stop(self) -> None:
+        self.send("stop")
+
+
+def lead(summarizer) -> MeshFeed | None:
+    """Rank 0 of a serving daemon under a process group: every device call
+    of ``summarizer`` (a ``Summarizer`` or an ``ExportedSummarizer``) is sent
+    to the other ranks first. None (nothing set) without a group."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    summarizer.feed = MeshFeed(summarizer.device)
+    return summarizer.feed
+
+
+def follow(summarizer, log=print) -> int:
+    """A rank past 0 of a serving daemon: run each device call rank 0 sends,
+    until it sends ``stop``; returns the calls run. A call that fails here
+    is logged and the loop goes on (rank 0 answers for it)."""
+    feed = MeshFeed(summarizer.device)
+    n = 0
+    while True:
+        kind, arrays, gen_state = feed.recv()
+        if kind == "stop":
+            return n
+        try:
+            summarizer.follow(kind, arrays, gen_state)
+        except Exception as e:  # noqa: BLE001 - rank 0 reports the request's failure
+            log(f"follow: {kind} failed on this rank: {type(e).__name__}: {e}")
+        n += 1
+
+
 class Summarizer:
+    # rank 0 of a serving daemon: sends each device call to the other ranks
+    feed: MeshFeed | None = None
+
     def __init__(
         self,
         model: MMBiDAF,
@@ -608,18 +687,51 @@ class Summarizer:
     def _featurize(self, media: Mapping) -> dict:
         """The frontend alone on a media batch (``summarize_long``); under
         ``sp_audio`` the waveform stays raw, for the SP tower of each window."""
-        with self._lock, torch.inference_mode():
-            return apply_frontend(self.frontend, self._to_device(media), self.cfg, self.vgg_spec,
+        with self._lock:
+            media = self._to_device(media)
+            if self.feed is not None:
+                self.feed.send("featurize", media)
+            return self._featurize_local(media)
+
+    def _featurize_local(self, media: Mapping[str, torch.Tensor]) -> dict:
+        with torch.inference_mode():
+            return apply_frontend(self.frontend, media, self.cfg, self.vgg_spec,
                                   sp_audio=self._audio_g_fn is not None)
 
     def _decode_batch_device(self, raw: Mapping[str, torch.Tensor],
                              generator: torch.Generator | None = None):
         """Dispatch the decode of a device batch → ``(log_p, picks)`` on the
         device, without waiting for them. Top-k draws from ``generator``, by
-        default the summarizer's own."""
+        default the summarizer's own. Every device call of the serving API
+        passes through here or ``_featurize``, where a daemon's rank 0 sends
+        it to the other ranks (``feed``)."""
         with self._lock:
-            gen = generator if generator is not None else self._generator
-            return self._decode(self.model, self.frontend, raw, gen)
+            if self.feed is not None:
+                self.feed.send("decode", raw, generator)
+            return self._decode_local(raw, generator)
+
+    def _decode_local(self, raw: Mapping[str, torch.Tensor], generator=None):
+        gen = generator if generator is not None else self._generator
+        return self._decode(self.model, self.frontend, raw, gen)
+
+    def follow(self, kind: str, arrays: Mapping[str, torch.Tensor], gen_state=None) -> None:
+        """A rank past 0 of a serving daemon: the device call rank 0 sent,
+        with a generator in the caller's state where it passed one."""
+        if kind == "featurize":
+            self._featurize_local(arrays)
+            return
+        gen = None
+        if gen_state is not None:
+            gen = torch.Generator(self.device)
+            gen.set_state(gen_state)
+        self._decode_local(arrays, gen)
+
+    def parallelism(self) -> dict | None:
+        """The mesh layout (``/healthz``), or None without a mesh."""
+        if self._mesh is None:
+            return None
+        return {"mesh_axes": dict(self._mesh.shape), "dp_shards": int(self._dp_shards),
+                "sp_audio": self._audio_g_fn is not None, "tp_vgg": bool(self.cfg.mesh.tp_vgg)}
 
     def _decode_batch(self, raw, with_scores: bool = False,
                       generator: torch.Generator | None = None):

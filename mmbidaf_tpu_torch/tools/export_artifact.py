@@ -5,6 +5,8 @@ the port's counterpart of the repository's ``tools/export_artifact.py``.
     python -m mmbidaf_tpu_torch.tools.export_artifact --run_dir ... --out ... --batch 8 --buckets
     python -m mmbidaf_tpu_torch.tools.export_artifact --random --vgg tiny --out artifact/ \\
         --verify --device cpu
+    torchrun --nproc_per_node 4 -m mmbidaf_tpu_torch.tools.export_artifact --run_dir runs/NAME \\
+        --out mesh_artifact/ --batch 8 --data_parallel --tp_vgg 1 --num_model 2 --verify
 
 The artifact directory then serves without the model-building code:
 
@@ -18,9 +20,12 @@ config) with the three serving kernel flags on, so the program runs the
 hand kernels; a run keeps its own config and serves its trainer's frozen
 frontend (seeded from the run's ``train.seed``). ``--verify``
 reloads the artifact and checks every program's picks against the live
-``Summarizer`` at that program's shapes. The mesh flags
-(``--data_parallel``, ``--tp_vgg``, ``--num_model``) raise
-``NotImplementedError``: mesh-layout artifacts are the next slice.
+``Summarizer`` at that program's shapes. The mesh flags export the
+per-rank program of a mesh (``export.py``): under ``torchrun`` (one process
+a device), ``--data_parallel`` splits the batch over the data axes
+(``--batch`` a multiple of them), ``--tp_vgg 1 --num_model N`` splits the
+VGG classifier over ``model``; every rank builds the same summarizer, rank
+0 writes the files, and ``--verify`` runs on every rank.
 """
 
 from __future__ import annotations
@@ -53,9 +58,14 @@ def parse_args(argv=None):
                     help="reload the artifact and compare every program's picks with the live "
                          "Summarizer's")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--data_parallel", action="store_true", help="not ported: raises")
-    ap.add_argument("--tp_vgg", type=int, choices=[0, 1], default=None, help="not ported: raises")
-    ap.add_argument("--num_model", type=int, default=None, help="not ported: raises")
+    ap.add_argument("--data_parallel", action="store_true",
+                    help="export the per-rank program that splits the batch over the mesh's data "
+                         "axes (--batch a multiple of them); serve it on as many processes")
+    ap.add_argument("--tp_vgg", type=int, choices=[0, 1], default=None,
+                    help="1: split the VGG classifier over the 'model' mesh axis in the program "
+                         "(with --num_model N; composes with --data_parallel); 0: whole weights")
+    ap.add_argument("--num_model", type=int, default=None,
+                    help="processes on the 'model' mesh axis (overrides the run config)")
     return ap.parse_args(argv)
 
 
@@ -64,10 +74,15 @@ def build_summarizer(a):
     from mmbidaf_tpu_torch.serving import Summarizer
 
     kw = {"mode": a.mode, "topk": a.topk, "device": a.device}
+    if a.data_parallel:
+        kw.update(data_parallel=True, serve_batch_size=a.batch)
+    mesh_over = {k: v for k, v in (("tp_vgg", None if a.tp_vgg is None else bool(a.tp_vgg)),
+                                   ("num_model", a.num_model)) if v is not None}
     if a.run_dir:
         from mmbidaf_tpu_torch.train.checkpoint import load_config
 
-        return Summarizer.from_run(a.run_dir, seed=load_config(a.run_dir).train.seed, **kw)
+        return Summarizer.from_run(a.run_dir, seed=load_config(a.run_dir).train.seed,
+                                   mesh_overrides=mesh_over or None, **kw)
     from mmbidaf_tpu_torch.config import Config, tiny_test_config
     from mmbidaf_tpu_torch.ops.vgg import TINY_SPEC, spec_for_variant
 
@@ -84,6 +99,7 @@ def build_summarizer(a):
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, vgg_variant=variant,
                                                                  **flags))
         spec = spec_for_variant(variant)
+    cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, **mesh_over))
     return Summarizer.init_random(cfg, seed=0, vgg_spec=spec, **kw)
 
 
@@ -106,28 +122,39 @@ def verify(summ, out: str, batch: int, frame_hw: tuple[int, int]) -> int:
 
 def main(argv=None) -> None:
     a = parse_args(argv)
-    if a.data_parallel or a.tp_vgg is not None or a.num_model is not None:
-        raise NotImplementedError("--data_parallel, --tp_vgg and --num_model: mesh-layout "
-                                  "artifacts are the next slice (ROADMAP Queue 1, item 0)")
     try:
         h, w = (int(x) for x in a.frame_hw.lower().split("x"))
     except ValueError:
         raise SystemExit(f"--frame_hw wants HxW (e.g. 240x320), got {a.frame_hw!r}") from None
-    from mmbidaf_tpu_torch.export import export_summarizer
+    import torch.distributed as dist
 
-    summ = build_summarizer(a)
-    t0 = time.perf_counter()
-    manifest = export_summarizer(summ, a.out, batch_size=a.batch, frame_hw=(h, w),
-                                 buckets=a.buckets or None)
-    dt = time.perf_counter() - t0
-    total = sum(os.path.getsize(os.path.join(a.out, f)) for f in os.listdir(a.out))
-    mode_note = f" mode={a.mode}" + (f" (width {a.topk})" if a.mode == "beam" else "")
-    n_prog = 1 + len(manifest["bucket_programs"] or [])
-    print(f"exported {a.out} ({total / 1e6:.1f} MB, {n_prog} program(s)) in {dt:.1f} s for "
-          f"device={manifest['device']} batch={a.batch} frames={h}x{w}{mode_note}", flush=True)
-    if a.verify:
-        n = verify(summ, a.out, a.batch, (h, w))
-        print(f"verify ok: exported picks == live picks ({n} program(s))", flush=True)
+    from mmbidaf_tpu_torch.export import export_summarizer
+    from mmbidaf_tpu_torch.parallel.mesh import initialize_distributed, world
+
+    started = not dist.is_initialized() and initialize_distributed(a.device)
+    try:
+        rank = world()[0]
+        summ = build_summarizer(a)
+        t0 = time.perf_counter()
+        manifest = export_summarizer(summ, a.out, batch_size=a.batch, frame_hw=(h, w),
+                                     buckets=a.buckets or None)
+        dt = time.perf_counter() - t0
+        if rank == 0:
+            total = sum(os.path.getsize(os.path.join(a.out, f)) for f in os.listdir(a.out))
+            mode_note = f" mode={a.mode}" + (f" (width {a.topk})" if a.mode == "beam" else "")
+            mesh_note = "" if manifest["mesh"] is None else (
+                f" mesh={dict(zip(manifest['mesh']['axis_names'], manifest['mesh']['shape']))}")
+            n_prog = 1 + len(manifest["bucket_programs"] or [])
+            print(f"exported {a.out} ({total / 1e6:.1f} MB, {n_prog} program(s)) in {dt:.1f} s "
+                  f"for device={manifest['device']} batch={a.batch} frames={h}x{w}"
+                  f"{mode_note}{mesh_note}", flush=True)
+        if a.verify:
+            n = verify(summ, a.out, a.batch, (h, w))
+            print(f"verify ok: exported picks == live picks ({n} program(s))"
+                  + (f" on rank {rank}" if dist.is_initialized() else ""), flush=True)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -8,12 +8,17 @@ HTTP only) — the counterpart of the repository's ``tools/serve.py``.
         [--warmup 240x320] [--device cuda]
     python -m mmbidaf_tpu_torch.tools.serve --artifact artifact/ [--dynamic_batch B] \\
         [--warmup HxW] [--long] [--device cuda]
+    torchrun --nproc_per_node 2 -m mmbidaf_tpu_torch.tools.serve --run_dir runs/NAME \\
+        --data_parallel --serve_batch_size 8 [--tp_vgg 1 --num_model 2] [--dynamic_batch 8]
+    torchrun --nproc_per_node 4 -m mmbidaf_tpu_torch.tools.serve --artifact mesh_artifact/ \\
+        [--data_parallel] [--dynamic_batch B]
 
 Endpoints:
     GET  /healthz          → {"ok": true, "backend": ..., "decode_mode": ...,
                               "latency": {endpoint: count, errors, p50_ms, p95_ms},
                               "batcher": {...}, "buckets": {"TsxWxTixTa": n},
-                              "artifact": {"format_version": ..., ...}}
+                              "artifact": {"format_version": ..., ...},
+                              "parallelism": {"mesh_axes": {...}, ...}}
     POST /summarize        {"video_dir": "/path"}        → {"summary": ...}
     POST /summarize_batch  {"video_dirs": ["/a", "/b"]}  → {"summaries": [...]}
 
@@ -35,8 +40,20 @@ levels were fixed at export, so ``--mode``, ``--serve_batch_size``,
 the artifact's programs at its frame size. ``/healthz`` then shows the
 artifact's format.
 
-Not ported: the daemon under a mesh (``--data_parallel``, ``--tp_vgg``,
-``--num_model`` raise ``NotImplementedError``; the next slice).
+Under a mesh (``parallel/``; one process a device under ``torchrun``, or
+the ``COORDINATOR_ADDRESS`` variables) ``--data_parallel`` splits each
+device batch over the data axes (with ``--serve_batch_size`` a multiple of
+them) and ``--tp_vgg 1 --num_model N`` splits the VGG classifier over the
+``model`` axis; a run config's ``sp_audio`` is served as it is. A mesh
+artifact carries its layout: the mesh flags, given, must match it. Rank 0
+binds the port, runs the handler or the batcher and does all host decoding
+and validation; each device call then reaches the other ranks through
+``serving.MeshFeed`` (a header, then the arrays by ``dist.broadcast``) from
+the one thread that holds the summarizer's lock, and they run it alike
+(``serving.follow``), so a 400 or a 503 never reaches them. A stop of rank
+0 (SIGTERM, Ctrl-C) drains it, then sends ``stop``, and every rank exits 0;
+the other ranks ignore SIGTERM and SIGINT and wait for it. ``/healthz``
+shows the layout under ``parallelism``.
 """
 
 from __future__ import annotations
@@ -44,6 +61,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import threading
 import time
 from collections import defaultdict, deque
@@ -86,6 +104,7 @@ def make_handler(summarizer, use_long: bool, batcher=None):
 
     backend = summarizer.device.type
     latency = LatencyStats()
+    parallelism = summarizer.parallelism()
     dec = getattr(summarizer, "decoder", None)  # a frozen artifact
     artifact = None if dec is None else {
         k: dec.manifest[k] for k in ("format_version", "device", "torch_version", "batch_size",
@@ -124,6 +143,8 @@ def make_handler(summarizer, use_long: bool, batcher=None):
                 payload["batcher"] = dict(batcher.stats)
             if artifact is not None:
                 payload["artifact"] = artifact
+            if parallelism is not None:
+                payload["parallelism"] = parallelism
             if bucketed:
                 with summarizer._stats_lock:
                     payload["buckets"] = {"x".join(map(str, k)): v
@@ -219,19 +240,25 @@ def parse_args(argv=None):
     ap.add_argument("--warmup", default="", metavar="HxW",
                     help="run the serving shapes at startup on zero frames of HxW (the "
                          "corpus's frame size, e.g. 240x320)")
-    ap.add_argument("--data_parallel", action="store_true", help="not ported: raises")
-    ap.add_argument("--tp_vgg", type=int, choices=[0, 1], default=None, help="not ported: raises")
-    ap.add_argument("--num_model", type=int, default=None, help="not ported: raises")
+    ap.add_argument("--data_parallel", action="store_true",
+                    help="split each device batch over the mesh's data axes (the processes of "
+                         "the group); needs --serve_batch_size a multiple of them")
+    ap.add_argument("--tp_vgg", type=int, choices=[0, 1], default=None,
+                    help="1: split the VGG classifier over the 'model' mesh axis (with "
+                         "--num_model N); 0: whole on every rank even if the run config has it")
+    ap.add_argument("--num_model", type=int, default=None,
+                    help="processes on the 'model' mesh axis (overrides the run config)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap, ap.parse_args(argv)
 
 
 def main(argv=None) -> None:
     ap, a = parse_args(argv)
-    if a.data_parallel or a.tp_vgg is not None or a.num_model is not None:
-        raise NotImplementedError("--data_parallel, --tp_vgg and --num_model: the daemon under a "
-                                  "mesh is the next slice (ROADMAP Queue 1, item 0; rank 0 must "
-                                  "broadcast each batch)")
+    if a.data_parallel and a.run_dir and not a.serve_batch_size:
+        ap.error("--data_parallel splits each device batch over the data axes: pass "
+                 "--serve_batch_size (a multiple of them)")
+    if a.num_model is not None and a.num_model < 1:
+        ap.error(f"--num_model must be >= 1, got {a.num_model}")
     if a.artifact:
         # the artifact is the program: its mode, batch and levels were fixed
         # at export (--dynamic_batch must equal its batch; --long windows
@@ -243,6 +270,17 @@ def main(argv=None) -> None:
             if flag:
                 ap.error(f"{name} is fixed at export time — re-export the artifact (or serve "
                          "interactively via --run_dir)")
+        from mmbidaf_tpu_torch.export import layout_flag_conflict
+
+        try:
+            with open(os.path.join(a.artifact, "manifest.json")) as f:
+                manifest = json.load(f)
+        except (OSError, ValueError) as e:
+            ap.error(f"--artifact {a.artifact}: cannot read its manifest: {e}")
+        conflict = layout_flag_conflict(manifest, data_parallel=a.data_parallel or None,
+                                        tp_vgg=a.tp_vgg, num_model=a.num_model)
+        if conflict:
+            ap.error(conflict)
     if a.dynamic_batch and a.long:
         ap.error("--dynamic_batch batches whole-video requests; --long's windowed decode "
                  "batches internally — pick one")
@@ -297,51 +335,106 @@ def main(argv=None) -> None:
 
 
 def run(a, serve_buckets, warmup_hw, ap) -> None:
-    from mmbidaf_tpu_torch.serving import DynamicBatcher, Summarizer
+    import torch.distributed as dist
 
+    from mmbidaf_tpu_torch.parallel.mesh import initialize_distributed, world
+
+    started = not dist.is_initialized() and initialize_distributed(a.device)
+    try:
+        rank, size = world()
+        if a.num_model and size % a.num_model:
+            ap.error(f"--num_model {a.num_model} needs a multiple of {a.num_model} processes; "
+                     f"the process group has {size} (torchrun --nproc_per_node)")
+        s = load(a, serve_buckets, warmup_hw, ap)
+        if rank == 0:
+            lead_daemon(a, s, warmup_hw)
+        else:
+            follow_daemon(s, rank)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def load(a, serve_buckets, warmup_hw, ap):
+    """The summarizer every rank serves, with the checks that need it (each
+    rank makes them alike, so a failed one stops every rank)."""
+    from mmbidaf_tpu_torch.serving import Summarizer
+
+    if a.artifact:
+        from mmbidaf_tpu_torch.export import ExportedSummarizer
+
+        s = ExportedSummarizer(a.artifact, device=a.device)
+        if warmup_hw is not None and warmup_hw != s.decoder.frame_hw:
+            ap.error(f"--warmup {a.warmup} != the artifact's frame_hw {s.decoder.frame_hw}")
+        if a.dynamic_batch and a.dynamic_batch != s.fixed_batch_size:
+            ap.error(f"--dynamic_batch {a.dynamic_batch} != the artifact's batch "
+                     f"{s.fixed_batch_size}, fixed at export time")
+        return s
+    mesh_over = {k: v for k, v in (("tp_vgg", None if a.tp_vgg is None else bool(a.tp_vgg)),
+                                   ("num_model", a.num_model)) if v is not None}
+    return Summarizer.from_run(a.run_dir, mode=a.mode, topk=a.topk,
+                               serve_batch_size=a.serve_batch_size, serve_buckets=serve_buckets,
+                               data_parallel=a.data_parallel, mesh_overrides=mesh_over or None,
+                               device=a.device)
+
+
+def follow_daemon(s, rank: int) -> None:
+    """A rank past 0: every device call rank 0 sends, until its stop; this
+    rank's signals wait for it."""
+    import signal
+
+    from mmbidaf_tpu_torch.serving import follow
+
+    previous = {sig: signal.signal(sig, signal.SIG_IGN) for sig in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        n = follow(s)
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+    print(f"rank {rank}: ran {n} device calls of rank 0; stopped", flush=True)
+
+
+def lead_daemon(a, s, warmup_hw) -> None:
+    """Rank 0 (the only rank without a process group): the batcher, the
+    warmup and the server. Under a group every device call goes to the
+    other ranks first (``serving.lead``), and the stop goes to them last,
+    once the batcher has drained."""
+    from mmbidaf_tpu_torch.serving import DynamicBatcher, lead
+
+    feed = lead(s)
     batcher = None
     try:
-        if a.artifact:
-            from mmbidaf_tpu_torch.export import ExportedSummarizer
-
-            s = ExportedSummarizer(a.artifact, device=a.device)
-            if warmup_hw is not None and warmup_hw != s.decoder.frame_hw:
-                ap.error(f"--warmup {a.warmup} != the artifact's frame_hw {s.decoder.frame_hw}")
-            if a.dynamic_batch and a.dynamic_batch != s.fixed_batch_size:
-                ap.error(f"--dynamic_batch {a.dynamic_batch} != the artifact's batch "
-                         f"{s.fixed_batch_size}, fixed at export time")
-        else:
-            s = Summarizer.from_run(a.run_dir, mode=a.mode, topk=a.topk,
-                                    serve_batch_size=a.serve_batch_size,
-                                    serve_buckets=serve_buckets, device=a.device)
-        # the batcher before the warmup: its checks fail fast
-        if a.dynamic_batch:
-            batcher = DynamicBatcher(s, max_batch_size=a.dynamic_batch, max_wait_ms=a.batch_wait_ms,
-                                     max_queue=a.max_queue or None, pipeline_depth=a.pipeline_depth)
-        if warmup_hw is not None:
-            t0 = time.monotonic()
-            if a.artifact:
-                s.warmup()
-            else:
-                s.warmup(warmup_hw, batch_size=a.dynamic_batch or None, include_long=a.long)
-            print(f"warmup: serving shapes run in {time.monotonic() - t0:.1f} s", flush=True)
-    except KeyboardInterrupt:
-        if batcher is not None:
-            batcher.close()
-        print("stopped during startup")
-        return
-    srv = serve(s, port=a.port, host=a.host, use_long=a.long, batcher=batcher)
-    print(f"serving {a.run_dir or a.artifact} on http://{a.host}:{srv.server_address[1]} "
-          f"(mode={s.mode}, device={s.device}{', long' if a.long else ''}"
-          f"{f', dynamic_batch={a.dynamic_batch}' if batcher else ''})", flush=True)
-    try:
-        srv.serve_forever()
-    except KeyboardInterrupt:
-        srv.shutdown()
-        srv.server_close()  # joins the handler threads in flight: the drain
+        try:
+            # the batcher before the warmup: its checks fail fast
+            if a.dynamic_batch:
+                batcher = DynamicBatcher(s, max_batch_size=a.dynamic_batch,
+                                         max_wait_ms=a.batch_wait_ms,
+                                         max_queue=a.max_queue or None,
+                                         pipeline_depth=a.pipeline_depth)
+            if warmup_hw is not None:
+                t0 = time.monotonic()
+                if a.artifact:
+                    s.warmup()
+                else:
+                    s.warmup(warmup_hw, batch_size=a.dynamic_batch or None, include_long=a.long)
+                print(f"warmup: serving shapes run in {time.monotonic() - t0:.1f} s", flush=True)
+        except KeyboardInterrupt:
+            print("stopped during startup")
+            return
+        srv = serve(s, port=a.port, host=a.host, use_long=a.long, batcher=batcher)
+        print(f"serving {a.run_dir or a.artifact} on http://{a.host}:{srv.server_address[1]} "
+              f"(mode={s.mode}, device={s.device}{', long' if a.long else ''}"
+              f"{f', dynamic_batch={a.dynamic_batch}' if batcher else ''})", flush=True)
+        try:
+            srv.serve_forever()
+        except KeyboardInterrupt:
+            srv.shutdown()
+            srv.server_close()  # joins the handler threads in flight: the drain
     finally:
         if batcher is not None:
             batcher.close()
+        if feed is not None:
+            feed.stop()
 
 
 if __name__ == "__main__":

@@ -287,22 +287,32 @@ def test_ops_count_no_launch_on_the_cpu_or_while_tracing(artifacts):
 # -- refusals and loader checks ---------------------------------------------------
 
 
-def test_export_refuses_topk_sp_audio_and_mesh_layouts(weights, tmp_path):
+def test_export_refuses_topk_sp_audio_and_mesh_layouts(weights, tmp_path, capsys):
+    """Top-k and ``sp_audio`` are refused as in the JAX package; the mesh
+    layouts export (at world size 1 here: ``tests/test_torch_export_mesh.py``
+    runs them on gloo groups), and a layout larger than the process group
+    fails as the live ``Summarizer`` does."""
     port, _ = weights
     with pytest.raises(ValueError, match="greedy"):
         export.export_summarizer(port(mode="topk", topk=2), str(tmp_path / "never"))
     s = port()
-    for mesh, err in (({"sp_audio": True}, ValueError), ({"tp_vgg": True}, NotImplementedError),
-                      ({"num_model": 2}, NotImplementedError)):
-        s.cfg = dataclasses.replace(_cfg(), mesh=dataclasses.replace(_cfg().mesh, **mesh))
-        with pytest.raises(err, match="sp_audio|mesh layouts"):
-            export.export_summarizer(s, str(tmp_path / "never"))
+    s.cfg = dataclasses.replace(_cfg(), mesh=dataclasses.replace(_cfg().mesh, sp_audio=True))
+    with pytest.raises(ValueError, match="sp_audio"):
+        export.export_summarizer(s, str(tmp_path / "never"))
     assert not (tmp_path / "never").exists()
     from mmbidaf_tpu_torch.tools import export_artifact
 
-    for flag in (["--data_parallel"], ["--tp_vgg", "1"], ["--num_model", "2"]):
-        with pytest.raises(NotImplementedError):
-            export_artifact.main(["--random", "--out", str(tmp_path / "never"), *flag])
+    with pytest.raises(ValueError, match="2 devices, have 1"):
+        export_artifact.main(["--random", "--vgg", "tiny", "--device", "cpu", "--tp_vgg", "1",
+                              "--num_model", "2", "--out", str(tmp_path / "never")])
+    assert not (tmp_path / "never").exists()
+    export_artifact.main(["--random", "--vgg", "tiny", "--device", "cpu", "--data_parallel",
+                          "--tp_vgg", "1", "--verify", "--frame_hw", "12x16",
+                          "--out", str(tmp_path / "mesh")])
+    out = capsys.readouterr().out
+    assert "mesh={'data': 1, 'model': 1}" in out and "verify ok" in out
+    m = json.loads((tmp_path / "mesh" / "manifest.json").read_text())
+    assert m["format_version"] == 2 and m["head_file"] == "decode.head.pt2"
 
 
 def test_manifest_contents(artifacts):

@@ -4,10 +4,11 @@ on the 8 faked CPU devices of ``tests/conftest.py``.
 
 The port runs in 2 or 4 processes spawned from this file (``python
 tests/test_torch_parallel.py worker ...``: torch and the port only, never
-``jax``), which meet through a ``FileStore`` in ``tmp_path`` and run every
-case of their world size in one group; each case writes its results as
-``.npz``. Every ``join`` has a time limit, and all processes are killed when
-one hangs. The JAX side runs here, on the same seeded numpy inputs.
+``jax``; ``tests/torch_group.py``), which meet through a ``FileStore`` in
+``tmp_path`` and run every case of their world size in one group; each case
+writes its results as ``.npz``. Every ``join`` has a time limit, and all
+processes are killed when one hangs. The JAX side runs here, on the same
+seeded numpy inputs.
 
 Tolerances. The SP chain and the DP / TP layouts compute the same f32
 arithmetic in another order (the ring's flash softmax against JAX's ring and
@@ -22,17 +23,11 @@ process group the layouts are the path without a mesh, bit for bit.
 from __future__ import annotations
 
 import dataclasses
-import os
-import pickle
-import subprocess
 import sys
-import time
 
 import numpy as np
-
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(HERE)
-GROUP_TIMEOUT = 240.0
+import torch_group
+from torch_group import GROUP_TIMEOUT, REPO
 
 
 # ---------------------------------------------------------------------------
@@ -226,70 +221,15 @@ CASES = {f.__name__[5:]: f for f in (case_mesh, case_sp_pieces, case_tp_frontend
                                      case_serve, case_cli)}
 
 
-def _worker(rank: int, world: int, store: str, plan_path: str, out_dir: str) -> None:
-    import torch
-    import torch.distributed as dist
-
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
-    with open(plan_path, "rb") as f:
-        plan = pickle.load(f)
-    for i, (name, inputs) in enumerate(plan):
-        res = CASES[name](inputs)
-        dist.barrier()
-        np.savez(os.path.join(out_dir, f"{i}.{name}.r{rank}.npz"),
-                 **{k: v for k, v in res.items() if v is not None})
-    dist.barrier()
-    dist.destroy_process_group()
-
-
 def spawn(tmp_dir: str, world: int, plan: list, timeout: float = GROUP_TIMEOUT) -> list[list]:
-    """Run ``plan`` (``[(case, inputs)]``) in a gloo group of ``world``
-    processes; return, for each case, every rank's results (rank order)."""
-    os.makedirs(tmp_dir, exist_ok=True)
-    plan_path = os.path.join(tmp_dir, "plan.pkl")
-    with open(plan_path, "wb") as f:
-        pickle.dump(plan, f)
-    store = os.path.join(tmp_dir, "store")
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
-    procs, logs = [], []
-    for r in range(world):
-        log = open(os.path.join(tmp_dir, f"r{r}.log"), "w+")
-        logs.append(log)
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "worker", str(r), str(world), store,
-             plan_path, tmp_dir], stdout=log, stderr=subprocess.STDOUT, env=env, cwd=REPO))
-    deadline = time.monotonic() + timeout
-    try:
-        for p in procs:
-            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    texts = []
-    for log in logs:
-        log.seek(0)
-        texts.append(log.read())
-        log.close()
-    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        raise AssertionError(f"gloo group of {world} failed (rank, rc) {bad}:\n"
-                             + "\n".join(t[-3000:] for t in texts))
-    results = []
-    for i, (name, _) in enumerate(plan):
-        results.append([dict(np.load(os.path.join(tmp_dir, f"{i}.{name}.r{r}.npz")))
-                        for r in range(world)])
-    return results
+    """Run ``plan`` in a gloo group of ``world`` processes of this file."""
+    return torch_group.spawn(__file__, tmp_dir, world, plan, timeout)
 
 
 if __name__ == "__main__":
     if len(sys.argv) == 7 and sys.argv[1] == "worker":
         sys.path.insert(0, REPO)
-        _worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
+        torch_group.worker_main(CASES, sys.argv[2:])
         sys.exit(0)
     raise SystemExit("usage: test_torch_parallel.py worker RANK WORLD STORE PLAN OUT_DIR")
 

@@ -297,10 +297,13 @@ def test_daemon_process_warms_serves_and_drains(run_dir, server):
 
 
 def test_daemon_flags_checked_before_the_load(run_dir, tmp_path, capsys):
-    for flags in (["--run_dir", run_dir, "--data_parallel"], ["--run_dir", run_dir, "--tp_vgg", "1"],
-                  ["--run_dir", run_dir, "--num_model", "2"]):
-        with pytest.raises(NotImplementedError):
-            serve_tool.main(flags)
+    # the mesh flags (tests/test_torch_serve_mesh.py serves under a group)
+    for flags, msg in ((["--data_parallel"], "pass --serve_batch_size"),
+                       (["--tp_vgg", "1", "--num_model", "2"], "the process group has 1"),
+                       (["--num_model", "0"], "--num_model must be >= 1")):
+        with pytest.raises(SystemExit):
+            serve_tool.main(["--run_dir", run_dir, "--device", "cpu", *flags])
+        assert msg in capsys.readouterr().err
     # an artifact fixes its decode mode, batch and levels at export
     for flags, name in ((["--mode", "beam"], "--mode"), (["--serve_batch_size", "2"], "--serve_batch_size"),
                         (["--bucket_serving"], "--bucket_serving")):
