@@ -234,6 +234,32 @@ Phases, in order; any failure exits non-zero before the result line:
      (c) ``tools/device_profile.py`` at the bench shapes, serve and train
          (kernels on): the top of each table, K1-K3 and K5-K8 with device
          time, the serving MFU (``utils.flops`` over ``peak_bf16_tflops``).
+ 14. the published capability configs trained on the card, K7/K8's routes,
+     the held-out quality run and the tower ablation:
+     (a) ``examples/configs/config1…4_*.json`` at their published widths
+         (hidden 128, T_s=64, W=32, 64 keyframes, 512 frames, vocab 50000,
+         drop 0.2; B=32) and config6 with ``sp_audio`` off (T_q=4096,
+         B=16), the three kernel flags on, ``make_train_step`` on a seeded
+         feature batch: CAPABILITY_STEPS steps with finite losses and the
+         last below the first, K5-K8 launched, K7/K8 on the routes
+         ``drop_route`` names for each tower, the median step beside the
+         card's name and power limit, and one f32 drop-0 step through the
+         kernels equal to one through the plain versions;
+     (b) every (T_c, T_q, D) of the gate's grid has a K7/K8 route whose
+         plans equal the C plans and whose clusters the card holds;
+         DROP_GATE_RUN's shapes at drop 0 and 0.2: K7 against its plain
+         version, K8 against its plain version run in f64, each twice bit
+         for bit, on the route named; at drop 0.2 CUDA-event times, the
+         plain versions', the bound, the tiled K8's device time by kernel;
+         NO_ROUTE refused before any launch; ptxas's report of the tiled
+         kernels;
+     (c) ``experiments.quality_run`` at docs/QUALITY.md's size (VGG-16 at
+         224², 512 MFCC frames, bf16, kernel flags on, 208 train / 32 dev
+         learnable videos, B=32, QUALITY_STEPS steps): the curve, and the
+         last held-out pick overlap and ROUGE-L at least QUALITY_BAR;
+     (d) ``experiments.ablation_sweep`` at ABLATION_STEPS steps a config:
+         its table beside docs/runs/ablation_r5.json's quality columns;
+         gated only on finite losses.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The random weights come from seeds.
 """
@@ -901,7 +927,7 @@ def phase_long_kernels(dev) -> list[dict]:
     print_resources("3", (("K9", "bidaf_tiled_cluster_kernel"),))
     rec9 = {"name": "bidaf_attention_tiled", "route": "cuda",
             "source": "mmbidaf_tpu_torch/csrc/bidaf_tiled.cu",
-            "kernel": "bidaf_tiled_cluster_kernel<true, false> (a cluster an example, each rank walking q tiles)",
+            "kernel": "bidaf_tiled_cluster_kernel<true, false, false> (a cluster an example, each rank walking q tiles)",
             "replaces": "mmbidaf_tpu/ops/pallas/bidaf_tiled_kernel.py:37", "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, **bound_fields(parts), "library_ms": None}
     print(f"K9 bidaf_tiled: bound {bk.TOLERANCE}, max_abs_err={err:.3e}, kernel={ms:.4f} ms "
@@ -1710,8 +1736,9 @@ def print_bidaf_drop_resources(plans: dict) -> None:
               f"K8 {plan.smem_bwd} B", flush=True)
 
 
-def train_state(cfg, dev, seed: int):
-    """A ``TrainState`` at ``cfg`` from ``seed`` and one fixed synthetic batch."""
+def train_state(cfg, dev, seed: int, batch_size: int = B_TRAIN):
+    """A ``TrainState`` at ``cfg`` from ``seed`` and one fixed synthetic batch
+    of ``batch_size``."""
     import torch
 
     from mmbidaf_tpu_torch.data.synthetic import random_word_vectors, synthetic_batch
@@ -1722,7 +1749,7 @@ def train_state(cfg, dev, seed: int):
     wv = random_word_vectors(rng, cfg.data.vocab_size, cfg.model.emb_dim)
     state = init_train_state(mmbidaf_init(cfg, wv, dev, seed=seed), cfg, seed=seed + 1)
     batch = {k: torch.from_numpy(v).to(dev)
-             for k, v in synthetic_batch(rng, cfg, batch_size=B_TRAIN).items()}
+             for k, v in synthetic_batch(rng, cfg, batch_size=batch_size).items()}
     return state, batch
 
 
@@ -3474,6 +3501,386 @@ def phase_mesh_serving(dev, card: str, tmp: str, tiers: dict, t_batch: float, t_
           flush=True)
 
 
+
+# -- phase 14: the capability configs trained on the card, K7/K8's routes ----
+
+# The published capability configs (SURVEY [B:6-10]) and long audio.
+CAPABILITY_CONFIGS = ("config1_text_only.json", "config2_text_image.json",
+                      "config3_text_audio.json", "config4_trimodal.json")
+CAPABILITY_STEPS = 10
+B_LONG_TRAIN = 16
+# Phase 14b: every (T_c, T_q, D) of this grid (and two small shapes) must
+# have a K7/K8 route the card holds; the listed shapes run at drop 0 and
+# 0.2 against the plain versions (B=32; B=16 at T_q=4096).
+DROP_GATE_TC = (1, 8, 32, 33, 40, 48, 64, 65, 128)
+DROP_GATE_TQ = (1, 16, 32, 64, 512, 1088, 1089, 2048, 4096)
+DROP_GATE_EXTRA = ((5, 33, 40), (7, 45, 20))
+DROP_GATE_RUN = ((64, 64, 256), (64, 512, 256), (64, 64, 200), (32, 32, 256), (40, 16, 256),
+                 (128, 512, 256), (32, 1089, 256), (32, 4096, 256))
+# The capability configs' blocks (T_s=64, 64 keyframes, 512 frames, D=256):
+# what the tiled route's records sum over.
+DROP_MAIN_SHAPES = ((64, 64, 256), (64, 512, 256))
+# A shape with neither route (K7's walk holds no block past T_c ~ 4,000).
+NO_ROUTE = (5000, 64, 256)
+
+
+def capability_config(name: str, kernels: bool = True, **model):
+    """``examples/configs/<name>`` at its published widths, the three kernel
+    flags on (or off), the sequence-parallel layout off (one card), and
+    ``model`` overrides."""
+    from mmbidaf_tpu_torch.config import config_from_json
+
+    cfg = config_from_json(os.path.join(ROOT, "examples", "configs", name))
+    flags = dict(use_pallas_attention=kernels, use_pallas_lstm=kernels, use_pallas_melspec=kernels)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **flags, **model),
+                               mesh=dataclasses.replace(cfg.mesh, sp_audio=False, num_seq=1))
+
+
+def tower_shapes(cfg) -> dict:
+    """The BiDAF blocks of one training step: tower -> (T_c, T_q, D)."""
+    d, m = cfg.data, cfg.model
+    T_s, D = d.max_sentences, 2 * m.hidden_size
+    shapes = {}
+    if m.use_images:
+        shapes["image"] = (T_s, d.max_keyframes, D)
+    if m.use_audio:
+        shapes["audio"] = (T_s, d.max_audio_frames, D)
+    if not shapes:
+        shapes["self"] = (T_s, T_s, D)
+    return shapes
+
+
+def phase_capability(dev, card: str) -> dict:
+    """Phase 14a: configs 1-4 at B=32 and config6 (sp_audio off, T_q=4096)
+    at B=16 through ``make_train_step`` with every kernel flag on; returns
+    the launches of K7 and K8 on each route over the phase."""
+    import torch
+
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+    from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
+    from mmbidaf_tpu_torch.train.loop import make_train_step
+
+    runs = [(name, B_TRAIN) for name in CAPABILITY_CONFIGS]
+    runs.append(("config6_sp_long_audio.json", B_LONG_TRAIN))
+    counters = (lk.bilstm_train_forward, lk.bilstm_bptt, bk.bidaf_dropout_forward,
+                bk.bidaf_dropout_backward)
+    routes = {"forward": {"cluster": 0, "tiled": 0}, "backward": {"cluster": 0, "tiled": 0}}
+    for name, bb in runs:
+        cfg = capability_config(name)
+        t0 = time.perf_counter()
+        state, batch = train_state(cfg, dev, seed=0, batch_size=bb)
+        train_step = make_train_step(cfg)
+        torch.cuda.synchronize()
+        expect = {tower: bk.drop_route(*shape) for tower, shape in tower_shapes(cfg).items()}
+        print(f"(14a) {name}: hidden {cfg.model.hidden_size}, T_s={cfg.data.max_sentences}, "
+              f"W={cfg.data.max_words}, {cfg.data.max_keyframes} keyframes, "
+              f"{cfg.data.max_audio_frames} frames, vocab {cfg.data.vocab_size}, drop "
+              f"{cfg.model.drop_prob}, {cfg.model.compute_dtype}, B={bb}; init "
+              f"{time.perf_counter() - t0:.2f} s; K7/K8 routes by tower "
+              f"{ {k: (tower_shapes(cfg)[k], v) for k, v in expect.items()} }", flush=True)
+        for fn in counters:
+            fn.launches = 0
+        for fn in counters[2:]:
+            fn.routes = {"cluster": 0, "tiled": 0}
+        losses, step_s = [], []
+        for i in range(CAPABILITY_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            check(math.isfinite(loss) and math.isfinite(gnorm),
+                  f"(14a) {name} step {i}: loss {loss}, grad norm {gnorm}")
+            losses.append(loss)
+        launches = {fn.__name__: fn.launches for fn in counters}
+        want = {r: CAPABILITY_STEPS * sum(v == r for v in expect.values())
+                for r in ("cluster", "tiled")}
+        print(f"(14a) {name}: launches {launches}; K7 routes {bk.bidaf_dropout_forward.routes}, "
+              f"K8 routes {bk.bidaf_dropout_backward.routes} (expected {want})", flush=True)
+        check(all(v > 0 for v in launches.values()), f"(14a) {name}: a kernel never launched")
+        check(bk.bidaf_dropout_forward.routes == want and bk.bidaf_dropout_backward.routes == want,
+              f"(14a) {name}: K7/K8 left the routes drop_route names")
+        for key, fn in (("forward", bk.bidaf_dropout_forward), ("backward", bk.bidaf_dropout_backward)):
+            for r, n in fn.routes.items():
+                routes[key][r] += n
+        print(f"(14a) {name}: losses {' '.join(f'{x:.5f}' for x in losses)}", flush=True)
+        check(losses[-1] < losses[0], f"(14a) {name}: the loss did not fall")
+        t_step = statistics.median(step_s[1:])
+        print(f"(14a) {name}: median step {t_step * 1e3:.2f} ms over {CAPABILITY_STEPS - 1} -> "
+              f"{bb / t_step:.2f} videos/s on {card}", flush=True)
+        del state, batch, train_step
+        # drop 0, f32: one step through the kernels and one through the plain versions
+        results = []
+        for kernels in (True, False):
+            cfg0 = capability_config(name, kernels=kernels, drop_prob=0.0, compute_dtype="float32")
+            st, b0 = train_state(cfg0, dev, seed=3, batch_size=bb)
+            st, m = make_train_step(cfg0)(st, b0)
+            results.append((float(m["loss"]), float(m["grad_norm"]),
+                            {n: p.detach() for n, p in st.params.named_parameters()}))
+            del st, b0
+        (lk_, gk, pk), (lp, gp, pp) = results
+        dp = max((pk[n] - pp[n]).abs().max().item() for n in pk)
+        print(f"(14a) {name}: f32 drop 0, one step: loss kernels {lk_:.7f} plain {lp:.7f}; grad "
+              f"norm {gk:.7f} vs {gp:.7f}; max param diff {dp:.3e} (bound {TRAIN_PARITY_ATOL})",
+              flush=True)
+        check(abs(lk_ - lp) <= TRAIN_PARITY_ATOL and abs(gk - gp) <= TRAIN_PARITY_ATOL * max(1.0, gp),
+              f"(14a) {name}: kernel and plain loss / grad norm differ")
+        check(dp <= TRAIN_PARITY_ATOL, f"(14a) {name}: kernel and plain parameters differ")
+        del results, pk, pp
+        release_cached_memory()
+    print(f"(14a) K7/K8 launches by route over phase 14a: {routes}", flush=True)
+    return routes
+
+
+def drop_operands(rng, gen, dev, bb: int, tc: int, tq: int, dd: int, drop: float):
+    """K7/K8's operands: unit-normal c and q, their dropped copies at
+    ``drop`` (the same tensors at 0), ragged masks with an empty c row (1)
+    and an empty q row (2), weights of 0.1 scale and bias 0.25."""
+    import torch
+
+    from mmbidaf_tpu_torch.ops.common import dropout_mask
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    c, q = normal(bb, tc, dd), normal(bb, tq, dd)
+    cd = c * dropout_mask(c.shape, drop, gen, dev) if drop else c
+    qd = q * dropout_mask(q.shape, drop, gen, dev) if drop else q
+    cm = torch.from_numpy(ragged_mask(rng, bb, tc, lo=0, empty_row=1 if bb > 1 else None)).to(dev)
+    qm = torch.from_numpy(ragged_mask(rng, bb, tq, lo=0, empty_row=2 if bb > 2 else None)).to(dev)
+    w = [normal(dd) * 0.1 for _ in range(3)]
+    return (c, q, cd, qd, cm, qm, *w, torch.tensor(0.25, device=dev)), normal(bb, tc, 4 * dd)
+
+
+def drop_bounds(bb: int, tc: int, tq: int, dd: int) -> tuple:
+    """K7's and K8's (ops ms, bytes ms) at one shape (phase 3's counts)."""
+    seq = bb * (2 * tc * dd + 2 * tq * dd + tc + tq) + 3 * dd + 1
+    return (bound(bb * (4 * tc * tq * dd + 2 * tc * tc * (tq + dd)), 4 * (seq + bb * tc * 4 * dd)),
+            bound(bb * (12 * tc * tq * dd + 6 * tc * tc * tq + 6 * tc * tc * dd),
+                  4 * (seq + bb * tc * 4 * dd + bb * (2 * tc * dd + 2 * tq * dd) + 3 * dd + 1)))
+
+
+def phase_drop_routes(dev, card: str) -> list[dict]:
+    """Phase 14b: every gate shape's K7/K8 route, its plans equal to the C
+    plans and clusters the card holds; the run shapes at drop 0 and 0.2
+    against the plain versions (twice bit for bit), timed; a shape with
+    neither route refused before any launch. Returns the tiled route's two
+    records (summed over DROP_MAIN_SHAPES at drop 0.2)."""
+    import ctypes
+
+    import torch
+
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+    from mmbidaf_tpu_torch.ops.cuda import build
+
+    lib = build.library()
+    shapes = [(tc, tq, dd) for dd in (200, 256) for tc in DROP_GATE_TC for tq in DROP_GATE_TQ]
+    count = {"cluster": 0, "tiled": 0}
+    for tc, tq, dd in shapes + list(DROP_GATE_EXTRA):
+        route = bk.drop_route(tc, tq, dd)
+        count[route] += 1
+        if route == "cluster":
+            plan, out = bk.drop_plan(tc, tq, dd), (ctypes.c_int * 4)()
+            check(lib.mmb_bidaf_drop_plan(tc, tq, dd, out) == 0
+                  and tuple(out) == (plan.C, plan.tq, plan.smem_fwd, plan.smem_bwd),
+                  f"(14b) K7/K8 cluster plan at {(tc, tq, dd)}: C {tuple(out)} vs {plan}")
+            occ = (lib.mmb_bidaf_forward_dropout_occupancy(tc, tq, dd),
+                   lib.mmb_bidaf_backward_occupancy(tc, tq, dd))
+        else:
+            plan, out = bk.tiled_plan(tc, tq, dd, 128, drop=True), (ctypes.c_int * 6)()
+            check(lib.mmb_bidaf_tiled_drop_plan(tc, tq, dd, out) == 0
+                  and tuple(out) == (plan.C, plan.span, plan.tq, int(plan.resident), plan.smem,
+                                     plan.work),
+                  f"(14b) K7 tiled plan at {(tc, tq, dd)}: C {tuple(out)} vs {plan}")
+            bk._tiled_bwd_work(tc, tq, dd)  # raises where K8's C plan differs from its mirror
+            occ = (lib.mmb_bidaf_tiled_forward_dropout_occupancy(tc, tq, dd),)
+        check(min(occ) > 0, f"(14b) {(tc, tq, dd)} on the {route} route: the card holds no "
+                            f"cluster (occupancy {occ})")
+    print(f"(14b) gate: {len(shapes) + len(DROP_GATE_EXTRA)} shapes, routes {count}; every plan "
+          f"equal to the C plan, every cluster held by the card", flush=True)
+
+    rng = np.random.default_rng(14)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    recs = {k: {"err": 0.0, "ms": 0.0, "plain": 0.0, "dev": 0.0, "parts": []} for k in (7, 8)}
+    for tc, tq, dd in DROP_GATE_RUN:
+        bb = B_LONG_TRAIN if tq > 2048 else B_TRAIN
+        route = bk.drop_route(tc, tq, dd)
+        for drop in (0.0, 0.2):
+            ops, g = drop_operands(rng, gen, dev, bb, tc, tq, dd, drop)
+            before = (bk.bidaf_dropout_forward.routes[route], bk.bidaf_dropout_backward.routes[route])
+            fwd, stats = bk.bidaf_dropout_forward(*ops, with_stats=True)
+            tag = f"{(tc, tq, dd)} B={bb} drop {drop}"
+            e7 = compare(f"(14b) K7 {tag}", fwd, bk.bidaf_dropout_reference(*ops), bk.TOLERANCE)
+            again = bk.bidaf_dropout_forward(*ops, with_stats=True)
+            check(torch.equal(fwd, again[0]) and (stats is None or torch.equal(stats, again[1])),
+                  f"(14b) K7 {tag}: two runs differ")
+            bwd = bk.bidaf_dropout_backward(*ops, g, stats=stats)
+            # K8 is held to the plain version run in f64: dbias sums B·T_c·T_q
+            # terms that cancel to ~0, and at long T_q the f32 plain version's
+            # own sums over T_q are off by the size of the bound
+            ref32 = bk.bidaf_dropout_backward_reference(*ops, g)
+            ref = [r.float() for r in bk.bidaf_dropout_backward_reference(
+                *(x.double() for x in ops), g.double())]
+            print(f"    (14b) K8 {tag}: dbias kernel {bwd[7].item():.4e}, plain f32 "
+                  f"{ref32[7].item():.4e}, plain f64 {ref[7].item():.4e}; plain f32 vs f64 "
+                  f"max abs err per output "
+                  f"{' '.join(f'{(a - b).abs().max().item():.2e}' for a, b in zip(ref32, ref))}",
+                  flush=True)
+            e8 = compare(f"(14b) K8 {tag}", bwd, ref, bk.BACKWARD_TOLERANCE, normwise=True)
+            check(all(torch.equal(a, b) for a, b in
+                      zip(bwd, bk.bidaf_dropout_backward(*ops, g, stats=stats))),
+                  f"(14b) K8 {tag}: two runs differ")
+            after = (bk.bidaf_dropout_forward.routes[route], bk.bidaf_dropout_backward.routes[route])
+            check(after == (before[0] + 2, before[1] + 2), f"(14b) {tag}: not on the {route} route")
+            if drop == 0.0:
+                print(f"  K7/K8 {tag}: {route}; max_abs_err K7={e7:.3e} K8={e8:.3e}; deterministic",
+                      flush=True)
+                continue
+            k7 = time_ms(lambda: bk.bidaf_dropout_forward(*ops, with_stats=True), iters=10)
+            k8 = time_ms(lambda: bk.bidaf_dropout_backward(*ops, g, stats=stats), iters=10)
+            p7 = time_ms(lambda: bk.bidaf_dropout_reference(*ops), iters=3, reps=3)
+            p8 = time_ms(lambda: bk.bidaf_dropout_backward_reference(*ops, g), iters=3, reps=3)
+            b7, b8 = drop_bounds(bb, tc, tq, dd)
+            if route == "tiled":
+                parts = device_ms_by_kernel(
+                    lambda: bk.bidaf_dropout_backward(*ops, g, stats=stats),
+                    ("bidaf_tiled_bwd_prep", "bidaf_tiled_bwd_pass_kernel<false>",
+                     "bidaf_tiled_bwd_pass_kernel<true>", "bidaf_tiled_bwd_finish",
+                     "sum_over_batch"))
+                print(f"    (14b) K8 tiled {tag}: device ms by kernel "
+                      f"{ {k.split('_')[-1]: round(v, 4) for k, v in parts.items()} }", flush=True)
+            plan = (bk.drop_plan(tc, tq, dd) if route == "cluster" else
+                    (bk.tiled_plan(tc, tq, dd, 128, drop=True), bk.tiled_bwd_plan(tc, tq, dd)))
+            if route == "tiled":
+                w, p = plan
+                plan_s = (f"K7 walk C={w.C} span={w.span} tile={w.tq} resident={w.resident} "
+                          f"spill={w.work > 0} smem {w.smem} B; K8 blocks={p.C}x{p.per} tiles of "
+                          f"{p.tq}, smem {p.smem} B, workspace {4 * p.work * bb / 1e6:.1f} MB")
+            else:
+                plan_s = f"cluster C={plan.C} tile={plan.tq} smem K7 {plan.smem_fwd} K8 {plan.smem_bwd} B"
+            print(f"  K7/K8 {tag}: {route} ({plan_s}); max_abs_err K7={e7:.3e} K8={e8:.3e}; "
+                  f"K7 {k7:.4f} ms (plain {p7:.4f}, bound {max(b7):.4f} by "
+                  f"{'operations' if b7[0] >= b7[1] else 'bytes'}); K8 {k8:.4f} ms (plain "
+                  f"{p8:.4f}, bound {max(b8):.4f}); deterministic; on {card}", flush=True)
+            if (tc, tq, dd) in DROP_MAIN_SHAPES:
+                for k, e, ms, pl, b in ((7, e7, k7, p7, b7), (8, e8, k8, p8, b8)):
+                    r = recs[k]
+                    r["err"], r["ms"], r["plain"] = max(r["err"], e), r["ms"] + ms, r["plain"] + pl
+                    r["parts"].append(b)
+    # a shape with neither route: refused before any launch
+    ops, g = drop_operands(rng, gen, dev, 2, NO_ROUTE[0], NO_ROUTE[1], NO_ROUTE[2], 0.2)
+    n7, n8 = bk.bidaf_dropout_forward.launches, bk.bidaf_dropout_backward.launches
+    for fn in (lambda: bk.bidaf_dropout_forward(*ops), lambda: bk.bidaf_dropout_backward(*ops, g)):
+        try:
+            fn()
+            fail(f"(14b) {NO_ROUTE} has no K7/K8 route but was launched")
+        except ValueError as e:
+            check("no K7/K8 route" in str(e), f"(14b) unexpected refusal: {e}")
+    check((bk.bidaf_dropout_forward.launches, bk.bidaf_dropout_backward.launches) == (n7, n8),
+          "(14b) a refused shape moved a launch counter")
+    print(f"(14b) {NO_ROUTE}: no route; refused before any launch", flush=True)
+    print_resources("14b", (("K7 tiled", "bidaf_tiled_cluster_kernel"),
+                            ("K8 tiled", "bidaf_tiled_bwd_prep_kernel"),
+                            ("K8 tiled", "bidaf_tiled_bwd_pass_kernel"),
+                            ("K8 tiled", "bidaf_tiled_bwd_finish_kernel")),
+                    keep=lambda inst: inst.count(",") < 2 or inst.endswith("true>"))
+
+    def record(name, src, replaces, r):
+        out = {"name": name, "route": "cuda", "source": f"mmbidaf_tpu_torch/csrc/{src}",
+               "replaces": f"mmbidaf_tpu/ops/pallas/{replaces}", "max_abs_err": r["err"],
+               "ms": r["ms"], "plain_ms": r["plain"], **bound_fields(r["parts"]),
+               "library_ms": None}
+        print(f"{name}: max_abs_err={r['err']:.3e} kernel={r['ms']:.4f} ms plain={r['plain']:.4f} "
+              f"ms roofline={out['bound_ms']:.4f} ms ({out['bound_by']}) at {DROP_MAIN_SHAPES} "
+              f"B={B_TRAIN} on {card}", flush=True)
+        return out
+
+    return [record("bidaf_dropout_forward[tiled]", "bidaf_tiled.cu", "bidaf_kernel.py:154", recs[7]),
+            record("bidaf_dropout_backward[tiled]", "bidaf_tiled_bwd.cu", "bidaf_kernel.py:189",
+                   recs[8])]
+
+
+# Phase 14c: docs/QUALITY.md's quality run at its full size (the JAX twin's
+# thresholds on the held-out picks); 14d: the tower ablation, at 1000 steps
+# a config, not the reference's 2000: phases 14a-14d took 296 s at 2000 on
+# an H100 80GB HBM3 at 700 W, the ablation 191 s of it.
+QUALITY_STEPS, QUALITY_EVAL = 500, 100
+QUALITY_BAR = 0.75
+ABLATION_STEPS, ABLATION_EVAL = 1000, 250
+
+
+def phase_quality(dev, card: str, tmp: str) -> dict:
+    """Phase 14c: ``experiments.quality_run`` at docs/QUALITY.md's size
+    (hidden 128, VGG-16 at 224², 512 MFCC frames, bf16, the kernel flags on,
+    adadelta lr 0.5, 208 train / 32 dev learnable videos, B=32): the curve,
+    and the last held-out pick overlap and ROUGE-L at least QUALITY_BAR."""
+    from mmbidaf_tpu_torch.experiments import quality_run
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+
+    t0 = time.perf_counter()
+    routes = (dict(bk.bidaf_dropout_forward.routes), dict(bk.bidaf_dropout_backward.routes))
+    final = quality_run.main(["--data_dir", os.path.join(tmp, "quality"), "--videos", "240",
+                              "--dev", "32", "--steps", str(QUALITY_STEPS), "--eval_every",
+                              str(QUALITY_EVAL), "--batch", str(B_TRAIN), "--out",
+                              os.path.join(tmp, "quality.jsonl")])
+    print(f"(14c) curve (step, train loss, held-out pick overlap, ROUGE-L): "
+          f"{[(r['step'], r['train_loss'], r['pick_overlap'], r['ROUGE-L']) for r in final['curve']]}",
+          flush=True)
+    last = final["final"]
+    print(f"(14c) {final['train_videos']} train / {final['dev_videos']} dev videos, B={final['batch']}: "
+          f"floor pick overlap {final['floor']['pick_overlap']}, ROUGE-L {final['floor']['ROUGE-L']}; "
+          f"step {last['step']} pick overlap {last['pick_overlap']}, ROUGE-L {last['ROUGE-L']} "
+          f"(oracle {final['oracle_ceiling']['ROUGE-L']}); featurize {final['featurize_s']:.2f} s, "
+          f"{final['steps_per_s']:.2f} steps/s on {card}; K7/K8 routes "
+          f"{bk.bidaf_dropout_forward.routes} / {bk.bidaf_dropout_backward.routes} (before "
+          f"{routes[0]} / {routes[1]}); phase {time.perf_counter() - t0:.1f} s", flush=True)
+    check(last["pick_overlap"] >= QUALITY_BAR and last["ROUGE-L"] >= QUALITY_BAR,
+          f"(14c) held-out pick overlap {last['pick_overlap']} / ROUGE-L {last['ROUGE-L']} "
+          f"below {QUALITY_BAR}")
+    return final
+
+
+def phase_ablation(dev, card: str, tmp: str, steps: int) -> dict:
+    """Phase 14d: ``experiments.ablation_sweep`` (four tower configs on one
+    split-cue corpus of 240 videos) at ``steps`` steps each; its table
+    beside the reference run's quality columns (docs/runs/ablation_r5.json,
+    the JAX package's run at 2000 steps); gated only on finite losses."""
+    from mmbidaf_tpu_torch.experiments import ablation_sweep
+
+    t0 = time.perf_counter()
+    summary = ablation_sweep.main(["--data_dir", os.path.join(tmp, "ablation"), "--steps",
+                                   str(steps), "--eval_every", str(ABLATION_EVAL), "--batch",
+                                   str(B_TRAIN), "--out", os.path.join(tmp, "ablation.json")])
+    with open(os.path.join(ROOT, "docs", "runs", "ablation_r5.json")) as f:
+        ref = json.load(f)["table"]
+    print(f"(14d) tower ablation, {steps} steps, B={B_TRAIN}, on {card} | the reference's "
+          f"quality columns (docs/runs/ablation_r5.json, 2000 steps):", flush=True)
+    for name, row in summary["table"].items():
+        print(f"  {name:10s} " + " ".join(f"{k} {row[k]} (ref {ref[name][k]})"
+                                           for k in ablation_sweep.TABLE_KEYS), flush=True)
+    for name, run in summary["runs"].items():
+        losses = [r["train_loss"] for r in run["curve"][1:]]
+        check(all(math.isfinite(x) for x in losses), f"(14d) {name}: a non-finite loss {losses}")
+    print(f"(14d) phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return summary
+
+
+def phase_14(dev, card: str, tmp: str) -> list[dict]:
+    """Phase 14: (a) the capability configs, (b) K7/K8's routes at the gate's
+    shapes; returns the tiled route's records, launches from (a)."""
+    t0 = time.perf_counter()
+    routes = phase_capability(dev, card)
+    records = phase_drop_routes(dev, card)
+    for rec, key in zip(records, ("forward", "backward")):
+        rec["launches"] = routes[key]["tiled"]
+        check(rec["launches"] > 0, f"(14a) {rec['name']} was never launched on the main path")
+    phase_quality(dev, card, tmp)
+    release_cached_memory()
+    phase_ablation(dev, card, tmp, ABLATION_STEPS)
+    print(f"(14) phases 14a-14d took {time.perf_counter() - t0:.1f} s", flush=True)
+    return records
+
+
 def main() -> None:
     import torch
 
@@ -3622,12 +4029,18 @@ def main() -> None:
             phase_mesh_serving(dev, card, mesh_root, tiers, t_batch, t_dp, t_step5,
                                records + train_records + long_records + vgg_records)
 
+    # 14. the capability configs trained on the card, K7/K8's routes, the
+    # held-out quality run and the tower ablation
+    with tempfile.TemporaryDirectory() as tmp:
+        drop_records = phase_14(dev, card, tmp)
+
     leaked = sorted(m for m in sys.modules if m in ("jax", "mmbidaf_tpu")
                     or m.startswith(("jax.", "jaxlib", "mmbidaf_tpu.")))
     check(not leaked, f"jax or the JAX package was imported: {leaked[:5]}")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": records + train_records + long_records + vgg_records}), flush=True)
+    print(json.dumps({"kernels": records + train_records + drop_records + long_records + vgg_records}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

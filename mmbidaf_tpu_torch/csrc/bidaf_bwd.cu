@@ -344,16 +344,6 @@ __global__ void __launch_bounds__(bc::kThreadsBwd) bidaf_drop_bwd_cluster_kernel
   cluster.sync();  // no block leaves while the cluster still reads its shared memory
 }
 
-// The parameter grads: Σ_b partial[b], in batch order.
-__global__ void sum_over_batch_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                                      int B, int n) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float acc = 0.0f;
-  for (int b = 0; b < B; ++b) acc += partial[(size_t)b * n + e];
-  out[e] = acc;
-}
-
 }  // namespace
 
 MMB_API int mmb_bidaf_backward(const void* c, const void* q, const void* cd, const void* qd,
@@ -373,7 +363,7 @@ MMB_API int mmb_bidaf_backward(const void* c, const void* q, const void* cd, con
                              o(d_c), o(d_q), o(d_cd), o(d_qd), o(partial), Tc, Tq, D, p.tq);
   if (e != cudaSuccess) return (int)e;
   const int n = 3 * D + 1;
-  sum_over_batch_kernel<<<(n + 255) / 256, 256, 0, s>>>(f(partial), o(d_params), B, n);
+  bc::sum_over_batch_kernel<float><<<(n + 255) / 256, 256, 0, s>>>(f(partial), o(d_params), B, n);
   return (int)cudaGetLastError();
 }
 

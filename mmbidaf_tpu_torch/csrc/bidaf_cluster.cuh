@@ -19,9 +19,11 @@
 //
 // Plan. C = ceil(T_q / kTargetTile) up to kMaxCluster, tq = ceil(T_q / C),
 // then C = ceil(T_q / tq) (so no tile is empty). Past C = 16 the tiles grow
-// instead; where the block's shared memory no longer fits 227 KB there is
-// no plan. K7 and K8 take the same plan, sized by K8's layout (at T_c=32,
-// D=256: none past T_q = 1088, and both entry points refuse the shape);
+// instead; where the block's shared memory no longer fits 227 KB K7 and K8
+// raise C (up to 16) before there is no plan. K7 and K8 take the same plan,
+// sized by K8's layout (at T_c=32, D=256: none past T_q = 1088; at T_c >= 48
+// none at all), and their wrappers hand what it refuses to the tiled route
+// (csrc/bidaf_tiled.cu's walk for K7, csrc/bidaf_tiled_bwd.cu for K8);
 // 64-column tiles would make K8 faster and K7 slower
 // (tools/bidaf_variants.py, `tile64`). K2, the serving forward, needs only
 // the forward section of the layout (fwd_floats), so its plan holds further
@@ -112,17 +114,27 @@ struct Plan {
 
 // The plan for one example of T_c x T_q at width D; false if the block does
 // not fit (K8's, or with fwd_only K2's forward section) or the shape is
-// empty.
+// empty. K7 / K8 first take the split above; where K8's block does not fit
+// it they ask for one more block at a time, up to kMaxCluster (and T_q),
+// before they refuse: narrower tiles shrink the [T_c, tq] sections and
+// every rank's share of the D columns (at T_c=32, T_q=32, D=256 one tile
+// of 32 needs 233,600 bytes, two of 16 fit). K2 keeps the first split: its
+// wrapper hands what that does not hold to K9.
 inline bool plan(int Tc, int Tq, int D, Plan* p, bool fwd_only = false) {
   if (Tc <= 0 || Tq <= 0 || D <= 0) return false;
-  int C = (Tq + kTargetTile - 1) / kTargetTile;
-  if (C > kMaxCluster) C = kMaxCluster;
-  const int tq = (Tq + C - 1) / C;
-  C = (Tq + tq - 1) / tq;
-  const Layout lay(Tc, tq, D, C);
-  if (4 * (fwd_only ? lay.fwd_floats : lay.bwd_floats) > (size_t)kMaxSmemBytes) return false;
-  *p = {C, tq, (int)(4 * lay.fwd_floats), (int)(4 * lay.bwd_floats)};
-  return true;
+  int C0 = (Tq + kTargetTile - 1) / kTargetTile;
+  if (C0 > kMaxCluster) C0 = kMaxCluster;
+  const int c_max = fwd_only ? C0 : (Tq < kMaxCluster ? Tq : kMaxCluster);
+  for (int asked = C0; asked <= c_max; ++asked) {
+    const int tq = (Tq + asked - 1) / asked;
+    const int C = (Tq + tq - 1) / tq;
+    const Layout lay(Tc, tq, D, C);
+    if (4 * (fwd_only ? lay.fwd_floats : lay.bwd_floats) <= (size_t)kMaxSmemBytes) {
+      *p = {C, tq, (int)(4 * lay.fwd_floats), (int)(4 * lay.bwd_floats)};
+      return true;
+    }
+  }
+  return false;
 }
 
 // The launch configuration: grid (C, B), clusters of C blocks along x.
@@ -346,10 +358,13 @@ __device__ __forceinline__ void tile_softmaxes(float* smem, const Layout& L, int
 // weights w_J of every tile into wts [C][Tc], then the combined
 // P = Σ_J w_J·P_J in rank order into pf. Ends with the block synchronised.
 // Lay is Layout, or K9's walk layout (csrc/bidaf_tiled.cu), with the same
-// sections m, l, pp, wts, lw, pf and stride LT.
+// sections m, l, pp, wts, lw, pf and stride LT. With stat_m / stat_l, each
+// row's combined maximum M and sum Σ_J exp(m_J − M)·l_J are written there
+// too (K7's tiled route keeps them for its backward).
 template <typename Lay>
 __device__ __forceinline__ void combine_rows(float* smem, const Lay& L, int Tc, int C,
-                                             cg::cluster_group& cluster) {
+                                             cg::cluster_group& cluster,
+                                             float* stat_m = nullptr, float* stat_l = nullptr) {
   float *wts = smem + L.wts, *lw = smem + L.lw;
   for (int e = threadIdx.x; e < C * Tc; e += blockDim.x) {
     const int J = e / Tc, i = e - J * Tc;
@@ -367,6 +382,7 @@ __device__ __forceinline__ void combine_rows(float* smem, const Lay& L, int Tc, 
       tot = fmaf(s, lw[J * Tc + i], tot);
     }
     for (int J = 0; J < C; ++J) wts[J * Tc + i] = wts[J * Tc + i] / tot;
+    if (stat_m) stat_m[i] = M, stat_l[i] = tot;
   }
   __syncthreads();
   const int LT = L.LT;
@@ -380,6 +396,18 @@ __device__ __forceinline__ void combine_rows(float* smem, const Lay& L, int Tc, 
     pf[i * LT + k] = v;
   }
   __syncthreads();
+}
+
+// The parameter grads of K8's routes: out = Σ_b partial[b] ([B, n]), in
+// batch order.
+template <typename T>
+__global__ void sum_over_batch_kernel(const T* __restrict__ partial, T* __restrict__ out, int B,
+                                      int n) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  T acc = 0;
+  for (int b = 0; b < B; ++b) acc += partial[(size_t)b * n + e];
+  out[e] = acc;
 }
 
 }  // namespace bidafc

@@ -70,6 +70,17 @@
 // P's rows in place of its own P_acc rows. Where not even the tile's S
 // fits (T_c past 4288 at D=256) there is no plan, and the wrapper refuses
 // the shape before any launch.
+//
+// K7's tiled route is this walk with kDrop (entry point
+// mmb_bidaf_tiled_forward_dropout; replaces the same TPU kernel as K7,
+// mmbidaf_tpu/ops/pallas/bidaf_kernel.py::_bidaf_drop_kernel, for the
+// shapes K7's cluster plan refuses: T_c >= 48 at D=256, say). S is formed
+// from the dropped operands (s0, c∘w_cq from cd; s1 and S's product from
+// qd's tile, held in a second ring beside q's), and a, b and the output
+// from the undropped c and q, as K7 does. It also writes each row's
+// combined softmax maximum M and sum L = Σ_J exp(m_J − M)·l_J, so that
+// K8's tiled route (csrc/bidaf_tiled_bwd.cu) rebuilds s_row = exp(v − M)/L
+// without a pass over T_q of its own.
 #include "bidaf_cluster.cuh"
 #include "common.cuh"
 #include "mma.cuh"
@@ -90,6 +101,7 @@ constexpr int kSM = 4, kSN = 4, kAM = 8, kPM = 2, kPN = 2;
 constexpr int kWalkCluster = 6;  // ranks a cluster, at most (see the design note)
 constexpr int kMinSpan = 64;     // q columns a rank walks, at least, where T_q allows
 constexpr int kStages = 2;       // q tiles in flight a block
+constexpr int kDropTile = 128;   // K7's tiled route: the widest walk tile (K9's default)
 
 __host__ __device__ inline int round4i(int n) { return (n + 3) & ~3; }
 
@@ -108,16 +120,18 @@ __host__ __device__ inline int odd4(int n) {
 // [Tc][LT]) and the combine's weights of this rank's rows in the dead part.
 struct WalkLayout {
   int LD, LQ, LT, ND, tq4;
-  size_t ring, cw, ss, sc, s0, sf, wq, cms, qms;  // dead after the walk
+  size_t ring, ring_d, cw, ss, sc, s0, sf, wq, cms, qms;  // dead after the walk
   size_t acc, pp, m, l;                 // read by the cluster
   size_t wts, lw, pf, cs;               // the combine's own
   bool cs_staged;
   size_t floats, work;
 
-  __host__ __device__ WalkLayout(int Tc, int tq, int D, int C, bool resident, bool spill) {
+  __host__ __device__ WalkLayout(int Tc, int tq, int D, int C, bool resident, bool spill,
+                                bool drop = false) {
     LD = odd4(D), LQ = odd4(tq), LT = Tc | 1, ND = ((D + C - 1) / C) | 1, tq4 = round4i(tq);
     size_t o = 0;
     ring = bc::take(o, (size_t)kStages * tq4 * LD);  // [stage][tq4][LD] q tiles
+    ring_d = drop ? bc::take(o, (size_t)kStages * tq4 * LD) : ring;  // (K7) qd's tiles
     cw = resident ? bc::take(o, (size_t)Tc * LD) : o;  // [Tc][LD] c∘w_cq
     ss = bc::take(o, (size_t)Tc * LQ);  // [Tc][LQ] S's first half, S, then p
     sc = bc::take(o, (size_t)Tc * LQ);  // [Tc][LQ] S's second half, then s_col
@@ -175,9 +189,9 @@ struct WalkPlan {
 // tq_blk columns: the accumulators in shared memory with c∘w_cq resident,
 // else without it, else (long contexts: a_acc [Tc, D] and P_acc [Tc, Tc]
 // past a block) spilled to device memory, each with the widest tile whose
-// block fits; false if none does. ops/cuda/bidaf_kernel.py::tiled_plan
-// mirrors it.
-inline bool walk_plan(int Tc, int Tq, int D, int tq_blk, WalkPlan* p) {
+// block fits; false if none does. drop: K7's layout (two rings).
+// ops/cuda/bidaf_kernel.py::tiled_plan mirrors it.
+inline bool walk_plan(int Tc, int Tq, int D, int tq_blk, WalkPlan* p, bool drop = false) {
   if (Tc <= 0 || Tq <= 0 || D <= 0 || tq_blk <= 0) return false;
   int C = (Tq + kMinSpan - 1) / kMinSpan;
   if (C > kWalkCluster) C = kWalkCluster;
@@ -188,7 +202,7 @@ inline bool walk_plan(int Tc, int Tq, int D, int tq_blk, WalkPlan* p) {
     for (int resident = 1; resident >= 0; --resident) {
       for (int n = (span + cap - 1) / cap; n <= span; ++n) {  // the fewest tiles a rank that fit
         const int tq = (span + n - 1) / n;
-        const WalkLayout L(Tc, tq, D, C, resident, spill);
+        const WalkLayout L(Tc, tq, D, C, resident, spill, drop);
         if (4 * L.floats <= (size_t)mmb::kMaxSmemBytes) {
           *p = {C, span, tq, resident, (int)(4 * L.floats), (int)L.work};
           return true;
@@ -320,25 +334,31 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-template <bool kResident, bool kSpill>
+template <bool kResident, bool kSpill, bool kDrop>
 __global__ void __launch_bounds__(kThreads) bidaf_tiled_cluster_kernel(
     const float* __restrict__ c, const float* __restrict__ q,            // [B,Tc,D], [B,Tq,D]
+    const float* __restrict__ cd, const float* __restrict__ qd,          // kDrop: S's operands
     const float* __restrict__ c_mask, const float* __restrict__ q_mask,  // [B,Tc], [B,Tq]
     const float* __restrict__ w_c, const float* __restrict__ w_q,
     const float* __restrict__ w_cq, const float* __restrict__ bias,      // [D] x3, [1]
     float* __restrict__ out,                                             // [B,Tc,4D]
+    float* __restrict__ stats,  // kDrop: [B][2][Tc] each row's combined M, then L
     float* __restrict__ work,  // kSpill: [B][C][L.work] every block's a_acc and P_acc
     int Tc, int Tq, int D, int span, int tq) {
   bc::cg::cluster_group cluster = bc::cg::this_cluster();
   extern __shared__ __align__(16) float smem[];
   const int C = gridDim.x, r = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const WalkLayout L(Tc, tq, D, C, kResident, kSpill);
+  const WalkLayout L(Tc, tq, D, C, kResident, kSpill, kDrop);
   const int LD = L.LD, LQ = L.LQ, LT = L.LT, D4 = round4i(D);
   const int j_begin = r * span, j_end = min(j_begin + span, Tq);
   const int nt = (j_end - j_begin + tq - 1) / tq;
   const float* cb = c + (size_t)b * Tc * D;
   const float* qb = q + ((size_t)b * Tq + j_begin) * D;  // this rank's first q row
+  // S's operands: cd and qd's tiles (K7), else c and q's.
+  const float* sb = kDrop ? cd + (size_t)b * Tc * D : cb;
+  const float* qdb = kDrop ? qd + ((size_t)b * Tq + j_begin) * D : qb;
+  float* const stat_m = kDrop ? stats + (size_t)b * 2 * Tc : nullptr;
   const float* cm = c_mask + (size_t)b * Tc;
   const float* qm = q_mask + (size_t)b * Tq + j_begin;
   const float bias_v = *bias;
@@ -349,21 +369,25 @@ __global__ void __launch_bounds__(kThreads) bidaf_tiled_cluster_kernel(
   float* pp = kSpill ? acc + (size_t)Tc * LD : smem + L.pp;
   float *mrow = smem + L.m, *lrow = smem + L.l;
   float *wq_s = smem + L.wq, *cm_s = smem + L.cms;
-  const bool vec = D % 4 == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0;
-  const bool vec_c = D % 4 == 0 && (reinterpret_cast<uintptr_t>(c) & 15) == 0;
+  const bool vec = D % 4 == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0 &&
+                   (!kDrop || (reinterpret_cast<uintptr_t>(qd) & 15) == 0);
+  const bool vec_c = D % 4 == 0 && (reinterpret_cast<uintptr_t>(sb) & 15) == 0;
   const size_t stage = (size_t)L.tq4 * LD;
   // Tile t and its mask into its stage; one commit group either way.
   const auto prefetch = [&](int t) {
     if (t < nt) {
       const int nj = min(tq, j_end - j_begin - t * tq), nj4 = round4i(nj);
       copy_tile(ring + (t % kStages) * stage, qb + (size_t)t * tq * D, nj, nj4, D, LD, vec);
+      if (kDrop)
+        copy_tile(smem + L.ring_d + (t % kStages) * stage, qdb + (size_t)t * tq * D, nj, nj4, D,
+                  LD, vec);
       float* mk = smem + L.qms + (t % kStages) * L.tq4;
       for (int j = tid; j < nj4; j += blockDim.x)
         mmb::cp_async4(mk + j, j < nj ? qm + t * tq + j : qm, j < nj);
     }
     mmb::cp_async_commit_group();
   };
-  if (kResident) copy_tile(cw, cb, Tc, Tc, D, LD, vec_c);  // c, zeros past D; in tile 0's group
+  if (kResident) copy_tile(cw, sb, Tc, Tc, D, LD, vec_c);  // c (cd), zeros past D; in tile 0's group
 #pragma unroll
   for (int t = 0; t < kStages; ++t) prefetch(t);
 
@@ -378,7 +402,7 @@ __global__ void __launch_bounds__(kThreads) bidaf_tiled_cluster_kernel(
     mmb::cp_async_wait_group<kStages - 1>();
     __syncthreads();
   }
-  const float* c_rows = kResident ? cw : cb;  // row i at c_rows + i·(LD or D)
+  const float* c_rows = kResident ? cw : sb;  // row i at c_rows + i·(LD or D)
   const int c_ld = kResident ? LD : D;
   for (int i = warp; i < Tc; i += nwarps) {
     float s = 0.0f;
@@ -402,7 +426,7 @@ __global__ void __launch_bounds__(kThreads) bidaf_tiled_cluster_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = 4 * k + e;
-        v[e] = d < D ? __ldg(cb + (size_t)i * D + d) * __ldg(w_cq + d) : 0.0f;
+        v[e] = d < D ? __ldg(sb + (size_t)i * D + d) * __ldg(w_cq + d) : 0.0f;
       }
       return make_float4(v[0], v[1], v[2], v[3]);
     }
@@ -411,6 +435,7 @@ __global__ void __launch_bounds__(kThreads) bidaf_tiled_cluster_kernel(
   for (int t = 0; t < nt; ++t) {
     const int j0 = t * tq, nj = min(tq, j_end - j_begin - j0), nj4 = round4i(nj);
     const float* qt = ring + (t % kStages) * stage;
+    const float* qdt = smem + L.ring_d + (t % kStages) * stage;  // qt but with kDrop
     mmb::cp_async_wait_group<kStages - 1>();
     __syncthreads();  // tile t (and, at t = 0, the set-up above) in place
 
@@ -422,7 +447,7 @@ __global__ void __launch_bounds__(kThreads) bidaf_tiled_cluster_kernel(
       float* part = hi ? sc : ss;
       nt_product<kSM, kSN>(
           Tc, nj, hi ? mid : 0, hi ? k4 : mid, hi ? half : 0, half, cw_load,
-          [&](int j, int k) { return ld4(qt + j * LD + 4 * k); },
+          [&](int j, int k) { return ld4(qdt + j * LD + 4 * k); },
           [&](int i, int j, float v) { part[i * LQ + j] = v; });
     }
     __syncthreads();
@@ -436,7 +461,7 @@ __global__ void __launch_bounds__(kThreads) bidaf_tiled_cluster_kernel(
       float s1j = 0.0f, mx = -INFINITY, sum = 0.0f;
       if (on) {
         for (int k = sub; k < D4 / 4; k += 4) {
-          const float4 a = ld4(qt + j * LD + 4 * k), w = ld4(wq_s + 4 * k);
+          const float4 a = ld4(qdt + j * LD + 4 * k), w = ld4(wq_s + 4 * k);
           s1j = fmaf(a.x, w.x, s1j);
           s1j = fmaf(a.y, w.y, s1j);
           s1j = fmaf(a.z, w.z, s1j);
@@ -551,6 +576,7 @@ __global__ void __launch_bounds__(kThreads) bidaf_tiled_cluster_kernel(
         tot = fmaf(s, lw[J * NR + ii], tot);
       }
       for (int J = 0; J < C; ++J) wts[J * NR + ii] = wts[J * NR + ii] / tot;
+      if (kDrop) stat_m[i0 + ii] = M, stat_m[Tc + i0 + ii] = tot;
     }
     __syncthreads();
     // Other ranks' accumulators through L2 (__ldcg), not this SM's L1.
@@ -603,7 +629,8 @@ __global__ void __launch_bounds__(kThreads) bidaf_tiled_cluster_kernel(
 
     // The weights w_J and P; this rank's D columns of a, b = P·c and
     // out = [c; a; c∘a; c∘b].
-    bc::combine_rows(smem, L, Tc, C, cluster);
+    bc::combine_rows(smem, L, Tc, C, cluster, kDrop && r == 0 ? stat_m : nullptr,
+                     kDrop && r == 0 ? stat_m + Tc : nullptr);
     const float* wts = smem + L.wts;
     const float* pf = smem + L.pf;
     for (int e = tid; e < Tc * nd; e += blockDim.x) {
@@ -628,12 +655,13 @@ __global__ void __launch_bounds__(kThreads) bidaf_tiled_cluster_kernel(
 // grid (C, B) with clusters of C along x (bidaf_cluster.cuh's launch).
 bc::Plan cluster_of(const WalkPlan& p) { return {p.C, p.tq, p.smem, p.smem}; }
 
-decltype(&bidaf_tiled_cluster_kernel<true, false>) kernel_of(const WalkPlan& p) {
+template <bool kDrop>
+decltype(&bidaf_tiled_cluster_kernel<true, false, kDrop>) kernel_of(const WalkPlan& p) {
   if (p.work > 0)
-    return p.resident ? &bidaf_tiled_cluster_kernel<true, true>
-                      : &bidaf_tiled_cluster_kernel<false, true>;
-  return p.resident ? &bidaf_tiled_cluster_kernel<true, false>
-                    : &bidaf_tiled_cluster_kernel<false, false>;
+    return p.resident ? &bidaf_tiled_cluster_kernel<true, true, kDrop>
+                      : &bidaf_tiled_cluster_kernel<false, true, kDrop>;
+  return p.resident ? &bidaf_tiled_cluster_kernel<true, false, kDrop>
+                    : &bidaf_tiled_cluster_kernel<false, false, kDrop>;
 }
 
 }  // namespace
@@ -650,9 +678,48 @@ MMB_API int mmb_bidaf_tiled_forward(const void* c, const void* q, const void* c_
     return (int)cudaErrorInvalidValue;
   const auto f = [](const void* v) { return static_cast<const float*>(v); };
   const auto s = static_cast<cudaStream_t>(stream);
-  return (int)bc::launch(kernel_of(p), cluster_of(p), B, kThreads, p.smem, s, f(c), f(q), f(c_mask),
-                         f(q_mask), f(w_c), f(w_q), f(w_cq), f(bias), static_cast<float*>(out),
+  return (int)bc::launch(kernel_of<false>(p), cluster_of(p), B, kThreads, p.smem, s, f(c), f(q),
+                         f(nullptr), f(nullptr), f(c_mask), f(q_mask), f(w_c), f(w_q), f(w_cq),
+                         f(bias), static_cast<float*>(out), static_cast<float*>(nullptr),
                          static_cast<float*>(work), Tc, Tq, D, p.span, p.tq);
+}
+
+// K7's tiled route: one launch of the walk with S from cd and qd (tiles of
+// at most 128 columns). stats: [B][2][T_c], each row's combined softmax
+// maximum, then its sum; work as for K9.
+MMB_API int mmb_bidaf_tiled_forward_dropout(const void* c, const void* q, const void* cd,
+                                            const void* qd, const void* c_mask,
+                                            const void* q_mask, const void* w_c, const void* w_q,
+                                            const void* w_cq, const void* bias, void* out,
+                                            void* stats, void* work, int B, int Tc, int Tq, int D,
+                                            void* stream) {
+  WalkPlan p;
+  if (B <= 0 || B > 65535 || !stats || !walk_plan(Tc, Tq, D, kDropTile, &p, true) ||
+      (p.work > 0 && !work))
+    return (int)cudaErrorInvalidValue;
+  const auto f = [](const void* v) { return static_cast<const float*>(v); };
+  return (int)bc::launch(kernel_of<true>(p), cluster_of(p), B, kThreads, p.smem,
+                         static_cast<cudaStream_t>(stream), f(c), f(q), f(cd), f(qd), f(c_mask),
+                         f(q_mask), f(w_c), f(w_q), f(w_cq), f(bias), static_cast<float*>(out),
+                         static_cast<float*>(stats), static_cast<float*>(work), Tc, Tq, D, p.span,
+                         p.tq);
+}
+
+// K7's tiled plan: out[6] as mmb_bidaf_tiled_plan's, for K7's layout.
+MMB_API int mmb_bidaf_tiled_drop_plan(int Tc, int Tq, int D, int* out) {
+  WalkPlan p;
+  if (!walk_plan(Tc, Tq, D, kDropTile, &p, true)) return (int)cudaErrorInvalidValue;
+  const int v[6] = {p.C, p.span, p.tq, p.resident, p.smem, p.work};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
+}
+
+// How many of K7's tiled clusters the card holds at once (0: none); a
+// negative cudaError_t on failure.
+MMB_API int mmb_bidaf_tiled_forward_dropout_occupancy(int Tc, int Tq, int D) {
+  WalkPlan p;
+  if (!walk_plan(Tc, Tq, D, kDropTile, &p, true)) return -(int)cudaErrorInvalidValue;
+  return bc::max_active_clusters(kernel_of<true>(p), cluster_of(p), kThreads, p.smem);
 }
 
 // K9's plan: out[6] = C, span, tq, resident, the dynamic shared memory of a
@@ -670,5 +737,5 @@ MMB_API int mmb_bidaf_tiled_plan(int Tc, int Tq, int D, int tq_blk, int* out) {
 MMB_API int mmb_bidaf_tiled_forward_occupancy(int Tc, int Tq, int D, int tq_blk) {
   WalkPlan p;
   if (!walk_plan(Tc, Tq, D, tq_blk, &p)) return -(int)cudaErrorInvalidValue;
-  return bc::max_active_clusters(kernel_of(p), cluster_of(p), kThreads, p.smem);
+  return bc::max_active_clusters(kernel_of<false>(p), cluster_of(p), kThreads, p.smem);
 }

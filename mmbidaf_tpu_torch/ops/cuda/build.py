@@ -28,8 +28,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("lstm.cu", "lstm_bwd.cu", "bidaf.cu", "bidaf_bwd.cu", "bidaf_tiled.cu", "mfcc.cu",
-           "winograd.cu", "conv3x3.cu", "preprocess.cu")
+SOURCES = ("lstm.cu", "lstm_bwd.cu", "bidaf.cu", "bidaf_bwd.cu", "bidaf_tiled.cu",
+           "bidaf_tiled_bwd.cu", "mfcc.cu", "winograd.cu", "conv3x3.cu", "preprocess.cu")
 HEADERS = ("common.cuh", "bidaf_cluster.cuh", "lstm_cluster.cuh", "mma.cuh", "tma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -99,6 +99,21 @@ SIGNATURES = {
     "mmb_bidaf_tiled_plan": (I, I, I, I, P),
     # T_c, T_q, D, tq_blk -> clusters of K9 the card holds at once (<= 0: none)
     "mmb_bidaf_tiled_forward_occupancy": (I, I, I, I),
+    # c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, out, stats, work,
+    # B, T_c, T_q, D, stream (K7's tiled route)
+    "mmb_bidaf_tiled_forward_dropout": (P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
+    # T_c, T_q, D, out[6] -> K7's tiled plan (as mmb_bidaf_tiled_plan's)
+    "mmb_bidaf_tiled_drop_plan": (I, I, I, P),
+    # T_c, T_q, D -> clusters of K7's tiled route the card holds at once (<= 0: none)
+    "mmb_bidaf_tiled_forward_dropout_occupancy": (I, I, I),
+    # c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq, bias, g, stats, d_c, d_q,
+    # d_cd, d_qd, work, partial, d_params, B, T_c, T_q, D, stream (K8's tiled route)
+    "mmb_bidaf_tiled_backward": (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
+                                 I, I, I, I, P),
+    # T_c, T_q, D, out[5], out64[1] -> K8's tiled plan: C, tiles a block, tq,
+    # the pass and finish blocks' shared memory (bytes); the workspace's
+    # floats an example
+    "mmb_bidaf_tiled_bwd_plan": (I, I, I, P, P),
     # x, u, bias, out, N, H, W, C, K, relu, bf16, stream
     "mmb_winograd_conv3x3": (P, P, P, P, I, I, I, I, I, I, I, P),
     # x, w, bias, out, N, H, W, Cin, Cout, relu, bf16, schedule, stream

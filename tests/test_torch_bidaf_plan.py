@@ -91,14 +91,19 @@ def largest_accepted_t_q(T_c: int, D: int, plan=bk.drop_plan) -> int:
     return lo
 
 
-@pytest.mark.parametrize("T_c,T_q,D", [
-    (32, 4096, 256),  # 16 tiles of 256 columns
-    (128, 512, 256),  # the [T_c, D] operands alone pass a block's shared memory
-    (0, 16, 8), (4, 0, 8), (4, 16, 0),
+@pytest.mark.parametrize("T_c,T_q,D,route", [
+    (32, 4096, 256, "tiled"),  # 16 tiles of 256 columns: K7/K8 take the tiled route
+    (128, 512, 256, "tiled"),  # the [T_c, D] operands alone pass a block's shared memory
+    (0, 16, 8, None), (4, 0, 8, None), (4, 16, 0, None),  # empty shapes: no route at all
 ])
-def test_drop_plan_refuses_what_no_block_holds(T_c, T_q, D):
+def test_drop_plan_refuses_what_no_block_holds(T_c, T_q, D, route):
     with pytest.raises(ValueError, match="no BiDAF cluster plan"):
         bk.drop_plan(T_c, T_q, D)
+    if route is None:
+        with pytest.raises(ValueError, match="no K7/K8 route"):
+            bk.drop_route(T_c, T_q, D)
+    else:
+        assert bk.drop_route(T_c, T_q, D) == route
 
 
 def test_largest_accepted_t_q_is_refused_one_past():
@@ -148,11 +153,15 @@ def test_fused_plan_hands_over_to_k9_past_its_edge():
 
 @pytest.mark.parametrize("T_c,D", [(32, 256), (5, 40), (64, 384), (128, 64)])
 def test_fused_plan_is_the_drop_plan_where_both_hold(T_c, D):
-    for T_q in (1, 7, 16, 33, 100, 512, 1000):
+    """Where K7/K8's plan is the first split (no cluster raised to fit K8's
+    block), K2's is the same plan; K2 never raises the cluster."""
+    for T_q in (1, 7, 16, 32, 33, 100, 512, 1000):
         try:
             drop = bk.drop_plan(T_c, T_q, D)
         except ValueError:
             continue
+        if drop != bk._split(T_c, T_q, D):
+            continue  # K8's block needed the raise
         assert bk.fused_plan(T_c, T_q, D) == drop
 
 
@@ -427,24 +436,29 @@ def test_k2_split_matches_pallas(C):
 # ---------------------------------------------------------------------------
 
 
-def walk_forward(c, q, cm, qm, w_c, w_q, w_cq, bias, spans, spill=False):
+def walk_forward(c, q, cm, qm, w_c, w_q, w_cq, bias, spans, spill=False, cd=None, qd=None,
+                 stats=False):
     """K9's arithmetic: each rank walks its tiles (``spans[r]``, a list of
     ``(j0, j1)``) keeping a running row maximum m, the row sum l and the
     accumulators a_acc = Σ p·q_t and P_acc = Σ p·s_colᵀ, rescaled by
     exp(m − m_new) at each tile (the column softmax exact inside the tile);
     then the ranks are combined in rank order with K2's weights (with
     ``spill``, as the kernel does where a_acc and P_acc are in device
-    memory: each rank combines its own rows)."""
+    memory: each rank combines its own rows). K7's tiled route (``kDrop``)
+    forms S from ``cd``/``qd`` and, with ``stats``, also returns each row's
+    combined maximum M and sum L as ``[B, 2, T_c]``."""
     B, T_c, D = c.shape
-    cw, s0 = c * w_cq, c @ w_c
+    cd = c if cd is None else cd
+    qd = q if qd is None else qd
+    cw, s0 = cd * w_cq, cd @ w_c
     ranks = []
     for tiles in spans:
         m = torch.full((B, T_c), float("-inf"))
         l = torch.zeros(B, T_c)
         a_acc, p_acc = torch.zeros(B, T_c, D), torch.zeros(B, T_c, T_c)
         for j0, j1 in tiles:
-            qt = q[:, j0:j1]
-            S = s0[:, :, None] + (qt @ w_q)[:, None, :] + cw @ qt.transpose(1, 2) + bias
+            qt, qdt = q[:, j0:j1], qd[:, j0:j1]
+            S = s0[:, :, None] + (qdt @ w_q)[:, None, :] + cw @ qdt.transpose(1, 2) + bias
             cmm, qmm = cm[:, :, None], qm[:, None, j0:j1]
             s_col = torch.softmax(cmm * S + (1.0 - cmm) * NEG_INF, dim=1)
             v = qmm * S + (1.0 - qmm) * NEG_INF
@@ -456,14 +470,16 @@ def walk_forward(c, q, cm, qm, w_c, w_q, w_cq, bias, spans, spill=False):
             p_acc = p_acc * scale[:, :, None] + p @ s_col.transpose(1, 2)
             m = m_new
         ranks.append((m, l, a_acc, p_acc))
-    if spill:
-        return _combine_by_rows(c, ranks)
     M = torch.stack([m for m, _, _, _ in ranks]).max(dim=0).values
     e = [torch.exp(m - M) for m, _, _, _ in ranks]
     L = sum(ej * l for ej, (_, l, _, _) in zip(e, ranks))
-    a = sum((ej / L)[:, :, None] * aj for ej, (_, _, aj, _) in zip(e, ranks))
-    P = sum((ej / L)[:, :, None] * pj for ej, (_, _, _, pj) in zip(e, ranks))
-    return torch.cat([c, a, c * a, c * (P @ c)], dim=-1)
+    if spill:
+        out = _combine_by_rows(c, ranks)
+    else:
+        a = sum((ej / L)[:, :, None] * aj for ej, (_, _, aj, _) in zip(e, ranks))
+        P = sum((ej / L)[:, :, None] * pj for ej, (_, _, _, pj) in zip(e, ranks))
+        out = torch.cat([c, a, c * a, c * (P @ c)], dim=-1)
+    return (out, torch.stack([M, L], dim=1)) if stats else out
 
 
 def _combine_by_rows(c, ranks):
@@ -542,3 +558,230 @@ def test_walk_matches_pallas(walk_case, C, n, spill):
     # example 1's q is fully masked: C2Q is the plain mean of q over T_q
     torch.testing.assert_close(out[1, :, _WALK_D:2 * _WALK_D],
                                q[1].mean(dim=0).expand(_WALK_TC, _WALK_D), atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8's routes: the cluster plan raised before it refuses, and the tiled
+# route (K7 on K9's walk with S from cd and qd, K8 on
+# csrc/bidaf_tiled_bwd.cu) for what no cluster block holds.
+# ---------------------------------------------------------------------------
+
+GATE_TC = (1, 8, 32, 33, 40, 48, 64, 65, 128)
+GATE_TQ = (1, 16, 32, 64, 512, 1088, 1089, 2048, 4096)
+
+
+def test_drop_plan_raises_the_cluster_before_it_refuses():
+    """At (32, 32, 256) one tile of 32 columns needs 233,600 bytes: two of
+    16 fit; T_c = 40 and 48 at short T_q likewise. Shapes whose first split
+    fits keep it, and K2 never raises (its wrapper hands over to K9)."""
+    assert bk._split(32, 32, 256).smem_bwd == 233_600
+    assert bk.drop_plan(32, 32, 256)[:2] == (2, 16)
+    assert bk.drop_plan(40, 16, 256)[:2] == (2, 8)
+    assert bk.drop_plan(48, 16, 256)[:2] == (4, 4)
+    assert bk.drop_plan(32, 16, 256)[:2] == (1, 16)
+    assert bk.fused_plan(32, 32, 256)[:2] == (1, 32)
+    for T_c, T_q in ((32, 32), (40, 16), (48, 16)):
+        assert bk.drop_plan(T_c, T_q, 256).smem_bwd <= SMEM_LIMIT
+        assert bk.drop_route(T_c, T_q, 256) == "cluster"
+
+
+@pytest.mark.parametrize("D", [200, 256])
+@pytest.mark.parametrize("T_c", GATE_TC)
+def test_every_gate_shape_has_a_route_that_fits(T_c, D):
+    """Every T_q of the gate at this (T_c, D) has a route whose blocks fit
+    Hopper's shared memory: the cluster plan (K8's block, C <= 16) or both
+    tiled plans (K7's walk with two rings; K8's pass and finish blocks)."""
+    for T_q in GATE_TQ:
+        route = bk.drop_route(T_c, T_q, D)
+        if route == "cluster":
+            plan = bk.drop_plan(T_c, T_q, D)
+            assert plan.C <= 16 and plan.smem_bwd <= SMEM_LIMIT
+            continue
+        walk, bwd = bk.tiled_plan(T_c, T_q, D, 128, drop=True), bk.tiled_bwd_plan(T_c, T_q, D)
+        assert walk.smem <= SMEM_LIMIT and walk.C <= 6
+        assert bwd.smem <= SMEM_LIMIT and bwd.smem_finish <= SMEM_LIMIT and bwd.C <= 8
+
+
+@pytest.mark.parametrize("T_c,T_q,D", [(5, 33, 40), (7, 45, 20)])
+def test_the_small_gate_shapes_stay_on_the_cluster_route(T_c, T_q, D):
+    assert bk.drop_route(T_c, T_q, D) == "cluster"
+    assert bk.drop_plan(T_c, T_q, D) == bk._split(T_c, T_q, D)
+
+
+def test_no_shape_the_cluster_route_took_changes_route():
+    """Over a grid, every shape whose first split fitted K8's block (all
+    the cluster route took before the raise) keeps that plan and route; the
+    capability configs' blocks (T_c = 64) and long audio take the tiled
+    route."""
+    took = 0
+    for T_c in (1, 5, 8, 16, 32, 33, 40, 47, 48, 64, 100):
+        for T_q in (1, 2, 7, 16, 31, 32, 33, 64, 100, 512, 1000, 1088, 1089, 2048):
+            for D in (8, 40, 200, 256, 384):
+                first = bk._split(T_c, T_q, D)
+                if first.smem_bwd > SMEM_LIMIT:
+                    continue
+                took += 1
+                assert bk.drop_route(T_c, T_q, D) == "cluster"
+                assert bk.drop_plan(T_c, T_q, D) == first
+    assert took > 300
+    for shape in ((64, 64, 256), (64, 512, 256), (32, 4096, 256), (32, 1089, 256)):
+        assert bk.drop_route(*shape) == "tiled"
+
+
+@pytest.mark.parametrize("T_c,T_q,D", [
+    (64, 64, 256), (64, 512, 256), (32, 4096, 256), (128, 512, 256),  # the gate's run shapes
+    (64, 1, 256), (48, 20, 200), (300, 7, 8), (1, 4096, 1),
+])
+def test_tiled_bwd_plan_deals_q_once(T_c, T_q, D):
+    """K8's tiled plan: the tiles cover T_q once in rank order, each block's
+    tiles consecutive and at most ``per``, none idle, at most 8 blocks of
+    tiles of at most 32 columns, both blocks fit, and the workspace is
+    BwdWork's size."""
+    plan = bk.tiled_bwd_plan(T_c, T_q, D)
+    assert 1 <= plan.C <= 8 and len(plan.tiles) == plan.C and 1 <= plan.tq <= 32
+    assert all(1 <= len(t) <= plan.per for t in plan.tiles)
+    assert [j for t in plan.tiles for j0, j1 in t for j in range(j0, j1)] == list(range(T_q))
+    assert all(0 < j1 - j0 <= plan.tq for t in plan.tiles for j0, j1 in t)
+    assert plan.smem <= SMEM_LIMIT and plan.smem_finish <= SMEM_LIMIT
+    assert plan.work == bk._bwd_work(T_c, D, plan.C) >= T_c * D * (2 + 2 * plan.C)
+
+
+@pytest.mark.parametrize("T_c,T_q,D", [(12000, 4, 8), (0, 4, 4), (4, 0, 4), (4, 4, 0)])
+def test_tiled_bwd_plan_refuses_what_no_block_holds(T_c, T_q, D):
+    """Past T_c ~ 11,600 not even a pass block of one q column fits (five
+    [T_c, 1] sections); empty shapes have no plan. Then there is no route at
+    all; K7's walk refuses earlier, past T_c ~ 4,000 at D=256."""
+    with pytest.raises(ValueError, match="no K8 tiled plan"):
+        bk.tiled_bwd_plan(T_c, T_q, D)
+    with pytest.raises(ValueError, match="no K7/K8 route"):
+        bk.drop_route(T_c, T_q, D)
+    if T_c > 0:
+        bk.tiled_bwd_plan(T_c // 4, max(T_q, 1), max(D, 1))
+        with pytest.raises(ValueError, match="no K7/K8 route"):
+            bk.drop_route(5000, 64, 256)
+
+
+def tiled_backward(c, q, cd, qd, cm, qm, w_c, w_q, w_cq, bias, g, stats, tiles):
+    """K8's tiled route, pass by pass (test-only): ``tiles[r]`` the q tiles
+    of block r. Prep: cw, d_a, s0, E. Pass 1 per tile: S, p = exp(v − M)
+    (M from K7's stats), s_col, d_s_row; the block's Σ p, Σ p∘d_s_row and
+    partials Σ p·q_J, Σ p·s_colᵀ. Pass 2: L and rs from the blocks' sums in
+    rank order, then per tile s_row = p / L, d_s_col, dS, d_q, d_qd and the
+    partials. Finish: a and P over L, d_c, d_cd and the parameter grads."""
+    T = lambda x: x.transpose(1, 2)  # noqa: E731
+    B, T_c, D = c.shape
+    g0, g1, g2, g3 = (g[..., k * D:(k + 1) * D] for k in range(4))
+    cw, da, s0, E = cd * w_cq, g1 + g2 * c, cd @ w_c, (g3 * c) @ T(c)
+    M = stats[:, 0]
+
+    def tile(j0, j1):
+        qt, qdt = q[:, j0:j1], qd[:, j0:j1]
+        S = s0[:, :, None] + (qdt @ w_q)[:, None, :] + cw @ T(qdt) + bias
+        qmm, cmm = qm[:, None, j0:j1], cm[:, :, None]
+        p = torch.exp(qmm * S + (1.0 - qmm) * NEG_INF - M[:, :, None])
+        s_col = torch.softmax(cmm * S + (1.0 - cmm) * NEG_INF, dim=1)
+        return qt, qdt, p, s_col, E @ s_col + da @ T(qt)
+
+    l_r, pd_r, a_r, p_r = [], [], [], []
+    for blk in tiles:
+        acc = [torch.zeros(B, T_c), torch.zeros(B, T_c), torch.zeros(B, T_c, D),
+               torch.zeros(B, T_c, T_c)]
+        for j0, j1 in blk:
+            qt, _, p, s_col, dsr = tile(j0, j1)
+            for k, v in enumerate((p.sum(2), (p * dsr).sum(2), p @ qt, p @ T(s_col))):
+                acc[k] = acc[k] + v
+        for lst, v in zip((l_r, pd_r, a_r, p_r), acc):
+            lst.append(v)
+    L = sum(l_r)
+    rs = sum(pd_r) / L
+    d_q, d_qd = torch.empty_like(q), torch.empty_like(q)
+    ds0, dsq, wq, bs = 0.0, 0.0, 0.0, 0.0
+    for blk in tiles:
+        for j0, j1 in blk:
+            qt, qdt, p, s_col, dsr = tile(j0, j1)
+            s_row = p / L[:, :, None]
+            dsc = T(E) @ s_row
+            csum = (dsc * s_col).sum(1, keepdim=True)
+            dS = (qm[:, None, j0:j1] * (s_row * (dsr - rs[:, :, None]))
+                  + cm[:, :, None] * (s_col * (dsc - csum)))
+            ds1 = dS.sum(1)
+            d_q[:, j0:j1] = T(s_row) @ da
+            d_qd[:, j0:j1] = ds1[:, :, None] * w_q + T(dS) @ cw
+            ds0, dsq = ds0 + dS.sum(2), dsq + dS @ qdt
+            wq, bs = wq + (qdt * ds1[:, :, None]).sum(1), bs + ds1.sum()
+    a, P = sum(a_r) / L[:, :, None], sum(p_r) / L[:, :, None]
+    d_c = g0 + g2 * a + g3 * (P @ c) + T(P) @ (g3 * c)
+    d_cd = ds0[:, :, None] * w_c + dsq * w_cq
+    return (d_c, d_q, d_cd, d_qd, (cd * ds0[:, :, None]).sum((0, 1)), wq.sum(0),
+            (dsq * cd).sum((0, 1)), bs)
+
+
+@pytest.mark.parametrize("tq,blocks", [(32, 1), (4, 2), (3, 3), (1, 8)])
+@pytest.mark.parametrize("walk_ranks,walk_tiles", [(1, 1), (3, 2)])
+def test_tiled_route_matches_pallas_and_its_vjp(tq, blocks, walk_ranks, walk_tiles):
+    """K7's tiled route (K9's walk with S from cd, qd, its row statistics
+    kept) and K8's tiled route (tiles of ``tq`` dealt to ``blocks`` blocks
+    in runs) on T_q=11 with a fully masked q row (example 1), a fully
+    masked c column (example 2) and in example 0 a q mask that leaves the
+    last tiles fully masked, against JAX's ``bidaf_attention_fused_dropout``
+    and its VJP in interpret mode: ``TOLERANCE`` on the output,
+    ``BACKWARD_TOLERANCE`` normwise on each gradient."""
+    rng = np.random.default_rng(90 + tq)
+    B, T_c, T_q, D = 3, 6, 11, 12
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    c, q, g = f32(B, T_c, D), f32(B, T_q, D), f32(B, T_c, 4 * D)
+    keep = lambda shape: (rng.random(shape) < 0.8).astype(np.float32) / 0.8  # noqa: E731
+    cd, qd = c * keep(c.shape), q * keep(q.shape)
+    c_mask = (np.arange(T_c)[None] < np.array([6, 4, 0])[:, None]).astype(np.float32)
+    q_mask = (np.arange(T_q)[None] < np.array([7, 0, 11])[:, None]).astype(np.float32)
+    w_c, w_q, w_cq = f32(D) * 0.3, f32(D) * 0.3, f32(D) * 0.3
+    bias = np.float32(-0.2)
+    jp = {"w_c": jnp.asarray(w_c), "w_q": jnp.asarray(w_q), "w_cq": jnp.asarray(w_cq),
+          "bias": jnp.float32(bias)}
+    j_args = [jnp.asarray(v) for v in (c, q, cd, qd, c_mask, q_mask)]
+    j_out, vjp = jax.vjp(lambda p, *xs: j_bidaf_drop(p, *xs, j_args[4], j_args[5]),
+                         jp, *j_args[:4])
+    j_dp, *j_dx = vjp(jnp.asarray(g))
+
+    t = [torch.from_numpy(v) for v in (c, q, cd, qd, c_mask, q_mask, w_c, w_q, w_cq)]
+    ops = (*t, torch.tensor(bias))
+    c_, q_, cd_, qd_, cm_, qm_ = t[:6]
+    out, stats = walk_forward(c_, q_, cm_, qm_, *t[6:], ops[9], _walk(T_q, walk_ranks, walk_tiles),
+                              cd=cd_, qd=qd_, stats=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **bk.TOLERANCE)
+    nt = -(-T_q // tq)
+    per = -(-nt // blocks)
+    tiles = [[(k * tq, min((k + 1) * tq, T_q)) for k in range(r * per, min((r + 1) * per, nt))]
+             for r in range(-(-nt // per))]
+    got = tiled_backward(*ops, torch.from_numpy(g), stats, tiles)
+    ref = [*j_dx, j_dp["w_c"], j_dp["w_q"], j_dp["w_cq"], j_dp["bias"]]
+    tol = bk.BACKWARD_TOLERANCE
+    for name, o, r in zip(("d_c", "d_q", "d_cd", "d_qd", "dw_c", "dw_q", "dw_cq", "dbias"), got, ref):
+        r = np.asarray(r)
+        err = np.abs(o.numpy() - r).max()
+        assert err <= tol["atol"] + tol["rtol"] * np.abs(r).max(), (name, err)
+    # example 1's q is fully masked: s_row is uniform over T_q (L = T_q)
+    torch.testing.assert_close(stats[1, 1], torch.full((T_c,), float(T_q)))
+
+
+def test_tiled_route_is_the_plain_version_on_the_cpu():
+    """On CPU tensors the wrappers run the plain versions whatever the
+    route (here the tiled one, T_c=64), move no counter, and the forward
+    returns no row statistics."""
+    rng = np.random.default_rng(3)
+    B, T_c, T_q, D = 2, 64, 70, 8
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    ops = (f(B, T_c, D), f(B, T_q, D), f(B, T_c, D), f(B, T_q, D), torch.ones(B, T_c),
+           torch.ones(B, T_q), f(D), f(D), f(D), torch.tensor(0.1))
+    assert bk.drop_route(T_c, T_q, 256) == "tiled"
+    counts = (bk.bidaf_dropout_forward.launches, dict(bk.bidaf_dropout_forward.routes),
+              bk.bidaf_dropout_backward.launches, dict(bk.bidaf_dropout_backward.routes))
+    out, stats = bk.bidaf_dropout_forward(*ops, with_stats=True)
+    assert stats is None
+    torch.testing.assert_close(out, bk.bidaf_dropout_reference(*ops), rtol=0, atol=0)
+    g = f(B, T_c, 4 * D)
+    for o, r in zip(bk.bidaf_dropout_backward(*ops, g),
+                    bk.bidaf_dropout_backward_reference(*ops, g)):
+        torch.testing.assert_close(o, r, rtol=0, atol=0)
+    assert counts == (bk.bidaf_dropout_forward.launches, dict(bk.bidaf_dropout_forward.routes),
+                      bk.bidaf_dropout_backward.launches, dict(bk.bidaf_dropout_backward.routes))

@@ -854,18 +854,19 @@ def test_bidaf_drop_plan_matches_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_bidaf_dropout_shape_with_no_plan_raises(cuda_device):
-    """T_q=4096 at T_c=32, D=256: K8's block of 256 q columns does not fit,
-    so K7 and K8 raise before launching anything."""
+    """T_c=5000, T_q=64 at D=256: no cluster block of K8 and no block of
+    K7's tiled walk fits, so K7 and K8 raise before launching anything
+    (T_q=4096 at T_c=32 now takes the tiled route)."""
     from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
 
-    B, T_c, T_q, D = 1, 32, 4096, 256
+    B, T_c, T_q, D = 1, 5000, 64, 256
     z = lambda *s: torch.zeros(*s, device=cuda_device)  # noqa: E731
     ops = (z(B, T_c, D), z(B, T_q, D), z(B, T_c, D), z(B, T_q, D), z(B, T_c), z(B, T_q),
            z(D), z(D), z(D), z(()))
     before = (bk.bidaf_dropout_forward.launches, bk.bidaf_dropout_backward.launches)
-    with pytest.raises(ValueError, match="no BiDAF cluster plan"):
+    with pytest.raises(ValueError, match="no K7/K8 route"):
         bk.bidaf_dropout_forward(*ops)
-    with pytest.raises(ValueError, match="no BiDAF cluster plan"):
+    with pytest.raises(ValueError, match="no K7/K8 route"):
         bk.bidaf_dropout_backward(*ops, z(B, T_c, 4 * D))
     torch.cuda.synchronize()
     assert (bk.bidaf_dropout_forward.launches, bk.bidaf_dropout_backward.launches) == before
@@ -1521,3 +1522,75 @@ def test_artifact_counts_launches_on_the_card_not_while_tracing(cuda_device, tmp
     assert [fn.launches - n for fn, n in zip(fns, before)] == [5, 2, 1]
     _, live = summ._decode_batch_device(summ._to_device(raw))
     np.testing.assert_array_equal(picks, live.cpu().numpy())
+
+
+# K7/K8's gate: every shape of the grid has a route; the listed shapes
+# run against the plain versions on the route they name.
+DROP_GATE_RUN = [(64, 64, 256), (64, 512, 256), (64, 64, 200), (32, 32, 256), (40, 16, 256),
+                 (128, 512, 256), (32, 1089, 256), (32, 4096, 256)]
+
+
+@pytest.mark.cuda
+def test_bidaf_drop_routes_match_the_card(cuda_device):
+    """Over the gate's grid (T_c x T_q x D), each shape's plans on its route
+    equal the C plans, and the card holds its clusters."""
+    import ctypes
+
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+    from mmbidaf_tpu_torch.ops.cuda import build
+
+    lib = build.library()
+    for D in (200, 256):
+        for T_c in (1, 8, 32, 33, 40, 48, 64, 65, 128):
+            for T_q in (1, 16, 32, 64, 512, 1088, 1089, 2048, 4096):
+                if bk.drop_route(T_c, T_q, D) == "cluster":
+                    out, plan = (ctypes.c_int * 4)(), bk.drop_plan(T_c, T_q, D)
+                    assert lib.mmb_bidaf_drop_plan(T_c, T_q, D, out) == 0
+                    assert tuple(out) == (plan.C, plan.tq, plan.smem_fwd, plan.smem_bwd)
+                    assert lib.mmb_bidaf_backward_occupancy(T_c, T_q, D) > 0
+                else:
+                    out, plan = (ctypes.c_int * 6)(), bk.tiled_plan(T_c, T_q, D, 128, drop=True)
+                    assert lib.mmb_bidaf_tiled_drop_plan(T_c, T_q, D, out) == 0
+                    assert tuple(out) == (plan.C, plan.span, plan.tq, int(plan.resident),
+                                          plan.smem, plan.work)
+                    assert lib.mmb_bidaf_tiled_forward_dropout_occupancy(T_c, T_q, D) > 0
+                    bk._tiled_bwd_work(T_c, T_q, D)  # raises where K8's C plan is not the mirror
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop", [0.0, 0.2])
+@pytest.mark.parametrize("T_c,T_q,D", DROP_GATE_RUN)
+def test_bidaf_dropout_gate_shapes(cuda_device, T_c, T_q, D, drop):
+    """K7 and K8 at the gate's shapes on the route ``drop_route`` names,
+    with an empty c row and an empty q row: K7 within ``TOLERANCE`` of its
+    plain version, K8 normwise within ``BACKWARD_TOLERANCE`` of its plain
+    version run in f64 (dbias cancels to ~0, and at long T_q the f32 plain
+    version's own sums over T_q are off by the size of the bound); each
+    twice bit for bit."""
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+
+    B = 4
+    gen = torch.Generator(device=cuda_device).manual_seed(T_c + T_q + D)
+    rand = lambda *s: torch.randn(*s, device=cuda_device, generator=gen)  # noqa: E731
+    c, q = rand(B, T_c, D), rand(B, T_q, D)
+    keep = lambda x: (torch.rand(x.shape, device=cuda_device, generator=gen) > drop).float() / (1 - drop)  # noqa: E731
+    cd, qd = (c * keep(c), q * keep(q)) if drop else (c, q)
+    c_mask = (torch.rand(B, T_c, device=cuda_device, generator=gen) > 0.2).float()
+    q_mask = (torch.rand(B, T_q, device=cuda_device, generator=gen) > 0.2).float()
+    c_mask[1] = 0.0
+    q_mask[2] = 0.0
+    ops = (c, q, cd, qd, c_mask, q_mask, rand(D) * 0.1, rand(D) * 0.1, rand(D) * 0.1,
+           torch.tensor(0.25, device=cuda_device))
+    route = bk.drop_route(T_c, T_q, D)
+    before = (dict(bk.bidaf_dropout_forward.routes), dict(bk.bidaf_dropout_backward.routes))
+    out, stats = bk.bidaf_dropout_forward(*ops, with_stats=True)
+    assert (stats is None) == (route == "cluster")
+    torch.testing.assert_close(out, bk.bidaf_dropout_reference(*ops), **bk.TOLERANCE)
+    g = rand(B, T_c, 4 * D)
+    bwd = bk.bidaf_dropout_backward(*ops, g, stats=stats)
+    ref = bk.bidaf_dropout_backward_reference(*(x.double() for x in ops), g.double())
+    _assert_normwise(bwd, [r.float() for r in ref], bk.BACKWARD_TOLERANCE, "K8")
+    assert torch.equal(out, bk.bidaf_dropout_forward(*ops))
+    assert all(torch.equal(a, b) for a, b in zip(bwd, bk.bidaf_dropout_backward(*ops, g, stats=stats)))
+    assert bk.bidaf_dropout_forward.routes[route] == before[0][route] + 2
+    assert bk.bidaf_dropout_backward.routes[route] == before[1][route] + 2
