@@ -42,7 +42,7 @@ Phases, in order; any failure exits non-zero before the result line:
          240x320), checked and timed (videos/s), and a ``torch.profiler``
          breakdown of three batches;
      (b) ``Summarizer.summarize_batch`` answering 8 requests on a synthetic
-         corpus written by ``examples/make_synthetic_corpus.py``;
+         corpus written by ``examples/make_synthetic_corpus.py`` (the port's copy);
      (c) K1-K3's launch counters rose during (a) and (b), K1's and K2's on
          their cluster routes only, K3's on its FFT route only;
      (d) an f32 copy of the (a) batch through the kernels and through the
@@ -103,7 +103,7 @@ Phases, in order; any failure exits non-zero before the result line:
   8. the trainer on a real corpus at the training configuration of phase 5
      (VGG-16 at 224², 16 keyframes, 512 MFCC frames, B=32, f32, drop 0.2):
      a corpus of CORPUS_TRAIN training and CORPUS_DEV dev videos written by
-     ``examples/make_synthetic_corpus.py`` (32 sentences, 16 frames, every
+     the port's ``examples/make_synthetic_corpus.py`` (32 sentences, 16 frames, every
      MFCC frame real);
      (a) ``train.cli.main([... "--data_dir", ...])`` for CORPUS_STEPS steps with
          an eval and a checkpoint at the last: raw frames and waveforms, the
@@ -260,6 +260,20 @@ Phases, in order; any failure exits non-zero before the result line:
      (d) ``experiments.ablation_sweep`` at ABLATION_STEPS steps a config:
          its table beside docs/runs/ablation_r5.json's quality columns;
          gated only on finite losses.
+ 15. the drivers and demos (``mmbidaf_tpu_torch/{experiments,examples}``),
+     each called through its ``main`` with the flags of DRIVER_RUNS (the
+     bench shapes, few timed calls), one JSON line a driver (its seconds,
+     the hand kernels it launched, its result): ``conv_profile`` (cuDNN
+     bf16 and the int8 im2col product per VGG-16 layer, the 4096³ GEMMs,
+     the whole stack), ``winograd_profile``, ``winograd_pallas_profile``
+     (K14 against cuDNN per deep layer), ``preprocess_profile`` (K10 within
+     its f32 tolerance of the plain resize), ``fft_ab`` (K4 on its FFT route
+     at n_fft 512 and 2048; no route at 4096), ``e2e_breakdown`` (B=32),
+     ``train_breakdown --pallas``, ``beam_ab``, ``bucket_ab``,
+     ``prefetch_ab --pallas``; then ``parity_demo`` (the oracle's
+     checkpoint, the kernels on: picks equal) and ``parallel_demo`` at
+     world size 1 through NCCL (the artifact's summaries equal the live
+     ones); K1-K8, K10 and K14 each launched in the phase.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The random weights come from seeds.
 """
@@ -1167,11 +1181,9 @@ def count_direct_convs(counts: list):
 
 
 def load_corpus_module():
-    spec = importlib.util.spec_from_file_location(
-        "make_synthetic_corpus", os.path.join(ROOT, "examples", "make_synthetic_corpus.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    from mmbidaf_tpu_torch.examples import make_synthetic_corpus
+
+    return make_synthetic_corpus
 
 
 def timed_batches(fn, n: int = 5) -> float:
@@ -3881,6 +3893,126 @@ def phase_14(dev, card: str, tmp: str) -> list[dict]:
     return records
 
 
+# -- phase 15: the drivers and demos --------------------------------------------
+
+# Phase 15's drivers (``mmbidaf_tpu_torch/experiments``) with their flags: the
+# bench shapes, each driver's own count of timed calls (5-10), 20 steps an
+# arm of the prefetch A/B. Phase 15 took 28 s with 3 timed calls a driver
+# (H100 80GB HBM3 at 700 W).
+DRIVER_RUNS = (
+    ("conv_profile", []),
+    ("winograd_profile", []),
+    ("winograd_pallas_profile", []),
+    ("preprocess_profile", []),
+    ("fft_ab", []),
+    ("e2e_breakdown", ["--batch", str(B_TRAIN)]),
+    ("train_breakdown", ["--pallas"]),
+    ("beam_ab", []),
+    ("bucket_ab", []),
+    ("prefetch_ab", ["--pallas", "--steps", "20"]),
+)
+
+
+def phase_counters() -> dict:
+    """Every hand kernel phase 15 launches, its counter set to 0."""
+    from mmbidaf_tpu_torch.ops.cuda import (bidaf_kernel, lstm_kernel, melspec_kernel,
+                                            preprocess_kernel, winograd_kernel)
+
+    fns = {"K1": lstm_kernel.bilstm_cuda, "K2": bidaf_kernel.bidaf_attention_fused,
+           "K3": melspec_kernel.mfcc_fused, "K4": melspec_kernel.log_mel_fused,
+           "K5": lstm_kernel.bilstm_train_forward, "K6": lstm_kernel.bilstm_bptt,
+           "K7": bidaf_kernel.bidaf_dropout_forward, "K8": bidaf_kernel.bidaf_dropout_backward,
+           "K10": preprocess_kernel.preprocess_frames_fused,
+           "K14": winograd_kernel.winograd_conv3x3_fused}
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
+
+
+def check_driver(name: str, res) -> None:
+    """Each driver's own result holds what it promises."""
+    import torch
+
+    from mmbidaf_tpu_torch.experiments.conv_profile import VGG_LAYERS
+    from mmbidaf_tpu_torch.ops.cuda import preprocess_kernel
+
+    ops = {r.get("op") for r in res} if isinstance(res, list) else set()
+    if name == "conv_profile":
+        want = ({f"{x}_{t}" for x, *_ in VGG_LAYERS for t in ("bf16", "int8")}
+                | {"gemm_bf16", "gemm_int8", "gemm_int8_row_major_b", "vgg_full_bf16"})
+        check(want <= ops, f"(15) conv_profile: missing {sorted(want - ops)}")
+    elif name in ("winograd_profile", "winograd_pallas_profile"):
+        check(len(ops - {None}) == 10, f"(15) {name}: {sorted(ops - {None})}")
+        errs = [r["max_abs_vs_cudnn"] for r in res if "max_abs_vs_cudnn" in r]
+        check(all(math.isfinite(e) for e in errs), f"(15) {name}: K14 against cuDNN {errs}")
+    elif name == "preprocess_profile":
+        # f32: K10 against its plain version; the bf16 plain path rounds
+        # inside its products, so its distance is reported, not gated
+        err = res[-1]["max_abs_diff_f32"]
+        check(err <= preprocess_kernel.TOLERANCE[torch.float32]["atol"],
+              f"(15) K10 against the plain resize in f32: {err}")
+    elif name == "fft_ab":
+        routes = [(r["n_fft"], r["k4_route"]) for r in res[1:]]
+        # at 4096 the dense route's block does not fit: K4 has no route there
+        check(routes == [(512, "fft"), (2048, "fft"), (4096, "none")], f"(15) fft_ab routes {routes}")
+    elif name == "e2e_breakdown":
+        check(len(res) == 8, f"(15) e2e_breakdown: {len(res) - 1} stages")
+    elif name == "train_breakdown":
+        check(all(math.isfinite(r["loss"]) for r in res[1:]), "(15) train_breakdown: a loss")
+    else:  # the A/B drivers
+        ratio = {"beam_ab": "beam_over_greedy", "bucket_ab": "bucketed_speedup",
+                 "prefetch_ab": "value"}[name]
+        check(res[ratio] > 0, f"(15) {name}: {res}")
+
+
+def phase_drivers(dev, card: str, tmp: str) -> dict:
+    """Phase 15: every driver of ``experiments/`` at the bench shapes with
+    few timed calls, the parity demo with the kernels on, and the parallel
+    demo at world size 1 through NCCL; one JSON line a driver (its result),
+    and every kernel of the list launched in the phase."""
+    import importlib
+    import io
+
+    from mmbidaf_tpu_torch.examples import parallel_demo, parity_demo
+
+    t_phase = time.perf_counter()
+    fns = phase_counters()
+    results = {}
+    for name, argv in DRIVER_RUNS:
+        mod = importlib.import_module(f"mmbidaf_tpu_torch.experiments.{name}")
+        before = {k: fn.launches for k, fn in fns.items()}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = mod.main(argv)
+        dt = time.perf_counter() - t0
+        launched = {k: fn.launches - before[k] for k, fn in fns.items() if fn.launches > before[k]}
+        print(json.dumps({"driver": name, "argv": argv, "seconds": dt, "launches": launched,
+                          "card": card, "result": res}), flush=True)
+        check_driver(name, res)
+        results[name] = res
+        release_cached_memory()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        par = parity_demo.main(["--device", "cuda"])
+    print(json.dumps({"driver": "parity_demo", "seconds": time.perf_counter() - t0,
+                      "card": card, "result": par}), flush=True)
+    check(par["picks_equal"], "(15) parity_demo: the picks differ from the oracle's")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        demo = parallel_demo.main(["--device", "cuda", "--workdir",
+                                   os.path.join(tmp, "parallel_demo")])
+    print(json.dumps({"driver": "parallel_demo", "seconds": time.perf_counter() - t0,
+                      "card": card, "result": {k: v for k, v in demo.items() if k != "summaries"}}),
+          flush=True)
+    check(demo["world"] == 1 and demo["artifact_equal"], f"(15) parallel_demo: {demo}")
+    launches = {k: fn.launches for k, fn in fns.items()}
+    print(f"(15) launches over phase 15: {launches}; phase {time.perf_counter() - t_phase:.1f} s "
+          f"on {card}", flush=True)
+    for k, n in launches.items():
+        check(n > 0, f"(15) {k} was never launched in phase 15")
+    return results
+
+
 def main() -> None:
     import torch
 
@@ -4033,6 +4165,10 @@ def main() -> None:
     # held-out quality run and the tower ablation
     with tempfile.TemporaryDirectory() as tmp:
         drop_records = phase_14(dev, card, tmp)
+
+    # 15. the drivers of experiments/, the parity demo and the parallel demo
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_drivers(dev, card, tmp)
 
     leaked = sorted(m for m in sys.modules if m in ("jax", "mmbidaf_tpu")
                     or m.startswith(("jax.", "jaxlib", "mmbidaf_tpu.")))

@@ -162,16 +162,21 @@ def masked_image_features(feats: torch.Tensor, img_mask: torch.Tensor) -> torch.
     return feats.float().reshape(B, T_i, -1) * img_mask[:, :, None]
 
 
-def make_end_to_end_decode(cfg: Config, vgg_spec=vgg_ops.VGG16_SPEC, audio_g_fn=None):
+def make_end_to_end_decode(cfg: Config, vgg_spec=vgg_ops.VGG16_SPEC, audio_g_fn=None,
+                           mode: str = "greedy", topk: int = 4):
     """The serving program: raw video batch → ``(log_probs [B, K, T_s],
-    picks [B, K])``, greedy. ``end_to_end(model, frontend, raw)`` runs
-    eagerly under ``torch.inference_mode``. ``audio_g_fn`` routes the audio
-    tower through the sequence-parallel chain (``MeshConfig.sp_audio``); the
-    frontend then passes the raw waveform through to it."""
+    picks [B, K])``, greedy; ``mode="beam"``: beam search of width ``topk``,
+    the best beam's total log-prob ``[B]`` in the place of the log-probs.
+    ``end_to_end(model, frontend, raw)`` runs eagerly under
+    ``torch.inference_mode``. ``audio_g_fn`` routes the audio tower through
+    the sequence-parallel chain (``MeshConfig.sp_audio``); the frontend then
+    passes the raw waveform through to it."""
+    if mode not in ("greedy", "beam"):
+        raise ValueError(f"make_end_to_end_decode: mode must be 'greedy' or 'beam', got {mode!r}")
 
     @torch.inference_mode()
     def end_to_end(model, fe: Frontend, raw: Mapping[str, torch.Tensor]):
         batch = apply_frontend(fe, raw, cfg, vgg_spec, sp_audio=audio_g_fn is not None)
-        return mmbidaf_decode(model, batch, cfg, audio_g_fn=audio_g_fn)
+        return mmbidaf_decode(model, batch, cfg, mode=mode, topk=topk, audio_g_fn=audio_g_fn)
 
     return end_to_end

@@ -5,7 +5,7 @@
     python -m mmbidaf_tpu_torch.examples.quickstart --device cpu  # the CPU
 
 1. writes a small synthetic video corpus (frames, audio, transcripts, gold
-   summaries) with ``examples/make_synthetic_corpus.py``;
+   summaries) with ``mmbidaf_tpu_torch.examples.make_synthetic_corpus``;
 2. trains a tiny trimodal model on it (``mmbidaf_tpu_torch.train.cli``);
 3. evaluates ROUGE against the gold summaries (``mmbidaf_tpu_torch.infer``);
 4. loads the run into the serving API (``Summarizer.from_run``) and
@@ -49,8 +49,8 @@ def main(argv=None) -> None:
     py = sys.executable
 
     # 1. synthetic corpus (8 videos, ragged lengths)
-    run([py, "examples/make_synthetic_corpus.py", "--out", corpus, "--videos", "8",
-         "--sentences", "12", "--frames", "6", "--seconds", "2", "--ragged"])
+    run([py, "-m", "mmbidaf_tpu_torch.examples.make_synthetic_corpus", "--out", corpus,
+         "--videos", "8", "--sentences", "12", "--frames", "6", "--seconds", "2", "--ragged"])
 
     # 2. train a tiny trimodal model on it
     out = run([py, "-m", "mmbidaf_tpu_torch.train.cli", "--data_dir", corpus, "--vgg", "tiny",

@@ -66,7 +66,7 @@ def make_split_corpus(a) -> str:
     under the temporary directory), written unless there; its audio lasts
     exactly the featurized window (a longer track's tail sentences would
     lose their audio cues to the loader's crop)."""
-    from mmbidaf_tpu_torch.experiments.quality_run import corpus_maker
+    from mmbidaf_tpu_torch.examples import make_synthetic_corpus
     from mmbidaf_tpu_torch.serving import num_audio_samples
 
     cfg0, _ = build_cfg(a)
@@ -75,7 +75,7 @@ def make_split_corpus(a) -> str:
                                                                   f"{a.videos}d{a.dev}s{a.seed}"
                                                                   + ("_tiny" if a.tiny else ""))
     if not os.path.isdir(os.path.join(data_dir, "train")):
-        corpus_maker().make_corpus(data_dir, videos=a.videos, sentences=a.sentences,
+        make_synthetic_corpus.make_corpus(data_dir, videos=a.videos, sentences=a.sentences,
                                    frames=a.frames, seconds=seconds, seed=a.seed, n_key=a.keys,
                                    learnable=True, split=a.dev, cue_mode="split")
         print(f"generated split-cue corpus under {data_dir} ({seconds:.2f}s audio)", flush=True)

@@ -18,15 +18,14 @@ tests hold thresholds, not curves.
         --videos 24 --dev 4 --steps 200                         # the CPU
 
 A learnable corpus is generated at ``--data_dir`` where that holds none
-(by ``examples/make_synthetic_corpus.py``, loaded by path: it imports no
-JAX; default: under the temporary directory). ``tests/test_torch_convergence.py``
+(by ``examples/make_synthetic_corpus.py``; default: under the temporary
+directory). ``tests/test_torch_convergence.py``
 runs the CPU-sized twin; ``chip_smoke.py`` phase 14c the full size.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import tempfile
@@ -36,17 +35,7 @@ import numpy as np
 import torch
 
 from mmbidaf_tpu_torch import resolve_device
-
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-
-def corpus_maker():
-    """``examples/make_synthetic_corpus.py`` as a module (numpy only)."""
-    spec = importlib.util.spec_from_file_location(
-        "make_synthetic_corpus", os.path.join(REPO, "examples", "make_synthetic_corpus.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+from mmbidaf_tpu_torch.examples import make_synthetic_corpus
 
 
 def featurize_corpus(corpus, cfg, vgg_spec, device, chunk: int = 8,
@@ -318,7 +307,7 @@ def main(argv=None) -> dict:
     data_dir = a.data_dir or os.path.join(tempfile.gettempdir(), f"mmbidaf_torch_quality_"
                                                                   f"{a.cue_mode}_v{a.videos}d{a.dev}s{a.seed}")
     if not os.path.isdir(os.path.join(data_dir, "train")):
-        corpus_maker().make_corpus(data_dir, videos=a.videos, sentences=a.sentences,
+        make_synthetic_corpus.make_corpus(data_dir, videos=a.videos, sentences=a.sentences,
                                    frames=a.frames, seed=a.seed, learnable=True, split=a.dev,
                                    cue_mode=a.cue_mode)
         print(f"generated learnable corpus under {data_dir}", flush=True)

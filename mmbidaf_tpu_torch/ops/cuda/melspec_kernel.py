@@ -198,6 +198,15 @@ FFT_SIZES = (16, 2048)
 # kFftFrames, a warp a frame) and the dense route's (kTF); K3 keeps one
 # maximum a block for its DCT pass.
 FFT_FRAMES, DENSE_FRAMES = 8, 32
+
+
+def dense_smem_bytes(win: int, bins: int) -> int:
+    """Shared memory a block of the dense route asks for (``csrc/mfcc.cu``:
+    DENSE_FRAMES frames and their spectra, 32 warp maxima); past
+    ``build.SMEM_LIMIT_BYTES`` the launch is refused."""
+    return 4 * (DENSE_FRAMES * (win + bins) + 32)
+
+
 # cos/sin vs the window's DFT basis, within this share of max|window| (f32
 # rounding of the basis and of its product with the window: 2^-23 at most).
 _BASIS_RTOL = 2.0 ** -21

@@ -12,8 +12,8 @@
         summary = b.submit(video_dir)
 
 The device side is ``data.frontend.make_end_to_end_decode`` (frontend +
-model + greedy decode), or ``apply_frontend`` + ``mmbidaf_decode`` for
-``mode="beam"`` and ``mode="topk"``; host work is asset decode and summary
+model + greedy or beam decode), or ``apply_frontend`` + ``mmbidaf_decode``
+for ``mode="topk"``; host work is asset decode and summary
 assembly, through the port's own copies of the JAX package's host modules.
 Batches go up through pinned memory on a side stream
 (``data.prefetch.batch_uploader``) and picks come back through pinned
@@ -426,15 +426,15 @@ class Summarizer:
                            if mode == "topk" else None)
         self._upload = batch_uploader(self.device)
         g_fn = self._audio_g_fn
-        if mode == "greedy":
-            greedy = make_end_to_end_decode(cfg, vgg_spec, audio_g_fn=g_fn)
-            decode = lambda model, fe, raw, generator, rows=None: greedy(model, fe, raw)  # noqa: E731
-        else:
+        if mode == "topk":
             @torch.inference_mode()
             def decode(model, fe, raw, generator, rows=None):
                 batch = apply_frontend(fe, raw, cfg, vgg_spec, sp_audio=g_fn is not None)
                 return mmbidaf_decode(model, batch, cfg, mode=mode, topk=topk, generator=generator,
                                       audio_g_fn=g_fn, rows=rows)
+        else:
+            program = make_end_to_end_decode(cfg, vgg_spec, audio_g_fn=g_fn, mode=mode, topk=topk)
+            decode = lambda model, fe, raw, generator, rows=None: program(model, fe, raw)  # noqa: E731
 
         self._decode = self._data_parallel(decode) if self._dp else decode
 

@@ -38,6 +38,7 @@ from mmbidaf_tpu.config import TrainConfig as JTrainConfig
 from mmbidaf_tpu.data.frontend import frontend_init as j_frontend_init
 from mmbidaf_tpu.ops.vgg import TINY_SPEC as J_TINY_SPEC
 from mmbidaf_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+from mmbidaf_tpu_torch.examples import make_synthetic_corpus
 from mmbidaf_tpu_torch.experiments import ablation_sweep, quality_run
 from mmbidaf_tpu_torch.interop.from_jax import frontend_from_jax
 from mmbidaf_tpu_torch.ops.vgg import TINY_SPEC
@@ -58,7 +59,7 @@ def split_corpus(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("abl") / "corpus")
     # seconds matches the featurized audio window (32*128+256 samples) so
     # no sentence's audio span is cropped by the loader
-    quality_run.corpus_maker().make_corpus(
+    make_synthetic_corpus.make_corpus(
         root, videos=100, sentences=8, frames=8, seconds=4352 / 16000, seed=3, n_key=2,
         learnable=True, split=16, cue_mode="split", cue_classes=("text", "image"))
     return root

@@ -30,6 +30,7 @@ from mmbidaf_tpu.config import TrainConfig as JTrainConfig
 from mmbidaf_tpu.data.frontend import frontend_init as j_frontend_init
 from mmbidaf_tpu.ops.vgg import TINY_SPEC as J_TINY_SPEC
 from mmbidaf_tpu_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+from mmbidaf_tpu_torch.examples import make_synthetic_corpus
 from mmbidaf_tpu_torch.experiments import quality_run
 from mmbidaf_tpu_torch.interop.from_jax import frontend_from_jax
 from mmbidaf_tpu_torch.ops.vgg import TINY_SPEC
@@ -48,8 +49,8 @@ def one_thread():
 @pytest.fixture(scope="module")
 def learnable_corpus(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("ql") / "corpus")
-    quality_run.corpus_maker().make_corpus(root, videos=20, sentences=8, frames=6, seconds=2.0,
-                                           seed=3, n_key=2, learnable=True, split=4)
+    make_synthetic_corpus.make_corpus(root, videos=20, sentences=8, frames=6, seconds=2.0,
+                                      seed=3, n_key=2, learnable=True, split=4)
     return root
 
 
