@@ -268,12 +268,40 @@ Phases, in order; any failure exits non-zero before the result line:
      the whole stack), ``winograd_profile``, ``winograd_pallas_profile``
      (K14 against cuDNN per deep layer), ``preprocess_profile`` (K10 within
      its f32 tolerance of the plain resize), ``fft_ab`` (K4 on its FFT route
-     at n_fft 512 and 2048; no route at 4096), ``e2e_breakdown`` (B=32),
+     at n_fft 512, 2048 and 4096), ``e2e_breakdown`` (B=32),
      ``train_breakdown --pallas``, ``beam_ab``, ``bucket_ab``,
      ``prefetch_ab --pallas``; then ``parity_demo`` (the oracle's
      checkpoint, the kernels on: picks equal) and ``parallel_demo`` at
      world size 1 through NCCL (the artifact's summaries equal the live
      ones); K1-K8, K10 and K14 each launched in the phase.
+ 16. every shape the JAX kernels take, and the two models they open:
+     (a) K5/K6's gate: the L2 plan's mirror (``lstm_kernel.l2_rows``) equal
+         to the C plan; H in LSTM_GATE_H x (rows, T) in LSTM_GATE_SHAPES
+         against the plain versions (TOLERANCE, BPTT_TOLERANCE normwise),
+         K1 bit for bit K5, each launch on the route ``train_route`` names,
+         both routes used, ptxas's report of the L2 bodies; then K5/K6 at
+         the hidden-512 model's five training towers (B=32, all on the L2
+         route) timed beside the plain versions, cuDNN and the bound (the
+         JSON records ``bilstm_train_forward[l2]``, ``bilstm_bptt[l2]``);
+     (b) K4/K3's gate: the FFT plans and the dense route's frames a block
+         equal to the C plans; n_fft 4096, 8192, 16384 (win = n_fft) and
+         windows 1000, 1500, 3000, 6000 (n_fft = win): K4 in both modes on
+         512 frames (16 at 16384) and K3 on 128 with a silent example,
+         against the plain versions, each on the route named; K3 at 512
+         mels (its DCT pass past 48 KB); K4 at 4096 timed (the record
+         ``log_mel[n_fft 4096]``) beside the dense route at that shape;
+     (c) the hidden-512 model (the bench config, ``hidden_size=512``):
+         serving B=64 bf16 (K1 on its L2 route, K2/K9 at D=1024, K3),
+         timed, its profile, f32 picks at B=8 equal through the kernels and
+         the plain versions; TRAIN512_STEPS steps of the bench_train step
+         at B=32, f32, drop 0.2 (K5/K6 on the L2 route only, K7/K8 at
+         D=1024), finite and falling losses, the step's time and profile;
+         one drop-0 step through the kernels equal to one through the plain
+         versions within TRAIN_PARITY_ATOL;
+     (d) the long-audio model (config6, ``sp_audio`` off) with ``n_fft =
+         win_length = 4096``, B=16: MFCC (K4 raw + the dB/DCT tail; K3 not
+         run) and log-mel (K4 log), K4 on its FFT route only, timed; f32
+         picks at B=2 equal through the kernels and the plain versions.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The random weights come from seeds.
 """
@@ -786,7 +814,7 @@ def phase_kernels(dev, cfg) -> list[dict]:
                   f"deterministic", flush=True)
     print_resources("3", (("K3 fft", "logmel_fft_kernel"), ("K3 dense", "logmel_tile_kernel"),
                           ("K3", "mfcc_dct_kernel")),
-                    keep=lambda inst: inst in ("<0>", "-"))  # <0>: K3's first passes
+                    keep=lambda inst: inst == "-" or inst.startswith("<0"))  # <0…>: K3's first passes
     nnz = melspec_kernel.mel_nonzeros(consts["mel_fb"])[1].numel()
     smem = build.library().mmb_log_mel_fft_smem_bytes(d.n_fft, d.win_length, d.hop_length, d.n_mels, nnz, 1)
     print(f"  K3 fft: dynamic smem a block {smem} B (f64 FFT; n_fft={d.n_fft}, win={d.win_length}, "
@@ -874,7 +902,7 @@ def phase_long_kernels(dev) -> list[dict]:
     print(f"K4 log_mel: bounds {mk.LOG_MEL_TOLERANCE}, max_abs_err={err:.3e}, long-audio + logmel "
           f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms roofline={rec4['bound_ms']:.4f} ms", flush=True)
     print_resources("3", (("K4 fft", "logmel_fft_kernel"), ("K4 dense", "logmel_tile_kernel")),
-                    keep=lambda inst: inst != "<0>")  # <0>: K3's first passes
+                    keep=lambda inst: not inst.startswith("<0"))  # <0…>: K3's first passes
     nnz = mk.mel_nonzeros(consts["mel_fb"])[1].numel()
     smem = build.library().mmb_log_mel_fft_smem_bytes(d.n_fft, d.win_length, d.hop_length, d.n_mels, nnz, 0)
     print(f"  K4 fft: dynamic smem a block {smem} B (n_fft={d.n_fft}, win={d.win_length}, "
@@ -1208,7 +1236,13 @@ def profile_kernels(fn, arg, t_ref: float, tag: str, unit: str, groups: dict | N
     contain each of ``groups``' substrings. Returns the last ``arg``."""
     from mmbidaf_tpu_torch.tools.device_profile import group_ms, profile_ops
 
-    rows, dev_ms, arg = profile_ops(fn, arg, 3, on_card=True)
+    for _ in range(3):  # a window that recorded no kernel (it happens now and then) is taken again
+        rows, dev_ms, arg = profile_ops(fn, arg, 3, on_card=True)
+        if dev_ms > 0:
+            break
+    if dev_ms <= 0:
+        print(f"{tag} torch.profiler recorded no device kernel in 3 windows: no profile", flush=True)
+        return arg
     print(f"{tag} torch.profiler over 3 calls: device kernel time {dev_ms:.2f} ms a {unit}, "
           f"device idle {max(0.0, 1 - dev_ms / (t_ref * 1e3)):.1%} of the median {unit}; "
           f"kernels by device time:", flush=True)
@@ -3953,8 +3987,7 @@ def check_driver(name: str, res) -> None:
               f"(15) K10 against the plain resize in f32: {err}")
     elif name == "fft_ab":
         routes = [(r["n_fft"], r["k4_route"]) for r in res[1:]]
-        # at 4096 the dense route's block does not fit: K4 has no route there
-        check(routes == [(512, "fft"), (2048, "fft"), (4096, "none")], f"(15) fft_ab routes {routes}")
+        check(routes == [(512, "fft"), (2048, "fft"), (4096, "fft")], f"(15) fft_ab routes {routes}")
     elif name == "e2e_breakdown":
         check(len(res) == 8, f"(15) e2e_breakdown: {len(res) - 1} stages")
     elif name == "train_breakdown":
@@ -4012,6 +4045,512 @@ def phase_drivers(dev, card: str, tmp: str) -> dict:
         check(n > 0, f"(15) {k} was never launched in phase 15")
     return results
 
+
+# -- phase 16: every shape the JAX kernels take; hidden 512, a 4096-point window --
+
+# 16a: K5/K6 at widths on both sides of the cluster plan's edge (448, 432 and
+# 384 units at 4, 8 and 16 rows a cluster) and rows that pick each R of
+# either route; T=512 at 32 rows (the audio tower's steps); 128: the bench
+# width, where K1 and K5 must still give the same bits.
+LSTM_GATE_H = (128, 384, 400, 448, 449, 512, 640, 1024)  # 449: rows of odd width
+LSTM_GATE_SHAPES = ((32, 16), (32, 512), (512, 16), (2048, 16))
+# The Python mirrors of the L2 plan against the C plan over this grid.
+LSTM_PLAN_H = (8, 100, 128, 384, 400, 448, 512, 699, 700, 1024, 4096, 9685, 9686)
+LSTM_PLAN_ROWS = (1, 32, 128, 512, 1024, 2048)
+# 16b: K4 / K3 at n_fft past 2048 (win = n_fft) and at windows that are no
+# power of two (n_fft = win), 64 mels, hop 160. K4 on 512 frames, K3 on 128
+# (where mfcc_fused_fits holds at n_fft 4096); at n_fft 16384 the dense
+# route reads its two 537 MB bases once a block of 2 frames, so 16 frames.
+MEL_GATE_NFFT = (4096, 8192, 16384)
+MEL_GATE_WIN = (1000, 1500, 3000, 6000)
+MEL_GATE_FRAMES, MFCC_GATE_FRAMES, MEL_GATE_FRAMES_16K = 512, 128, 16
+# 16c / 16d: the hidden-512 model and the 4096-point-window model.
+H512, N_FFT_4096 = 512, 4096
+TRAIN512_STEPS = 10
+B_PARITY = 8  # the f32 kernels-vs-plain batch of 16c's serving
+
+
+def lstm_gate_operands(gen, rng, dev, rows: int, steps: int, hid: int):
+    """K5/K6's operands at ``rows x steps x hid``: the projection of
+    unit-normal inputs of width 64 through a seeded BiLSTM layer (gates as
+    training hands them over), a ragged mask with an empty row, and
+    unit-normal cotangents."""
+    import torch
+
+    from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
+    from mmbidaf_tpu_torch.ops.lstm import BiLSTMParams
+
+    p = BiLSTMParams(64, hid, gen, dev)
+    x = torch.randn(rows, steps, 64, device=dev, generator=gen)
+    m = torch.from_numpy(ragged_mask(rng, rows, steps, lo=0, empty_row=1)).to(dev)
+    with torch.no_grad():
+        gates = lk._projection(p, x).contiguous()
+    w_h = torch.stack([p.fwd.w_h, p.bwd.w_h]).detach().contiguous()
+    cot = [torch.randn(*shape, device=dev, generator=gen)
+           for shape in ((rows, steps, 2 * hid), (rows, 2 * hid), (rows, 2 * hid))]
+    return gates, m, w_h, cot
+
+
+def lstm_route_plan(rows: int, hid: int) -> str:
+    from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
+
+    if lk.train_route(rows, hid) == "cluster":
+        plan = lk.cluster_plan(rows, hid)
+        return f"cluster C={plan.C} R={plan.R}"
+    R = lk.l2_rows(rows, hid)
+    return f"l2 R={R} blocks={2 * -(-rows // R)} smem {lk.l2_smem(hid, R)} B"
+
+
+def phase_lstm_gate(dev, card: str) -> list[dict]:
+    """Phase 16a: the L2 plan's mirror equals the C plan; K5 and K6 at every
+    shape of the gate against their plain versions, K1 and K5 bit for bit
+    equal, each launch on the route ``train_route`` names; then K5/K6 on
+    their L2 route at the hidden-512 model's training towers, timed beside
+    the plain versions and cuDNN. Returns the L2 route's two records
+    (launches filled in by 16c)."""
+    import torch
+
+    from mmbidaf_tpu_torch.ops.cuda import build
+    from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
+
+    t_phase = time.perf_counter()
+    lib = build.library()
+    for hid in LSTM_PLAN_H:
+        for rows in LSTM_PLAN_ROWS:
+            check(lib.mmb_lstm_l2_rows(rows, hid) == lk.l2_rows(rows, hid),
+                  f"(16a) l2_rows({rows}, {hid}): C {lib.mmb_lstm_l2_rows(rows, hid)} vs "
+                  f"{lk.l2_rows(rows, hid)}")
+    print(f"(16a) the L2 plan's mirror equals the C plan over H {LSTM_PLAN_H} x rows "
+          f"{LSTM_PLAN_ROWS}; no route past H={max(h for h in range(9600, 9700) if lk.l2_rows(1, h))}",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    rng = np.random.default_rng(16)
+    k5, k6 = lk.bilstm_train_forward, lk.bilstm_bptt
+    count = {"cluster": 0, "l2": 0}
+    err5 = err6 = 0.0
+    for hid in LSTM_GATE_H:
+        for rows, steps in LSTM_GATE_SHAPES:
+            route = lk.train_route(rows, hid)
+            gates, m, w_h, (dout, dh, dc) = lstm_gate_operands(gen, rng, dev, rows, steps, hid)
+            before = (k5.routes[route], k6.routes[route])
+            tag = f"H={hid} rows={rows} T={steps}"
+            fwd = k5(gates, m, w_h)
+            e5 = compare(f"(16a) K5 {tag}", fwd, lk.bilstm_train_forward_reference(gates, m, w_h),
+                         lk.TOLERANCE)
+            k1 = torch.ops.mmbidaf.bilstm(gates, m, w_h)
+            check(all(torch.equal(a, b) for a, b in zip(k1, fwd[:3])),
+                  f"(16a) K1 and K5 differ at {tag} on the {route} route")
+            args = (gates, m, w_h, fwd[3], fwd[4], dout, dh, dc)
+            bwd = k6(*args)
+            e6 = compare(f"(16a) K6 {tag}", bwd, lk.bilstm_bptt_reference(*args), lk.BPTT_TOLERANCE,
+                         normwise=True)
+            check(not bwd[0][1].any(), f"(16a) K6 {tag}: dgates of the empty row not zero")
+            check((k5.routes[route], k6.routes[route]) == (before[0] + 1, before[1] + 1),
+                  f"(16a) {tag}: K5/K6 not on the {route} route")
+            count[route] += 1
+            err5, err6 = max(err5, e5), max(err6, e6)
+            print(f"  K5/K6 {tag}: {lstm_route_plan(rows, hid)}; max_abs_err K5={e5:.3e} "
+                  f"K6={e6:.3e}; K1 = K5 bit for bit", flush=True)
+            del gates, m, w_h, dout, dh, dc, fwd, bwd, k1, args
+    print(f"(16a) gate: {sum(count.values())} shapes, routes {count}; K5 routes {k5.routes}, K6 "
+          f"routes {k6.routes}; max_abs_err K5={err5:.3e} (bound {lk.TOLERANCE}) K6={err6:.3e} "
+          f"(normwise {lk.BPTT_TOLERANCE})", flush=True)
+    check(count["cluster"] > 0 and count["l2"] > 0, f"(16a) the gate missed a route: {count}")
+    print_resources("16a", (("K1/K5 l2", "bilstm_kernel"), ("K6 l2", "bilstm_bptt_l2_kernel")))
+
+    # the hidden-512 model's training towers (B=32), timed: the JSON records
+    recs = {k: {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "parts": []} for k in (5, 6)}
+    for tag, rows, steps, _ in lstm_shapes(hidden512_config(), B_TRAIN)[:5]:
+        check(lk.train_route(rows, H512) == "l2", f"(16a) {tag} tower at H=512 is not on the L2 route")
+        gates, m, w_h, (dout, dh, dc) = lstm_gate_operands(gen, rng, dev, rows, steps, H512)
+        fwd = k5(gates, m, w_h)
+        e5 = compare(f"(16a) K5 {tag}", fwd, lk.bilstm_train_forward_reference(gates, m, w_h),
+                     lk.TOLERANCE)
+        args = (gates, m, w_h, fwd[3], fwd[4], dout, dh, dc)
+        e6 = compare(f"(16a) K6 {tag}", k6(*args), lk.bilstm_bptt_reference(*args), lk.BPTT_TOLERANCE,
+                     normwise=True)
+        iters = 2 if steps >= 512 else 5
+        t5 = time_ms(lambda: k5(gates, m, w_h), iters=iters, reps=3)
+        t6 = time_ms(lambda: k6(*args), iters=iters, reps=3)
+        p5 = time_ms(lambda: lk.bilstm_train_forward_reference(gates, m, w_h), iters=1, reps=3)
+        p6 = time_ms(lambda: lk.bilstm_bptt_reference(*args), iters=1, reps=3)
+        with cudnn_rnn_full_f32():
+            l5 = time_ms(lstm_library_call(rows, steps, H512, H512, m, dev, backward=False), iters=3)
+            l6 = time_ms(lstm_library_call(rows, steps, H512, H512, m, dev, backward=True), iters=3)
+        G, n = 4 * H512, rows * steps
+        rec = 2 * 2 * n * H512 * G  # the recurrent product, both directions
+        # bytes: the residual reads and writes as phase 3 counts them, and W_h
+        # (4 MB a direction) read from L2 every step: its device-memory share is once
+        b5 = bound(rec, 4 * (n * (2 * G + 1 + 2 * H512 + 4 * H512) + 2 * H512 * G + 4 * rows * H512))
+        b6 = bound(3 * rec, 4 * (n * (2 * G + 1 + 4 * H512 + 2 * H512 + 2 * G) + 2 * 2 * H512 * G
+                                 + 4 * rows * H512))
+        for r, e, k, pl, lb, b in ((recs[5], e5, t5, p5, l5, b5), (recs[6], e6, t6, p6, l6, b6)):
+            r["err"], r["ms"], r["plain"], r["lib"] = (max(r["err"], e), r["ms"] + k,
+                                                       r["plain"] + pl, r["lib"] + lb)
+            r["parts"].append(b)
+        l2_reads = 2 * steps * -(-rows // lk.l2_rows(rows, H512)) * H512 * G * 4 / 1e9
+        print(f"  K5/K6 {tag:8s} rows={rows:4d} T={steps:3d} H={H512}: {lstm_route_plan(rows, H512)}; "
+              f"max_abs_err K5={e5:.3e} K6={e6:.3e}; K5 {t5:.3f} ms ({t5 * 1e3 / steps:.1f} us a "
+              f"step; plain {p5:.2f}; cudnn fwd {l5:.3f}; bound {max(b5):.4f}); K6 {t6:.3f} ms "
+              f"(plain {p6:.2f}; cudnn bwd {l6:.3f}; bound {max(b6):.4f}); W_h read from L2 "
+              f"{l2_reads:.2f} GB a K5 call, on {card}", flush=True)
+        del gates, m, w_h, dout, dh, dc, fwd, args
+
+    def record(name, src, replaces, r):
+        out = {"name": name, "route": "cuda", "source": f"mmbidaf_tpu_torch/csrc/{src}",
+               "replaces": f"mmbidaf_tpu/ops/pallas/{replaces}", "max_abs_err": r["err"],
+               "ms": r["ms"], "plain_ms": r["plain"], **bound_fields(r["parts"]),
+               "library_ms": r["lib"]}
+        print(f"{name}: max_abs_err={r['err']:.3e} kernel={r['ms']:.4f} ms plain={r['plain']:.4f} "
+              f"ms cudnn={r['lib']:.4f} ms roofline={out['bound_ms']:.4f} ms ({out['bound_by']}) at "
+              f"the hidden-512 towers, B={B_TRAIN}, on {card}", flush=True)
+        return out
+
+    print(f"(16a) phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return [record("bilstm_train_forward[l2]", "lstm.cu", "lstm_kernel.py:228", recs[5]),
+            record("bilstm_bptt[l2]", "lstm_bwd.cu", "lstm_kernel.py:256", recs[6])]
+
+
+def mel_gate_frames(rng, dev, n: int, steps: int, win: int, silent: int | None = None,
+                    hop: int = 160):
+    """``n`` seeded noise waveforms (example ``silent`` all zeros) framed as
+    ``steps`` frames of ``win``."""
+    import torch
+
+    from mmbidaf_tpu_torch.ops import audio
+
+    sig = (rng.standard_normal((n, (steps - 1) * hop + win)) * 0.1).astype(np.float32)
+    if silent is not None:
+        sig[silent] = 0.0
+    return audio.frame_signal(torch.from_numpy(sig).to(dev), win, hop, steps)
+
+
+def phase_mel_gate(dev, card: str) -> dict:
+    """Phase 16b: the route plans' mirrors equal the C plans; K4 (both modes)
+    and K3 at every shape of the gate against their plain versions, each
+    launch on the route named; K3's DCT pass at 512 mels; K4 at n_fft 4096
+    on 512 frames timed (the JSON record; launches filled in by 16d)."""
+    import ctypes
+
+    import torch
+
+    from mmbidaf_tpu_torch.ops import audio
+    from mmbidaf_tpu_torch.ops.cuda import build
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel as mk
+
+    t_phase = time.perf_counter()
+    lib = build.library()
+    out3 = (ctypes.c_int * 3)()
+    n_plans = 0
+    for n_fft in (16, 64, 256, 512, 1024, 2048, 4096, 8192, 16384):
+        for win in sorted({min(n_fft, 400), n_fft}):
+            check(lib.mmb_mel_dense_frames(win, n_fft // 2 + 1) == mk.dense_frames(win, n_fft // 2 + 1),
+                  f"(16b) dense frames at [{win}, {n_fft // 2 + 1}]")
+            for n_mels in (12, 64, 512):
+                for ld in (160, win):
+                    for f64 in (False, True):
+                        nnz = 2 * (n_fft // 2 + 1)
+                        plan = mk.fft_plan(n_fft, win, ld, n_mels, nnz, f64)
+                        rc = lib.mmb_log_mel_fft_plan(n_fft, win, ld, n_mels, nnz, int(f64), out3)
+                        check((rc == 0) == (plan is not None)
+                              and (plan is None or tuple(out3) == tuple(plan)),
+                              f"(16b) FFT plan at n_fft={n_fft} win={win} ld={ld} {n_mels} mels "
+                              f"f64={f64}: C {rc} {tuple(out3)} vs {plan}")
+                        n_plans += 1
+    for win in MEL_GATE_WIN:
+        check(lib.mmb_mel_dense_frames(win, win // 2 + 1) == mk.dense_frames(win, win // 2 + 1),
+              f"(16b) dense frames at win {win}")
+    print(f"(16b) {n_plans} FFT plans and the dense route's frames equal the C plans", flush=True)
+
+    k3, k4 = mk.mfcc_fused, mk.log_mel_fused
+    rng = np.random.default_rng(161)
+    err4 = {True: 0.0, False: 0.0}
+    err3, rec = 0.0, None
+    for n_fft, win in [(n, n) for n in MEL_GATE_NFFT] + [(w, w) for w in MEL_GATE_WIN]:
+        t0 = time.perf_counter()
+        consts = audio.make_audio_frontend_consts(16000, n_fft, win, 64, 40, device=dev)
+        bins = n_fft // 2 + 1
+        steps = MEL_GATE_FRAMES_16K if n_fft >= 16384 else MEL_GATE_FRAMES
+        frames = mel_gate_frames(rng, dev, 1, steps, win)
+        r4, r3 = mk.log_mel_route(win, bins), mk.mfcc_route(win, bins)
+        nnz = mk.mel_nonzeros(consts["mel_fb"])[1].numel()
+
+        def blocks(route, f64):  # frames a block of the first pass
+            return (mk.fft_plan(n_fft, win, 160, 64, nnz, f64).frames if route == "fft"
+                    else mk.dense_frames(win, bins))
+
+        line = []
+        for log in (True, False):
+            before = k4.routes[r4]
+            out = k4(frames, consts, log=log)
+            e = compare(f"(16b) K4 n_fft={n_fft} win={win} log={log}", out,
+                        mk.log_mel_reference(frames, consts, log=log), mk.LOG_MEL_TOLERANCE[log],
+                        normwise=not log)
+            check(k4.routes[r4] == before + 1, f"(16b) K4 at n_fft={n_fft}: not on the {r4} route")
+            err4[log] = max(err4[log], e)
+            line.append(f"K4 log={log} {e:.3e}")
+        f3 = mel_gate_frames(rng, dev, 2, min(steps, MFCC_GATE_FRAMES), win, silent=1)
+        before = k3.routes[r3]
+        out = k3(f3, consts)
+        e3 = compare(f"(16b) K3 n_fft={n_fft} win={win}", out, mk.mfcc_reference(f3, consts),
+                     mk.TOLERANCE)
+        check(not out[1].any(), f"(16b) K3 n_fft={n_fft}: the silent example is not exactly 0")
+        check(k3.routes[r3] == before + 1, f"(16b) K3 at n_fft={n_fft}: not on the {r3} route")
+        err3 = max(err3, e3)
+        print(f"  K4/K3 n_fft={n_fft} win={win}: K4 {r4} route ({blocks(r4, False)} frames a block), "
+              f"K3 {r3} route ({blocks(r3, True)} frames a block); {steps} / {f3.shape[1]} frames; "
+              f"max_abs_err {', '.join(line)}, K3 {e3:.3e}; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if n_fft == N_FFT_4096:
+            n = frames.shape[0] * frames.shape[1]
+            sig_bytes = 4 * ((steps - 1) * 160 + win)
+            k = time_ms(lambda: k4(frames, consts, log=False), iters=10)
+            kl = time_ms(lambda: k4(frames, consts, log=True), iters=10)
+            pl = time_ms(lambda: mk.log_mel_reference(frames, consts, log=False), iters=5)
+            # the dense route at the same shape, for the record (its launch
+            # outside the counters): O(win·bins) a frame against the FFT's
+            dense_out = torch.empty(1, steps, 64, device=dev)
+
+            def dense():
+                rc = lib.mmb_log_mel_forward(
+                    frames.data_ptr(), frames.stride(0), frames.stride(1), consts["cos"].data_ptr(),
+                    consts["sin"].data_ptr(), consts["mel_fb"].data_ptr(), dense_out.data_ptr(), 1,
+                    steps, win, bins, 64, 0, torch.cuda.current_stream(dev).cuda_stream)
+                build.check_launch(lib, rc, "mmb_log_mel_forward")
+
+            dense()
+            e_dense = compare("(16b) K4 dense route at n_fft 4096", dense_out,
+                              mk.log_mel_reference(frames, consts, log=False),
+                              mk.LOG_MEL_TOLERANCE[False], normwise=True)
+            dense_ms = time_ms(dense, iters=1, reps=3)
+            ops = spectrum_flops(n, n_fft, win, consts["mel_fb"])
+            dense_ops = n * (4 * win * bins + 3 * bins + 2 * int((consts["mel_fb"] != 0).sum()))
+            part = bound(ops, sig_bytes + 4 * (win + 64 * bins + n * 64))
+            dense_part = bound(dense_ops, sig_bytes + 4 * (2 * win * bins + bins * 64 + n * 64))
+            rec = {"name": "log_mel[n_fft 4096]", "route": "cuda",
+                   "source": "mmbidaf_tpu_torch/csrc/mfcc.cu",
+                   "kernel": "logmel_fft_kernel<kMelPower> at 4 frames a block",
+                   "replaces": "mmbidaf_tpu/ops/pallas/melspec_kernel.py:24", "max_abs_err": e,
+                   "ms": k, "plain_ms": pl, **bound_fields([part]), "library_ms": None}
+            print(f"  K4 n_fft={n_fft} raw mel on {steps} frames: {k:.4f} ms (log mode {kl:.4f}); "
+                  f"plain {pl:.4f} ms; bound {max(part):.4f} ms by "
+                  f"{rec['bound_by']} ({ops / 1e9:.3f} GFLOP as an FFT); the dense route at this "
+                  f"shape ({mk.dense_frames(win, bins)} frames a block) {dense_ms:.2f} ms, max_abs_err "
+                  f"{e_dense:.3e}, against its bound {max(dense_part):.4f} ms ({dense_ops / 1e9:.1f} "
+                  f"GFLOP); on {card}", flush=True)
+        del consts, frames, f3, out
+        release_cached_memory()
+    # K3's DCT pass past 384 mels (its block opts in to more shared memory)
+    consts = audio.make_audio_frontend_consts(16000, 512, 400, 512, 40, device=dev)
+    f3 = mel_gate_frames(rng, dev, 2, 64, 400)
+    out = k3(f3, consts)
+    e = compare("(16b) K3 512 mels", out, mk.mfcc_reference(f3, consts), mk.TOLERANCE)
+    print(f"  K3 at 512 mels (DCT pass {mk.dct_smem_bytes(512)} B of shared memory): max_abs_err "
+          f"{e:.3e}", flush=True)
+    print(f"(16b) K4 routes {k4.routes}, K3 routes {k3.routes}; max_abs_err K4 log {err4[True]:.3e}, "
+          f"raw {err4[False]:.3e}, K3 {max(err3, e):.3e}; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    print_resources("16b", (("K3/K4 fft", "logmel_fft_kernel"), ("K3/K4 dense", "logmel_tile_kernel")))
+    return rec
+
+
+def hidden512_config():
+    """The bench configuration with ``hidden_size=512`` (BiDAF width 1024)."""
+    cfg = bench_config()
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, hidden_size=H512))
+
+
+def train512_config(drop_prob: float = 0.2, kernels: bool = True):
+    """``bench_train.py --pallas`` at ``hidden_size=512``."""
+    cfg = train_config(drop_prob, kernels)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, hidden_size=H512))
+
+
+def window4096_config(features: str = "mfcc"):
+    """The long-audio configuration (config6, ``sp_audio`` off) with
+    ``n_fft = win_length = 4096``; MFCC, or ``logmel`` features."""
+    cfg = long_config()
+    data = dataclasses.replace(cfg.data, n_fft=N_FFT_4096, win_length=N_FFT_4096,
+                               audio_features=features)
+    model = cfg.model if features == "mfcc" else dataclasses.replace(
+        cfg.model, audio_feat_dim=cfg.data.n_mels)
+    return dataclasses.replace(cfg, data=data, model=model)
+
+
+def phase_hidden512(dev, card: str) -> dict:
+    """Phase 16c: the hidden-512 model served (B=64, bf16: K1 on its L2
+    route, K2 / K9 at D=1024, K3) and trained (B=32, f32, drop 0.2:
+    K5/K6 on their L2 routes, K7/K8 at D=1024); f32 picks and one drop-0
+    step equal between the kernels and the plain versions. Returns K5's and
+    K6's launches on the L2 route."""
+    import torch
+
+    from mmbidaf_tpu_torch.data.frontend import make_end_to_end_decode
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel as bk
+    from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel as mk
+    from mmbidaf_tpu_torch.serving import Summarizer
+    from mmbidaf_tpu_torch.train.loop import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = hidden512_config()
+    s = Summarizer.init_random(cfg, seed=0, device=dev)
+    raw_np = raw_batch(cfg, np.random.default_rng(16))
+    raw = {k: torch.from_numpy(v).to(dev) for k, v in raw_np.items()}
+    end_to_end = make_end_to_end_decode(cfg)
+    counters = {"K1": lk.bilstm_cuda, "K2": bk.bidaf_attention_fused, "K3": mk.mfcc_fused,
+                "K9": bk.bidaf_attention_tiled}
+    for fn in counters.values():
+        fn.launches = 0
+    lk.bilstm_cuda.routes = {"cluster": 0, "l2": 0}
+    bk.bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
+    lp, picks = end_to_end(s.model, s.frontend, raw)
+    torch.cuda.synchronize()
+    check_decode(lp.cpu().numpy(), picks.cpu().numpy(), raw_np, cfg, "(16c) hidden-512 bf16")
+    t_batch = timed_batches(lambda: end_to_end(s.model, s.frontend, raw), n=3)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"(16c) hidden-512 serving B={B} bf16 (D={2 * H512}): median batch {t_batch * 1e3:.2f} ms "
+          f"over 3 -> {B / t_batch:.2f} videos/s on {card}; launches {launches}; K1 routes "
+          f"{lk.bilstm_cuda.routes}, K2 routes {bk.bidaf_attention_fused.routes}", flush=True)
+    # K2's wrapper hands both blocks at D=1024 to K9 (bidaf_route)
+    check(launches["K1"] > 0 and launches["K3"] > 0 and launches["K2"] + launches["K9"] > 0,
+          f"(16c) a serving kernel never launched: {launches}")
+    check(lk.bilstm_cuda.routes == {"cluster": 0, "l2": launches["K1"]},
+          f"(16c) K1 left its L2 route at H=512: {lk.bilstm_cuda.routes}")
+    profile_kernels(lambda _: end_to_end(s.model, s.frontend, raw), None, t_batch, "(16c serve)",
+                    "batch", {"K1 l2": "bilstm_kernel", "K2 bidaf": "bidaf_fwd_cluster_kernel",
+                              "K3 mfcc": "logmel_fft_kernel"})
+    f32_kernels_vs_plain(cfg, s, {k: v[:B_PARITY] for k, v in raw.items()},
+                         {k: v[:B_PARITY] for k, v in raw_np.items()}, "(16c) hidden-512")
+    del s, raw, lp, picks
+    release_cached_memory()
+
+    cfg = train512_config()
+    state, batch = train_state(cfg, dev, seed=0)
+    train_step = make_train_step(cfg)
+    fns = {"K5": lk.bilstm_train_forward, "K6": lk.bilstm_bptt, "K7": bk.bidaf_dropout_forward,
+           "K8": bk.bidaf_dropout_backward}
+    for fn in fns.values():
+        fn.launches = 0
+        fn.routes = {r: 0 for r in fn.routes}
+    losses, step_s = [], []
+    for i in range(TRAIN512_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        check(math.isfinite(loss) and math.isfinite(gnorm), f"(16c) step {i}: loss {loss}, grad norm {gnorm}")
+        losses.append(loss)
+    launches = {k: fn.launches for k, fn in fns.items()}
+    routes = {k: dict(fn.routes) for k, fn in fns.items()}
+    t_step = statistics.median(step_s[1:])
+    print(f"(16c) hidden-512 training B={B_TRAIN} f32 drop 0.2: launches {launches}, routes {routes}; "
+          f"losses {' '.join(f'{x:.5f}' for x in losses)}; median step {t_step * 1e3:.2f} ms over "
+          f"{TRAIN512_STEPS - 1} -> {B_TRAIN / t_step:.2f} videos/s on {card}", flush=True)
+    check(all(n > 0 for n in launches.values()), f"(16c) a training kernel never launched: {launches}")
+    check(routes["K5"] == {"cluster": 0, "l2": launches["K5"]}
+          and routes["K6"] == {"cluster": 0, "l2": launches["K6"]},
+          f"(16c) K5/K6 left their L2 routes at H=512: {routes}")
+    check(losses[-1] < losses[0], f"(16c) the loss did not fall ({losses[0]} -> {losses[-1]})")
+    profile_kernels(lambda st: train_step(st, batch)[0], state, t_step, "(16c train)", "step",
+                    groups={"K5 l2": "bilstm_kernel", "K6 (a) z": "lstm_z_kernel",
+                            "K6 (b) walk l2": "bilstm_bptt_l2_kernel",
+                            "K6 (c) dW_h": "lstm_dwh_partial_kernel", "K7/K8": "bidaf_"})
+    del state, batch, train_step
+    release_cached_memory()
+    results = []
+    for kernels in (True, False):
+        cfg0 = train512_config(drop_prob=0.0, kernels=kernels)
+        st, b0 = train_state(cfg0, dev, seed=3)
+        st, m = make_train_step(cfg0)(st, b0)
+        results.append((float(m["loss"]), float(m["grad_norm"]),
+                        {n: p.detach() for n, p in st.params.named_parameters()}))
+        del st, b0
+    (lk_, gk, pk), (lp_, gp, pp) = results
+    dp = max((pk[n] - pp[n]).abs().max().item() for n in pk)
+    print(f"(16c) f32 drop 0, one step: loss kernels {lk_:.7f} plain {lp_:.7f}; grad norm {gk:.7f} "
+          f"vs {gp:.7f}; max param diff {dp:.3e} (bound {TRAIN_PARITY_ATOL}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(abs(lk_ - lp_) <= TRAIN_PARITY_ATOL and abs(gk - gp) <= TRAIN_PARITY_ATOL * max(1.0, gp),
+          "(16c) kernel and plain loss / grad norm differ")
+    check(dp <= TRAIN_PARITY_ATOL, "(16c) kernel and plain parameters differ")
+    release_cached_memory()
+    return {"K5": routes["K5"]["l2"], "K6": routes["K6"]["l2"]}
+
+
+def phase_window4096(dev, card: str) -> int:
+    """Phase 16d: the long-audio model with a 4096-point window served at
+    B=16 with MFCC (K4 raw + the dB/DCT tail: 4096 frames are past K3's
+    whole-example bound) and with log-mel features (K4 log), K4 on its FFT
+    route; f32 picks at B=2 equal between the kernels and the plain
+    versions. Returns K4's launches."""
+    import torch
+
+    from mmbidaf_tpu_torch.data.frontend import make_end_to_end_decode
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel as mk
+    from mmbidaf_tpu_torch.serving import Summarizer
+
+    t_phase = time.perf_counter()
+    k3, k4 = mk.mfcc_fused, mk.log_mel_fused
+    k3.launches = k4.launches = 0
+    k4.routes = {"fft": 0, "dense": 0}
+    for features in ("mfcc", "logmel"):
+        cfg = window4096_config(features)
+        d = cfg.data
+        s = Summarizer.init_random(cfg, seed=0, device=dev)
+        raw_np = raw_batch(cfg, np.random.default_rng(164), B_LONG)
+        raw = {k: torch.from_numpy(v).to(dev) for k, v in raw_np.items()}
+        end_to_end = make_end_to_end_decode(cfg)
+        n4 = k4.launches
+        lp, picks = end_to_end(s.model, s.frontend, raw)
+        torch.cuda.synchronize()
+        check_decode(lp.cpu().numpy(), picks.cpu().numpy(), raw_np, cfg, f"(16d) {features} bf16")
+        t_batch = timed_batches(lambda: end_to_end(s.model, s.frontend, raw), n=3)
+        print(f"(16d) {features}, n_fft = win = {d.n_fft}, {d.max_audio_frames} frames, B={B_LONG} "
+              f"bf16: median batch {t_batch * 1e3:.2f} ms over 3 -> {B_LONG / t_batch:.3f} videos/s "
+              f"on {card}; K4 launches {k4.launches - n4} (routes {k4.routes}), K3 {k3.launches}",
+              flush=True)
+        check(k4.launches > n4, f"(16d) {features}: K4 never launched")
+        f32_kernels_vs_plain(cfg, s, {k: v[:2] for k, v in raw.items()},
+                             {k: v[:2] for k, v in raw_np.items()}, f"(16d) {features}")
+        del s, raw, lp, picks
+        release_cached_memory()
+    check(k3.launches == 0, "(16d) K3 ran on 4096 frames (past its whole-example bound)")
+    check(k4.routes == {"fft": k4.launches, "dense": 0}, f"(16d) K4 left its FFT route: {k4.routes}")
+    print(f"(16d) phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k4.launches
+
+
+def phase_16(dev, card: str) -> list[dict]:
+    """Phase 16: 16a and 16b, the shape gates of K5/K6 and K4/K3; 16c the
+    hidden-512 model; 16d the 4096-point-window model. Returns the new
+    routes' records, launches from 16c and 16d."""
+    t0 = time.perf_counter()
+    rec5, rec6 = phase_lstm_gate(dev, card)
+    rec4 = phase_mel_gate(dev, card)
+    release_cached_memory()
+    l2 = phase_hidden512(dev, card)
+    rec5["launches"], rec6["launches"] = l2["K5"], l2["K6"]
+    rec4["launches"] = phase_window4096(dev, card)
+    print(f"(16) phases 16a-16d took {time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    return [rec5, rec6, rec4]
+
+
+def build_and_phase_16() -> list[dict]:
+    """Phase 16 alone on the card, after the build: ``python -c "import
+    chip_smoke; chip_smoke.build_and_phase_16()"`` from the repository root."""
+    import torch
+
+    from mmbidaf_tpu_torch.ops.cuda import build
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke run needs the card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.library()
+    return phase_16(torch.device("cuda", 0), card)
 
 def main() -> None:
     import torch
@@ -4170,13 +4709,17 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         phase_drivers(dev, card, tmp)
 
+    # 16. every shape the JAX kernels take: K5/K6 past the cluster plan, K4/K3
+    # past win + bins = 1,815; the hidden-512 and 4096-point-window models
+    wide_records = phase_16(dev, card)
+
     leaked = sorted(m for m in sys.modules if m in ("jax", "mmbidaf_tpu")
                     or m.startswith(("jax.", "jaxlib", "mmbidaf_tpu.")))
     check(not leaked, f"jax or the JAX package was imported: {leaked[:5]}")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": records + train_records + drop_records + long_records + vgg_records}),
-          flush=True)
+    print(json.dumps({"kernels": records + train_records + drop_records + long_records + vgg_records
+                      + wide_records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -38,21 +38,30 @@
 // H100's 67 TFLOP/s f32 rate (K5's residual writes are its bytes). W_h is
 // read from device memory once per block, not once per step.
 //
-// K1's second route (bilstm_kernel<R>) serves the widths with no cluster
-// plan (H past 448, 432 or 384 at 4, 8 or 16 rows a cluster, where no
-// 16-block cluster holds W_h's slice and the h buffers in shared memory):
-// grid (ceil(B/R), 2 directions); W_h (H x 4H f32) is read from L2 every
-// step, each read reused for the block's R rows; one thread per gate column
-// accumulates z for the R rows, then one thread per (row, unit) runs the
-// gate math. Its time is T dependent steps of L2 latency. The wrapper
-// (ops/cuda/lstm_kernel.py::bilstm_cuda) and mmb_bilstm_forward pick the
-// route from the same plan before any launch.
+// K1's and K5's second route (bilstm_kernel<R, kTrain>, as the cluster body:
+// K5 also writes h_seq / c_seq, with the same sums, so at equal gates K1 and
+// K5 give the same bits here too) serves the widths with no cluster plan (H
+// past 448, 432 or 384 at 4, 8 or 16 rows a cluster, where no 16-block
+// cluster holds W_h's slice and the h buffers in shared memory): grid
+// (ceil(B/R), 2 directions), R from lstm_cluster.cuh::l2_rows; W_h (H x 4H
+// f32, 4 MB a direction at H = 512) is read from L2 every step, each read
+// reused for the block's R rows; a thread accumulates z of four neighbouring
+// gate columns for the R rows (16-byte loads, each h from shared memory
+// serving four FMAs: with one column a thread, the h loads bound the step),
+// then one thread per (row, unit) runs the gate math. Its time is T
+// dependent steps, each bound by the block's R·H·4H FMAs and its read of
+// W_h from L2. The wrappers (ops/cuda/lstm_kernel.py::bilstm_cuda,
+// bilstm_train_forward) and the entry points pick the route from the same
+// plan before any launch.
 #include "common.cuh"
 #include "lstm_cluster.cuh"
 
 namespace {
 
-template <int R>
+// Threads a block of the L2 route: a thread four gate columns.
+inline int l2_threads(int H) { return mmb::threads_for(H, 512); }
+
+template <int R, bool kTrain>
 __global__ void __launch_bounds__(512) bilstm_kernel(
     const float* __restrict__ gates,  // [B, T, 2, 4H]: fwd gates, then bwd gates
     const float* __restrict__ mask,   // [B, T]
@@ -60,6 +69,8 @@ __global__ void __launch_bounds__(512) bilstm_kernel(
     float* __restrict__ out,          // [B, T, 2H]: fwd | bwd
     float* __restrict__ h_last,       // [B, 2H]
     float* __restrict__ c_last,       // [B, 2H]
+    float* __restrict__ h_seq,        // [2, T, B, H] (kTrain only)
+    float* __restrict__ c_seq,        // [2, T, B, H] (kTrain only)
     int B, int T, int H) {
   extern __shared__ float smem[];
   const int G = 4 * H;
@@ -78,22 +89,48 @@ __global__ void __launch_bounds__(512) bilstm_kernel(
 
   for (int t = 0; t < T; ++t) {
     const int tt = dir ? T - 1 - t : t;
-    for (int j = threadIdx.x; j < G; j += blockDim.x) {
-      float acc[R];
+    // a thread four neighbouring gate columns (16-byte W_h loads, each h
+    // read from shared memory serving four FMAs), W_h's loads of kAhead k
+    // issued before their FMAs (the step waits on L2's latency; fewer at
+    // more rows, whose sums take the registers); each sum runs k ascending
+    constexpr int kAhead = R >= 8 ? 4 : 8;
+    for (int j = 4 * threadIdx.x; j < G; j += 4 * blockDim.x) {
+      float acc[R][4];
 #pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float w = __ldg(wh + (size_t)k * G + j);
+      for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
+      const auto fma4 = [&](float h, float4 w, float* a) {
+        a[0] = fmaf(h, w.x, a[0]);
+        a[1] = fmaf(h, w.y, a[1]);
+        a[2] = fmaf(h, w.z, a[2]);
+        a[3] = fmaf(h, w.w, a[3]);
+      };
+      int k = 0;
+      for (; k + kAhead <= H; k += kAhead) {
+        float4 w[kAhead];
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(h_s[r * H + k], w, acc[r]);
+        for (int i = 0; i < kAhead; ++i)
+          w[i] = __ldg(reinterpret_cast<const float4*>(wh + (size_t)(k + i) * G + j));
+#pragma unroll
+        for (int i = 0; i < kAhead; ++i)
+#pragma unroll
+          for (int r = 0; r < R; ++r) fma4(h_s[r * H + k + i], w[i], acc[r]);
+      }
+      for (; k < H; ++k) {
+        const float4 w = __ldg(reinterpret_cast<const float4*>(wh + (size_t)k * G + j));
+#pragma unroll
+        for (int r = 0; r < R; ++r) fma4(h_s[r * H + k], w, acc[r]);
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int row = row0 + r;
-        const float g =
-            row < B ? gates[((size_t)row * T + tt) * 2 * G + (size_t)dir * G + j] : 0.0f;
-        z_s[r * G + j] = g + acc[r];
+        const float4 g =
+            row < B ? *reinterpret_cast<const float4*>(
+                          gates + ((size_t)row * T + tt) * 2 * G + (size_t)dir * G + j)
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        z_s[r * G + j] = g.x + acc[r][0];
+        z_s[r * G + j + 1] = g.y + acc[r][1];
+        z_s[r * G + j + 2] = g.z + acc[r][2];
+        z_s[r * G + j + 3] = g.w + acc[r][3];
       }
     }
     __syncthreads();
@@ -115,6 +152,11 @@ __global__ void __launch_bounds__(512) bilstm_kernel(
       c_s[p] = c_carry;
       h_s[p] = h_carry;
       out[((size_t)row * T + tt) * 2 * H + (size_t)dir * H + u] = h_new * m;
+      if (kTrain) {
+        const size_t q = (((size_t)dir * T + t) * B + row) * H + u;
+        h_seq[q] = h_carry;
+        c_seq[q] = c_carry;
+      }
     }
     __syncthreads();
   }
@@ -129,35 +171,61 @@ __global__ void __launch_bounds__(512) bilstm_kernel(
   }
 }
 
-template <int R>
-cudaError_t launch_bilstm_l2(const float* gates, const float* mask, const float* w_h, float* out,
-                             float* h_last, float* c_last, int B, int T, int H,
-                             cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)R * 6 * H;
-  if (smem > (size_t)mmb::kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(bilstm_kernel<R>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((B + R - 1) / R, 2);
-  bilstm_kernel<R><<<grid, mmb::threads_for(4 * H, 512), smem, stream>>>(
-      gates, mask, w_h, out, h_last, c_last, B, T, H);
-  return cudaGetLastError();
+namespace lc = mmb::lstmc;
+
+// f(the L2 body instantiated for R rows a block).
+template <bool kTrain, typename F>
+auto with_l2_kernel(int R, F f) {
+  return R == 16  ? f(bilstm_kernel<16, kTrain>)
+         : R == 8 ? f(bilstm_kernel<8, kTrain>)
+         : R == 4 ? f(bilstm_kernel<4, kTrain>)
+         : R == 2 ? f(bilstm_kernel<2, kTrain>)
+                  : f(bilstm_kernel<1, kTrain>);
 }
 
-// K1's L2 route: many rows (1024 and more) 16 a block, which reuses each
-// W_h read 16x and still gives 2*B/16 >= 128 blocks; fewer rows 4 a block,
-// for more blocks.
-cudaError_t bilstm_l2(const float* gates, const float* mask, const float* w_h, float* out,
-                      float* h_last, float* c_last, int B, int T, int H, cudaStream_t stream) {
-  return B >= 1024 ? launch_bilstm_l2<16>(gates, mask, w_h, out, h_last, c_last, B, T, H, stream)
-                   : launch_bilstm_l2<4>(gates, mask, w_h, out, h_last, c_last, B, T, H, stream);
+// The L2 route of K1 (kTrain = false) or K5: R rows a block by
+// lstm_cluster.cuh::l2_rows.
+template <bool kTrain>
+cudaError_t bilstm_l2(const void* gates, const void* mask, const void* w_h, void* out,
+                      void* h_last, void* c_last, void* h_seq, void* c_seq, int B, int T, int H,
+                      void* stream) {
+  const int R = lc::l2_rows(B, H);
+  if (R == 0) return cudaErrorInvalidValue;
+  const size_t smem = lc::l2_smem(H, R);
+  return with_l2_kernel<kTrain>(R, [&](auto kernel) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3((B + R - 1) / R, 2), l2_threads(H), smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(gates), static_cast<const float*>(mask),
+        static_cast<const float*>(w_h), static_cast<float*>(out), static_cast<float*>(h_last),
+        static_cast<float*>(c_last), static_cast<float*>(h_seq), static_cast<float*>(c_seq), B, T,
+        H);
+    return cudaGetLastError();
+  });
+}
+
+// Blocks of K1's (kTrain = false) or K5's L2 route an SM holds (0: the launch
+// cannot run); a negative cudaError_t on failure.
+template <bool kTrain>
+int l2_occupancy(int B, int H) {
+  const int R = lc::l2_rows(B, H);
+  if (R == 0) return -(int)cudaErrorInvalidValue;
+  const size_t smem = lc::l2_smem(H, R);
+  return with_l2_kernel<kTrain>(R, [&](auto kernel) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int n = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, l2_threads(H), smem);
+    return e == cudaSuccess ? n : -(int)e;
+  });
 }
 
 // ---------------------------------------------------------------------------
 // K1 and K5: the recurrence on a thread-block cluster.
 // ---------------------------------------------------------------------------
-
-namespace lc = mmb::lstmc;
 
 template <int R, bool kTrain>
 __global__ void __launch_bounds__(lc::kThreads) bilstm_cluster_kernel(
@@ -338,19 +406,21 @@ MMB_API int mmb_bilstm_forward(const void* gates, const void* mask, const void* 
   if (lc::plan(B, H, &p))
     return bilstm_cluster<false>(p, gates, mask, w_h, out, h_last, c_last, nullptr, nullptr, B,
                                  T, H, stream);
-  return (int)bilstm_l2(static_cast<const float*>(gates), static_cast<const float*>(mask),
-                        static_cast<const float*>(w_h), static_cast<float*>(out),
-                        static_cast<float*>(h_last), static_cast<float*>(c_last), B, T, H,
-                        static_cast<cudaStream_t>(stream));
+  return (int)bilstm_l2<false>(gates, mask, w_h, out, h_last, c_last, nullptr, nullptr, B, T, H,
+                               stream);
 }
 
-// K5: the training recurrence on a cluster, which also writes h_seq / c_seq.
+// K5: the training recurrence, which also writes h_seq / c_seq: on a
+// cluster where the shape has a plan, else by the L2 route.
 MMB_API int mmb_bilstm_forward_train(const void* gates, const void* mask, const void* w_h,
                                      void* out, void* h_last, void* c_last, void* h_seq,
                                      void* c_seq, int B, int T, int H, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   lc::Plan p;
-  if (T <= 0 || !lc::plan(B, H, &p)) return (int)cudaErrorInvalidValue;
-  return bilstm_cluster<true>(p, gates, mask, w_h, out, h_last, c_last, h_seq, c_seq, B, T, H,
+  if (lc::plan(B, H, &p))
+    return bilstm_cluster<true>(p, gates, mask, w_h, out, h_last, c_last, h_seq, c_seq, B, T, H,
+                                stream);
+  return (int)bilstm_l2<true>(gates, mask, w_h, out, h_last, c_last, h_seq, c_seq, B, T, H,
                               stream);
 }
 
@@ -371,6 +441,15 @@ MMB_API int mmb_lstm_cluster_plan(int B, int H, int* out) {
 MMB_API int mmb_bilstm_forward_occupancy(int B, int H) { return cluster_occupancy<false>(B, H); }
 MMB_API int mmb_bilstm_forward_train_occupancy(int B, int H) {
   return cluster_occupancy<true>(B, H);
+}
+
+// The L2 routes' rows a block for B rows of width H (0: no L2 route), and
+// how many blocks of K1's / K5's L2 route an SM holds (0: the launch cannot
+// run; a negative cudaError_t on failure).
+MMB_API int mmb_lstm_l2_rows(int B, int H) { return lc::l2_rows(B, H); }
+MMB_API int mmb_bilstm_forward_l2_occupancy(int B, int H) { return l2_occupancy<false>(B, H); }
+MMB_API int mmb_bilstm_forward_train_l2_occupancy(int B, int H) {
+  return l2_occupancy<true>(B, H);
 }
 
 // Message for a code returned by any mmb_* entry point.

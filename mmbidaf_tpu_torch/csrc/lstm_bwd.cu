@@ -35,6 +35,17 @@
 //     cluster barrier, and sets dh <- (1-m)·dh + Σ_c P_c, summing the C
 //     partials in rank order 0 … C-1. The next step's operands come by
 //     cp.async while the step runs.
+// (b') bilstm_bptt_l2_kernel, the walk for the widths with no cluster plan
+//     (lstm_cluster.cuh: H past 448, 432 or 384 at 4, 8 or 16 rows a
+//     cluster): one block a group of R rows (lstm_cluster.cuh::l2_rows) in
+//     one direction, dh, dc and the step's dz [R x 4H] in shared memory
+//     (6H floats a row). Per step its threads run the gate math of every
+//     (row, unit) from z, c_prev, dout and the mask read straight from
+//     device memory, write dz over z, then a warp per unit k forms
+//     dh[:, k] += dz · W_h[k, :]ᵀ with its lanes along W_h's row k, four
+//     columns a lane (16-byte loads from L2 every step, each serving the
+//     block's R rows), and sums the lanes' partials by shuffles in a fixed
+//     order.
 // (c) lstm_dwh_partial_kernel + sum_partials_kernel: dW_h as a tiled
 //     [H x N]·[N x 4H] product over N = (T-1)·rows (h_seq against dgates),
 //     split over N into per-slice partials that a second pass sums in a
@@ -47,7 +58,9 @@
 // kernel, the three products' 3·2·2·B·T·H·4H FLOPs at the 67 TFLOP/s f32
 // rate. Phases (a) and (c) run at the card's width; the walk's step is one
 // barrier and ~R·H·4U FMAs a block, with W_h read from device memory once
-// per block instead of twice a step from L2.
+// per block instead of twice a step from L2. Phases (a) and (c) need no
+// cluster plan and run the same on both routes; on the L2 route the walk's
+// step is R·H·4H FMAs a block and a read of W_h (4 MB at H = 512) from L2.
 #include "common.cuh"
 #include "lstm_cluster.cuh"
 
@@ -269,6 +282,110 @@ __global__ void __launch_bounds__(lc::kThreads) bilstm_bptt_cluster_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// (b') The walk by L2, for the widths with no cluster plan.
+// ---------------------------------------------------------------------------
+
+constexpr int kL2Threads = 512;
+
+template <int R>
+__global__ void __launch_bounds__(kL2Threads) bilstm_bptt_l2_kernel(
+    const float* __restrict__ gates,    // [B, T, 2, 4H]: step 0's z
+    const float* __restrict__ mask,     // [B, T]
+    const float* __restrict__ w_h,      // [2, H, 4H]
+    const float* __restrict__ c_seq,    // [2, T, B, H]
+    const float* __restrict__ dout,     // [B, T, 2H]
+    const float* __restrict__ dh_last,  // [B, 2H]
+    const float* __restrict__ dc_last,  // [B, 2H]
+    float* __restrict__ dgates,         // [B, T, 2, 4H]: z of steps >= 1 in, dz out
+    int B, int T, int H) {
+  extern __shared__ __align__(16) float smem[];
+  const int G = 4 * H;
+  float* dz_s = smem;          // [R][4H] this step's dz (zero in rows past B), 16-byte rows
+  float* dh_s = dz_s + R * G;  // [R][H] carried dh
+  float* dc_s = dh_s + R * H;  // [R][H] carried dc
+  const int dir = blockIdx.y, row0 = blockIdx.x * R;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const float* wh = w_h + (size_t)dir * H * G;
+
+  for (int p = threadIdx.x; p < R * H; p += blockDim.x) {
+    const int r = p / H, u = p - r * H, row = row0 + r;
+    const size_t q = (size_t)row * 2 * H + (size_t)dir * H + u;
+    dh_s[p] = row < B ? dh_last[q] : 0.0f;
+    dc_s[p] = row < B ? dc_last[q] : 0.0f;
+  }
+  for (int e = threadIdx.x; e < R * G; e += blockDim.x) dz_s[e] = 0.0f;
+  __syncthreads();
+
+  for (int s = T - 1; s >= 0; --s) {
+    const int tt = dir ? T - 1 - s : s;
+    const float* zsrc = s > 0 ? dgates : gates;
+    // the gate math of every (row, unit), dz, and the carried dc
+    for (int p = threadIdx.x; p < R * H; p += blockDim.x) {
+      const int r = p / H, u = p - r * H, row = row0 + r;
+      if (row >= B) continue;
+      const size_t zq = ((size_t)row * T + tt) * 2 * G + (size_t)dir * G + u;
+      const float* z = zsrc + zq;
+      const float ig = mmb::sigmoid(z[0]);
+      const float fg = mmb::sigmoid(z[H]);
+      const float gg = tanhf(z[2 * H]);
+      const float og = mmb::sigmoid(z[3 * H]);
+      const float c_prev = s > 0 ? c_seq[(((size_t)dir * T + (s - 1)) * B + row) * H + u] : 0.0f;
+      const float c_new = fg * c_prev + ig * gg;
+      const float tc = tanhf(c_new);
+      const float m = mask[(size_t)row * T + tt];
+      const float dh_carry = dh_s[p], dc_carry = dc_s[p];
+      const float dh_new = m * (dout[((size_t)row * T + tt) * 2 * H + (size_t)dir * H + u] + dh_carry);
+      const float d_o = dh_new * tc;
+      const float dc_new = dh_new * og * (1.0f - tc * tc) + m * dc_carry;
+      const float dz[4] = {dc_new * gg * ig * (1.0f - ig), dc_new * c_prev * fg * (1.0f - fg),
+                           dc_new * ig * (1.0f - gg * gg), d_o * og * (1.0f - og)};
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        dz_s[r * G + g * H + u] = dz[g];
+        dgates[zq + (size_t)g * H] = dz[g];
+      }
+      dc_s[p] = fg * dc_new + (1.0f - m) * dc_carry;
+      dh_s[p] = (1.0f - m) * dh_carry;
+    }
+    __syncthreads();
+    // dh[:, k] += dz · W_h[k, :]ᵀ: a warp a unit, its lanes along the row
+    // four columns at a time (16-byte loads of W_h and dz; several in
+    // flight: the step waits on L2's latency)
+    for (int k = warp; k < H; k += warps) {
+      const float4* wk = reinterpret_cast<const float4*>(wh + (size_t)k * G);
+      float acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+#pragma unroll 8
+      for (int q = lane; q < H; q += 32) {  // G / 4 = H column quads
+        const float4 w = __ldg(wk + q);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 d = *reinterpret_cast<const float4*>(dz_s + r * G + 4 * q);
+          acc[r] = fmaf(d.x, w.x, fmaf(d.y, w.y, fmaf(d.z, w.z, fmaf(d.w, w.w, acc[r]))));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float v = mmb::warp_sum(acc[r]);
+        if (lane == 0) dh_s[r * H + k] += v;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// f(the L2 walk instantiated for R rows a block).
+template <typename F>
+auto with_bptt_l2_kernel(int R, F f) {
+  return R == 16  ? f(bilstm_bptt_l2_kernel<16>)
+         : R == 8 ? f(bilstm_bptt_l2_kernel<8>)
+         : R == 4 ? f(bilstm_bptt_l2_kernel<4>)
+         : R == 2 ? f(bilstm_bptt_l2_kernel<2>)
+                  : f(bilstm_bptt_l2_kernel<1>);
+}
+
 // f(the walk instantiated for a plan's R).
 template <typename F>
 auto with_bptt_kernel(int R, F f) {
@@ -357,13 +474,17 @@ MMB_API int mmb_lstm_dwh_split(int B, int T) {
   return per > 512 ? (int)per : 512;
 }
 
+// K6: (a), the walk on a cluster where the shape has a plan (else by the
+// L2 route), then (c).
 MMB_API int mmb_bilstm_backward(const void* gates, const void* mask, const void* w_h,
                                 const void* h_seq, const void* c_seq, const void* dout,
                                 const void* dh_last, const void* dc_last, void* dgates,
                                 void* dwh_partial, void* dw_h, int num_splits, int B, int T,
                                 int H, void* stream) {
   lc::Plan p;
-  if (T <= 0 || num_splits <= 0 || !lc::plan(B, H, &p)) return (int)cudaErrorInvalidValue;
+  const bool cluster = lc::plan(B, H, &p);
+  const int R = cluster ? 0 : lc::l2_rows(B, H);
+  if (T <= 0 || num_splits <= 0 || (!cluster && R == 0)) return (int)cudaErrorInvalidValue;
   const long long N = (long long)(T - 1) * B;
   const int split = mmb_lstm_dwh_split(B, T);
   if ((long long)num_splits * split < N || (N + kBK - 1) / kBK > 65535)
@@ -381,12 +502,26 @@ MMB_API int mmb_bilstm_backward(const void* gates, const void* mask, const void*
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  e = with_bptt_kernel(p.R, [&](auto kernel) {  // (b) the walk
-    return lc::launch(kernel, p, p.smem_bwd, s, g, static_cast<const float*>(mask), w,
-                      static_cast<const float*>(c_seq), static_cast<const float*>(dout),
-                      static_cast<const float*>(dh_last), static_cast<const float*>(dc_last), dg,
-                      B, T, H);
-  });
+  const auto* m = static_cast<const float*>(mask);
+  const auto* cs = static_cast<const float*>(c_seq);
+  const auto* dout_ = static_cast<const float*>(dout);
+  const auto* dhl = static_cast<const float*>(dh_last);
+  const auto* dcl = static_cast<const float*>(dc_last);
+  if (cluster) {  // (b) the walk on a cluster
+    e = with_bptt_kernel(p.R, [&](auto kernel) {
+      return lc::launch(kernel, p, p.smem_bwd, s, g, m, w, cs, dout_, dhl, dcl, dg, B, T, H);
+    });
+  } else {  // (b') the walk by L2
+    const size_t smem = lc::l2_smem(H, R);
+    e = with_bptt_l2_kernel(R, [&](auto kernel) {
+      cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<dim3((B + R - 1) / R, 2), kL2Threads, smem, s>>>(g, m, w, cs, dout_, dhl, dcl, dg,
+                                                                  B, T, H);
+      return cudaGetLastError();
+    });
+  }
   if (e != cudaSuccess) return (int)e;
   // (c) dW_h
   const dim3 grid((G + kBJ - 1) / kBJ, (H + kBK - 1) / kBK, 2 * num_splits);
@@ -407,5 +542,21 @@ MMB_API int mmb_bilstm_backward_occupancy(int B, int H) {
   if (!lc::plan(B, H, &p)) return -(int)cudaErrorInvalidValue;
   return with_bptt_kernel(p.R, [&](auto kernel) {
     return lc::max_active_clusters(kernel, p, p.smem_bwd);
+  });
+}
+
+// How many blocks of the L2 walk an SM holds for this shape (0: the launch
+// cannot run); a negative cudaError_t on failure.
+MMB_API int mmb_bilstm_backward_l2_occupancy(int B, int H) {
+  const int R = lc::l2_rows(B, H);
+  if (R == 0) return -(int)cudaErrorInvalidValue;
+  const size_t smem = lc::l2_smem(H, R);
+  return with_bptt_l2_kernel(R, [&](auto kernel) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int n = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kL2Threads, smem);
+    return e == cudaSuccess ? n : -(int)e;
   });
 }

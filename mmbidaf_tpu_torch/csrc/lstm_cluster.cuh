@@ -25,9 +25,14 @@
 // Plan. R = 16 rows a cluster from 512 rows, 8 from 128, else 4; C the
 // smallest power of two that gives U <= 16 units a block, raised further
 // until the larger of the two kernels' shared memory fits a block's 227 KB;
-// past C = 16 there is no plan: K5 and K6 refuse the shape, and K1 serves it
-// by its L2 route (one plan for the three kernels: one layout, one rule).
+// past C = 16 there is no plan, and K1, K5 and K6 serve the shape by their
+// L2 routes (one plan for the three kernels: one layout, one rule).
 // ops/cuda/lstm_kernel.py::cluster_plan mirrors this function.
+//
+// The L2 routes (l2_rows below; lstm.cu bilstm_kernel<R, kTrain> for K1 and
+// K5, lstm_bwd.cu bilstm_bptt_l2_kernel<R> for K6's walk) take the widths
+// with no cluster plan: one block a group of R rows in one direction, W_h
+// read from L2 every step. ops/cuda/lstm_kernel.py::l2_rows mirrors it.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -89,6 +94,22 @@ inline bool plan(int B, int H, Plan* p) {
   if (C > kMaxCluster || C > H) return false;
   *p = {C, R, units_max(H, C), (B + R - 1) / R, (int)smem_fwd(H, C, R), (int)smem_bwd(H, C, R)};
   return true;
+}
+
+// The L2 routes' block: R rows of the carried state and the step's gate
+// columns, [h | c | z] forward and [dh | dc | dz] in K6's walk, 6H floats a
+// row.
+inline size_t l2_smem(int H, int R) { return 4 * (size_t)R * 6 * H; }
+
+// The L2 routes' rows a block: 16 from 1024 rows (each W_h read serves 16
+// rows, and 2·B/16 >= 128 blocks still fill the card), else 4 (more
+// blocks); halved while the block does not fit its shared memory. 0 where
+// not even one row fits (H past 9,685) or the shape is empty.
+inline int l2_rows(int B, int H) {
+  if (B <= 0 || H <= 0) return 0;
+  for (int R = B >= 1024 ? 16 : 4; R >= 1; R /= 2)
+    if (l2_smem(H, R) <= (size_t)kMaxSmemBytes) return R;
+  return 0;
 }
 
 // The launch configuration of a plan: grid (C, groups, 2 directions),

@@ -25,12 +25,14 @@
 // DCT (mfcc_dct_kernel).
 //
 // The FFT route (logmel_fft_kernel), for a power-of-two n_fft from 16 to
-// 2048 and win <= n_fft (the configurations' 512; the wrapper checks once
-// per consts that cos/sin are the window's DFT basis of n_fft): the bases
-// fold a periodic window and a zero pad at the end into the DFT, so
-// frames@cos and frames@sin are the real and imaginary parts of
-// rfft(window · frame, n = n_fft). A block takes kFftFrames consecutive
-// frames of one example, one warp a frame:
+// 8192 (K4) or 4096 (K3) and win <= n_fft (the configurations' 512; the
+// wrapper checks once per consts that cos/sin are the window's DFT basis of
+// n_fft): the bases fold a periodic window and a zero pad at the end into
+// the DFT, so frames@cos and frames@sin are the real and imaginary parts of
+// rfft(window · frame, n = n_fft). A block takes F consecutive frames of
+// one example, one warp a frame, F the most of 8, 4, 2, 1 whose block fits
+// its shared memory (fft_geometry: 8 to n_fft 2048; at 4096, 4 for K4 and
+// 2 for K3's f64; at 8192, K4 only, 2 or 1):
 // 1. cp.async stages the waveform span the frames cover ((F-1)·hop + win
 //    samples, read once where the dense pass reads the overlap 2.5 times),
 //    the window and the twiddles (computed in f64 on the host; one table
@@ -56,9 +58,16 @@
 // 0.22 ms a call against the f32 body's 0.15 (its complex values take
 // twice the shared-memory bytes: 61,936 B a block against 40,432, three
 // blocks an SM against five).
-// The dense route (logmel_tile_kernel) takes every other n_fft: a tile of
-// kTF frames in shared memory, a thread a frequency bin with kTF real and
-// imaginary sums in registers, cos/sin read from L2.
+// The dense route (logmel_tile_kernel<kEpi, F>) takes every other n_fft: a
+// tile of F frames in shared memory, a thread a frequency bin with F real
+// and imaginary sums in registers, cos/sin read from L2 (or, past its 50 MB,
+// device memory). F is chosen at launch (dense_frames): the most of 32, 16,
+// …, 1 whose frames and spectra, 4·(F·(win + bins) + 32) bytes, fit a
+// block's 227 KB: 32 to win + bins = 1,815, 1 to ~58,000 (n_fft 32,768). It
+// is O(win·bins) a frame, ~1,600x the FFT's operations at n_fft 16,384, and
+// each block reads both bases once: slow by design past the FFT route.
+// K3's DCT pass tiles the frames on its own (kDctFrames a block) and reads
+// the first pass's block maxima, however many frames those blocks took.
 // The frames are read through their strides, so the framing of the
 // waveform stays a strided view and is never copied.
 #include "common.cuh"
@@ -67,7 +76,7 @@
 
 namespace {
 
-constexpr int kTF = 32;  // frames per tile
+constexpr int kDctFrames = 32;  // frames a block of K3's DCT pass
 
 // ln(10) rounded to f32: log10 as log(x)/log(10), the way jnp.log10 computes it.
 constexpr float kLn10 = 2.302585093f;
@@ -75,7 +84,7 @@ constexpr float kLn10 = 2.302585093f;
 // Epilogues of the tile pass.
 enum Epilogue { kDb = 0, kLogMel = 1, kMelPower = 2 };
 
-template <int kEpi>
+template <int kEpi, int kTF>
 __global__ void __launch_bounds__(512) logmel_tile_kernel(
     const float* __restrict__ frames, long long stride_b, long long stride_t,
     const float* __restrict__ cos_b, const float* __restrict__ sin_b,  // [win, bins]
@@ -139,19 +148,66 @@ __global__ void __launch_bounds__(512) logmel_tile_kernel(
   }
 }
 
-// K3's second pass: grid (tiles of kTF frames, examples); the example's
-// maximum over the first pass's ntiles tile maxima, then the clamp and the
-// DCT of the tile's rows.
+// The dense route's dynamic shared memory a block for F frames a tile.
+inline size_t dense_smem_bytes(int F, int win, int bins) {
+  return sizeof(float) * ((size_t)F * ((size_t)win + bins) + 32);
+}
+
+// The dense route's frames a tile: the most of 32, 16, …, 1 that fits a
+// block's shared memory; 0 if not even one frame does.
+inline int dense_frames(int win, int bins) {
+  for (int F = 32; F >= 1; F /= 2)
+    if (dense_smem_bytes(F, win, bins) <= (size_t)mmb::kMaxSmemBytes) return F;
+  return 0;
+}
+
+// f(the tile pass instantiated for F frames a tile).
+template <int kEpi, typename Fn>
+auto with_dense_kernel(int F, Fn f) {
+  return F == 32   ? f(logmel_tile_kernel<kEpi, 32>)
+         : F == 16 ? f(logmel_tile_kernel<kEpi, 16>)
+         : F == 8  ? f(logmel_tile_kernel<kEpi, 8>)
+         : F == 4  ? f(logmel_tile_kernel<kEpi, 4>)
+         : F == 2  ? f(logmel_tile_kernel<kEpi, 2>)
+                   : f(logmel_tile_kernel<kEpi, 1>);
+}
+
+// The tile pass with the epilogue kEpi at dense_frames(win, bins) frames a
+// tile; tile_max [B, ceil(T / F)] (kDb only). *tiles gets ceil(T / F).
+template <int kEpi>
+cudaError_t launch_dense(const void* frames, long long stride_b, long long stride_t,
+                         const void* cos_b, const void* sin_b, const void* mel, float* out,
+                         float* tile_max, int B, int T, int win, int bins, int n_mels,
+                         cudaStream_t s, int* tiles) {
+  const int F = dense_frames(win, bins);
+  if (F == 0) return cudaErrorInvalidValue;
+  const size_t smem = dense_smem_bytes(F, win, bins);
+  *tiles = (T + F - 1) / F;
+  return with_dense_kernel<kEpi>(F, [&](auto kernel) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(*tiles, B), mmb::threads_for(bins, 512), smem, s>>>(
+        static_cast<const float*>(frames), stride_b, stride_t, static_cast<const float*>(cos_b),
+        static_cast<const float*>(sin_b), static_cast<const float*>(mel), out, tile_max, T, win,
+        bins, n_mels);
+    return cudaGetLastError();
+  });
+}
+
+// K3's second pass: grid (tiles of kDctFrames frames, examples); the
+// example's maximum over the first pass's ntiles block maxima, then the
+// clamp and the DCT of the tile's rows.
 __global__ void __launch_bounds__(256) mfcc_dct_kernel(
     const float* __restrict__ logmel, const float* __restrict__ tile_max,  // [B, ntiles]
     int ntiles,
     const float* __restrict__ dct,  // [n_mels, n_mfcc]
     float* __restrict__ out,        // [B, T, n_mfcc]
     int T, int n_mels, int n_mfcc) {
-  extern __shared__ float db_s[];  // [kTF][n_mels]
+  extern __shared__ float db_s[];  // [kDctFrames][n_mels]
   __shared__ float ref_s;
-  const int b = blockIdx.y, t0 = blockIdx.x * kTF, tid = threadIdx.x;
-  const int nf = min(kTF, T - t0);
+  const int b = blockIdx.y, t0 = blockIdx.x * kDctFrames, tid = threadIdx.x;
+  const int nf = min(kDctFrames, T - t0);
   if (tid < 32) {
     float mx = -INFINITY;
     for (int i = tid; i < ntiles; i += 32) mx = fmaxf(mx, tile_max[(size_t)b * ntiles + i]);
@@ -172,7 +228,9 @@ __global__ void __launch_bounds__(256) mfcc_dct_kernel(
   }
 }
 
-constexpr int kFftFrames = 8;  // frames a block of the FFT route, a warp each
+constexpr int kFftFrames = 8;  // the most frames a block of the FFT route, a warp each
+// The FFT route's largest n_fft: K4's (f32), K3's (f64 scratch and twiddles).
+constexpr int kFftMaxN = 8192, kFftMaxN64 = 4096;
 
 // Where z[i] sits in a warp's FFT scratch: one float2 of padding every
 // M/16 entries, so that the bit-reversed stores of a half-warp (16 lanes,
@@ -235,25 +293,28 @@ __device__ __forceinline__ void frame_power_fft(const float* x, const float* wnd
   }
 }
 
-// Dynamic shared memory of logmel_fft_kernel: twiddles [2M] and the warps'
-// scratch [F][zstride] (complex of cbytes: 8 for f32, 16 for f64), the mel
-// ranges [n_mels] (int4), then the window [win], the powers [F][M+1], the
-// packed mel weights [nnz] (if staged) and the frame span [(F-1)·ld + win]
-// (floats), each a multiple of 16 bytes.
-inline size_t fft_smem_bytes(int M, int win, int ld, int n_mels, int nnz_staged, int cbytes) {
+// Dynamic shared memory of logmel_fft_kernel at F frames a block: twiddles
+// [2M] and the warps' scratch [F][zstride] (complex of cbytes: 8 for f32, 16
+// for f64), the mel ranges [n_mels] (int4), then the window [win], the
+// powers [F][M+1], the packed mel weights [nnz] (if staged) and the frame
+// span [(F-1)·ld + win] (floats), each a multiple of 16 bytes.
+inline size_t fft_smem_bytes(int M, int win, int ld, int n_mels, int nnz_staged, int cbytes,
+                             int F) {
   const size_t r4 = 3;
   const int log2m = __builtin_ctz(M);
-  return cbytes * ((size_t)2 * M + (size_t)kFftFrames * zstride(log2m)) + 16 * (size_t)n_mels +
-         4 * (((size_t)win + r4) & ~r4) + 4 * (((size_t)kFftFrames * (M + 1) + r4) & ~r4) +
-         4 * (((size_t)nnz_staged + r4) & ~r4) + 4 * (size_t)((kFftFrames - 1) * ld + win);
+  return cbytes * ((size_t)2 * M + (size_t)F * zstride(log2m)) + 16 * (size_t)n_mels +
+         4 * (((size_t)win + r4) & ~r4) + 4 * (((size_t)F * (M + 1) + r4) & ~r4) +
+         4 * (((size_t)nnz_staged + r4) & ~r4) + 4 * (size_t)((size_t)(F - 1) * ld + win);
 }
 
 // The mel weights go to shared memory when they fit beside the rest (a
 // filterbank of triangles has about two weights a bin; a dense one may not).
-inline int fft_staged_weights(int M, int win, int ld, int n_mels, int nnz, int cbytes) {
-  return fft_smem_bytes(M, win, ld, n_mels, nnz, cbytes) <= (size_t)mmb::kMaxSmemBytes ? nnz : 0;
+inline int fft_staged_weights(int M, int win, int ld, int n_mels, int nnz, int cbytes, int F) {
+  return fft_smem_bytes(M, win, ld, n_mels, nnz, cbytes, F) <= (size_t)mmb::kMaxSmemBytes ? nnz
+                                                                                          : 0;
 }
 
+// A block of blockDim.x / 32 frames (at most kFftFrames).
 template <int kEpi>
 __global__ void __launch_bounds__(32 * kFftFrames) logmel_fft_kernel(
     const float* __restrict__ frames, long long stride_b, long long stride_t,
@@ -269,16 +330,16 @@ __global__ void __launch_bounds__(32 * kFftFrames) logmel_fft_kernel(
   using R = typename FftReal<kEpi>::T;
   using C2 = typename Cplx<R>::T;
   extern __shared__ __align__(16) float smem[];
-  const int M = 1 << log2m, bins = M + 1, zs = zstride(log2m);
+  const int M = 1 << log2m, bins = M + 1, zs = zstride(log2m), F = blockDim.x >> 5;
   C2* tw_s = reinterpret_cast<C2*>(smem);  // [2M]
   C2* z_s = tw_s + 2 * M;                   // [F][zs]
-  int4* mr_s = reinterpret_cast<int4*>(z_s + kFftFrames * zs);  // [n_mels]
-  float* w_s = reinterpret_cast<float*>(mr_s + n_mels);         // [win]
-  float* pw_s = w_s + ((win + 3) & ~3);                          // [F][bins]
-  float* mw_s = pw_s + ((kFftFrames * bins + 3) & ~3);           // [nnz_staged]
-  float* x_s = mw_s + ((nnz_staged + 3) & ~3);                   // the frames' span
-  const int b = blockIdx.y, t0 = blockIdx.x * kFftFrames, tid = threadIdx.x;
-  const int nf = min(kFftFrames, T - t0), lane = tid & 31, warp = tid >> 5;
+  int4* mr_s = reinterpret_cast<int4*>(z_s + F * zs);   // [n_mels]
+  float* w_s = reinterpret_cast<float*>(mr_s + n_mels);  // [win]
+  float* pw_s = w_s + ((win + 3) & ~3);                   // [F][bins]
+  float* mw_s = pw_s + ((F * bins + 3) & ~3);             // [nnz_staged]
+  float* x_s = mw_s + ((nnz_staged + 3) & ~3);            // the frames' span
+  const int b = blockIdx.y, t0 = blockIdx.x * F, tid = threadIdx.x;
+  const int nf = min(F, T - t0), lane = tid & 31, warp = tid >> 5;
   const float* fb = frames + (size_t)b * stride_b + (size_t)t0 * stride_t;
 
   // 1. the span (contiguous where the frames overlap or abut, frame by frame
@@ -330,20 +391,24 @@ __global__ void __launch_bounds__(32 * kFftFrames) logmel_fft_kernel(
     if (lane == 0) red[warp] = local_max;
     __syncthreads();
     if (warp == 0) {
-      float v = lane < kFftFrames ? red[lane] : -INFINITY;
+      float v = lane < F ? red[lane] : -INFINITY;
       v = mmb::warp_max(v);
       if (lane == 0) tile_max[(size_t)b * gridDim.x + blockIdx.x] = v;
     }
   }
 }
 
-// K3's second pass, on the first pass's dB rows and ntiles tile maxima an
-// example.
+// K3's second pass, on the first pass's dB rows and ntiles block maxima an
+// example; past 48 KB (n_mels > 384) its block opts in to more shared
+// memory, to n_mels = 1,815.
 int launch_dct(const float* logmel, const float* tile_max, int ntiles, const void* dct, void* out,
                int B, int T, int n_mels, int n_mfcc, cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)kTF * n_mels;
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  mfcc_dct_kernel<<<dim3((T + kTF - 1) / kTF, B), 256, smem, s>>>(
+  const size_t smem = sizeof(float) * (size_t)kDctFrames * n_mels;
+  if (smem + sizeof(float) > (size_t)mmb::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      mfcc_dct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  mfcc_dct_kernel<<<dim3((T + kDctFrames - 1) / kDctFrames, B), 256, smem, s>>>(
       logmel, tile_max, ntiles, static_cast<const float*>(dct), static_cast<float*>(out), T,
       n_mels, n_mfcc);
   return (int)cudaGetLastError();
@@ -351,29 +416,35 @@ int launch_dct(const float* logmel, const float* tile_max, int ntiles, const voi
 
 // The FFT route's validity and block geometry (shared by K3 and K4):
 // overlapping or abutting frames are staged as their span, others one by
-// one; the mel weights are staged when they fit.
+// one; F frames a block, the most of 8, 4, 2, 1 whose block fits, and at
+// that F the mel weights are staged when they fit beside the rest.
 struct FftGeometry {
-  int M, log2m, ld, staged;
+  int M, log2m, ld, staged, frames;
   size_t smem;
 };
 
 bool fft_geometry(int B, int T, int win, int n_fft, int n_mels, int nnz, long long stride_t,
                   int cbytes, FftGeometry* g) {
-  if (B <= 0 || T <= 0 || win <= 0 || n_mels <= 0 || nnz < 0 || n_fft < 16 || n_fft > 2048 ||
+  const int max_n = cbytes > (int)sizeof(float2) ? kFftMaxN64 : kFftMaxN;
+  if (B <= 0 || T <= 0 || win <= 0 || n_mels <= 0 || nnz < 0 || n_fft < 16 || n_fft > max_n ||
       (n_fft & (n_fft - 1)) != 0 || win > n_fft)
     return false;
   g->M = n_fft / 2;
   g->log2m = __builtin_ctz(g->M);
   g->ld = stride_t > 0 && stride_t <= win ? (int)stride_t : win;
-  g->staged = fft_staged_weights(g->M, win, g->ld, n_mels, nnz, cbytes);
-  g->smem = fft_smem_bytes(g->M, win, g->ld, n_mels, g->staged, cbytes);
-  return g->smem <= (size_t)mmb::kMaxSmemBytes;
+  for (int F = kFftFrames; F >= 1; F /= 2) {
+    g->staged = fft_staged_weights(g->M, win, g->ld, n_mels, nnz, cbytes, F);
+    g->smem = fft_smem_bytes(g->M, win, g->ld, n_mels, g->staged, cbytes, F);
+    g->frames = F;
+    if (g->smem <= (size_t)mmb::kMaxSmemBytes) return true;
+  }
+  return false;
 }
 
 }  // namespace
 
-// K3's dense route: logmel [B, T, n_mels] and tile_max [B, ceil(T / 32)]
-// are scratch.
+// K3's dense route: logmel [B, T, n_mels] and tile_max [B, ceil(T / F)]
+// (F = dense_frames(win, bins); [B, T] always suffices) are scratch.
 MMB_API int mmb_mfcc_forward(const void* frames, long long stride_b, long long stride_t,
                              const void* cos_b, const void* sin_b, const void* mel,
                              const void* dct, void* logmel, void* tile_max, void* out, int B,
@@ -381,17 +452,11 @@ MMB_API int mmb_mfcc_forward(const void* frames, long long stride_b, long long s
   if (B <= 0 || T <= 0 || win <= 0 || bins <= 0 || n_mels <= 0 || n_mfcc <= 0)
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  const int ntiles = (T + kTF - 1) / kTF;
-  const size_t smem1 = sizeof(float) * ((size_t)kTF * (win + bins) + 32);
-  if (smem1 > (size_t)mmb::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      logmel_tile_kernel<kDb>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-  if (e != cudaSuccess) return (int)e;
-  logmel_tile_kernel<kDb><<<dim3(ntiles, B), mmb::threads_for(bins, 512), smem1, s>>>(
-      static_cast<const float*>(frames), stride_b, stride_t, static_cast<const float*>(cos_b),
-      static_cast<const float*>(sin_b), static_cast<const float*>(mel),
-      static_cast<float*>(logmel), static_cast<float*>(tile_max), T, win, bins, n_mels);
-  e = cudaGetLastError();
+  int ntiles = 0;
+  const cudaError_t e = launch_dense<kDb>(frames, stride_b, stride_t, cos_b, sin_b, mel,
+                                          static_cast<float*>(logmel),
+                                          static_cast<float*>(tile_max), B, T, win, bins, n_mels,
+                                          s, &ntiles);
   if (e != cudaSuccess) return (int)e;
   return launch_dct(static_cast<const float*>(logmel), static_cast<const float*>(tile_max), ntiles,
                     dct, out, B, T, n_mels, n_mfcc, s);
@@ -400,8 +465,9 @@ MMB_API int mmb_mfcc_forward(const void* frames, long long stride_b, long long s
 // K3's FFT route: out [B, T, n_mfcc] as mmb_mfcc_forward, from the window,
 // the f64 twiddles (double2 [n_fft], laid out as K4's), the filterbank's
 // nonzeros (as for mmb_log_mel_fft_forward) and the DCT; logmel [B, T,
-// n_mels] and tile_max [B, ceil(T / 8)] are scratch. n_fft a power of two
-// from 16 to 2048, win <= n_fft.
+// n_mels] and tile_max [B, ceil(T / F)] (F the geometry's frames a block,
+// 8 to n_fft 2048; [B, T] always suffices) are scratch. n_fft a power of
+// two from 16 to 4096, win <= n_fft.
 MMB_API int mmb_mfcc_fft_forward(const void* frames, long long stride_b, long long stride_t,
                                  const void* window, const void* twiddle, const void* mel_w,
                                  const void* mel_range, const void* dct, void* logmel,
@@ -412,11 +478,11 @@ MMB_API int mmb_mfcc_fft_forward(const void* frames, long long stride_b, long lo
   if (n_mfcc <= 0 || !fft_geometry(B, T, win, n_fft, n_mels, nnz, stride_t, sizeof(C2), &g))
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  const int ntiles = (T + kFftFrames - 1) / kFftFrames;
+  const int ntiles = (T + g.frames - 1) / g.frames;
   cudaError_t e = cudaFuncSetAttribute(logmel_fft_kernel<kDb>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)g.smem);
   if (e != cudaSuccess) return (int)e;
-  logmel_fft_kernel<kDb><<<dim3(ntiles, B), 32 * kFftFrames, g.smem, s>>>(
+  logmel_fft_kernel<kDb><<<dim3(ntiles, B), 32 * g.frames, g.smem, s>>>(
       static_cast<const float*>(frames), stride_b, stride_t, g.ld,
       static_cast<const float*>(window), static_cast<const C2*>(twiddle),
       static_cast<const float*>(mel_w), static_cast<const int4*>(mel_range),
@@ -434,18 +500,13 @@ MMB_API int mmb_log_mel_forward(const void* frames, long long stride_b, long lon
                                 void* out, int B, int T, int win, int bins, int n_mels, int log,
                                 void* stream) {
   if (B <= 0 || T <= 0 || win <= 0 || bins <= 0 || n_mels <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)kTF * (win + bins) + 32);
-  if (smem > (size_t)mmb::kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  const auto kernel = log ? logmel_tile_kernel<kLogMel> : logmel_tile_kernel<kMelPower>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3((T + kTF - 1) / kTF, B), mmb::threads_for(bins, 512), smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(frames), stride_b, stride_t, static_cast<const float*>(cos_b),
-      static_cast<const float*>(sin_b), static_cast<const float*>(mel), static_cast<float*>(out),
-      nullptr, T, win, bins, n_mels);
-  return (int)cudaGetLastError();
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* o = static_cast<float*>(out);
+  int tiles = 0;
+  return (int)(log ? launch_dense<kLogMel>(frames, stride_b, stride_t, cos_b, sin_b, mel, o,
+                                           nullptr, B, T, win, bins, n_mels, s, &tiles)
+                   : launch_dense<kMelPower>(frames, stride_b, stride_t, cos_b, sin_b, mel, o,
+                                             nullptr, B, T, win, bins, n_mels, s, &tiles));
 }
 
 // K4's FFT route: out [B, T, n_mels] as mmb_log_mel_forward, from the
@@ -453,7 +514,7 @@ MMB_API int mmb_log_mel_forward(const void* frames, long long stride_b, long lon
 // for each stage, then W_{n_fft}^k at n_fft/2 + k), and the
 // filterbank's nonzeros: each mel column's first and last nonzero bin and
 // the offset of its weights in mel_w (int4 [n_mels]), and the weights
-// (mel_w [nnz]). n_fft a power of two from 16 to 2048, win <= n_fft.
+// (mel_w [nnz]). n_fft a power of two from 16 to 8192, win <= n_fft.
 MMB_API int mmb_log_mel_fft_forward(const void* frames, long long stride_b, long long stride_t,
                                     const void* window, const void* twiddle, const void* mel_w,
                                     const void* mel_range, void* out, int B, int T, int win,
@@ -465,7 +526,7 @@ MMB_API int mmb_log_mel_fft_forward(const void* frames, long long stride_b, long
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)g.smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3((T + kFftFrames - 1) / kFftFrames, B), 32 * kFftFrames, g.smem,
+  kernel<<<dim3((T + g.frames - 1) / g.frames, B), 32 * g.frames, g.smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(frames), stride_b, stride_t, g.ld,
       static_cast<const float*>(window), static_cast<const float2*>(twiddle),
@@ -474,12 +535,27 @@ MMB_API int mmb_log_mel_fft_forward(const void* frames, long long stride_b, long
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory a block of K4's FFT route (f64 != 0: K3's) asks
-// for, in bytes (ld: the distance between frames in the staged span,
-// stride_t or win).
-MMB_API int mmb_log_mel_fft_smem_bytes(int n_fft, int win, int ld, int n_mels, int nnz, int f64) {
-  const int M = n_fft / 2;
+// K4's FFT route's block (f64 != 0: K3's) for these operands (ld: the
+// distance between frames in the staged span, stride_t or win) into out[3]:
+// frames a block, mel weights staged, dynamic shared memory in bytes.
+// Returns 0, or cudaErrorInvalidValue where the route does not take them.
+MMB_API int mmb_log_mel_fft_plan(int n_fft, int win, int ld, int n_mels, int nnz, int f64,
+                                 int* out) {
   const int cbytes = f64 ? sizeof(Cplx<FftReal<kDb>::T>::T) : sizeof(float2);
-  return (int)fft_smem_bytes(M, win, ld, n_mels, fft_staged_weights(M, win, ld, n_mels, nnz, cbytes),
-                             cbytes);
+  FftGeometry g;
+  if (!fft_geometry(1, 1, win, n_fft, n_mels, nnz, ld, cbytes, &g))
+    return (int)cudaErrorInvalidValue;
+  out[0] = g.frames, out[1] = g.staged, out[2] = (int)g.smem;
+  return 0;
 }
+
+// Dynamic shared memory a block of K4's FFT route (f64 != 0: K3's) asks
+// for, in bytes, at the plan's frames a block (mmb_log_mel_fft_plan); 0
+// where the route does not take the operands.
+MMB_API int mmb_log_mel_fft_smem_bytes(int n_fft, int win, int ld, int n_mels, int nnz, int f64) {
+  int out[3];
+  return mmb_log_mel_fft_plan(n_fft, win, ld, n_mels, nnz, f64, out) == 0 ? out[2] : 0;
+}
+
+// The dense route's frames a block for [win, bins] bases (0: no route).
+MMB_API int mmb_mel_dense_frames(int win, int bins) { return dense_frames(win, bins); }

@@ -9,11 +9,11 @@ For each ``--nffts`` value (window = n_fft past 512, else 400):
 - ``stockham``: the radix-2 Stockham FFT (``ops/audio.py::
   stockham_power_spectrum``, the ``audio_fft="stockham"`` path);
 - ``k4``: K4's log-mel (``ops/cuda/melspec_kernel.py::log_mel_fused``) on
-  the route ``log_mel_route`` picks at that n_fft: the FFT route up to 2048,
-  the dense route past it. The route is printed; where the dense route's
-  block (32 frames and their spectra) does not fit a block's shared memory
-  the card refuses K4, and the arm prints the route ``none`` and no time
-  (at n_fft 4096: 786 KB against 227 KB).
+  the route ``log_mel_route`` picks at that n_fft: the FFT route up to 8192
+  (4 frames a block at 4096, 2 at 8192), the dense route past it, with the
+  frames a block its shared memory holds. The route is printed; where not
+  even one frame of the dense route fits a block (win + bins past ~58,000)
+  the card refuses K4, and the arm prints the route ``none`` and no time.
 
 Each is checked on at most 512 frames against ``np.fft.rfft`` of the
 windowed frames in f64 (K4 against the log of the mel of that spectrum),
@@ -76,7 +76,7 @@ def reference_spectra(frames: np.ndarray, n_fft: int, mel_fb: np.ndarray) -> dic
 
 def main(argv=None) -> list[dict]:
     from mmbidaf_tpu_torch.ops import audio
-    from mmbidaf_tpu_torch.ops.cuda import build, melspec_kernel
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=512,
@@ -96,8 +96,7 @@ def main(argv=None) -> list[dict]:
         consts = audio.make_audio_frontend_consts(SAMPLE_RATE, n_fft, win, N_MELS, N_MFCC,
                                                   device=dev)
         route = melspec_kernel.log_mel_route(win, n_fft // 2 + 1)
-        if route == "dense" and (melspec_kernel.dense_smem_bytes(win, n_fft // 2 + 1)
-                                 > build.SMEM_LIMIT_BYTES):
+        if route == "dense" and melspec_kernel.dense_frames(win, n_fft // 2 + 1) == 0:
             route = "none"
         frames_np = (rng.standard_normal((n_check, win)) * 0.1).astype(np.float32)
         want = reference_spectra(frames_np, n_fft, consts["mel_fb"].cpu().numpy())

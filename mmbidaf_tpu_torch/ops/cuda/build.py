@@ -59,6 +59,12 @@ SIGNATURES = {
     "mmb_bilstm_forward_occupancy": (I, I),
     "mmb_bilstm_forward_train_occupancy": (I, I),
     "mmb_bilstm_backward_occupancy": (I, I),
+    # B, H -> the L2 routes' rows a block (0: none)
+    "mmb_lstm_l2_rows": (I, I),
+    # B, H -> blocks of K1's / K5's / K6's walk's L2 route an SM holds (<= 0: none)
+    "mmb_bilstm_forward_l2_occupancy": (I, I),
+    "mmb_bilstm_forward_train_l2_occupancy": (I, I),
+    "mmb_bilstm_backward_l2_occupancy": (I, I),
     # c, q, c_mask, q_mask, w_c, w_q, w_cq, bias, out, B, T_c, T_q, D, stream
     "mmb_bidaf_forward": (P, P, P, P, P, P, P, P, P, I, I, I, I, P),
     # T_c, T_q, D, out[4] -> K2's cluster plan: C, tq, K2's and (at this
@@ -90,8 +96,13 @@ SIGNATURES = {
     # n_fft, n_mels, nnz, log, stream
     "mmb_log_mel_fft_forward": (P, LL, LL, P, P, P, P, P, I, I, I, I, I, I, I, P),
     # n_fft, win, ld, n_mels, nnz, f64 -> dynamic shared memory of a block of
-    # K4's FFT route (f64 != 0: K3's), in bytes
+    # K4's FFT route (f64 != 0: K3's), in bytes (0: no block fits)
     "mmb_log_mel_fft_smem_bytes": (I, I, I, I, I, I),
+    # n_fft, win, ld, n_mels, nnz, f64, out[3] -> the FFT route's block: frames,
+    # staged mel weights, dynamic shared memory (bytes)
+    "mmb_log_mel_fft_plan": (I, I, I, I, I, I, P),
+    # win, bins -> the dense route's frames a block (0: none)
+    "mmb_mel_dense_frames": (I, I),
     # c, q, c_mask, q_mask, w_c, w_q, w_cq, bias, out, work, B, T_c, T_q, D, tq_blk, stream
     "mmb_bidaf_tiled_forward": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
     # T_c, T_q, D, tq_blk, out[6] -> K9's plan: C, span, tq, resident, the

@@ -16,9 +16,14 @@ past 448, 432 or 384 at 4, 8 or 16 rows a cluster). ``bilstm_cuda.routes``
 counts the launches of each.
 
 K5 and K6 are the training pair, the port of ``bilstm_pallas_trainable``,
-both on thread-block clusters that keep ``W_h`` in shared memory
-(``csrc/lstm_cluster.cuh``; :func:`cluster_plan` mirrors its host-side
-plan, and a shape with no plan raises). K5 is K1's recurrence that also
+on K1's two routes, picked by :func:`train_route` (K1's rule) before any
+launch and counted in ``.routes``: ``cluster``, thread-block clusters that
+keep ``W_h`` in shared memory (``csrc/lstm_cluster.cuh``; :func:`cluster_plan`
+mirrors its host-side plan), and ``l2``, one block a group of
+:func:`l2_rows` rows reading ``W_h`` from L2 every step, for the widths with
+no cluster plan (the JAX kernel trains to H = 699 through its kernel and
+past that through a scan; the port has a route for every H to 9,685, past
+which it raises before any launch). K5 is K1's recurrence that also
 writes the carried ``h_seq``/``c_seq`` ``[2, T, rows, h]`` (per direction,
 in processing order) as the BPTT residuals. K6 runs in three phases:
 (a) the gate pre-activations ``z`` of every step at once, one product over
@@ -26,9 +31,11 @@ the residuals written into the ``dgates`` buffer, which has the gates'
 layout and doubles as z's scratch; (b) the walk backwards from the saved
 f32 gates and residuals, seeded with the cotangents of ``(h_last,
 c_last)``, which overwrites each step's ``z`` with its ``dz`` and carries
-``dh`` through the cluster's shared memory; (c) ``dW_h``, summed over rows
-and steps by a product over the residuals with partials summed in a fixed
-order. No phase uses atomics.
+``dh`` through the cluster's shared memory (on the ``l2`` route, through
+the block's, with ``dz·W_hᵀ`` read from L2 every step); (c) ``dW_h``,
+summed over rows and steps by a product over the residuals with partials
+summed in a fixed order. (a) and (c) need no cluster plan and are the same
+on both routes. No phase uses atomics.
 :class:`BiLSTMTrainableFn` ties them into one ``torch.autograd.Function``
 per layer; ``dx``, ``dW_x`` and ``db`` come from autograd through the
 projection, the plain GEMMs they are on the TPU too. The TPU recomputes
@@ -59,7 +66,10 @@ bench_train shapes (B=32) the largest errors measured on an H100 were
 5.4e-7 on dgates up to 3.4 and 1.3e-5 on dW_h up to 13 (1.0e-6 of its
 scale); on a cluster, 4.8e-7 on dgates up to 4.9 and 1.3e-5 on dW_h up to
 13. So ``BPTT_TOLERANCE`` (``atol = 1e-5, rtol = 5e-6``, normwise) leaves
-a 5x margin on dW_h and 50x on dgates.
+a 5x margin on dW_h and 50x on dgates. On the L2 routes (``chip_smoke.py``
+16a: H 400–1024, 32–2048 rows, up to 512 steps) the largest errors measured
+on an H100 were 1.5e-7 (K5) and 1.2e-5 on dW_h up to 10 (K6), within the
+same bounds.
 """
 
 from __future__ import annotations
@@ -136,33 +146,79 @@ def cluster_plan(rows: int, H: int) -> ClusterPlan:
     return ClusterPlan(C, R, -(-H // C), slices, clusters, 2 * clusters * C, *_smem(H, C, R))
 
 
+def l2_smem(H: int, R: int) -> int:
+    """Shared memory a block of the L2 routes asks for (``lstm_cluster.cuh::
+    l2_smem``): ``R`` rows of ``[h | c | z]`` (K1, K5) or ``[dh | dc | dz]``
+    (K6's walk), 6H floats a row."""
+    return 4 * R * 6 * H
+
+
+def l2_rows(rows: int, H: int) -> int:
+    """The L2 routes' rows a block (``lstm_cluster.cuh::l2_rows``): 16 from
+    1024 rows, else 4, halved while :func:`l2_smem` exceeds a block's shared
+    memory; 0 where not even one row fits (H past 9,685) or the shape is
+    empty."""
+    if rows <= 0 or H <= 0:
+        return 0
+    R = 16 if rows >= 1024 else 4
+    while R >= 1 and l2_smem(H, R) > SMEM_LIMIT:
+        R //= 2
+    return max(R, 0)
+
+
 def serving_route(rows: int, H: int) -> str:
     """K1's route for ``rows`` rows of width ``H`` (``mmb_bilstm_forward``'s
     rule): ``"cluster"`` where :func:`cluster_plan` has a plan, else
-    ``"l2"``."""
+    ``"l2"``. Raises ``ValueError`` where neither route takes the shape."""
     try:
         cluster_plan(rows, H)
     except ValueError:
+        if l2_rows(rows, H) == 0:
+            raise ValueError(f"no BiLSTM route for rows={rows}, H={H}: the L2 route's block of one "
+                             f"row needs {l2_smem(H, 1)} bytes of shared memory, more than "
+                             f"{SMEM_LIMIT}") from None
         return "l2"
     return "cluster"
+
+
+def train_route(rows: int, H: int) -> str:
+    """K5's and K6's route (``mmb_bilstm_forward_train``'s and
+    ``mmb_bilstm_backward``'s rule, K1's): ``"cluster"`` where
+    :func:`cluster_plan` has a plan, else ``"l2"``; raises where neither
+    takes the shape."""
+    return serving_route(rows, H)
 
 
 _occupancy_checked: set = set()
 
 
-def _check_cluster(lib, entry: str, rows: int, H: int) -> None:
-    """That this shape has a plan and, once per plan, that the card can hold
-    one of its clusters (``cudaOccupancyMaxActiveClusters > 0``); raises
-    otherwise, before anything is launched."""
-    plan = cluster_plan(rows, H)
-    key = (entry, H, plan.R)  # the plan's only inputs
+def _check_route(lib, entry: str, rows: int, H: int) -> str:
+    """This shape's route and, once per plan, that the card can hold one of
+    its clusters (``cudaOccupancyMaxActiveClusters > 0``) or, on the L2
+    route, one of its blocks an SM; raises otherwise, before anything is
+    launched."""
+    route = serving_route(rows, H)
+    if route == "cluster":
+        plan = cluster_plan(rows, H)
+        key = (entry, H, plan.R)  # the plan's only inputs
+        if key not in _occupancy_checked:
+            n = getattr(lib, f"{entry}_occupancy")(rows, H)
+            if n <= 0:
+                raise RuntimeError(f"{entry}: the card holds no cluster of {plan.C} blocks of this "
+                                   f"plan ({plan.smem_fwd} / {plan.smem_bwd} bytes of shared memory "
+                                   f"a block for K1 and K5 / K6; cudaOccupancyMaxActiveClusters {n})")
+            _occupancy_checked.add(key)
+        return route
+    R = l2_rows(rows, H)
+    key = (entry, "l2", H, R)
     if key not in _occupancy_checked:
-        n = getattr(lib, f"{entry}_occupancy")(rows, H)
+        n = getattr(lib, f"{entry}_l2_occupancy")(rows, H)
         if n <= 0:
-            raise RuntimeError(f"{entry}: the card holds no cluster of {plan.C} blocks of this plan "
-                               f"({plan.smem_fwd} / {plan.smem_bwd} bytes of shared memory a block "
-                               f"for K1 and K5 / K6; cudaOccupancyMaxActiveClusters {n})")
+            raise RuntimeError(f"{entry}: an SM holds no block of the L2 route at H={H}, R={R} "
+                               f"({l2_smem(H, R)} bytes of shared memory a block; "
+                               f"cudaOccupancyMaxActiveBlocksPerMultiprocessor {n})")
         _occupancy_checked.add(key)
+    return route
 
 
 def _projection(params, x: torch.Tensor) -> torch.Tensor:
@@ -249,9 +305,7 @@ def _bilstm_launch(gates: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor):
     h_last = torch.empty(B, 2 * H, device=dev)
     c_last = torch.empty(B, 2 * H, device=dev)
     lib = build.library()
-    route = serving_route(B, H)
-    if route == "cluster":
-        _check_cluster(lib, "mmb_bilstm_forward", B, H)
+    route = _check_route(lib, "mmb_bilstm_forward", B, H)
     rc = lib.mmb_bilstm_forward(
         gates.data_ptr(), mask.data_ptr(), w_h.data_ptr(), out.data_ptr(),
         h_last.data_ptr(), c_last.data_ptr(), B, T, H,
@@ -319,15 +373,16 @@ def _check_train_operands(gates, mask, w_h):
 
 def bilstm_train_forward(gates: torch.Tensor, mask: torch.Tensor, w_h: torch.Tensor):
     """K5: the training recurrence (contract of
-    :func:`bilstm_train_forward_reference`). ``bilstm_train_forward.launches``
-    counts kernel launches."""
+    :func:`bilstm_train_forward_reference`) on the route :func:`train_route`
+    picks. ``bilstm_train_forward.launches`` counts kernel launches,
+    ``bilstm_train_forward.routes`` those of each route."""
     if gates.device.type == "cpu":
         return bilstm_train_forward_reference(gates, mask, w_h)
     if gates.device.type != "cuda":
         raise ValueError(f"bilstm_train_forward: unsupported device {gates.device}")
     B, T, H, dev = _check_train_operands(gates, mask, w_h)
     lib = build.library()
-    _check_cluster(lib, "mmb_bilstm_forward_train", B, H)
+    route = _check_route(lib, "mmb_bilstm_forward_train", B, H)
     out = torch.empty(B, T, 2 * H, device=dev)
     h_last = torch.empty(B, 2 * H, device=dev)
     c_last = torch.empty(B, 2 * H, device=dev)
@@ -340,20 +395,24 @@ def bilstm_train_forward(gates: torch.Tensor, mask: torch.Tensor, w_h: torch.Ten
     )
     build.check_launch(lib, rc, "mmb_bilstm_forward_train")
     bilstm_train_forward.launches += 1
+    bilstm_train_forward.routes[route] += 1
     return out, h_last, c_last, h_seq, c_seq
 
 
 bilstm_train_forward.launches = 0
+bilstm_train_forward.routes = {"cluster": 0, "l2": 0}
 
 
 def bilstm_bptt(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last):
     """K6: backward through time (contract of :func:`bilstm_bptt_reference`)
     in three phases: (a) ``z = gates + h_seq[s-1]·W_h`` for every step
     ``s >= 1`` at once, written into ``dgates``, which has the gates' layout
-    and doubles as its scratch; (b) the walk on a cluster, which overwrites
-    each step's ``z`` with its ``dz``; (c) ``dW_h`` over the residuals, in
-    per-slice partials (``partial``) summed in a fixed order.
-    ``bilstm_bptt.launches`` counts calls that launched the three phases."""
+    and doubles as its scratch; (b) the walk, on the route
+    :func:`train_route` picks (a cluster, or a block a row group by L2),
+    which overwrites each step's ``z`` with its ``dz``; (c) ``dW_h`` over
+    the residuals, in per-slice partials (``partial``) summed in a fixed
+    order. ``bilstm_bptt.launches`` counts calls that launched the three
+    phases, ``bilstm_bptt.routes`` those of each route."""
     if gates.device.type == "cpu":
         return bilstm_bptt_reference(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last)
     if gates.device.type != "cuda":
@@ -364,7 +423,7 @@ def bilstm_bptt(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last):
                            ("dc_last", dc_last, (B, 2 * H))):
         build.check_tensor(t, name, shape, dev)
     lib = build.library()
-    _check_cluster(lib, "mmb_bilstm_backward", B, H)
+    route = _check_route(lib, "mmb_bilstm_backward", B, H)
     num_splits = max(1, -(-((T - 1) * B) // lib.mmb_lstm_dwh_split(B, T)))
     dgates = torch.empty_like(gates)
     partial = torch.empty(num_splits, 2, H, 4 * H, device=dev)
@@ -377,15 +436,18 @@ def bilstm_bptt(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last):
     )
     build.check_launch(lib, rc, "mmb_bilstm_backward")
     bilstm_bptt.launches += 1
+    bilstm_bptt.routes[route] += 1
     return dgates, dw_h
 
 
 bilstm_bptt.launches = 0
+bilstm_bptt.routes = {"cluster": 0, "l2": 0}
 
 
 class BiLSTMTrainableFn(torch.autograd.Function):
     """One BiLSTM layer's recurrence with its BPTT backward: K5 forward, K6
-    backward. Inputs f32 ``gates [B, T, 8H]``, ``mask [B, T]``,
+    backward, both on the route :func:`train_route` names for the shape (one
+    rule, so the backward takes the forward's route). Inputs f32 ``gates [B, T, 8H]``, ``mask [B, T]``,
     ``w_h [2, H, 4H]``; outputs ``(out [B, T, 2H], h_last, c_last [B, 2H])``."""
 
     @staticmethod

@@ -14,10 +14,12 @@ through the custom op ``torch.ops.mmbidaf.mfcc`` (K4's wrapper through
 implementation alone launches and moves the counters, and whose FFT
 operands (window, twiddles, mel ranges) are built and cached there, on the
 real tensors.
-K3 has two routes, picked by :func:`mfcc_route` (K4's rule) and counted in
-``mfcc_fused.routes``: ``fft`` (``csrc/mfcc.cu::logmel_fft_kernel<kDb>``:
-K4's FFT body in f64 with a dB epilogue and the block maxima) and ``dense``
-(the DFT as two products, any ``n_fft``); both end in the same DCT pass. The
+K3 has two routes, picked by :func:`mfcc_route` (K4's rule, with the FFT
+route to n_fft 4096: its f64 scratch and twiddles take twice K4's bytes)
+and counted in ``mfcc_fused.routes``: ``fft``
+(``csrc/mfcc.cu::logmel_fft_kernel<kDb>``: K4's FFT body in f64 with a dB
+epilogue and the block maxima) and ``dense`` (the DFT as two products, any
+``n_fft``); both end in the same DCT pass, which takes up to 1,815 mels. The
 FFT route takes the same operands as K4's (:func:`_fft_operands`, with the
 basis check that raises) and f64 twiddles.
 Tolerance of kernel vs plain on the card: the plain version sums the
@@ -53,9 +55,12 @@ on an H100 at the long-audio and log-mel shapes: 6.0e-8 on raw mels up to
 
 K4 has two routes, picked by :func:`log_mel_route` from the shapes before
 the launch and counted in ``log_mel_fused.routes``: ``fft`` where
-``n_fft = 2·(bins − 1)`` is a power of two from 16 to 2048 and ``win <=
+``n_fft = 2·(bins − 1)`` is a power of two from 16 to 8192 and ``win <=
 n_fft`` (the configurations' 512), ``dense`` (the DFT as two products, any
-``n_fft``) otherwise. The FFT route rests on the bases being a window's
+``n_fft``) otherwise. Each route's frames a block are chosen at launch, the
+most whose block fits its shared memory (:func:`fft_plan`: 8, 4, 2 or 1;
+:func:`dense_frames`: 32, 16, …, 1); a shape that no block holds raises
+before any launch. The FFT route rests on the bases being a window's
 DFT basis of ``n_fft`` (``ops/audio.py::make_audio_frontend_consts``:
 ``cos = window[:, None] · cos(2πnk/n_fft)``, the frame zero-padded at the
 end), so ``frames @ cos`` and ``frames @ sin`` are the real and imaginary
@@ -67,6 +72,8 @@ runs over each mel column's nonzero bins (:func:`mel_nonzeros`).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -97,8 +104,9 @@ def mfcc_reference(frames: torch.Tensor, consts: dict) -> torch.Tensor:
 
 def mfcc_route(win: int, bins: int) -> str:
     """K3's route for ``[win, bins]`` bases, by K4's rule
-    (:func:`log_mel_route`): ``"fft"`` or ``"dense"``."""
-    return log_mel_route(win, bins)
+    (:func:`log_mel_route`) with the FFT route to ``MFCC_FFT_SIZES``:
+    ``"fft"`` or ``"dense"``."""
+    return _route(win, bins, MFCC_FFT_SIZES)
 
 
 def mfcc_fused(frames: torch.Tensor, consts: dict) -> torch.Tensor:
@@ -155,13 +163,22 @@ def _mfcc_launch(frames: torch.Tensor, consts: dict, route: str) -> torch.Tensor
     for name, shape in (("cos", (win, bins)), ("sin", (win, bins)),
                         ("mel_fb", (bins, n_mels)), ("dct", (n_mels, n_mfcc))):
         build.check_tensor(consts[name], name, shape, dev)
+    if dct_smem_bytes(n_mels) + 4 > build.SMEM_LIMIT_BYTES:
+        raise ValueError(f"mfcc_fused: the DCT pass's block of {DCT_FRAMES} frames of {n_mels} "
+                         f"mels needs {dct_smem_bytes(n_mels)} bytes of shared memory, more than "
+                         f"{build.SMEM_LIMIT_BYTES}")
+    if route == "fft":
+        window, twiddle, ranges, weights = _fft_operands(consts, torch.float64)
+        F = _fft_plan_or_raise(2 * (bins - 1), win, frames.stride(1), n_mels, weights.numel(),
+                               True, "mfcc_fused").frames
+    else:
+        F = _dense_frames_or_raise(win, bins, "mfcc_fused")
     logmel = torch.empty(B, T, n_mels, device=dev)
     out = torch.empty(B, T, n_mfcc, device=dev)
+    tile_max = torch.empty(B, -(-T // F), device=dev)  # a maximum a block of the first pass
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if route == "fft":
-        window, twiddle, ranges, weights = _fft_operands(consts, torch.float64)
-        tile_max = torch.empty(B, -(-T // FFT_FRAMES), device=dev)
         rc = lib.mmb_mfcc_fft_forward(
             frames.data_ptr(), frames.stride(0), frames.stride(1), window.data_ptr(),
             twiddle.data_ptr(), weights.data_ptr(), ranges.data_ptr(), consts["dct"].data_ptr(),
@@ -170,7 +187,6 @@ def _mfcc_launch(frames: torch.Tensor, consts: dict, route: str) -> torch.Tensor
         )
         build.check_launch(lib, rc, "mmb_mfcc_fft_forward")
     else:
-        tile_max = torch.empty(B, -(-T // DENSE_FRAMES), device=dev)
         rc = lib.mmb_mfcc_forward(
             frames.data_ptr(), frames.stride(0), frames.stride(1),
             consts["cos"].data_ptr(), consts["sin"].data_ptr(), consts["mel_fb"].data_ptr(),
@@ -192,19 +208,101 @@ def log_mel_reference(frames: torch.Tensor, consts: dict, log: bool = True) -> t
     return audio.log_mel(frames, consts) if log else audio.melspectrogram(frames, consts)
 
 
-# K4's FFT route: n_fft a power of two in this range, win <= n_fft.
-FFT_SIZES = (16, 2048)
-# Frames a block of the first pass: the FFT route's (csrc/mfcc.cu::
-# kFftFrames, a warp a frame) and the dense route's (kTF); K3 keeps one
-# maximum a block for its DCT pass.
-FFT_FRAMES, DENSE_FRAMES = 8, 32
+# The FFT route: n_fft a power of two in this range, win <= n_fft; K4's
+# (csrc/mfcc.cu::kFftMaxN) and K3's, whose f64 block holds to 4096 (kFftMaxN64).
+FFT_SIZES = (16, 8192)
+MFCC_FFT_SIZES = (16, 4096)
+# The most frames a block of the first pass: the FFT route's (csrc/mfcc.cu::
+# kFftFrames, a warp a frame) and the dense route's; K3 keeps one maximum a
+# block for its DCT pass, which takes DCT_FRAMES frames a block.
+FFT_FRAMES, DENSE_FRAMES, DCT_FRAMES = 8, 32, 32
 
 
-def dense_smem_bytes(win: int, bins: int) -> int:
-    """Shared memory a block of the dense route asks for (``csrc/mfcc.cu``:
-    DENSE_FRAMES frames and their spectra, 32 warp maxima); past
-    ``build.SMEM_LIMIT_BYTES`` the launch is refused."""
-    return 4 * (DENSE_FRAMES * (win + bins) + 32)
+def dense_smem_bytes(win: int, bins: int, frames: int = DENSE_FRAMES) -> int:
+    """Shared memory a block of the dense route asks for (``csrc/mfcc.cu::
+    dense_smem_bytes``): ``frames`` frames and their spectra, 32 warp
+    maxima."""
+    return 4 * (frames * (win + bins) + 32)
+
+
+def dense_frames(win: int, bins: int) -> int:
+    """The dense route's frames a block (``csrc/mfcc.cu::dense_frames``): the
+    most of 32, 16, …, 1 whose block fits ``build.SMEM_LIMIT_BYTES``; 0 where
+    not even one frame fits (win + bins past ~58,000)."""
+    F = DENSE_FRAMES
+    while F >= 1 and dense_smem_bytes(win, bins, F) > build.SMEM_LIMIT_BYTES:
+        F //= 2
+    return F
+
+
+def dct_smem_bytes(n_mels: int) -> int:
+    """Shared memory a block of K3's DCT pass asks for: DCT_FRAMES rows of
+    dB mels (and one static float beside them, within the limit)."""
+    return 4 * DCT_FRAMES * n_mels
+
+
+class FftPlan(NamedTuple):
+    """The FFT route's block (``csrc/mfcc.cu::fft_geometry``): ``frames`` a
+    block, the mel weights ``staged`` in shared memory (their count, or 0),
+    and its dynamic shared memory in bytes."""
+    frames: int
+    staged: int
+    smem: int
+
+
+def _zstride(log2m: int) -> int:
+    sh = log2m - 4 if log2m > 4 else 0
+    return (1 << log2m) + ((1 << log2m) >> sh)
+
+
+def fft_smem_bytes(n_fft: int, win: int, ld: int, n_mels: int, staged: int, f64: bool,
+                   frames: int) -> int:
+    """Shared memory of a block of the FFT route (``csrc/mfcc.cu::
+    fft_smem_bytes``) at ``frames`` frames a block."""
+    M = n_fft // 2
+    cbytes = 16 if f64 else 8
+    r4 = lambda n: (n + 3) & ~3  # noqa: E731
+    return (cbytes * (2 * M + frames * _zstride(M.bit_length() - 1)) + 16 * n_mels + 4 * r4(win)
+            + 4 * r4(frames * (M + 1)) + 4 * r4(staged) + 4 * ((frames - 1) * ld + win))
+
+
+def fft_plan(n_fft: int, win: int, hop: int, n_mels: int, nnz: int, f64: bool = False):
+    """The FFT route's block for these operands, as ``csrc/mfcc.cu::
+    fft_geometry`` plans it: frames ``hop`` apart are staged as their span
+    where they overlap or abut (else one by one, ``win`` apart); the most
+    frames of 8, 4, 2, 1 whose block fits, the mel weights staged where they
+    fit beside the rest; ``None`` where the route does not take them."""
+    lo, hi = MFCC_FFT_SIZES if f64 else FFT_SIZES
+    if not (lo <= n_fft <= hi and n_fft & (n_fft - 1) == 0 and 1 <= win <= n_fft) \
+            or n_mels <= 0 or nnz < 0:
+        return None
+    ld = hop if 0 < hop <= win else win
+    for F in (8, 4, 2, 1):
+        with_weights = fft_smem_bytes(n_fft, win, ld, n_mels, nnz, f64, F)
+        staged = nnz if with_weights <= build.SMEM_LIMIT_BYTES else 0
+        smem = fft_smem_bytes(n_fft, win, ld, n_mels, staged, f64, F)
+        if smem <= build.SMEM_LIMIT_BYTES:
+            return FftPlan(F, staged, smem)
+    return None
+
+
+def _dense_frames_or_raise(win: int, bins: int, name: str) -> int:
+    F = dense_frames(win, bins)
+    if F == 0:
+        raise ValueError(f"{name}: no route for [{win}, {bins}] bases: the dense route's block of "
+                         f"one frame needs {dense_smem_bytes(win, bins, 1)} bytes of shared memory, "
+                         f"more than {build.SMEM_LIMIT_BYTES}")
+    return F
+
+
+def _fft_plan_or_raise(n_fft: int, win: int, hop: int, n_mels: int, nnz: int, f64: bool,
+                       name: str) -> FftPlan:
+    plan = fft_plan(n_fft, win, hop, n_mels, nnz, f64)
+    if plan is None:
+        raise ValueError(f"{name}: the FFT route's block of one frame at n_fft={n_fft}, win={win}, "
+                         f"{n_mels} mels needs more than {build.SMEM_LIMIT_BYTES} bytes of shared "
+                         f"memory")
+    return plan
 
 
 # cos/sin vs the window's DFT basis, within this share of max|window| (f32
@@ -212,14 +310,18 @@ def dense_smem_bytes(win: int, bins: int) -> int:
 _BASIS_RTOL = 2.0 ** -21
 
 
+def _route(win: int, bins: int, sizes: tuple[int, int]) -> str:
+    n_fft = 2 * (bins - 1)
+    lo, hi = sizes
+    pow2 = n_fft > 0 and n_fft & (n_fft - 1) == 0
+    return "fft" if pow2 and lo <= n_fft <= hi and 1 <= win <= n_fft else "dense"
+
+
 def log_mel_route(win: int, bins: int) -> str:
     """K4's route for ``[win, bins]`` bases: ``"fft"`` where ``n_fft = 2·(bins
     − 1)`` is a power of two in ``FFT_SIZES`` and ``win <= n_fft``, else
     ``"dense"``."""
-    n_fft = 2 * (bins - 1)
-    lo, hi = FFT_SIZES
-    pow2 = n_fft > 0 and n_fft & (n_fft - 1) == 0
-    return "fft" if pow2 and lo <= n_fft <= hi and 1 <= win <= n_fft else "dense"
+    return _route(win, bins, FFT_SIZES)
 
 
 def dft_basis_error(cos: torch.Tensor, sin: torch.Tensor) -> float:
@@ -353,12 +455,17 @@ def _log_mel_cuda(frames, cos, sin, mel_fb, log):
     consts = {"cos": cos, "sin": sin, "mel_fb": mel_fb}
     for name, shape in (("cos", (win, bins)), ("sin", (win, bins)), ("mel_fb", (bins, n_mels))):
         build.check_tensor(consts[name], name, shape, dev)
-    out = torch.empty(B, T, n_mels, device=dev)
-    lib = build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     route = log_mel_route(win, bins)
     if route == "fft":
         window, twiddle, ranges, weights = _fft_operands(consts)
+        _fft_plan_or_raise(2 * (bins - 1), win, x.stride(1), n_mels, weights.numel(), False,
+                           "log_mel_fused")
+    else:
+        _dense_frames_or_raise(win, bins, "log_mel_fused")
+    out = torch.empty(B, T, n_mels, device=dev)
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "fft":
         rc = lib.mmb_log_mel_fft_forward(
             x.data_ptr(), x.stride(0), x.stride(1), window.data_ptr(), twiddle.data_ptr(),
             weights.data_ptr(), ranges.data_ptr(), out.data_ptr(),

@@ -585,7 +585,7 @@ def test_drop_plan_raises_the_cluster_before_it_refuses():
         assert bk.drop_route(T_c, T_q, 256) == "cluster"
 
 
-@pytest.mark.parametrize("D", [200, 256])
+@pytest.mark.parametrize("D", [200, 256, 512, 1024])
 @pytest.mark.parametrize("T_c", GATE_TC)
 def test_every_gate_shape_has_a_route_that_fits(T_c, D):
     """Every T_q of the gate at this (T_c, D) has a route whose blocks fit
@@ -600,6 +600,21 @@ def test_every_gate_shape_has_a_route_that_fits(T_c, D):
         walk, bwd = bk.tiled_plan(T_c, T_q, D, 128, drop=True), bk.tiled_bwd_plan(T_c, T_q, D)
         assert walk.smem <= SMEM_LIMIT and walk.C <= 6
         assert bwd.smem <= SMEM_LIMIT and bwd.smem_finish <= SMEM_LIMIT and bwd.C <= 8
+
+
+@pytest.mark.parametrize("D", [512, 1024])
+@pytest.mark.parametrize("T_c", GATE_TC)
+def test_every_gate_shape_has_a_serving_route_that_fits(T_c, D):
+    """K2's wrapper at the widths of a hidden-256 and a hidden-512 model:
+    every T_q of the gate on K2's cluster (its forward block fits, C <= 16)
+    or handed to K9, whose walk plan fits."""
+    for T_q in GATE_TQ:
+        if bk.bidaf_route(T_c, T_q, D) == "cluster":
+            plan = bk.fused_plan(T_c, T_q, D)
+            assert plan.C <= 16 and plan.smem_fwd <= SMEM_LIMIT
+        else:
+            walk = bk.tiled_plan(T_c, T_q, D)
+            assert walk.smem <= SMEM_LIMIT and walk.C <= 6
 
 
 @pytest.mark.parametrize("T_c,T_q,D", [(5, 33, 40), (7, 45, 20)])

@@ -731,25 +731,94 @@ def test_lstm_cluster_plan_matches_the_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_lstm_shape_with_no_cluster_plan_raises(cuda_device):
-    """H=512: no cluster of 16 blocks holds W_h's slice, so K5 and K6 raise
-    before launching anything."""
+@pytest.mark.parametrize("rows,H", [(4, 512), (32, 400), (1024, 512), (64, 1024)])
+def test_lstm_train_l2_route_past_the_cluster_plan(cuda_device, rows, H):
+    """Widths with no cluster plan: K5 and K6 take the L2 route (counted),
+    against their plain versions; K1 gives K5's bits; the L2 plan's mirror is
+    the C plan and an SM holds a block of each kernel."""
+    from mmbidaf_tpu_torch.ops.cuda import build
     from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
+    from mmbidaf_tpu_torch.ops.lstm import BiLSTMParams
 
-    B, T, H = 4, 3, 512
-    gates = torch.zeros(B, T, 8 * H, device=cuda_device)
-    mask = torch.ones(B, T, device=cuda_device)
-    w_h = torch.zeros(2, H, 4 * H, device=cuda_device)
-    seq = torch.zeros(2, T, B, H, device=cuda_device)
-    last = torch.zeros(B, 2 * H, device=cuda_device)
-    before = (lk.bilstm_train_forward.launches, lk.bilstm_bptt.launches)
-    with pytest.raises(ValueError, match="no LSTM cluster plan"):
-        lk.bilstm_train_forward(gates, mask, w_h)
-    with pytest.raises(ValueError, match="no LSTM cluster plan"):
-        lk.bilstm_bptt(gates, mask, w_h, seq, seq, torch.zeros(B, T, 2 * H, device=cuda_device),
-                       last, last)
-    torch.cuda.synchronize()
-    assert (lk.bilstm_train_forward.launches, lk.bilstm_bptt.launches) == before
+    lib = build.library()
+    assert lk.train_route(rows, H) == "l2" and lib.mmb_lstm_l2_rows(rows, H) == lk.l2_rows(rows, H)
+    for entry in ("mmb_bilstm_forward", "mmb_bilstm_forward_train", "mmb_bilstm_backward"):
+        assert getattr(lib, f"{entry}_l2_occupancy")(rows, H) > 0
+    gen = torch.Generator(device=cuda_device).manual_seed(20)
+    T = 7
+    p = BiLSTMParams(6, H, gen, cuda_device)
+    with torch.no_grad():
+        gates = lk._projection(p, torch.randn(rows, T, 6, device=cuda_device, generator=gen))
+    w_h = torch.stack([p.fwd.w_h, p.bwd.w_h]).detach().contiguous()
+    mask = torch.ones(rows, T, device=cuda_device)
+    mask[1] = 0.0
+    mask[2, 3:] = 0.0
+    before = (dict(lk.bilstm_train_forward.routes), dict(lk.bilstm_bptt.routes))
+    fwd = lk.bilstm_train_forward(gates, mask, w_h)
+    for o, r in zip(fwd, lk.bilstm_train_forward_reference(gates, mask, w_h)):
+        torch.testing.assert_close(o, r, **lk.TOLERANCE)
+    k1 = torch.ops.mmbidaf.bilstm(gates, mask, w_h)
+    assert all(torch.equal(a, b) for a, b in zip(k1, fwd[:3]))
+    cot = [torch.randn(*s, device=cuda_device, generator=gen)
+           for s in ((rows, T, 2 * H), (rows, 2 * H), (rows, 2 * H))]
+    args = (gates, mask, w_h, fwd[3], fwd[4], *cot)
+    got, ref = lk.bilstm_bptt(*args), lk.bilstm_bptt_reference(*args)
+    for o, r in zip(got, ref):
+        bound = lk.BPTT_TOLERANCE["atol"] + lk.BPTT_TOLERANCE["rtol"] * r.abs().max()
+        assert (o - r).abs().max() <= bound
+    assert not got[0][1].any()
+    assert all(torch.equal(a, b) for a, b in zip(got, lk.bilstm_bptt(*args)))
+    assert lk.bilstm_train_forward.routes["l2"] == before[0]["l2"] + 1
+    assert lk.bilstm_bptt.routes["l2"] == before[1]["l2"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,win,n_mels", [
+    (4096, 4096, 64),   # K4's FFT route at 4 frames a block, K3's at 2
+    (8192, 8192, 64),   # K4's FFT route at 2 frames a block, K3's dense one
+    (1500, 1500, 64),   # the dense route at 16 frames a block
+    (512, 400, 512),    # K3's DCT pass past 48 KB
+])
+def test_mel_window_routes(cuda_device, n_fft, win, n_mels):
+    """K4 (both modes) and K3 at windows past win + bins = 1,815 against
+    their plain versions, each on the route named; the plans' mirrors equal
+    the C plans."""
+    import ctypes
+
+    from mmbidaf_tpu_torch.ops import audio
+    from mmbidaf_tpu_torch.ops.cuda import build
+    from mmbidaf_tpu_torch.ops.cuda import melspec_kernel as mk
+
+    lib = build.library()
+    bins = n_fft // 2 + 1
+    consts = audio.make_audio_frontend_consts(16000, n_fft, win, n_mels, 13, device=cuda_device)
+    nnz = mk.mel_nonzeros(consts["mel_fb"])[1].numel()
+    out3 = (ctypes.c_int * 3)()
+    for f64 in (False, True):
+        plan = mk.fft_plan(n_fft, win, 160, n_mels, nnz, f64)
+        rc = lib.mmb_log_mel_fft_plan(n_fft, win, 160, n_mels, nnz, int(f64), out3)
+        assert (rc == 0) == (plan is not None) and (plan is None or tuple(out3) == tuple(plan))
+    assert lib.mmb_mel_dense_frames(win, bins) == mk.dense_frames(win, bins)
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    T = 40
+    sig = torch.randn(2, (T - 1) * 160 + win, device=cuda_device, generator=gen) * 0.1
+    sig[1] = 0.0
+    frames = audio.frame_signal(sig, win, 160, T)
+    r4, r3 = mk.log_mel_route(win, bins), mk.mfcc_route(win, bins)
+    before = (dict(mk.log_mel_fused.routes), dict(mk.mfcc_fused.routes))
+    for log in (True, False):
+        out = mk.log_mel_fused(frames, consts, log=log)
+        ref = mk.log_mel_reference(frames, consts, log=log)
+        tol = mk.LOG_MEL_TOLERANCE[log]
+        if log:
+            torch.testing.assert_close(out, ref, **tol)
+        else:
+            assert (out - ref).abs().max() <= tol["atol"] + tol["rtol"] * ref.abs().max()
+    out = mk.mfcc_fused(frames, consts)
+    torch.testing.assert_close(out, mk.mfcc_reference(frames, consts), **mk.TOLERANCE)
+    assert not out[1].any()
+    assert mk.log_mel_fused.routes[r4] == before[0][r4] + 2
+    assert mk.mfcc_fused.routes[r3] == before[1][r3] + 1
 
 
 @pytest.mark.cuda

@@ -84,7 +84,9 @@ def test_fft_ab_spectra_match_jax(n_fft):
                               "stockham": j_audio.stockham_power_spectrum(f, jc),
                               "k4": j_audio.log_mel(f, jc)})(jnp.asarray(frames))
     route = melspec_kernel.log_mel_route(win, n_fft // 2 + 1)
-    assert route == ("fft" if n_fft <= 2048 else "dense")
+    assert route == "fft"  # 4096 too: the FFT route reaches n_fft 8192
+    # the dense route also holds 4096, at 8 frames a block
+    assert melspec_kernel.dense_frames(win, n_fft // 2 + 1) == (32 if n_fft <= 512 else 8)
     for k, w in want.items():
         w = np.asarray(w)
         assert got[k].shape == w.shape
@@ -247,8 +249,8 @@ def test_driver_main_on_the_cpu(name, capsys):
     else:
         assert lines == json.loads(json.dumps(ret)) and lines[0]["device"] == "cpu"
     if name == "fft_ab":
-        assert [r["k4_route"] for r in lines[1:]] == ["fft", "none"]
-        assert "k4_log_mel_ms" in lines[1] and "k4_log_mel_ms" not in lines[2]
+        assert [r["k4_route"] for r in lines[1:]] == ["fft", "fft"]  # the FFT route to 8192
+        assert "k4_log_mel_ms" in lines[1] and "k4_log_mel_ms" in lines[2]
     if name == "bucket_ab":
         assert ret["picks_mismatched"] == 0 and ret["rungs"]["keyframes"] < 4
     if name == "train_breakdown":

@@ -112,7 +112,7 @@ def test_rfft_power_is_the_jax_power_spectrum_at_the_bench_shape():
 @pytest.mark.parametrize("win,bins,route", [
     (400, 257, "fft"), (48, 33, "fft"), (1024, 513, "fft"), (2000, 1025, "fft"), (16, 9, "fft"),
     (400, 201, "dense"),   # n_fft 400: no power of two
-    (4096, 2049, "dense"),  # n_fft 4096: past the FFT body's shared memory
+    (4096, 2049, "fft"),    # n_fft 4096: 4 frames a block
     (8, 5, "dense"),        # n_fft 8: under its smallest size
     (600, 257, "dense"),    # win past n_fft
 ])
@@ -340,11 +340,11 @@ def test_k3_fft_route_matches_jax_and_the_plain_mfcc(kind):
 
 @pytest.mark.parametrize("win,bins,route", [
     (400, 257, "fft"), (48, 33, "fft"), (1024, 513, "fft"), (16, 9, "fft"),
-    (400, 201, "dense"), (4096, 2049, "dense"), (8, 5, "dense"), (600, 257, "dense"),
+    (400, 201, "dense"), (4096, 2049, "fft"), (8, 5, "dense"), (600, 257, "dense"),
 ])
 def test_mfcc_route(win, bins, route):
-    """K3 takes K4's rule: the FFT route for a power-of-two n_fft from 16 to
-    2048 and win <= n_fft, the dense one otherwise."""
+    """K3 takes K4's rule to n_fft 4096: the FFT route for a power-of-two
+    n_fft from 16 and win <= n_fft, the dense one otherwise."""
     assert mk.mfcc_route(win, bins) == route == mk.log_mel_route(win, bins)
 
 
