@@ -1230,22 +1230,23 @@ def timed_batches(fn, n: int = 5) -> float:
 def profile_kernels(fn, arg, t_ref: float, tag: str, unit: str, groups: dict | None = None):
     """``tools/device_profile.py``'s device-op table over 3 calls ``arg =
     fn(arg)`` after its warm-up calls (one pays CUPTI's start-up): device
-    kernel time per call, the device's idle share of ``t_ref`` (the
-    unprofiled median, seconds: the profiler slows the host), the top
-    kernels by device time, and the device time of the kernels whose names
-    contain each of ``groups``' substrings. Returns the last ``arg``."""
+    kernel time per call beside ``t_ref`` (the unprofiled median, seconds),
+    the device's idle share of the profiled calls, the top kernels by device
+    time, and the device time of the kernels whose names contain each of
+    ``groups``' substrings. Returns the last ``arg``."""
     from mmbidaf_tpu_torch.tools.device_profile import group_ms, profile_ops
 
     for _ in range(3):  # a window that recorded no kernel (it happens now and then) is taken again
-        rows, dev_ms, arg = profile_ops(fn, arg, 3, on_card=True)
+        prof = profile_ops(fn, arg, 3, on_card=True)
+        rows, dev_ms, arg = prof.rows, prof.total_ms, prof.carry
         if dev_ms > 0:
             break
     if dev_ms <= 0:
         print(f"{tag} torch.profiler recorded no device kernel in 3 windows: no profile", flush=True)
         return arg
-    print(f"{tag} torch.profiler over 3 calls: device kernel time {dev_ms:.2f} ms a {unit}, "
-          f"device idle {max(0.0, 1 - dev_ms / (t_ref * 1e3)):.1%} of the median {unit}; "
-          f"kernels by device time:", flush=True)
+    print(f"{tag} torch.profiler over 3 calls: device kernel time {dev_ms:.2f} ms a {unit} "
+          f"(median {unit} {t_ref * 1e3:.2f} ms unprofiled), device idle {prof.idle:.1%} of "
+          f"the profiled calls; kernels by device time:", flush=True)
     for r in rows[:15]:
         print(f"    {r['ms']:9.3f} ms/{unit}  x{int(r['calls']):<5d} {r['name'][:90]}", flush=True)
     for name, ms in group_ms(rows, {k: (sub,) for k, sub in (groups or {}).items()}).items():

@@ -20,6 +20,7 @@ from mmbidaf_tpu_torch.config import Config
 from mmbidaf_tpu_torch.models.mmbidaf import mmbidaf_decode, torch_dtype
 from mmbidaf_tpu_torch.ops import audio as audio_ops
 from mmbidaf_tpu_torch.ops import vgg as vgg_ops
+from mmbidaf_tpu_torch.utils.profiling import span
 
 # Auto frame-chunking budget for the VGG stack's two live activation
 # buffers, as a share of the card's memory. The JAX package budgets 14 GB of
@@ -126,12 +127,13 @@ def apply_frontend(fe: Frontend, raw: Mapping[str, torch.Tensor], cfg: Config,
         out["waveform"], out["aud_mask"] = raw["waveform"], raw["aud_mask"]
     elif m.use_audio and "waveform" in raw:
         # the frame count follows the batch's audio axis, as in the JAX package
-        feats = audio_ops.waveform_to_features(
-            raw["waveform"], fe.audio_consts, d.win_length, d.hop_length,
-            raw["aud_mask"].shape[1], feature=d.audio_features,
-            fused=m.use_pallas_melspec, fft=d.audio_fft,
-        )
-        out["audio"] = feats * raw["aud_mask"][:, :, None]
+        with span("frontend.audio"):
+            feats = audio_ops.waveform_to_features(
+                raw["waveform"], fe.audio_consts, d.win_length, d.hop_length,
+                raw["aud_mask"].shape[1], feature=d.audio_features,
+                fused=m.use_pallas_melspec, fft=d.audio_fft,
+            )
+            out["audio"] = feats * raw["aud_mask"][:, :, None]
         out["aud_mask"] = raw["aud_mask"]
     return out
 
@@ -140,7 +142,8 @@ def frames_through_vgg(fe: Frontend, frames: torch.Tensor, cfg: Config, vgg_spec
                        features=vgg_ops.vgg_features) -> torch.Tensor:
     """``[B, T_i, H, W, 3]`` uint8 frames → ``[B·T_i, fc]``: the resize and
     ``features`` (the whole stack, or ``vgg_ops.vgg_fc2_partial``) over
-    frame chunks of ``vgg_frame_chunk``, in the compute dtype."""
+    frame chunks of ``vgg_frame_chunk``, in the compute dtype; each chunk's
+    ``features`` in a span ``frontend.vgg``, beside the resize's own."""
     d, m = cfg.data, cfg.model
     compute_dtype = torch_dtype(m.compute_dtype)
     B, T_i = frames.shape[:2]
@@ -149,11 +152,12 @@ def frames_through_vgg(fe: Frontend, frames: torch.Tensor, cfg: Config, vgg_spec
     if vgg.fc1_w.dtype != compute_dtype:
         vgg = copy.deepcopy(vgg).to(compute_dtype)
     step = vgg_frame_chunk(cfg, flat.shape[0], vgg_spec, flat.device) or flat.shape[0]
-    return torch.cat([
-        features(vgg, vgg_ops.preprocess_frames(flat[i:i + step], d.image_size, compute_dtype),
-                 vgg_spec, winograd=m.use_winograd_conv)
-        for i in range(0, flat.shape[0], step)
-    ])
+    chunks = []
+    for i in range(0, flat.shape[0], step):
+        images = vgg_ops.preprocess_frames(flat[i:i + step], d.image_size, compute_dtype)
+        with span("frontend.vgg"):
+            chunks.append(features(vgg, images, vgg_spec, winograd=m.use_winograd_conv))
+    return torch.cat(chunks)
 
 
 def masked_image_features(feats: torch.Tensor, img_mask: torch.Tensor) -> torch.Tensor:

@@ -42,6 +42,7 @@ from mmbidaf_tpu_torch.models.embedding import Embedding, embedding_apply
 from mmbidaf_tpu_torch.ops.bidaf import BiDAFParams, bidaf_apply
 from mmbidaf_tpu_torch.ops.common import dropout_mask, mm, uniform_param, zeros_param
 from mmbidaf_tpu_torch.ops.lstm import bilstm_apply, stacked_bilstm_apply, stacked_bilstm_init
+from mmbidaf_tpu_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -101,26 +102,28 @@ def encode_text(params, text_ids, word_mask, sent_mask, bilstm_fn=bilstm_apply,
     word BiLSTM runs over all ``B*T_s`` sentences at once; an empty
     sentence keeps the zero state, so its pooled vector is zero."""
     B, T_s, W = text_ids.shape
-    emb = embedding_apply(params.embedding, text_ids, emb_drop)  # [B, T_s, W, h]
-    h = emb.shape[-1]
-    _, (h_n, _) = bilstm_fn(params.word_lstm, emb.reshape(B * T_s, W, h),
-                            word_mask.reshape(B * T_s, W))
-    out, _ = bilstm_fn(params.sent_lstm, h_n.reshape(B, T_s, 2 * h), sent_mask)
-    return out
+    with span("model.text"):
+        emb = embedding_apply(params.embedding, text_ids, emb_drop)  # [B, T_s, W, h]
+        h = emb.shape[-1]
+        _, (h_n, _) = bilstm_fn(params.word_lstm, emb.reshape(B * T_s, W, h),
+                                word_mask.reshape(B * T_s, W))
+        out, _ = bilstm_fn(params.sent_lstm, h_n.reshape(B, T_s, 2 * h), sent_mask)
+        return out
 
 
 def fuse_and_model(params, gs: list, sent_mask, bilstm_fn=bilstm_apply,
                    fusion: str = "concat_linear_bilstm") -> torch.Tensor:
     """Concat the attention outputs → linear+relu → modeling BiLSTM
     (``concat_linear``: no modeling recurrence)."""
-    g = torch.cat(gs, dim=-1) if len(gs) > 1 else gs[0]
-    fused = torch.relu(mm(g, params.fuse_w) + params.fuse_b)
-    if fusion == "concat_linear":
-        return fused * sent_mask[:, :, None]
-    if fusion != "concat_linear_bilstm":
-        raise ValueError(f"unknown fusion {fusion!r}")
-    M, _ = bilstm_fn(params.model_lstm, fused, sent_mask)
-    return M
+    with span("model.fuse"):
+        g = torch.cat(gs, dim=-1) if len(gs) > 1 else gs[0]
+        fused = torch.relu(mm(g, params.fuse_w) + params.fuse_b)
+        if fusion == "concat_linear":
+            return fused * sent_mask[:, :, None]
+        if fusion != "concat_linear_bilstm":
+            raise ValueError(f"unknown fusion {fusion!r}")
+        M, _ = bilstm_fn(params.model_lstm, fused, sent_mask)
+        return M
 
 
 def _bidaf(att_params, c, q, c_mask, q_mask, cfg: Config, train: bool, drops=None) -> torch.Tensor:
@@ -237,22 +240,23 @@ def mmbidaf_fused_reps(params: MMBiDAF, batch: Mapping[str, torch.Tensor], cfg: 
     text_enc = run(lambda ids, wm, sm: encode_text(params, ids, wm, sm, bilstm_fn, masks.get("emb")),
                    batch["text_ids"], batch["word_mask"], sent_mask)
 
-    def tower(lstm, att, name):
+    def tower(lstm, att, name, span_name):
         def fn(t_enc, feats, mask):
-            enc, _ = bilstm_fn(lstm, feats, mask)
-            return _bidaf(att, t_enc, enc, sent_mask, mask, cfg, train, masks.get(name))
+            with span(span_name):
+                enc, _ = bilstm_fn(lstm, feats, mask)
+                return _bidaf(att, t_enc, enc, sent_mask, mask, cfg, train, masks.get(name))
         return fn
 
     gs = []
     if m.use_images:
-        gs.append(run(tower(params.img_lstm, params.att_img, "img"), text_enc,
+        gs.append(run(tower(params.img_lstm, params.att_img, "img", "model.image_tower"), text_enc,
                       batch["images"], batch["img_mask"]))
     if m.use_audio and audio_g_fn is not None:
         # the SP chain carries its own collectives: no remat inside it
         gs.append(audio_g_fn(params, text_enc, batch, masks.get("aud")))
     elif m.use_audio:
-        gs.append(run(tower(params.aud_lstm, params.att_aud, "aud"), text_enc,
-                      batch["audio"], batch["aud_mask"]))
+        gs.append(run(tower(params.aud_lstm, params.att_aud, "aud", "model.audio_tower"),
+                      text_enc, batch["audio"], batch["aud_mask"]))
     if not gs:
         gs.append(_bidaf(params.att_self, text_enc, text_enc, sent_mask, sent_mask, cfg, train,
                          masks.get("self")))
@@ -265,11 +269,12 @@ def mmbidaf_apply(params: MMBiDAF, batch: Mapping[str, torch.Tensor], cfg: Confi
     """Teacher-forced forward → log-probs ``[B, K, T_s]`` (the training
     forward with a ``generator``; the eval loss without one)."""
     M = mmbidaf_fused_reps(params, batch, cfg, generator, audio_g_fn, rows)
-    log_p, _ = decoder_apply(
-        params.decoder, M, batch["sent_mask"], targets=batch["targets"],
-        num_steps=cfg.model.max_decode_steps, teacher_forcing=True,
-        mask_selected=cfg.model.mask_selected,
-    )
+    with span("model.decoder"):
+        log_p, _ = decoder_apply(
+            params.decoder, M, batch["sent_mask"], targets=batch["targets"],
+            num_steps=cfg.model.max_decode_steps, teacher_forcing=True,
+            mask_selected=cfg.model.mask_selected,
+        )
     return log_p
 
 
@@ -287,10 +292,12 @@ def mmbidaf_decode(params: MMBiDAF, batch: Mapping[str, torch.Tensor], cfg: Conf
         raise ValueError(f"unknown decode mode {mode!r}: expected 'greedy', 'beam', or 'topk'")
     M = mmbidaf_fused_reps(params, batch, cfg, audio_g_fn=audio_g_fn)
     m = cfg.model
-    if mode == "beam":
-        return decoder_beam_search(params.decoder, M, batch["sent_mask"], num_steps=m.max_decode_steps,
-                                   beam_size=topk, mask_selected=m.mask_selected)
-    return decoder_apply(
-        params.decoder, M, batch["sent_mask"], num_steps=m.max_decode_steps,
-        mask_selected=m.mask_selected, mode=mode, topk=topk, generator=generator, rows=rows,
-    )
+    with span("model.decoder"):
+        if mode == "beam":
+            return decoder_beam_search(params.decoder, M, batch["sent_mask"],
+                                       num_steps=m.max_decode_steps, beam_size=topk,
+                                       mask_selected=m.mask_selected)
+        return decoder_apply(
+            params.decoder, M, batch["sent_mask"], num_steps=m.max_decode_steps,
+            mask_selected=m.mask_selected, mode=mode, topk=topk, generator=generator, rows=rows,
+        )

@@ -34,6 +34,7 @@ from torch import nn
 from mmbidaf_tpu_torch.ops.common import (einsum, full_f32_convs, mm, normal_param, uniform_param,
                                           zeros_param)
 from mmbidaf_tpu_torch.ops.cuda import winograd_kernel
+from mmbidaf_tpu_torch.utils.profiling import span
 
 # torchvision vgg16 config "D": numbers = out-channels of 3x3 convs, "M" = maxpool.
 VGG16_SPEC: tuple = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
@@ -113,35 +114,50 @@ def vgg_features(params: VGG, images: torch.Tensor, spec: Sequence = VGG16_SPEC,
 
 def vgg_fc2_finish(params: VGG, x: torch.Tensor) -> torch.Tensor:
     """fc2's bias and ReLU on its (summed) product."""
-    return torch.relu(x + params.fc2_b)
+    with span("frontend.vgg.classifier"):
+        return torch.relu(x + params.fc2_b)
+
+
+def vgg_blocks(spec: Sequence) -> list[tuple]:
+    """``spec`` cut after each ``"M"``: each block's convs and its pool."""
+    blocks, cur = [], []
+    for item in spec:
+        cur.append(item)
+        if item == "M":
+            blocks.append(tuple(cur))
+            cur = []
+    return blocks + [tuple(cur)] if cur else blocks
 
 
 def vgg_fc2_partial(params: VGG, images: torch.Tensor, spec: Sequence = VGG16_SPEC,
                     winograd: bool = False) -> torch.Tensor:
     """The stack up to fc2's product, before its bias: ``[N, fc_dim]``; on a
     split classifier this rank's partial product, which the ranks along
-    ``model`` sum."""
+    ``model`` sum. Each block runs in a span ``frontend.vgg.block<k>``."""
     x = images.permute(0, 3, 1, 2)  # NHWC storage read as channels-last NCHW
     ci = 0
-    for item in spec:
-        if item == "M":
-            x = F.max_pool2d(x, 2, 2)
-        else:
-            conv = params.convs[ci]
-            if winograd and conv.w.shape[1] >= 32:
-                # OIHW → HWIO view; NHWC in and out, a no-op .contiguous()
-                # on the channels-last activations
-                x = winograd_kernel.winograd_conv3x3_fused(
-                    x.permute(0, 2, 3, 1).contiguous(), conv.w.permute(2, 3, 1, 0), conv.b,
-                    relu=True).permute(0, 3, 1, 2)
-            else:
-                with full_f32_convs(x.dtype):
-                    x = F.conv2d(x, conv.w, conv.b, padding=1)
-                x = F.relu(x, inplace=True)
-            ci += 1
-    x = x.reshape(x.shape[0], -1)  # NCHW flatten order (torchvision classifier)
-    x = torch.relu(mm(x, params.fc1_w) + params.fc1_b)
-    return mm(x, params.fc2_w)
+    for k, block in enumerate(vgg_blocks(spec), 1):
+        with span(f"frontend.vgg.block{k}"):
+            for item in block:
+                if item == "M":
+                    x = F.max_pool2d(x, 2, 2)
+                    continue
+                conv = params.convs[ci]
+                if winograd and conv.w.shape[1] >= 32:
+                    # OIHW → HWIO view; NHWC in and out, a no-op .contiguous()
+                    # on the channels-last activations
+                    x = winograd_kernel.winograd_conv3x3_fused(
+                        x.permute(0, 2, 3, 1).contiguous(), conv.w.permute(2, 3, 1, 0), conv.b,
+                        relu=True).permute(0, 3, 1, 2)
+                else:
+                    with full_f32_convs(x.dtype):
+                        x = F.conv2d(x, conv.w, conv.b, padding=1)
+                    x = F.relu(x, inplace=True)
+                ci += 1
+    with span("frontend.vgg.classifier"):
+        x = x.reshape(x.shape[0], -1)  # NCHW flatten order (torchvision classifier)
+        x = torch.relu(mm(x, params.fc1_w) + params.fc1_b)
+        return mm(x, params.fc2_w)
 
 
 def resize_matrix(dst: int, src: int) -> np.ndarray:
@@ -178,11 +194,13 @@ def preprocess_frames(frames_uint8: torch.Tensor, image_size: int,
     _, h, w, _ = frames_uint8.shape
     dev = frames_uint8.device
     s = image_size
-    rw = torch.from_numpy(resize_matrix(s, w) / np.float32(255.0)).to(dev, dtype)
-    rh = torch.from_numpy(resize_matrix(s, h)).to(dev, dtype)
-    x = frames_uint8.to(dtype)
-    x = einsum("nhwc,kw->nhkc", x, rw)  # W axis first (smaller temporary)
-    x = einsum("nhkc,sh->nskc", x, rh)
-    mean = torch.from_numpy(IMAGENET_MEAN).to(dev, dtype)
-    std = torch.from_numpy(IMAGENET_STD).to(dev, dtype)
-    return (x - mean) / std
+    with span("frontend.resize"):
+        with span("frontend.resize.weights"):  # rebuilt on the host every call
+            rw = torch.from_numpy(resize_matrix(s, w) / np.float32(255.0)).to(dev, dtype)
+            rh = torch.from_numpy(resize_matrix(s, h)).to(dev, dtype)
+            mean = torch.from_numpy(IMAGENET_MEAN).to(dev, dtype)
+            std = torch.from_numpy(IMAGENET_STD).to(dev, dtype)
+        x = frames_uint8.to(dtype)
+        x = einsum("nhwc,kw->nhkc", x, rw)  # W axis first (smaller temporary)
+        x = einsum("nhkc,sh->nskc", x, rh)
+        return (x - mean) / std

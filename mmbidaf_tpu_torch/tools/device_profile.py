@@ -15,9 +15,13 @@ build, cuDNN's choices and the profiler's own start-up happen on warm-up
 calls BEFORE the trace, so the table holds steady-state ops only. On the
 card the table is the device's kernels by device time; on the CPU, the aten
 operations by self CPU time. Rows that are one of the port's hand kernels
-carry its number (K1-K3 serve, K5-K8 train). The step is timed unprofiled
+carry its number (K1-K3 serve, K5-K8 train). A second table gives each of
+the port's spans (``utils.profiling.SPANS``) its device time a step: the
+kernels launched while the span was open, on any thread (on the CPU, the
+span's own host time). The step is timed unprofiled
 (``utils.profiling.timeit``); the summary gives the device's idle share of
-it and the achieved rate of ``utils.flops``' count, with the MFU against
+the profiled steps (what the union of its activities leaves uncovered)
+and the achieved rate of ``utils.flops``' count, with the MFU against
 ``peak_bf16_tflops`` for a bf16 program on a card it knows. ``--trace_dir`` keeps the
 Chrome trace (``trace.json``). The module is not named ``profile``: that
 name would shadow the standard library's, which ``torch._dynamo`` imports.
@@ -26,15 +30,20 @@ name would shadow the standard library's, which ``torch._dynamo`` imports.
 from __future__ import annotations
 
 import argparse
+import bisect
 import dataclasses
 import json
 import tempfile
+from collections import defaultdict
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 # Device kernels of the port's hand kernels, by the substrings of their CUDA
 # symbols (``csrc/*.cu``), for each mode's program.
+# Past their cluster plans K5 runs K1's L2 body (``bilstm_kernel<R, true>``),
+# K6 its L2 walk, K7 K9's tiled body with dropout, K8 its tiled passes.
 KERNEL_GROUPS = {
     "serve": {
         "K1 bilstm": ("bilstm_cluster_kernel", "bilstm_kernel<"),
@@ -42,13 +51,17 @@ KERNEL_GROUPS = {
         "K3 mfcc": ("logmel_fft_kernel", "logmel_tile_kernel", "mfcc_dct_kernel"),
     },
     "train": {
-        "K5 bilstm forward": ("bilstm_cluster_kernel",),
+        "K5 bilstm forward": ("bilstm_cluster_kernel", "bilstm_kernel<"),
         "K6 bilstm backward": ("lstm_z_kernel", "bilstm_bptt_cluster_kernel",
-                               "lstm_dwh_partial_kernel", "sum_partials_kernel"),
-        "K7 bidaf forward": ("bidaf_drop_fwd_cluster_kernel",),
-        "K8 bidaf backward": ("bidaf_drop_bwd_cluster_kernel", "sum_over_batch_kernel"),
+                               "bilstm_bptt_l2_kernel", "lstm_dwh_partial_kernel",
+                               "sum_partials_kernel"),
+        "K7 bidaf forward": ("bidaf_drop_fwd_cluster_kernel", "bidaf_tiled_cluster_kernel"),
+        "K8 bidaf backward": ("bidaf_drop_bwd_cluster_kernel", "sum_over_batch_kernel",
+                              "bidaf_tiled_bwd_"),
     },
 }
+# the host span around the profiled steps, inside which the idle share is read
+STEPS_SPAN = "device_profile.steps"
 
 
 def kernel_of(name: str, groups: dict) -> str | None:
@@ -59,18 +72,26 @@ def kernel_of(name: str, groups: dict) -> str | None:
     return None
 
 
-def profile_ops(fn, carry, steps: int, trace_dir: str | None = None, on_card: bool | None = None):
+class Profiled(NamedTuple):
+    rows: list[dict]   # one a device kernel (on the CPU: a CPU operation), busiest first
+    total_ms: float    # the rows' time a step
+    carry: object
+    spans: dict        # span -> ms a step (``span_ms``)
+    idle: float | None  # the device's idle share of the profiled steps (None on the CPU)
+
+
+def profile_ops(fn, carry, steps: int, trace_dir: str | None = None,
+                on_card: bool | None = None) -> Profiled:
     """``carry = fn(carry)`` ``steps`` times under ``torch.profiler``, after
     one unprofiled call and, on the card, one profiled call that pays the
-    profiler's start-up. Returns ``(rows, total_ms, carry)``: one row a
-    device kernel (on the CPU: a CPU operation), ``ms`` its time a step,
-    ``calls`` its launches a step, ``pct`` its share of ``total_ms``, the
-    time of all of them a step; busiest first. ``on_card`` defaults to
-    whether a card is there."""
+    profiler's start-up. Each row holds ``ms``, its time a step, ``calls``,
+    its launches a step, and ``pct``, its share of ``total_ms``, the time of
+    all of them a step. ``on_card`` defaults to whether a card is there."""
     from torch.autograd import DeviceType
+    from torch.autograd.profiler import record_function
     from torch.profiler import profile
 
-    from mmbidaf_tpu_torch.utils.profiling import profiler_activities, trace
+    from mmbidaf_tpu_torch.utils.profiling import SPAN_LAYERS, profiler_activities, trace
 
     if on_card is None:
         on_card = torch.cuda.is_available()
@@ -81,10 +102,14 @@ def profile_ops(fn, carry, steps: int, trace_dir: str | None = None, on_card: bo
             carry = fn(carry)
             _sync()
     with trace(trace_dir or tempfile.mkdtemp(prefix="mmb_profile_")) as prof:
-        for _ in range(steps):
-            carry = fn(carry)
-        _sync()
-    events = prof.key_averages()
+        with record_function(STEPS_SPAN):
+            for _ in range(steps):
+                carry = fn(carry)
+            _sync()
+    spans, idle = span_ms(prof, steps, on_card)
+    # operations only: the spans go to their own table
+    events = [e for e in prof.key_averages()
+              if e.key != STEPS_SPAN and not e.key.startswith(SPAN_LAYERS)]
     if on_card:
         picked = [(e.key, e.self_device_time_total, e.count) for e in events
                   if e.device_type == DeviceType.CUDA]
@@ -95,12 +120,68 @@ def profile_ops(fn, carry, steps: int, trace_dir: str | None = None, on_card: bo
     rows = [{"name": k, "ms": t / steps / 1e3, "calls": c / steps,
              "pct": 100.0 * t / steps / 1e3 / total if total else 0.0} for k, t, c in picked]
     rows.sort(key=lambda r: -r["ms"])
-    return rows, total, carry
+    return Profiled(rows, total, carry, spans, idle)
 
 
 def _sync() -> None:
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+
+
+def _union(ivs: list) -> list:
+    out = []
+    for s, e in sorted(ivs):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def span_ms(prof, steps: int, on_card: bool) -> tuple[dict, float | None]:
+    """From a stopped profiler: each of the port's spans' ms a step (on the
+    card, the device time of the activities launched inside the span's
+    intervals, matched through the trace's correlation ids; on the CPU, the
+    span's host time), and the device's idle share of ``STEPS_SPAN`` (the
+    union of its activities; None on the CPU)."""
+    from torch.autograd import DeviceType
+
+    from mmbidaf_tpu_torch.utils.profiling import SPAN_LAYERS
+
+    launch, device, spans, window = {}, [], defaultdict(list), None
+    for ev in prof.profiler.kineto_results.events():
+        s = ev.start_ns()
+        e = s + ev.duration_ns()
+        if ev.device_type() == DeviceType.CUDA:
+            if not ev.is_user_annotation():
+                device.append((s, e, ev.correlation_id()))
+            continue
+        if ev.correlation_id():
+            launch.setdefault(ev.correlation_id(), s)
+        if ev.name() == STEPS_SPAN:
+            window = (s, e)
+        elif ev.name().startswith(SPAN_LAYERS):
+            spans[ev.name()].append((s, e))
+    out = {}
+    for name in sorted(spans):
+        ivs = _union(spans[name])
+        if not on_card:
+            out[name] = sum(e - s for s, e in ivs) / steps / 1e6
+            continue
+        starts = [s for s, _ in ivs]
+        total = 0
+        for s, e, corr in device:
+            t = launch.get(corr)
+            i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+            if i >= 0 and t <= ivs[i][1]:
+                total += e - s
+        out[name] = total / steps / 1e6
+    if not on_card or window is None:
+        return out, None
+    lo, hi = window
+    busy = sum(e - s for s, e in _union([(max(s, lo), min(e, hi)) for s, e, _ in device
+                                         if e > lo and s < hi]))
+    return out, max(0.0, 1.0 - busy / (hi - lo))
 
 
 def group_ms(rows: list[dict], groups: dict) -> dict:
@@ -192,8 +273,8 @@ def run(mode: str = "serve", quick: bool = False, batch: int | None = None, step
         return state["carry"]
 
     timed = timeit(once, iters=steps, warmup=1)
-    rows, total_ms, state["carry"] = profile_ops(step, state["carry"], steps, trace_dir,
-                                                 on_card=dev.type == "cuda")
+    prof = profile_ops(step, state["carry"], steps, trace_dir, on_card=dev.type == "cuda")
+    rows, state["carry"] = prof.rows, prof.carry
     groups = KERNEL_GROUPS[mode]
     for r in rows:
         r["kernel"] = kernel_of(r["name"], groups)
@@ -204,17 +285,18 @@ def run(mode: str = "serve", quick: bool = False, batch: int | None = None, step
     return {
         "mode": mode, "batch": batch, "steps": steps, "device": name,
         "compute_dtype": cfg.model.compute_dtype, "step_s": timed["p50_s"],
-        "op_ms": total_ms, "idle": max(0.0, 1.0 - total_ms / (timed["p50_s"] * 1e3))
-        if dev.type == "cuda" else None,
+        "op_ms": prof.total_ms, "idle": prof.idle,
         "flops": flops, "tflops": rate, "peak_bf16_tflops": peak,
         "mfu": rate / peak if peak else None,
-        "kernels": group_ms(rows, groups), "rows": rows,
+        "kernels": group_ms(rows, groups), "spans": prof.spans, "rows": rows,
     }
 
 
 def format_table(res: dict, top: int = 20) -> list[str]:
-    """The summary line, the top ``top`` rows, and each hand kernel's time."""
-    unit = "device kernels" if res["idle"] is not None else "CPU operations"
+    """The summary line, the top ``top`` rows, each hand kernel's time, and
+    each span's (nested spans inside their parents' time)."""
+    on_card = res["device"] != "cpu"
+    unit = "device kernels" if on_card else "CPU operations"
     lines = [f"# {res['mode']} x{res['steps']} steps, batch {res['batch']}, "
              f"{res['compute_dtype']}, {res['device']}: step {res['step_s'] * 1e3:.2f} ms, "
              f"{unit} {res['op_ms']:.2f} ms a step"
@@ -228,6 +310,9 @@ def format_table(res: dict, top: int = 20) -> list[str]:
                      f"{r['pct']:>5.1f}%  {r['kernel'] or ''}")
     for label, ms in res["kernels"].items():
         lines.append(f"{label}: {ms:.3f} ms a step")
+    lines.append(f"{'span':<64} {'ms/step':>10}  ({'device' if on_card else 'host'} time)")
+    for name, ms in res["spans"].items():
+        lines.append(f"{name:<64} {ms:>10.3f}")
     return lines
 
 

@@ -39,6 +39,7 @@ import torch
 from mmbidaf_tpu_torch.config import Config
 from mmbidaf_tpu_torch.models.mmbidaf import MMBiDAF, mmbidaf_apply, mmbidaf_decode
 from mmbidaf_tpu_torch.parallel.mesh import _data_axes, all_reduce, grad_axes
+from mmbidaf_tpu_torch.utils.profiling import span
 
 _ADADELTA_RHO, _ADADELTA_EPS = 0.9, 1e-6
 _ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
@@ -272,11 +273,14 @@ def make_train_step(cfg: Config, frontend=None, vgg_spec=None, mesh=None,
         rows = (i_data * mb, (i_data + 1) * mb, n_data * mb) if n_data > 1 else None
         for i in range(accum):
             part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()} if accum > 1 else batch
-            part = featurize(part)
-            log_p = mmbidaf_apply(state.params, part, cfg, generator=state.generator,
-                                  audio_g_fn=audio_g_fn, rows=rows)
-            total, _ = nll_sum(log_p, part["targets"], part["target_mask"])
-            (total / denom).backward()
+            with span("train.forward"):
+                part = featurize(part)
+                log_p = mmbidaf_apply(state.params, part, cfg, generator=state.generator,
+                                      audio_g_fn=audio_g_fn, rows=rows)
+                total, _ = nll_sum(log_p, part["targets"], part["target_mask"])
+                scaled = total / denom
+            with span("train.backward"):
+                scaled.backward()
             loss = loss + total.detach()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in trainable]
         if group is not None:
@@ -285,13 +289,14 @@ def make_train_step(cfg: Config, frontend=None, vgg_spec=None, mesh=None,
             grads = [g.view_as(p) for g, p in
                      zip(torch.split(flat, [p.numel() for p in trainable]), trainable)]
             loss = all_reduce(torch.as_tensor(loss, device=denom.device).clone(), group)
-        with torch.no_grad():
+        with torch.no_grad(), span("train.grad_norm"):
             grad_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        tx.update(state.params, grads, state.opt_state)
+        with span("train.optimizer"):
+            tx.update(state.params, grads, state.opt_state)
         state.step += 1
         # optax's EMA weight, in f32 as there
         d = min(np.float32(decay), np.float32(1.0 + state.step) / np.float32(10.0 + state.step))
-        with torch.no_grad():
+        with torch.no_grad(), span("train.ema"):
             pairs = [(e, p) for (n, e), (_, p) in zip(state.ema_params.named_parameters(),
                                                       state.params.named_parameters())
                      if not is_frozen(n)]

@@ -1,10 +1,13 @@
 """Tracing and timing helpers — the port's copy of
 ``mmbidaf_tpu.utils.profiling``.
 
+- ``span(name)``: a named span of the port's own layers (``SPANS``), on
+  the profiler's clock while a profiler records in this process and a
+  shared no-op context otherwise;
 - ``trace(dir)``: context manager around ``torch.profiler`` (CPU, and CUDA
   where the card is there) that writes a Chrome trace (``trace.json``) for
   chrome://tracing or perfetto.dev; ``tools/device_profile.py`` reads the
-  same profiler into its device-op table;
+  same profiler into its device-op and span tables;
 - ``timeit``: wall-clock timing of a call, synchronised on the card
   (median over iters, warm-up calls excluded);
 - ``Timer``: scoped host-side timer;
@@ -21,8 +24,35 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch.autograd.profiler import record_function
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
+
+# The spans the port opens, named ``<layer>.<stage>``: where each sits and
+# what reads it is PERF.md's span map. The VGG's blocks are numbered from 1
+# (``frontend.vgg.block<k>``, five in VGG-16 and VGG-19).
+SPANS = (
+    "frontend.resize", "frontend.resize.weights", "frontend.vgg",
+    *(f"frontend.vgg.block{k}" for k in range(1, 6)), "frontend.vgg.classifier",
+    "frontend.audio",
+    "model.text", "model.image_tower", "model.audio_tower", "model.fuse", "model.decoder",
+    "train.forward", "train.backward", "train.grad_norm", "train.optimizer", "train.ema",
+)
+SPAN_LAYERS = ("frontend.", "model.", "train.")
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``record_function(name)`` while a profiler records in this process
+    (``torch.profiler.profile``, ``trace``), so the span lands in the trace
+    beside the device activity it launches; otherwise one shared
+    ``nullcontext``, which costs a flag read (an ungated ``record_function``
+    costs ~12 µs of host time even with no profiler running)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_SPAN
 
 
 def profiler_activities() -> list:

@@ -32,7 +32,7 @@ from mmbidaf_tpu.utils import flops as jflops
 from mmbidaf_tpu_torch.config import config_from_json
 from mmbidaf_tpu_torch.ops.vgg import TINY_SPEC, VGG16_SPEC, VGG19_SPEC
 from mmbidaf_tpu_torch.utils import bench_config, flops
-from mmbidaf_tpu_torch.utils.profiling import Timer, debug_nans, timeit, trace
+from mmbidaf_tpu_torch.utils.profiling import SPANS, Timer, debug_nans, timeit, trace
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(p.name for p in (REPO / "examples" / "configs").glob("*.json"))
@@ -192,8 +192,14 @@ def test_device_profile_quick_on_the_cpu(mode, capsys):
                                "--batch", "2", "--top", "5"])
     table = capsys.readouterr().out.splitlines()
     assert table[0].startswith(f"# {mode} x1 steps, batch 2, float32, cpu")
-    assert len(table) == 2 + 5 + len(device_profile.KERNEL_GROUPS[mode])
+    assert len(table) == 2 + 5 + len(device_profile.KERNEL_GROUPS[mode]) + 1 + len(res["spans"])
     assert res["mfu"] is None and res["idle"] is None and res["step_s"] > 0
+    # the span table: the port's spans of this program, host time on the CPU
+    layers = ("frontend.", "model.") if mode == "serve" else ("model.", "train.")
+    tiny_vgg = {f"frontend.vgg.block{k}" for k in (3, 4, 5)}  # TINY_SPEC has two blocks
+    assert set(res["spans"]) == {n for n in SPANS if n.startswith(layers)} - tiny_vgg
+    assert all(ms > 0 for ms in res["spans"].values())
+    assert table[-len(res["spans"]):][0].split()[0] == min(res["spans"])
     assert res["rows"] and abs(sum(r["pct"] for r in res["rows"]) - 100) < 1e-6
     assert res["kernels"] == {k: 0.0 for k in device_profile.KERNEL_GROUPS[mode]}
     if mode == "serve":
@@ -202,6 +208,7 @@ def test_device_profile_quick_on_the_cpu(mode, capsys):
         lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
         assert len(lines) == 4 and set(lines[0]) == {"name", "ms", "calls", "pct", "kernel"}
         assert lines[-1]["summary"]["flops"] == res["flops"]
+        assert set(lines[-1]["summary"]["spans"]) == set(res["spans"])
 
 
 def test_device_profile_groups_name_the_hand_kernels():
@@ -219,6 +226,18 @@ def test_device_profile_groups_name_the_hand_kernels():
     assert kernel_of("bidaf_drop_fwd_cluster_kernel", train) == "K7 bidaf forward"
     assert kernel_of("bidaf_drop_bwd_cluster_kernel", train) == "K8 bidaf backward"
     assert kernel_of("sm90_xmma_gemm_bf16bf16_bf16f32", serve) is None
+    # the L2 and tiled routes (past the cluster plans)
+    assert kernel_of("void bilstm_kernel<4, false>(float const*)", serve) == "K1 bilstm"
+    assert kernel_of("void bilstm_kernel<4, true>(float const*)", train) == "K5 bilstm forward"
+    assert kernel_of("void bilstm_bptt_l2_kernel<16>(float const*)", train) == \
+        "K6 bilstm backward"
+    assert kernel_of("void bidaf_tiled_cluster_kernel<false, false, true>(float const*)", train) \
+        == "K7 bidaf forward"
+    assert kernel_of("void bidaf_tiled_cluster_kernel<true, false, false>(float const*)", serve) \
+        == "K2 bidaf"
+    for phase in ("prep", "pass", "finish"):
+        assert kernel_of(f"void bidaf_tiled_bwd_{phase}_kernel<false>(float const*)", train) == \
+            "K8 bidaf backward"
     rows = [{"name": "bidaf_fwd_cluster_kernel", "ms": 0.25}, {"name": "gemm", "ms": 3.0},
             {"name": "mfcc_dct_kernel", "ms": 0.5}, {"name": "logmel_fft_kernel<0>", "ms": 0.25}]
     assert group_ms(rows, serve) == {"K1 bilstm": 0.0, "K2 bidaf": 0.25, "K3 mfcc": 0.75}
