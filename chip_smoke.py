@@ -34,7 +34,10 @@ Phases, in order; any failure exits non-zero before the result line:
      body's shared memory; K9 at the long-audio attention shape and a
      small ragged one (twice bit for bit) with its walk plan, device time,
      achieved TFLOP/s and ptxas's report, and, for the record, beside K2
-     at T_q=512 and 2048 (B=16);
+     at T_q=512 and 2048 (B=16); the VGG's conv epilogue at each VGG-16
+     block shape of the (a) batch's frame chunk (bf16, channels-last), in
+     place and pooled, equal to its plain version, its time beside the
+     separate passes' and its byte bound;
   4. the serving slice at the bench configuration (``bench.py::build_bench_config``:
      VGG-16 at 224², hidden 128, vocab 20000, T_s=32 x W=16, 16 keyframes,
      512 audio frames, K=4, bf16, all three kernel flags on):
@@ -44,9 +47,13 @@ Phases, in order; any failure exits non-zero before the result line:
      (b) ``Summarizer.summarize_batch`` answering 8 requests on a synthetic
          corpus written by ``examples/make_synthetic_corpus.py`` (the port's copy);
      (c) K1-K3's launch counters rose during (a) and (b), K1's and K2's on
-         their cluster routes only, K3's on its FFT route only;
+         their cluster routes only, K3's on its FFT route only; the conv
+         epilogue's rose 13 times a VGG pass (13 x the frame chunks of the
+         first (a) batch);
      (d) an f32 copy of the (a) batch through the kernels and through the
-         plain versions (full f32 convs for both): equal picks, close log-probs;
+         plain versions (full f32 convs for both; the conv epilogue's and
+         K14's plain versions too, so that no VGG kernel runs on the plain
+         side): equal picks, close log-probs;
   5. the training step at the ``bench_train.py --pallas`` configuration (the
      bench widths, B=32, f32, drop_prob 0.2, adadelta lr 0.5, clip 5.0,
      flat updates, EMA 0.999, the LSTM and attention kernel flags on) on one
@@ -1155,17 +1162,24 @@ def check_decode(lp, picks, raw, cfg, tag: str) -> None:
 def f32_kernels_vs_plain(cfg, s, raw, raw_np, tag: str) -> None:
     """An f32 copy of ``cfg`` through the kernels and through the plain
     versions (full f32 convs for both) on the served weights and the same batch:
-    valid and equal picks, log-probs within 1e-3."""
+    valid and equal picks, log-probs within 1e-3; the conv epilogue launched
+    on the kernel side and not on the plain one."""
     from mmbidaf_tpu_torch.data.frontend import make_end_to_end_decode
+    from mmbidaf_tpu_torch.ops.cuda.conv_epilogue_kernel import conv_epilogue
 
     cfg_k = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32"))
     cfg_p = dataclasses.replace(cfg_k, model=dataclasses.replace(
         cfg_k.model, use_pallas_lstm=False, use_pallas_attention=False, use_pallas_melspec=False))
     fe32 = s.frontend
     fe32.vgg.float()  # in place: the served bf16 VGG weights, exactly, in f32
+    before = conv_epilogue.launches
     lp_k, picks_k = make_end_to_end_decode(cfg_k)(s.model, fe32, raw)
-    with plain_winograd():
+    mid = conv_epilogue.launches
+    with plain_vgg_kernels():
         lp_p, picks_p = make_end_to_end_decode(cfg_p)(s.model, fe32, raw)
+    check(mid > before and conv_epilogue.launches == mid,
+          f"{tag} f32: conv epilogue launches {mid - before} (kernels), "
+          f"{conv_epilogue.launches - mid} (plain)")
     lp_k, lp_p = lp_k.cpu().numpy(), lp_p.cpu().numpy()
     check_decode(lp_k, picks_k.cpu().numpy(), raw_np, cfg, f"{tag} f32 kernels")
     check(bool((picks_k == picks_p).all()), f"{tag} f32: kernel and plain picks differ")
@@ -1177,17 +1191,21 @@ def f32_kernels_vs_plain(cfg, s, raw, raw_np, tag: str) -> None:
 
 
 @contextlib.contextmanager
-def plain_winograd():
-    """K14's plain version in place of its wrapper while the block runs (the
-    Winograd route has no kernel flag to turn off)."""
-    from mmbidaf_tpu_torch.ops.cuda import winograd_kernel
+def plain_vgg_kernels():
+    """K14's and the conv epilogue's plain versions in place of their
+    wrappers while the block runs (the VGG's kernels have no flag to turn
+    off)."""
+    from mmbidaf_tpu_torch.ops.cuda import conv_epilogue_kernel, winograd_kernel
 
     fused = winograd_kernel.winograd_conv3x3_fused
+    epilogue = conv_epilogue_kernel.conv_epilogue
     winograd_kernel.winograd_conv3x3_fused = winograd_kernel.winograd_reference
+    conv_epilogue_kernel.conv_epilogue = conv_epilogue_kernel.conv_epilogue_reference
     try:
         yield
     finally:
         winograd_kernel.winograd_conv3x3_fused = fused
+        conv_epilogue_kernel.conv_epilogue = epilogue
 
 
 @contextlib.contextmanager
@@ -1253,6 +1271,158 @@ def profile_kernels(fn, arg, t_ref: float, tag: str, unit: str, groups: dict | N
         print(f"{tag} {name} (kernels named *{groups[name]}*): {ms:.3f} ms a {unit}, "
               f"{ms / dev_ms:.1%} of the device time", flush=True)
     return arg
+
+
+def vgg_passes(cfg, n_frames: int, dev) -> tuple[int, int]:
+    """(frames a VGG pass takes, passes) for ``n_frames`` frames at ``cfg``."""
+    from mmbidaf_tpu_torch.data.frontend import vgg_frame_chunk
+    from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
+
+    chunk = vgg_frame_chunk(cfg, n_frames, VGG16_SPEC, dev) or n_frames
+    return chunk, -(-n_frames // chunk)
+
+
+def phase_epilogue(dev, cfg) -> dict:
+    """Phase 3: the VGG's conv epilogue on the card at each VGG-16 block
+    shape of a B=64 batch's frame chunk, bf16 and channels-last: in place
+    and pooled, each equal (``torch.equal``) to its plain version, in place
+    the output ``y`` itself, pooled ``y`` untouched. Its time over the 13
+    convs of a pass (8 in place, 5 pooled; CUDA events) beside the separate
+    bias add, ReLU and pool on the same tensors (the passes the stack ran
+    before), and its bound from the bytes it must move. Returns its record
+    (launches filled in by phase 4)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmbidaf_tpu_torch.ops.cuda import conv_epilogue_kernel as ek
+    from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
+
+    n, _ = vgg_passes(cfg, B * cfg.data.max_keyframes, dev)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    layers = vgg_conv_layers(VGG16_SPEC, cfg.data.image_size)
+    spec = list(VGG16_SPEC)
+    pooled = [nxt == "M" for item, nxt in zip(spec, spec[1:] + [None]) if item != "M"]
+    check(sum(pooled) == 5 and len(layers) == 13, f"(3) VGG-16 pools {sum(pooled)} of {len(layers)}")
+    times = {}
+    for size, c in sorted({(size, c_out) for size, _, c_out in layers}, reverse=True):
+        y = torch.empty(n, c, size, size, device=dev, dtype=torch.bfloat16,
+                        memory_format=torch.channels_last).normal_(generator=gen)
+        b = (torch.randn(c, device=dev, generator=gen) * 0.5).bfloat16()
+        for pool in (True, False):  # the pooled call leaves y as it was
+            want = ek.conv_epilogue_reference(y, b, pool)
+            y0 = y.clone() if pool else None
+            before = ek.conv_epilogue.launches
+            got = ek.conv_epilogue(y, b, pool)
+            check(ek.conv_epilogue.launches == before + 1, "(3) conv_epilogue did not launch once")
+            check(got.is_contiguous(memory_format=torch.channels_last) and torch.equal(got, want),
+                  f"(3) conv_epilogue [{n}, {c}, {size}, {size}] pool={pool} differs from its plain version")
+            check(torch.equal(y, y0) if pool else got.data_ptr() == y.data_ptr(),
+                  f"(3) conv_epilogue pool={pool} at {size}² {c} wrote where it should not")
+            del want, got, y0
+        for pool in (True, False):  # timed after the checks: the passes rewrite y
+            k = time_ms(lambda: ek.conv_epilogue(y, b, pool), iters=3, reps=3)
+            p = time_ms(lambda: (F.max_pool2d(ek.bias_relu_(y, b), 2, 2) if pool
+                                 else ek.bias_relu_(y, b)), iters=3, reps=3)
+            times[size, c, pool] = (k, p)
+        del y
+        torch.cuda.empty_cache()
+    ms = plain = 0.0
+    parts = []
+    for (size, _, c), pool in zip(layers, pooled):
+        k, p = times[size, c, pool]
+        ms, plain = ms + k, plain + p
+        elems = n * size * size * c
+        out = elems // 4 if pool else elems
+        parts.append(bound(2 * elems + (3 * out if pool else 0), 2 * (elems + out + c)))
+    rec = {"name": "conv_epilogue", "route": "cuda", "source": "mmbidaf_tpu_torch/csrc/conv_epilogue.cu",
+           "replaces": None, "launches": 0, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+           **bound_fields(parts), "library_ms": None}
+    print(f"conv_epilogue: a VGG-16 pass of {n} frames (bf16, 8 in place + 5 pooled): equal to "
+          f"its plain version at every shape; kernel={ms:.4f} ms plain={plain:.4f} ms "
+          f"bound={rec['bound_ms']:.4f} ms ({rec['bound_by']}; {rec['bound_ms'] / ms:.1%} of the bound); "
+          + "; ".join(f"{s}² x{c} {'pool' if pl else 'in place'} {k:.3f}/{p:.3f} ms"
+                      for (s, c, pl), (k, p) in sorted(times.items(), reverse=True)), flush=True)
+    return rec
+
+
+def phase_slice(dev, card: str, cfg, records: list[dict]) -> float:
+    """Phase 4: the serving slice at the bench configuration. ``records`` are
+    K1's, K2's, K3's and the conv epilogue's, whose launches it fills in.
+    Returns the median time of a B=64 batch (seconds)."""
+    import torch
+
+    from mmbidaf_tpu_torch.data.frontend import make_end_to_end_decode
+    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+    from mmbidaf_tpu_torch.ops.cuda.conv_epilogue_kernel import conv_epilogue
+    from mmbidaf_tpu_torch.serving import Summarizer
+
+    t0 = time.perf_counter()
+    s = Summarizer.init_random(cfg, seed=0, device=dev, serve_batch_size=4)
+    torch.cuda.synchronize()
+    print(f"slice: bench config, random weights from seed 0, init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(0)
+    raw_np = raw_batch(cfg, rng)
+    raw = {k: torch.from_numpy(v).to(dev) for k, v in raw_np.items()}
+    end_to_end = make_end_to_end_decode(cfg)
+
+    counters = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused,
+                conv_epilogue)
+    for fn in counters:
+        fn.launches = 0
+    lstm_kernel.bilstm_cuda.routes = {"cluster": 0, "l2": 0}
+    bidaf_kernel.bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
+    melspec_kernel.mfcc_fused.routes = {"fft": 0, "dense": 0}
+    torch.cuda.reset_peak_memory_stats(dev)
+    # (a) the end-to-end program at B=64
+    lp, picks = end_to_end(s.model, s.frontend, raw)
+    torch.cuda.synchronize()
+    chunk, passes = vgg_passes(cfg, B * cfg.data.max_keyframes, dev)
+    check(conv_epilogue.launches == 13 * passes,
+          f"(a) conv_epilogue launched {conv_epilogue.launches} times in one batch of {passes} "
+          f"VGG passes of {chunk} frames, not 13 a pass")
+    check_decode(lp.cpu().numpy(), picks.cpu().numpy(), raw_np, cfg, "end-to-end bf16")
+    t_batch = timed_batches(lambda: end_to_end(s.model, s.frontend, raw))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"(a) end-to-end B={B}: median batch {t_batch * 1e3:.2f} ms over 5 -> "
+          f"{B / t_batch:.2f} videos/s on {card}; peak memory {peak_gb:.2f} GB", flush=True)
+    profile_kernels(lambda _: end_to_end(s.model, s.frontend, raw), None, t_batch, "(a)", "batch",
+                    {"K1 bilstm": "bilstm_cluster_kernel", "K2 bidaf": "bidaf_fwd_cluster_kernel",
+                     "K3 mfcc (FFT pass)": "logmel_fft_kernel", "K3 mfcc (DCT pass)": "mfcc_dct_kernel",
+                     "conv epilogue": "conv_epilogue_vec_kernel"})
+    # (b) 8 requests through the serving API
+    with tempfile.TemporaryDirectory() as tmp:
+        load_corpus_module().make_corpus(tmp, videos=8, sentences=12, frames=10, seconds=4.0, seed=0)
+        dirs = sorted(os.path.join(tmp, v) for v in os.listdir(tmp))
+        t0 = time.perf_counter()
+        summaries = s.summarize_batch(dirs)
+        dt = time.perf_counter() - t0
+    check(len(summaries) == 8 and all(isinstance(x, str) and x for x in summaries),
+          "summarize_batch: empty or missing summaries")
+    print(f"(b) summarize_batch: 8 requests answered in {dt:.2f} s; first: {summaries[0][:80]!r}", flush=True)
+    # (c) the main path went through every kernel
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"(c) launches during (a)+(b): {launches}", flush=True)
+    for rec, fn in zip(records, counters):
+        check(fn.launches > 0, f"{fn.__name__} was never launched on the main path")
+        rec["launches"] = fn.launches
+    k1_routes = lstm_kernel.bilstm_cuda.routes
+    k2_routes = bidaf_kernel.bidaf_attention_fused.routes
+    k3_routes = melspec_kernel.mfcc_fused.routes
+    check(conv_epilogue.launches % 13 == 0,
+          f"(c) conv_epilogue launched {conv_epilogue.launches} times, not 13 a VGG pass")
+    print(f"(c) routes during (a)+(b): K1 {k1_routes}, K2 {k2_routes}, K3 {k3_routes}", flush=True)
+    check(k1_routes["cluster"] == lstm_kernel.bilstm_cuda.launches and k1_routes["l2"] == 0,
+          f"(c) K1 left its cluster route at the bench widths: {k1_routes}")
+    check(k2_routes == {"cluster": bidaf_kernel.bidaf_attention_fused.launches, "K9": 0},
+          f"(c) K2 left its cluster route at the bench widths: {k2_routes}")
+    check(k3_routes == {"fft": melspec_kernel.mfcc_fused.launches, "dense": 0},
+          f"(c) K3 left its FFT route at the bench widths: {k3_routes}")
+
+    # (d) f32: kernels vs plain versions, same weights, same batch
+    f32_kernels_vs_plain(cfg, s, raw, raw_np, "(d) bench")
+    del s
+    return t_batch
 
 
 def phase_long(dev, card: str, long_records: list[dict]) -> float:
@@ -4568,9 +4738,7 @@ def main() -> None:
         artifact_first_request_main(*sys.argv[2:5])
         return
     sys.path.insert(0, ROOT)
-    from mmbidaf_tpu_torch.data.frontend import make_end_to_end_decode
-    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, build, lstm_kernel, melspec_kernel
-    from mmbidaf_tpu_torch.serving import Summarizer
+    from mmbidaf_tpu_torch.ops.cuda import build
 
     # 1. device. TF32 is off for products (its default) and left at its
     # default, on, for cuDNN: the f32 convs pin full f32 themselves, so every
@@ -4598,66 +4766,10 @@ def main() -> None:
     records = phase_kernels(dev, cfg)
     train_records = phase_train_kernels(dev, cfg)
     long_records = phase_long_kernels(dev)
+    epilogue_record = phase_epilogue(dev, cfg)
 
     # 4. the slice at the bench config
-    t0 = time.perf_counter()
-    s = Summarizer.init_random(cfg, seed=0, device=dev, serve_batch_size=4)
-    torch.cuda.synchronize()
-    print(f"slice: bench config, random weights from seed 0, init "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    rng = np.random.default_rng(0)
-    raw_np = raw_batch(cfg, rng)
-    raw = {k: torch.from_numpy(v).to(dev) for k, v in raw_np.items()}
-    end_to_end = make_end_to_end_decode(cfg)
-
-    counters = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused)
-    for fn in counters:
-        fn.launches = 0
-    lstm_kernel.bilstm_cuda.routes = {"cluster": 0, "l2": 0}
-    bidaf_kernel.bidaf_attention_fused.routes = {"cluster": 0, "K9": 0}
-    melspec_kernel.mfcc_fused.routes = {"fft": 0, "dense": 0}
-    torch.cuda.reset_peak_memory_stats(dev)
-    # (a) the end-to-end program at B=64
-    lp, picks = end_to_end(s.model, s.frontend, raw)
-    torch.cuda.synchronize()
-    check_decode(lp.cpu().numpy(), picks.cpu().numpy(), raw_np, cfg, "end-to-end bf16")
-    t_batch = timed_batches(lambda: end_to_end(s.model, s.frontend, raw))
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    print(f"(a) end-to-end B={B}: median batch {t_batch * 1e3:.2f} ms over 5 -> "
-          f"{B / t_batch:.2f} videos/s on {card}; peak memory {peak_gb:.2f} GB", flush=True)
-    profile_kernels(lambda _: end_to_end(s.model, s.frontend, raw), None, t_batch, "(a)", "batch",
-                    {"K1 bilstm": "bilstm_cluster_kernel", "K2 bidaf": "bidaf_fwd_cluster_kernel",
-                     "K3 mfcc (FFT pass)": "logmel_fft_kernel", "K3 mfcc (DCT pass)": "mfcc_dct_kernel"})
-    # (b) 8 requests through the serving API
-    with tempfile.TemporaryDirectory() as tmp:
-        load_corpus_module().make_corpus(tmp, videos=8, sentences=12, frames=10, seconds=4.0, seed=0)
-        dirs = sorted(os.path.join(tmp, v) for v in os.listdir(tmp))
-        t0 = time.perf_counter()
-        summaries = s.summarize_batch(dirs)
-        dt = time.perf_counter() - t0
-    check(len(summaries) == 8 and all(isinstance(x, str) and x for x in summaries),
-          "summarize_batch: empty or missing summaries")
-    print(f"(b) summarize_batch: 8 requests answered in {dt:.2f} s; first: {summaries[0][:80]!r}", flush=True)
-    # (c) the main path went through every kernel
-    launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"(c) launches during (a)+(b): {launches}", flush=True)
-    for rec, fn in zip(records, counters):
-        check(fn.launches > 0, f"{fn.__name__} was never launched on the main path")
-        rec["launches"] = fn.launches
-    k1_routes = lstm_kernel.bilstm_cuda.routes
-    k2_routes = bidaf_kernel.bidaf_attention_fused.routes
-    k3_routes = melspec_kernel.mfcc_fused.routes
-    print(f"(c) routes during (a)+(b): K1 {k1_routes}, K2 {k2_routes}, K3 {k3_routes}", flush=True)
-    check(k1_routes["cluster"] == lstm_kernel.bilstm_cuda.launches and k1_routes["l2"] == 0,
-          f"(c) K1 left its cluster route at the bench widths: {k1_routes}")
-    check(k2_routes == {"cluster": bidaf_kernel.bidaf_attention_fused.launches, "K9": 0},
-          f"(c) K2 left its cluster route at the bench widths: {k2_routes}")
-    check(k3_routes == {"fft": melspec_kernel.mfcc_fused.launches, "dense": 0},
-          f"(c) K3 left its FFT route at the bench widths: {k3_routes}")
-
-    # (d) f32: kernels vs plain versions, same weights, same batch
-    f32_kernels_vs_plain(cfg, s, raw, raw_np, "(d) bench")
-    del s
+    t_batch = phase_slice(dev, card, cfg, records + [epilogue_record])
 
     # 5. the training step
     t_step5 = phase_train(dev, card, train_records)
@@ -4719,8 +4831,8 @@ def main() -> None:
     check(not leaked, f"jax or the JAX package was imported: {leaked[:5]}")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": records + train_records + drop_records + long_records + vgg_records
-                      + wide_records}), flush=True)
+    print(json.dumps({"kernels": records + [epilogue_record] + train_records + drop_records
+                      + long_records + vgg_records + wide_records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

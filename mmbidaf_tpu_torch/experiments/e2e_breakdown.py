@@ -14,9 +14,9 @@ keyframes, 512 MFCC frames, bf16, the kernel flags on) on a raw batch of
 - ``vgg_only``: ``vgg_features`` on random images already at 224²
   (contiguous NHWC);
 - ``vgg_on_resized``: ``vgg_features`` on the resize's own output, as the
-  frontend hands it over (its memory layout is the contraction's, not
-  NHWC), the resize done once beforehand: beside ``vgg_only`` it prices
-  that layout;
+  frontend hands it over (contiguous NHWC, the layout the stack runs in),
+  the resize done once beforehand: beside ``vgg_only`` it checks that the
+  hand-over costs nothing;
 - ``audio_frontend``: ``waveform_to_features`` (K3);
 - ``model_decode_on_features``: ``mmbidaf_decode`` on random features (K1, K2).
 

@@ -29,7 +29,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("lstm.cu", "lstm_bwd.cu", "bidaf.cu", "bidaf_bwd.cu", "bidaf_tiled.cu",
-           "bidaf_tiled_bwd.cu", "mfcc.cu", "winograd.cu", "conv3x3.cu", "preprocess.cu")
+           "bidaf_tiled_bwd.cu", "mfcc.cu", "winograd.cu", "conv3x3.cu", "preprocess.cu",
+           "conv_epilogue.cu")
 HEADERS = ("common.cuh", "bidaf_cluster.cuh", "lstm_cluster.cuh", "mma.cuh", "tma.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -140,6 +141,8 @@ SIGNATURES = {
     # frames, first_h, wh, first_w, ww, bias, out, N, H, W, S, Th, Tw, rows,
     # band_rows, bf16, stream
     "mmb_preprocess_frames": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+    # y, bias, out, N, H, W, C, pool, bf16, bias_bf16, stream
+    "mmb_conv_epilogue": (P, P, P, I, I, I, I, I, I, I, P),
 }
 
 _lock = threading.Lock()

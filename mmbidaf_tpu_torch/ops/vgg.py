@@ -1,19 +1,26 @@
 """VGG keyframe featurizer, the port of ``mmbidaf_tpu.ops.vgg``.
 
-The conv stack runs NCHW through ``torch.nn.functional.conv2d`` (cuDNN on
-the card) with OIHW weights; the JAX package's direct convs are XLA convs
-outside any Pallas kernel, so they have no hand kernel here either. f32
-convs run in full f32 whatever the process's TF32 flag
-(``ops.common.full_f32_convs``), as the JAX reference computes them. Frames
-arrive NHWC as in the JAX package; ``permute`` makes them a channels-last
-NCHW view, which cuDNN takes without a copy. With ``winograd=True`` every
-conv with C_in >= 32 runs Winograd F(2x2,3x3) through K14
-(``ops/cuda/winograd_kernel.py``), as the JAX package's ``vgg_features``
-runs ``ops/winograd.py`` there; the 3-channel stem stays on the direct conv.
-K14 reads and writes NHWC, which is the channels-last storage the stack
-keeps, so no layout copy comes between it and the convs and pools around
-it. The fc1 input is the NCHW flatten, as ``vgg.py`` does for torchvision
-weight compatibility.
+The conv stack runs channels-last from end to end: ``preprocess_frames``
+writes contiguous NHWC images, which ``permute`` turns into a channels-last
+NCHW view without a copy, and the conv weights (OIHW) are held
+channels-last, so cuDNN runs its NHWC GEMMs with no layout transform around
+them. Each direct conv runs through ``torch.nn.functional.conv2d`` (cuDNN
+on the card) without its bias; the epilogue kernel
+(``ops/cuda/conv_epilogue_kernel.py``) then adds the bias and applies the
+ReLU in place, or, after a block's last conv, writes the 2x2 max pool of
+that in the same pass. The JAX package's direct convs are XLA convs
+outside any Pallas kernel, so the convs themselves have no hand kernel
+here either. f32 convs run in full f32 whatever the process's TF32 flag
+(``ops.common.full_f32_convs``), as the JAX reference computes them. With
+``winograd=True`` every conv with C_in >= 32 runs Winograd F(2x2,3x3)
+through K14 (``ops/cuda/winograd_kernel.py``), bias and ReLU inside it, as
+the JAX package's ``vgg_features`` runs ``ops/winograd.py`` there; the
+3-channel stem stays on the direct conv and its epilogue, and the pools
+after K14 are ``F.max_pool2d`` on the same channels-last storage. K14 reads
+and writes NHWC, so no layout copy comes between it and the convs and
+pools around it. The fc1 input is the NCHW flatten, as ``vgg.py`` does for
+torchvision weight compatibility (``reshape`` copies block 5's output into
+that order).
 
 The resize is the JAX package's matmul form: two contractions against
 ``resize_matrix`` weights, which reproduce ``jax.image.resize``'s
@@ -33,7 +40,7 @@ from torch import nn
 
 from mmbidaf_tpu_torch.ops.common import (einsum, full_f32_convs, mm, normal_param, uniform_param,
                                           zeros_param)
-from mmbidaf_tpu_torch.ops.cuda import winograd_kernel
+from mmbidaf_tpu_torch.ops.cuda import conv_epilogue_kernel, winograd_kernel
 from mmbidaf_tpu_torch.utils.profiling import span
 
 # torchvision vgg16 config "D": numbers = out-channels of 3x3 convs, "M" = maxpool.
@@ -64,12 +71,15 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 class Conv(nn.Module):
-    """``w [O, I, 3, 3]`` (OIHW; the JAX package keeps HWIO), ``b [O]``."""
+    """``w [O, I, 3, 3]`` (OIHW; the JAX package keeps HWIO) in
+    channels-last storage, which loading (a copy into it), ``.to(dtype)``
+    and ``torch.save`` keep, ``b [O]``."""
 
     def __init__(self, c_in: int, c_out: int, generator: torch.Generator, device):
         super().__init__()
         fan_in = 3 * 3 * c_in
-        self.w = normal_param((c_out, c_in, 3, 3), math.sqrt(2.0 / fan_in), generator, device)
+        w = normal_param((c_out, c_in, 3, 3), math.sqrt(2.0 / fan_in), generator, device)
+        self.w = nn.Parameter(w.contiguous(memory_format=torch.channels_last), requires_grad=False)
         self.b = zeros_param((c_out,), device)
 
 
@@ -134,13 +144,16 @@ def vgg_fc2_partial(params: VGG, images: torch.Tensor, spec: Sequence = VGG16_SP
     """The stack up to fc2's product, before its bias: ``[N, fc_dim]``; on a
     split classifier this rank's partial product, which the ranks along
     ``model`` sum. Each block runs in a span ``frontend.vgg.block<k>``."""
-    x = images.permute(0, 3, 1, 2)  # NHWC storage read as channels-last NCHW
+    # contiguous NHWC images: a view; any other storage is copied once
+    x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     ci = 0
     for k, block in enumerate(vgg_blocks(spec), 1):
         with span(f"frontend.vgg.block{k}"):
-            for item in block:
+            pooled = False  # the block's pool already taken by the epilogue
+            for item, nxt in zip(block, block[1:] + (None,)):
                 if item == "M":
-                    x = F.max_pool2d(x, 2, 2)
+                    if not pooled:
+                        x = F.max_pool2d(x, 2, 2)
                     continue
                 conv = params.convs[ci]
                 if winograd and conv.w.shape[1] >= 32:
@@ -151,8 +164,9 @@ def vgg_fc2_partial(params: VGG, images: torch.Tensor, spec: Sequence = VGG16_SP
                         relu=True).permute(0, 3, 1, 2)
                 else:
                     with full_f32_convs(x.dtype):
-                        x = F.conv2d(x, conv.w, conv.b, padding=1)
-                    x = F.relu(x, inplace=True)
+                        x = F.conv2d(x, conv.w, None, padding=1)
+                    pooled = nxt == "M"
+                    x = conv_epilogue_kernel.conv_epilogue(x, conv.b, pooled)
                 ci += 1
     with span("frontend.vgg.classifier"):
         x = x.reshape(x.shape[0], -1)  # NCHW flatten order (torchvision classifier)
@@ -189,8 +203,8 @@ def resize_matrix(dst: int, src: int) -> np.ndarray:
 def preprocess_frames(frames_uint8: torch.Tensor, image_size: int,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Raw ``[N, H, W, 3] uint8`` frames → normalized ``[N, S, S, 3]`` in
-    ``dtype``: the separable resize as two contractions (the /255 scale
-    folded into the W-axis matrix), then ImageNet normalization."""
+    ``dtype``, contiguous: the separable resize as two contractions (the
+    /255 scale folded into the W-axis matrix), then ImageNet normalization."""
     _, h, w, _ = frames_uint8.shape
     dev = frames_uint8.device
     s = image_size
@@ -203,4 +217,8 @@ def preprocess_frames(frames_uint8: torch.Tensor, image_size: int,
         x = frames_uint8.to(dtype)
         x = einsum("nhwc,kw->nhkc", x, rw)  # W axis first (smaller temporary)
         x = einsum("nhkc,sh->nskc", x, rh)
-        return (x - mean) / std
+        # (x - mean) / std written as contiguous NHWC (the contraction's own
+        # output is strided), the channels-last layout the VGG runs in
+        out = torch.empty(x.shape, dtype=x.dtype, device=dev)
+        torch.sub(x, mean, out=out)
+        return out.div_(std)

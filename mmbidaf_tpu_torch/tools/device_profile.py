@@ -15,10 +15,11 @@ build, cuDNN's choices and the profiler's own start-up happen on warm-up
 calls BEFORE the trace, so the table holds steady-state ops only. On the
 card the table is the device's kernels by device time; on the CPU, the aten
 operations by self CPU time. Rows that are one of the port's hand kernels
-carry its number (K1-K3 serve, K5-K8 train). A second table gives each of
-the port's spans (``utils.profiling.SPANS``) its device time a step: the
-kernels launched while the span was open, on any thread (on the CPU, the
-span's own host time). The step is timed unprofiled
+carry its number (K1-K3 serve, K5-K8 train) or name (the VGG's conv
+epilogue), and in serve mode cuDNN's conv GEMMs their own label. A second
+table gives each of the port's spans (``utils.profiling.SPANS``) its device
+time a step: the kernels launched while the span was open, on any thread
+(on the CPU, the span's own host time). The step is timed unprofiled
 (``utils.profiling.timeit``); the summary gives the device's idle share of
 the profiled steps (what the union of its activities leaves uncovered)
 and the achieved rate of ``utils.flops``' count, with the MFU against
@@ -41,7 +42,8 @@ import numpy as np
 import torch
 
 # Device kernels of the port's hand kernels, by the substrings of their CUDA
-# symbols (``csrc/*.cu``), for each mode's program.
+# symbols (``csrc/*.cu``), for each mode's program; in serve mode also
+# cuDNN's conv GEMMs, so that the VGG splits into its GEMMs and its epilogue.
 # Past their cluster plans K5 runs K1's L2 body (``bilstm_kernel<R, true>``),
 # K6 its L2 walk, K7 K9's tiled body with dropout, K8 its tiled passes.
 KERNEL_GROUPS = {
@@ -49,6 +51,10 @@ KERNEL_GROUPS = {
         "K1 bilstm": ("bilstm_cluster_kernel", "bilstm_kernel<"),
         "K2 bidaf": ("bidaf_fwd_cluster_kernel", "bidaf_tiled_cluster_kernel"),
         "K3 mfcc": ("logmel_fft_kernel", "logmel_tile_kernel", "mfcc_dct_kernel"),
+        "VGG conv epilogue": ("conv_epilogue_",),
+        # cuDNN's conv GEMMs (no hand kernel) and the stem's channel padding:
+        # the rest of the VGG's time
+        "VGG convs (cuDNN)": ("fprop", "implicit_convolve_sgemm", "nhwcAddPaddingKernel"),
     },
     "train": {
         "K5 bilstm forward": ("bilstm_cluster_kernel", "bilstm_kernel<"),

@@ -1172,6 +1172,120 @@ def test_preprocess_kernel_generic_shapes(cuda_device, dtype, n, h, w, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", [False, True], ids=["inplace", "pool"])
+@pytest.mark.parametrize("N,H,W,C,bias", [
+    (2, 224, 224, 64, "same"),   # VGG-16 block 1
+    (2, 112, 112, 128, "same"),  # block 2
+    (3, 56, 56, 256, "same"),    # block 3
+    (2, 28, 28, 512, "same"),    # block 4
+    (5, 14, 14, 512, "same"),    # block 5
+    (3, 13, 15, 64, "same"),     # odd sides: the last row and column left out of the pool
+    (2, 9, 7, 3, "same"),        # C = 3: the scalar loop
+    (2, 6, 10, 20, "f32"),       # C = 20: scalar in bf16, vectors in f32; an f32 bias
+    (1, 2, 2, 8, "same"),        # one window
+])
+def test_conv_epilogue_kernel_bit_for_bit(cuda_device, dtype, pool, N, H, W, C, bias):
+    """The epilogue kernel against the separate bias add, ReLU and
+    ``max_pool2d`` on the same conv output (channels-last): bit for bit, in
+    place without the pool (the output is ``y`` itself), ``y`` untouched
+    with it; one launch a call."""
+    from mmbidaf_tpu_torch.ops.cuda.conv_epilogue_kernel import conv_epilogue, conv_epilogue_reference
+
+    gen = torch.Generator(device=cuda_device).manual_seed(N * H + C)
+    y = (torch.randn(N, C, H, W, device=cuda_device, generator=gen) * 3).to(dtype)
+    y = y.contiguous(memory_format=torch.channels_last)
+    y[0, 0, 0, 0] = 0.0
+    b = torch.randn(C, device=cuda_device, generator=gen)
+    b = b if bias == "f32" else b.to(dtype)
+    want = conv_epilogue_reference(y, b, pool)
+    y0 = y.clone()
+    before = conv_epilogue.launches
+    got = conv_epilogue(y, b, pool)
+    assert conv_epilogue.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+    if pool:
+        assert torch.equal(y, y0)
+    else:
+        assert got.data_ptr() == y.data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [False, True], ids=["inplace", "pool"])
+def test_conv_epilogue_kernel_past_2_31_elements(cuda_device, pool):
+    """A bf16 block-1 activation of 670 frames (2.15e9 elements, past
+    2^31): the kernel's 64-bit offsets, bit for bit the separate passes."""
+    from mmbidaf_tpu_torch.ops.cuda.conv_epilogue_kernel import conv_epilogue, conv_epilogue_reference
+
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    y = torch.empty(670, 64, 224, 224, device=cuda_device, dtype=torch.bfloat16,
+                    memory_format=torch.channels_last).normal_(generator=gen)
+    assert y.numel() > 2 ** 31
+    b = torch.randn(64, device=cuda_device, generator=gen).bfloat16()
+    want = conv_epilogue_reference(y, b, pool)
+    got = conv_epilogue(y, b, pool)
+    assert torch.equal(got, want)
+    del got, want, y
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_vgg_features_bf16_runs_no_layout_transform(cuda_device):
+    """A profiler trace of one small bf16 VGG-16 ``vgg_features`` call on
+    resized frames holds the epilogue kernel and no cuDNN layout transform
+    (``nchwToNhwc`` / ``nhwcToNchw``), and no separate ReLU or pool pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmbidaf_tpu_torch.ops.vgg import VGG, VGG16_SPEC, preprocess_frames, vgg_features
+
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    params = VGG(VGG16_SPEC, 224, 4096, 3, gen, cuda_device).to(torch.bfloat16)
+    frames = torch.randint(0, 256, (4, 240, 320, 3), device=cuda_device, generator=gen,
+                           dtype=torch.uint8)
+    with torch.inference_mode():
+        imgs = preprocess_frames(frames, 224, torch.bfloat16)
+        vgg_features(params, imgs)  # cuDNN chooses its algorithms outside the trace
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            vgg_features(params, imgs)
+            torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+    assert any("conv_epilogue_vec_kernel" in n for n in names), sorted(names)
+    bad = sorted(n for n in names if any(k in n for k in ("nchwToNhwc", "nhwcToNchw",
+                                                          "max_pool", "clamp_min")))
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("winograd,launches", [(False, 13), (True, 1)], ids=["direct", "winograd"])
+def test_conv_epilogue_launches_a_frame_chunk(cuda_device, winograd, launches):
+    """``conv_epilogue.launches`` moves 13 times a VGG-16 frame chunk on the
+    direct route (one a conv) and once on the Winograd route (the stem;
+    K14 keeps its own bias and ReLU): two chunks of two frames here."""
+    from mmbidaf_tpu_torch.config import Config as PConfig
+    from mmbidaf_tpu_torch.config import DataConfig as PDataConfig
+    from mmbidaf_tpu_torch.config import ModelConfig as PModelConfig
+    from mmbidaf_tpu_torch.data.frontend import cast_vgg_weights, frames_through_vgg, frontend_init
+    from mmbidaf_tpu_torch.ops.cuda import winograd_kernel
+    from mmbidaf_tpu_torch.ops.cuda.conv_epilogue_kernel import conv_epilogue
+    from mmbidaf_tpu_torch.ops.vgg import VGG16_SPEC
+
+    cfg = PConfig(model=PModelConfig(img_feat_dim=4096, compute_dtype="bfloat16", vgg_frame_chunk=2,
+                                     use_winograd_conv=winograd, use_audio=False),
+                  data=PDataConfig(max_keyframes=2, image_size=224))
+    fe = cast_vgg_weights(frontend_init(cfg, VGG16_SPEC, cuda_device), "bfloat16")
+    frames = torch.zeros(2, 2, 240, 320, 3, device=cuda_device, dtype=torch.uint8)
+    before = (conv_epilogue.launches, winograd_kernel.winograd_conv3x3_fused.launches)
+    with torch.inference_mode():
+        feats = frames_through_vgg(fe, frames, cfg, VGG16_SPEC)
+    assert feats.shape == (4, 4096)
+    assert conv_epilogue.launches - before[0] == 2 * launches
+    assert winograd_kernel.winograd_conv3x3_fused.launches - before[1] == (24 if winograd else 0)
+
+
+@pytest.mark.cuda
 def test_vgg_features_f32_ignore_the_tf32_flag(cuda_device):
     """f32 ``vgg_features`` at 224² with the process's cuDNN TF32 flag on
     (its default) equal the same call with TF32 forced off, within the
@@ -1564,13 +1678,14 @@ def test_f32_artifact_on_the_card_equals_the_live_path(cuda_device, tmp_path):
 def test_artifact_counts_launches_on_the_card_not_while_tracing(cuda_device, tmp_path):
     """Exporting on the card traces with fake tensors and launches nothing;
     each call of the loaded program launches K1 five times (one a BiLSTM
-    layer), K2 twice and K3 once, on their routes, and its picks equal the
-    live path's."""
+    layer), K2 twice, K3 once and the conv epilogue twice (one a conv of
+    the tiny VGG), on their routes, and its picks equal the live path's."""
     import dataclasses
 
     from mmbidaf_tpu_torch.config import tiny_test_config
     from mmbidaf_tpu_torch.export import ExportedDecoder, _raw_specs, export_summarizer
     from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel
+    from mmbidaf_tpu_torch.ops.cuda.conv_epilogue_kernel import conv_epilogue
     from mmbidaf_tpu_torch.ops.vgg import TINY_SPEC
     from mmbidaf_tpu_torch.serving import Summarizer
 
@@ -1579,7 +1694,8 @@ def test_artifact_counts_launches_on_the_card_not_while_tracing(cuda_device, tmp
         cfg.model, img_feat_dim=32, audio_feat_dim=cfg.data.n_mfcc, use_pallas_lstm=True,
         use_pallas_attention=True, use_pallas_melspec=True))
     summ = Summarizer.init_random(cfg, seed=3, vgg_spec=TINY_SPEC, device=cuda_device)
-    fns = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused)
+    fns = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused,
+           conv_epilogue)
     before = [fn.launches for fn in fns]
     export_summarizer(summ, str(tmp_path), batch_size=2, frame_hw=(12, 16))
     assert [fn.launches for fn in fns] == before
@@ -1588,7 +1704,7 @@ def test_artifact_counts_launches_on_the_card_not_while_tracing(cuda_device, tmp
            for k, s in _raw_specs(cfg, 2, (12, 16)).items()}
     raw["waveform"] = np.random.default_rng(0).standard_normal(raw["waveform"].shape).astype(np.float32)
     _, picks = dec.decode_raw(raw)
-    assert [fn.launches - n for fn, n in zip(fns, before)] == [5, 2, 1]
+    assert [fn.launches - n for fn, n in zip(fns, before)] == [5, 2, 1, 2]
     _, live = summ._decode_batch_device(summ._to_device(raw))
     np.testing.assert_array_equal(picks, live.cpu().numpy())
 

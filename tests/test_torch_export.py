@@ -157,25 +157,29 @@ def _op_nodes(path: str) -> collections.Counter:
 
 def test_graph_holds_one_node_per_kernel_call(artifacts):
     """Five BiLSTM layers (word, sentence, image, audio, modeling), two BiDAF
-    blocks and one MFCC, each one node; the recurrences are not unrolled:
-    the only sigmoids left are the decoder cell's three a step and the
-    highway gates'."""
+    blocks, one MFCC and one conv epilogue a conv of the tiny VGG (two),
+    each one node, and no separate bias add, ReLU or pool beside the
+    epilogues; the recurrences are not unrolled: the only sigmoids left are
+    the decoder cell's three a step and the highway gates'."""
     path, summ = artifacts["greedy"]
     m = summ.cfg.model
     nodes = _op_nodes(path)
     assert nodes["mmbidaf.bilstm.default"] == 5 * m.num_rnn_layers
     assert nodes["mmbidaf.bidaf.default"] == 2
     assert nodes["mmbidaf.mfcc.default"] == 1
+    assert nodes["mmbidaf.conv_epilogue.default"] == 2
     assert nodes["mmbidaf.log_mel.default"] == nodes["mmbidaf.winograd_conv3x3.default"] == 0
+    assert nodes["aten.max_pool2d.default"] == 0
     assert nodes["aten.sigmoid.default"] == 3 * m.max_decode_steps + m.num_highway_layers
-    assert sum(v for k, v in nodes.items() if "mmbidaf." in k) == 8
+    assert sum(v for k, v in nodes.items() if "mmbidaf." in k) == 10
 
 
 @pytest.mark.parametrize("variant", ["logmel", "winograd"])
 def test_graph_holds_the_k4_and_k14_nodes(tmp_path, variant):
     """The log-mel frontend exports one K4 node; the Winograd frontend one
     K14 node a conv with C_in >= 32 (here two), the convs with C_in < 32
-    (here two) plain ones."""
+    (here two) plain ones, each with its epilogue node; the pool after K14
+    stays ``max_pool2d``."""
     from mmbidaf_tpu_torch.data.frontend import frontend_init
     from mmbidaf_tpu_torch.models.mmbidaf import mmbidaf_init
 
@@ -192,9 +196,12 @@ def test_graph_holds_the_k4_and_k14_nodes(tmp_path, variant):
     nodes = _op_nodes(str(tmp_path))
     if variant == "logmel":
         assert nodes["mmbidaf.log_mel.default"] == 1 and nodes["mmbidaf.mfcc.default"] == 0
+        assert nodes["mmbidaf.conv_epilogue.default"] == 2
     else:
         assert nodes["mmbidaf.winograd_conv3x3.default"] == 2
         assert nodes["aten.conv2d.default"] + nodes["aten.convolution.default"] == 2
+        assert nodes["mmbidaf.conv_epilogue.default"] == 2
+        assert nodes["aten.max_pool2d.default"] == 1
     raw = _random_raw(cfg, 2)
     lp, picks = export.ExportedDecoder(str(tmp_path), device="cpu").decode_raw(raw)
     live_lp, live_picks = _live(s, raw)
@@ -252,6 +259,8 @@ def _op_samples():
     frames[1] = 0.0  # a silent example
     x = torch.randn(1, 5, 7, 4, generator=g)
     w = torch.randn(3, 3, 4, 6, generator=g)
+    y = torch.randn(2, 8, 5, 7, generator=g)
+    y_cl = y.contiguous(memory_format=torch.channels_last)
     return {
         "K1": [lstm],
         "K2": [bidaf],
@@ -259,10 +268,18 @@ def _op_samples():
         "K4": [(frames, c["cos"], c["sin"], c["mel_fb"], True),
                (frames[0], c["cos"], c["sin"], c["mel_fb"], False)],
         "K14": [(x, w, torch.randn(6, generator=g), True), (x, w, None, False)],
+        # odd sides; channels-last and NCHW storage; a bf16 output with a bf16
+        # and with an f32 bias
+        "conv_epilogue": [(y_cl, torch.randn(8, generator=g), True),
+                          (y_cl.clone(), torch.randn(8, generator=g), False),
+                          (y.clone(), torch.randn(8, generator=g), True),
+                          (y.clone(), torch.randn(8, generator=g), False),
+                          (y_cl.bfloat16(), torch.randn(8, generator=g).bfloat16(), True),
+                          (y_cl.bfloat16(), torch.randn(8, generator=g), False)],
     }
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K14"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K14", "conv_epilogue"])
 def test_opcheck(kernel):
     """``torch.library.opcheck``: schema, fake implementation (shapes,
     dtypes, strides against the CPU implementation), autograd registration
@@ -274,10 +291,12 @@ def test_opcheck(kernel):
 def test_ops_count_no_launch_on_the_cpu_or_while_tracing(artifacts):
     """The counters live in the CUDA implementations: neither the CPU path
     nor an export (fake calls) moves them."""
-    from mmbidaf_tpu_torch.ops.cuda import bidaf_kernel, lstm_kernel, melspec_kernel, winograd_kernel
+    from mmbidaf_tpu_torch.ops.cuda import (bidaf_kernel, conv_epilogue_kernel, lstm_kernel,
+                                            melspec_kernel, winograd_kernel)
 
     fns = (lstm_kernel.bilstm_cuda, bidaf_kernel.bidaf_attention_fused, melspec_kernel.mfcc_fused,
-           melspec_kernel.log_mel_fused, winograd_kernel.winograd_conv3x3_fused)
+           melspec_kernel.log_mel_fused, winograd_kernel.winograd_conv3x3_fused,
+           conv_epilogue_kernel.conv_epilogue)
     before = [fn.launches for fn in fns]
     path, summ = artifacts["greedy"]
     export.ExportedDecoder(path, device="cpu").decode_raw(_random_raw(summ.cfg, 4))

@@ -226,6 +226,14 @@ def test_device_profile_groups_name_the_hand_kernels():
     assert kernel_of("bidaf_drop_fwd_cluster_kernel", train) == "K7 bidaf forward"
     assert kernel_of("bidaf_drop_bwd_cluster_kernel", train) == "K8 bidaf backward"
     assert kernel_of("sm90_xmma_gemm_bf16bf16_bf16f32", serve) is None
+    # the VGG: its epilogue, and cuDNN's conv GEMMs beside it
+    assert kernel_of("void (anonymous namespace)::conv_epilogue_vec_kernel<__nv_bfloat16, true>"
+                     "(__nv_bfloat16*)", serve) == "VGG conv epilogue"
+    assert kernel_of("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", serve) == \
+        "VGG convs (cuDNN)"
+    assert kernel_of("void cutlass__5x_cudnn::Kernel<cutlass_tensorop_bf16_s16816fprop_optimized_bf16"
+                     "_256x64_32x4_nhwc_align8>", serve) == "VGG convs (cuDNN)"
+    assert kernel_of("void cudnn::ops::nhwcToNchwKernel<__nv_bfloat16>", serve) is None
     # the L2 and tiled routes (past the cluster plans)
     assert kernel_of("void bilstm_kernel<4, false>(float const*)", serve) == "K1 bilstm"
     assert kernel_of("void bilstm_kernel<4, true>(float const*)", train) == "K5 bilstm forward"
@@ -239,8 +247,10 @@ def test_device_profile_groups_name_the_hand_kernels():
         assert kernel_of(f"void bidaf_tiled_bwd_{phase}_kernel<false>(float const*)", train) == \
             "K8 bidaf backward"
     rows = [{"name": "bidaf_fwd_cluster_kernel", "ms": 0.25}, {"name": "gemm", "ms": 3.0},
-            {"name": "mfcc_dct_kernel", "ms": 0.5}, {"name": "logmel_fft_kernel<0>", "ms": 0.25}]
-    assert group_ms(rows, serve) == {"K1 bilstm": 0.0, "K2 bidaf": 0.25, "K3 mfcc": 0.75}
+            {"name": "mfcc_dct_kernel", "ms": 0.5}, {"name": "logmel_fft_kernel<0>", "ms": 0.25},
+            {"name": "conv_epilogue_vec_kernel<float, false>", "ms": 2.0}]
+    assert group_ms(rows, serve) == {"K1 bilstm": 0.0, "K2 bidaf": 0.25, "K3 mfcc": 0.75,
+                                     "VGG conv epilogue": 2.0, "VGG convs (cuDNN)": 0.0}
 
 
 def test_no_module_of_the_port_shadows_the_standard_library():

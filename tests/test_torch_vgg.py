@@ -36,7 +36,8 @@ from mmbidaf_tpu.ops.winograd import winograd_conv3x3 as j_winograd
 from mmbidaf_tpu_torch.interop.from_jax import load_pytree
 from mmbidaf_tpu_torch.ops import vgg as t_vgg
 from mmbidaf_tpu_torch.ops import winograd as t_winograd
-from mmbidaf_tpu_torch.ops.cuda import build, conv_kernel, preprocess_kernel, winograd_kernel
+from mmbidaf_tpu_torch.ops.cuda import (build, conv_epilogue_kernel, conv_kernel, preprocess_kernel,
+                                        winograd_kernel)
 
 SPEC = (32, 32, "M", 64, "M")  # conv2 and conv3 have C_in >= 32: the Winograd route
 BF16_ULP = 2.0 ** -7
@@ -224,6 +225,124 @@ def test_vgg_features_winograd_matches_jax(rng):
     ref = j_vgg.vgg_features(jp, jnp.asarray(imgs), SPEC, winograd=True)
     ours = t_vgg.vgg_features(port, _t(imgs), SPEC, winograd=True)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-5)
+
+
+def _parent_fc2_partial(params, images, spec, winograd=False):
+    """The stack as it ran before the epilogue kernel: NCHW-strided
+    activations, each direct conv with its bias inside ``F.conv2d``, then
+    ``F.relu`` and ``F.max_pool2d`` passes."""
+    F = torch.nn.functional
+    x, ci = images.permute(0, 3, 1, 2), 0
+    for item in spec:
+        if item == "M":
+            x = F.max_pool2d(x, 2, 2)
+            continue
+        conv = params.convs[ci]
+        if winograd and conv.w.shape[1] >= 32:
+            x = winograd_kernel.winograd_conv3x3_fused(
+                x.permute(0, 2, 3, 1).contiguous(), conv.w.permute(2, 3, 1, 0), conv.b,
+                relu=True).permute(0, 3, 1, 2)
+        else:
+            x = F.relu(F.conv2d(x, conv.w.contiguous(), conv.b, padding=1))
+        ci += 1
+    x = x.reshape(x.shape[0], -1)
+    return torch.relu(x @ params.fc1_w + params.fc1_b) @ params.fc2_w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+@pytest.mark.parametrize("C", [3, 8, 64])
+@pytest.mark.parametrize("H,W", [(6, 8), (7, 5)], ids=["even", "odd"])
+@pytest.mark.parametrize("pool", [False, True], ids=["inplace", "pool"])
+def test_conv_epilogue_plain_matches_bias_relu_pool(dtype, layout, C, H, W, pool):
+    """The epilogue op's plain version on a conv's output: bit for bit the
+    separate bias add (rounded once to the dtype), ReLU and ``max_pool2d``
+    (floor sizes), and within the dtype's rounding of the conv with its bias
+    inside; in place without ``pool`` (the wrapper returns ``y`` itself),
+    ``y`` untouched with it; the storage layout kept."""
+    F = torch.nn.functional
+    g = torch.Generator().manual_seed(C * 100 + H)
+    x = torch.randn(3, 4, H, W, generator=g).to(dtype)
+    w = (torch.randn(C, 4, 3, 3, generator=g) * 0.3).to(dtype)
+    b = torch.randn(C, generator=g).to(dtype)
+    fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+    x, w = x.contiguous(memory_format=fmt), w.contiguous(memory_format=fmt)
+    y = F.conv2d(x, w, None, padding=1)
+    y0 = y.clone()
+    want = F.relu(y0 + b.view(-1, 1, 1))
+    want = F.max_pool2d(want, 2, 2) if pool else want
+    before = conv_epilogue_kernel.conv_epilogue.launches
+    got = conv_epilogue_kernel.conv_epilogue(y, b, pool)
+    assert conv_epilogue_kernel.conv_epilogue.launches == before  # the CPU runs no kernel
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert got.is_contiguous(memory_format=fmt)
+    if pool:
+        assert torch.equal(y, y0)
+    else:
+        assert got.data_ptr() == y.data_ptr()
+    fused = F.relu(F.conv2d(x, w, b, padding=1))
+    fused = F.max_pool2d(fused, 2, 2) if pool else fused
+    # bf16: the bias-free conv's output was rounded once more, by at most
+    # half an ulp (2^-8 of its largest value)
+    tol = {} if dtype == torch.float32 else {"atol": float(y0.abs().max()) * 2.0 ** -8,
+                                             "rtol": BF16_ULP}
+    torch.testing.assert_close(got, fused, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("spec,winograd,size", [
+    (t_vgg.TINY_SPEC, False, 32),
+    (t_vgg.TINY_SPEC, False, 30),      # odd sides after the first pool
+    ((8, 8, "M", 16, 16, "M"), False, 32),  # an epilogue in place, then one with the pool
+    (SPEC, True, 32),                  # K14 (bias and ReLU inside), the stem's epilogue
+], ids=["tiny", "tiny_odd", "two_block", "winograd"])
+@pytest.mark.parametrize("fn", ["vgg_features", "vgg_fc2_partial"])
+def test_vgg_stack_matches_the_parent_formulation(rng, dtype, spec, winograd, size, fn):
+    """``vgg_features`` and ``vgg_fc2_partial`` (channels-last, bias-free
+    convs, the epilogue) against the stack as it ran before, within the
+    dtype's rounding (the parent's convs added their bias inside); frames
+    that are not contiguous NHWC give the same features."""
+    port = t_vgg.VGG(spec, size, 64, 3, torch.Generator().manual_seed(3), "cpu")
+    with torch.no_grad():
+        for conv in port.convs:  # nonzero biases, so the epilogue's add shows
+            conv.b.uniform_(-0.5, 0.5, generator=torch.Generator().manual_seed(conv.b.numel()))
+    port.to(dtype)
+    imgs = _t(rng.standard_normal((3, size, size, 3)).astype(np.float32)).to(dtype)
+    want = _parent_fc2_partial(port, imgs, spec, winograd)
+    if fn == "vgg_features":
+        want = torch.relu(want + port.fc2_b)
+    with torch.inference_mode():
+        got = getattr(t_vgg, fn)(port, imgs, spec, winograd=winograd)
+        strided = getattr(t_vgg, fn)(port, imgs.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),
+                                     spec, winograd=winograd)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got, want, **({"atol": 1e-5, "rtol": 1e-5} if dtype == torch.float32
+                                             else {"atol": 2e-2, "rtol": 4 * BF16_ULP}))
+    assert torch.equal(strided, got)
+
+
+def test_stack_layouts_are_channels_last(rng):
+    """``preprocess_frames`` writes contiguous NHWC; the VGG's conv weights
+    are channels-last when built and stay so through a load, a cast to
+    bf16 (``cast_vgg_weights``) and a save and load."""
+    import io
+
+    from mmbidaf_tpu_torch.data.frontend import cast_vgg_weights, frontend_init
+
+    frames = _t((rng.random((2, 12, 16, 3)) * 255).astype(np.uint8))
+    for dtype in (torch.float32, torch.bfloat16):
+        out = t_vgg.preprocess_frames(frames, 10, dtype)
+        assert out.shape == (2, 10, 10, 3) and out.dtype == dtype and out.is_contiguous()
+    _, loaded = _vgg_pair(SPEC)
+    fe = cast_vgg_weights(frontend_init(_cfg(False), SPEC, device="cpu"), "bfloat16")
+    buf = io.BytesIO()
+    torch.save(fe.vgg.state_dict(), buf)
+    buf.seek(0)
+    saved = torch.load(buf, weights_only=True)
+    for w in [c.w for c in loaded.convs] + [c.w for c in fe.vgg.convs] + \
+             [v for k, v in saved.items() if k.endswith(".w")]:
+        assert w.is_contiguous(memory_format=torch.channels_last) and not w.is_contiguous()
 
 
 def _cudnn_flags():
