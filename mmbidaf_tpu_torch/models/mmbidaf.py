@@ -241,10 +241,13 @@ def mmbidaf_fused_reps(params: MMBiDAF, batch: Mapping[str, torch.Tensor], cfg: 
                    batch["text_ids"], batch["word_mask"], sent_mask)
 
     def tower(lstm, att, name, span_name):
+        bidaf_span = f"{span_name}.bidaf"
+
         def fn(t_enc, feats, mask):
             with span(span_name):
                 enc, _ = bilstm_fn(lstm, feats, mask)
-                return _bidaf(att, t_enc, enc, sent_mask, mask, cfg, train, masks.get(name))
+                with span(bidaf_span):
+                    return _bidaf(att, t_enc, enc, sent_mask, mask, cfg, train, masks.get(name))
         return fn
 
     gs = []

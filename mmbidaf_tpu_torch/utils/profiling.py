@@ -36,7 +36,8 @@ SPANS = (
     "frontend.resize", "frontend.resize.weights", "frontend.vgg",
     *(f"frontend.vgg.block{k}" for k in range(1, 6)), "frontend.vgg.classifier",
     "frontend.audio",
-    "model.text", "model.image_tower", "model.audio_tower", "model.fuse", "model.decoder",
+    "model.text", "model.image_tower", "model.image_tower.bidaf", "model.audio_tower",
+    "model.audio_tower.bidaf", "model.fuse", "model.decoder",
     "train.forward", "train.backward", "train.grad_norm", "train.optimizer", "train.ema",
 )
 SPAN_LAYERS = ("frontend.", "model.", "train.")

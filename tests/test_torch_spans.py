@@ -31,8 +31,10 @@ PARENT = {
     **{f"frontend.vgg.block{k}": "frontend.vgg" for k in range(1, 6)},
     "frontend.vgg.classifier": "frontend.vgg",
     **{n: None for n in SPANS if n.startswith(("model.", "train."))},
+    "model.image_tower.bidaf": "model.image_tower", "model.audio_tower.bidaf": "model.audio_tower",
 }
 TRAIN_PARENT = {**{n: "train.forward" for n in SPANS if n.startswith("model.")},
+                **{n: PARENT[n] for n in SPANS if n.endswith(".bidaf")},
                 **{n: None for n in SPANS if n.startswith("train.")}}
 
 
