@@ -282,14 +282,18 @@ Phases, in order; any failure exits non-zero before the result line:
      world size 1 through NCCL (the artifact's summaries equal the live
      ones); K1-K8, K10 and K14 each launched in the phase.
  16. every shape the JAX kernels take, and the two models they open:
-     (a) K5/K6's gate: the L2 plan's mirror (``lstm_kernel.l2_rows``) equal
-         to the C plan; H in LSTM_GATE_H x (rows, T) in LSTM_GATE_SHAPES
-         against the plain versions (TOLERANCE, BPTT_TOLERANCE normwise),
-         K1 bit for bit K5, each launch on the route ``train_route`` names,
-         both routes used, ptxas's report of the L2 bodies; then K5/K6 at
-         the hidden-512 model's five training towers (B=32, all on the L2
-         route) timed beside the plain versions, cuDNN and the bound (the
-         JSON records ``bilstm_train_forward[l2]``, ``bilstm_bptt[l2]``);
+     (a) K5/K6's gate: the L2 plan's and K6's route rule's mirrors
+         (``lstm_kernel.l2_rows``, ``bptt_route``) equal to the C ones; H in
+         LSTM_GATE_H x (rows, T) in LSTM_GATE_SHAPES against the plain
+         versions (TOLERANCE, BPTT_TOLERANCE normwise), K1 bit for bit K5,
+         each launch on the route ``train_route`` (K5) or ``bptt_route``
+         (K6) names, every route used, ptxas's report of the L2 bodies and
+         the grid walk, the card's grid plan; then K5/K6 at the hidden-512
+         model's five training towers (B=32; K5 on the L2 route, K6 on the
+         grid walk at the four 32-row towers and beside it on the L2 walk at
+         every tower, each walk timed alone too) beside the plain versions,
+         cuDNN and the bound (the JSON records ``bilstm_train_forward[l2]``,
+         ``bilstm_bptt[l2]``, ``bilstm_bptt[grid]``);
      (b) K4/K3's gate: the FFT plans and the dense route's frames a block
          equal to the C plans; n_fft 4096, 8192, 16384 (win = n_fft) and
          windows 1000, 1500, 3000, 6000 (n_fft = win): K4 in both modes on
@@ -301,8 +305,10 @@ Phases, in order; any failure exits non-zero before the result line:
          serving B=64 bf16 (K1 on its L2 route, K2/K9 at D=1024, K3),
          timed, its profile, f32 picks at B=8 equal through the kernels and
          the plain versions; TRAIN512_STEPS steps of the bench_train step
-         at B=32, f32, drop 0.2 (K5/K6 on the L2 route only, K7/K8 at
-         D=1024), finite and falling losses, the step's time and profile;
+         at B=32, f32, drop 0.2 (K5 on the L2 route only; K6 on the grid
+         walk at the four 32-row towers and the L2 walk at the word tower;
+         K7/K8 at D=1024), finite and falling losses, the step's time and
+         profile;
          one drop-0 step through the kernels equal to one through the plain
          versions within TRAIN_PARITY_ATOL;
      (d) the long-audio model (config6, ``sp_audio`` off) with ``n_fft =
@@ -4284,6 +4290,8 @@ def phase_lstm_gate(dev, card: str) -> list[dict]:
     from mmbidaf_tpu_torch.ops.cuda import build
     from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
 
+    import ctypes
+
     t_phase = time.perf_counter()
     lib = build.library()
     for hid in LSTM_PLAN_H:
@@ -4291,19 +4299,25 @@ def phase_lstm_gate(dev, card: str) -> list[dict]:
             check(lib.mmb_lstm_l2_rows(rows, hid) == lk.l2_rows(rows, hid),
                   f"(16a) l2_rows({rows}, {hid}): C {lib.mmb_lstm_l2_rows(rows, hid)} vs "
                   f"{lk.l2_rows(rows, hid)}")
-    print(f"(16a) the L2 plan's mirror equals the C plan over H {LSTM_PLAN_H} x rows "
-          f"{LSTM_PLAN_ROWS}; no route past H={max(h for h in range(9600, 9700) if lk.l2_rows(1, h))}",
-          flush=True)
+            try:
+                k6 = lk.bptt_route(rows, hid)
+            except ValueError:
+                k6 = "none"
+            check(lk._BPTT_ROUTES[lib.mmb_lstm_bptt_route(rows, hid, 0)] == k6,
+                  f"(16a) bptt_route({rows}, {hid}): C {lib.mmb_lstm_bptt_route(rows, hid, 0)} vs {k6}")
+    print(f"(16a) the L2 plan's and K6's route rule's mirrors equal the C ones over H {LSTM_PLAN_H} "
+          f"x rows {LSTM_PLAN_ROWS}; no route past H="
+          f"{max(h for h in range(9600, 9700) if lk.l2_rows(1, h))}", flush=True)
     gen = torch.Generator(device=dev).manual_seed(16)
     rng = np.random.default_rng(16)
     k5, k6 = lk.bilstm_train_forward, lk.bilstm_bptt
-    count = {"cluster": 0, "l2": 0}
+    count = {"cluster": 0, "grid": 0, "l2": 0}
     err5 = err6 = 0.0
     for hid in LSTM_GATE_H:
         for rows, steps in LSTM_GATE_SHAPES:
-            route = lk.train_route(rows, hid)
+            route, route6 = lk.train_route(rows, hid), lk.bptt_route(rows, hid)
             gates, m, w_h, (dout, dh, dc) = lstm_gate_operands(gen, rng, dev, rows, steps, hid)
-            before = (k5.routes[route], k6.routes[route])
+            before = (k5.routes[route], k6.routes[route6])
             tag = f"H={hid} rows={rows} T={steps}"
             fwd = k5(gates, m, w_h)
             e5 = compare(f"(16a) K5 {tag}", fwd, lk.bilstm_train_forward_reference(gates, m, w_h),
@@ -4316,21 +4330,31 @@ def phase_lstm_gate(dev, card: str) -> list[dict]:
             e6 = compare(f"(16a) K6 {tag}", bwd, lk.bilstm_bptt_reference(*args), lk.BPTT_TOLERANCE,
                          normwise=True)
             check(not bwd[0][1].any(), f"(16a) K6 {tag}: dgates of the empty row not zero")
-            check((k5.routes[route], k6.routes[route]) == (before[0] + 1, before[1] + 1),
-                  f"(16a) {tag}: K5/K6 not on the {route} route")
-            count[route] += 1
+            check((k5.routes[route], k6.routes[route6]) == (before[0] + 1, before[1] + 1),
+                  f"(16a) {tag}: K5/K6 not on the {route} / {route6} route")
+            count[route6] += 1
             err5, err6 = max(err5, e5), max(err6, e6)
-            print(f"  K5/K6 {tag}: {lstm_route_plan(rows, hid)}; max_abs_err K5={e5:.3e} "
+            print(f"  K5/K6 {tag}: {lstm_route_plan(rows, hid)}; K6 {route6}; max_abs_err K5={e5:.3e} "
                   f"K6={e6:.3e}; K1 = K5 bit for bit", flush=True)
             del gates, m, w_h, dout, dh, dc, fwd, bwd, k1, args
     print(f"(16a) gate: {sum(count.values())} shapes, routes {count}; K5 routes {k5.routes}, K6 "
           f"routes {k6.routes}; max_abs_err K5={err5:.3e} (bound {lk.TOLERANCE}) K6={err6:.3e} "
           f"(normwise {lk.BPTT_TOLERANCE})", flush=True)
-    check(count["cluster"] > 0 and count["l2"] > 0, f"(16a) the gate missed a route: {count}")
-    print_resources("16a", (("K1/K5 l2", "bilstm_kernel"), ("K6 l2", "bilstm_bptt_l2_kernel")))
+    check(all(n > 0 for n in count.values()), f"(16a) the gate missed a route: {count}")
+    print_resources("16a", (("K1/K5 l2", "bilstm_kernel"), ("K6 l2", "bilstm_bptt_l2_kernel"),
+                            ("K6 grid", "bilstm_bptt_cluster_kernel_grid")))
+    out = (ctypes.c_int * 10)()
+    check(lib.mmb_lstm_grid_plan(B_TRAIN, H512, 1, out) == 0, "(16a) the card runs no grid walk plan "
+          f"at rows={B_TRAIN}, H={H512}")
+    print(f"(16a) K6's grid walk at rows={B_TRAIN}, H={H512} on this card: P={out[0]} blocks a "
+          f"direction in {out[2]} clusters of {out[1]}, {out[4]} units a block, {out[7]} threads, "
+          f"{out[8]} B of shared memory (the shape rule's P=64 needs 16 clusters; the card holds "
+          f"{lib.mmb_bilstm_backward_grid_occupancy(B_TRAIN, H512, 64)})", flush=True)
 
     # the hidden-512 model's training towers (B=32), timed: the JSON records
-    recs = {k: {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "parts": []} for k in (5, 6)}
+    # (K6 on the routes bptt_route names, and on the L2 walk at every tower)
+    recs = {k: {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0, "parts": []} for k in (5, 6, "6l2")}
+    walks = ("bilstm_bptt_cluster_kernel_grid", "bilstm_bptt_l2_kernel")
     for tag, rows, steps, _ in lstm_shapes(hidden512_config(), B_TRAIN)[:5]:
         check(lk.train_route(rows, H512) == "l2", f"(16a) {tag} tower at H=512 is not on the L2 route")
         gates, m, w_h, (dout, dh, dc) = lstm_gate_operands(gen, rng, dev, rows, steps, H512)
@@ -4338,11 +4362,18 @@ def phase_lstm_gate(dev, card: str) -> list[dict]:
         e5 = compare(f"(16a) K5 {tag}", fwd, lk.bilstm_train_forward_reference(gates, m, w_h),
                      lk.TOLERANCE)
         args = (gates, m, w_h, fwd[3], fwd[4], dout, dh, dc)
-        e6 = compare(f"(16a) K6 {tag}", k6(*args), lk.bilstm_bptt_reference(*args), lk.BPTT_TOLERANCE,
-                     normwise=True)
+        route6, n6 = lk.bptt_route(rows, H512), dict(k6.routes)
+        ref6 = lk.bilstm_bptt_reference(*args)
+        e6 = compare(f"(16a) K6 {tag}", k6(*args), ref6, lk.BPTT_TOLERANCE, normwise=True)
+        check(k6.routes[route6] == n6[route6] + 1, f"(16a) K6 {tag} not on the {route6} walk")
+        e6l2 = compare(f"(16a) K6 {tag} l2", k6(*args, route="l2"), ref6, lk.BPTT_TOLERANCE,
+                       normwise=True)
         iters = 2 if steps >= 512 else 5
         t5 = time_ms(lambda: k5(gates, m, w_h), iters=iters, reps=3)
         t6 = time_ms(lambda: k6(*args), iters=iters, reps=3)
+        t6l2 = time_ms(lambda: k6(*args, route="l2"), iters=iters, reps=3)
+        w6 = sum(device_ms_by_kernel(lambda: k6(*args), walks, calls=3).values())
+        w6l2 = device_ms_by_kernel(lambda: k6(*args, route="l2"), walks, calls=3)[walks[1]]
         p5 = time_ms(lambda: lk.bilstm_train_forward_reference(gates, m, w_h), iters=1, reps=3)
         p6 = time_ms(lambda: lk.bilstm_bptt_reference(*args), iters=1, reps=3)
         with cudnn_rnn_full_f32():
@@ -4355,16 +4386,19 @@ def phase_lstm_gate(dev, card: str) -> list[dict]:
         b5 = bound(rec, 4 * (n * (2 * G + 1 + 2 * H512 + 4 * H512) + 2 * H512 * G + 4 * rows * H512))
         b6 = bound(3 * rec, 4 * (n * (2 * G + 1 + 4 * H512 + 2 * H512 + 2 * G) + 2 * 2 * H512 * G
                                  + 4 * rows * H512))
-        for r, e, k, pl, lb, b in ((recs[5], e5, t5, p5, l5, b5), (recs[6], e6, t6, p6, l6, b6)):
+        for r, e, k, pl, lb, b in ((recs[5], e5, t5, p5, l5, b5), (recs[6], e6, t6, p6, l6, b6),
+                                   (recs["6l2"], e6l2, t6l2, p6, l6, b6)):
             r["err"], r["ms"], r["plain"], r["lib"] = (max(r["err"], e), r["ms"] + k,
                                                        r["plain"] + pl, r["lib"] + lb)
             r["parts"].append(b)
         l2_reads = 2 * steps * -(-rows // lk.l2_rows(rows, H512)) * H512 * G * 4 / 1e9
         print(f"  K5/K6 {tag:8s} rows={rows:4d} T={steps:3d} H={H512}: {lstm_route_plan(rows, H512)}; "
               f"max_abs_err K5={e5:.3e} K6={e6:.3e}; K5 {t5:.3f} ms ({t5 * 1e3 / steps:.1f} us a "
-              f"step; plain {p5:.2f}; cudnn fwd {l5:.3f}; bound {max(b5):.4f}); K6 {t6:.3f} ms "
-              f"(plain {p6:.2f}; cudnn bwd {l6:.3f}; bound {max(b6):.4f}); W_h read from L2 "
-              f"{l2_reads:.2f} GB a K5 call, on {card}", flush=True)
+              f"step; plain {p5:.2f}; cudnn fwd {l5:.3f}; bound {max(b5):.4f}); K6 {t6:.3f} ms on "
+              f"the {route6} walk (the walk {w6:.3f} ms, {w6 * 1e3 / steps:.2f} us a step), "
+              f"{t6l2:.3f} ms on the L2 walk (the walk {w6l2:.3f} ms, {w6l2 * 1e3 / steps:.2f} us a "
+              f"step; max_abs_err {e6l2:.3e}) (plain {p6:.2f}; cudnn bwd {l6:.3f}; bound "
+              f"{max(b6):.4f}); W_h read from L2 {l2_reads:.2f} GB a K5 call, on {card}", flush=True)
         del gates, m, w_h, dout, dh, dc, fwd, args
 
     def record(name, src, replaces, r):
@@ -4379,7 +4413,8 @@ def phase_lstm_gate(dev, card: str) -> list[dict]:
 
     print(f"(16a) phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return [record("bilstm_train_forward[l2]", "lstm.cu", "lstm_kernel.py:228", recs[5]),
-            record("bilstm_bptt[l2]", "lstm_bwd.cu", "lstm_kernel.py:256", recs[6])]
+            record("bilstm_bptt[l2]", "lstm_bwd.cu", "lstm_kernel.py:256", recs["6l2"]),
+            record("bilstm_bptt[grid]", "lstm_bwd.cu", "lstm_kernel.py:256", recs[6])]
 
 
 def mel_gate_frames(rng, dev, n: int, steps: int, win: int, silent: int | None = None,
@@ -4553,7 +4588,7 @@ def phase_hidden512(dev, card: str) -> dict:
     route, K2 / K9 at D=1024, K3) and trained (B=32, f32, drop 0.2:
     K5/K6 on their L2 routes, K7/K8 at D=1024); f32 picks and one drop-0
     step equal between the kernels and the plain versions. Returns K5's and
-    K6's launches on the L2 route."""
+    K6's launches on the L2 route and K6's on the grid walk."""
     import torch
 
     from mmbidaf_tpu_torch.data.frontend import make_end_to_end_decode
@@ -4621,12 +4656,14 @@ def phase_hidden512(dev, card: str) -> dict:
           f"{TRAIN512_STEPS - 1} -> {B_TRAIN / t_step:.2f} videos/s on {card}", flush=True)
     check(all(n > 0 for n in launches.values()), f"(16c) a training kernel never launched: {launches}")
     check(routes["K5"] == {"cluster": 0, "l2": launches["K5"]}
-          and routes["K6"] == {"cluster": 0, "l2": launches["K6"]},
-          f"(16c) K5/K6 left their L2 routes at H=512: {routes}")
+          and routes["K6"] == {"cluster": 0, "grid": 4 * TRAIN512_STEPS, "l2": TRAIN512_STEPS},
+          f"(16c) K5 left its L2 route, or K6 the grid walk at the four 32-row towers and the L2 "
+          f"walk at the word tower, at H=512: {routes}")
     check(losses[-1] < losses[0], f"(16c) the loss did not fall ({losses[0]} -> {losses[-1]})")
     profile_kernels(lambda st: train_step(st, batch)[0], state, t_step, "(16c train)", "step",
                     groups={"K5 l2": "bilstm_kernel", "K6 (a) z": "lstm_z_kernel",
                             "K6 (b) walk l2": "bilstm_bptt_l2_kernel",
+                            "K6 (b) walk grid": "bilstm_bptt_cluster_kernel_grid",
                             "K6 (c) dW_h": "lstm_dwh_partial_kernel", "K7/K8": "bidaf_"})
     del state, batch, train_step
     release_cached_memory()
@@ -4647,7 +4684,7 @@ def phase_hidden512(dev, card: str) -> dict:
           "(16c) kernel and plain loss / grad norm differ")
     check(dp <= TRAIN_PARITY_ATOL, "(16c) kernel and plain parameters differ")
     release_cached_memory()
-    return {"K5": routes["K5"]["l2"], "K6": routes["K6"]["l2"]}
+    return {"K5": routes["K5"]["l2"], "K6": routes["K6"]["l2"], "K6 grid": routes["K6"]["grid"]}
 
 
 def phase_window4096(dev, card: str) -> int:
@@ -4698,14 +4735,14 @@ def phase_16(dev, card: str) -> list[dict]:
     hidden-512 model; 16d the 4096-point-window model. Returns the new
     routes' records, launches from 16c and 16d."""
     t0 = time.perf_counter()
-    rec5, rec6 = phase_lstm_gate(dev, card)
+    rec5, rec6, rec6g = phase_lstm_gate(dev, card)
     rec4 = phase_mel_gate(dev, card)
     release_cached_memory()
     l2 = phase_hidden512(dev, card)
-    rec5["launches"], rec6["launches"] = l2["K5"], l2["K6"]
+    rec5["launches"], rec6["launches"], rec6g["launches"] = l2["K5"], l2["K6"], l2["K6 grid"]
     rec4["launches"] = phase_window4096(dev, card)
     print(f"(16) phases 16a-16d took {time.perf_counter() - t0:.1f} s on {card}", flush=True)
-    return [rec5, rec6, rec4]
+    return [rec5, rec6, rec6g, rec4]
 
 
 def build_and_phase_16() -> list[dict]:

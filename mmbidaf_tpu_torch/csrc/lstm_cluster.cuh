@@ -33,6 +33,8 @@
 // K5, lstm_bwd.cu bilstm_bptt_l2_kernel<R> for K6's walk) take the widths
 // with no cluster plan: one block a group of R rows in one direction, W_h
 // read from L2 every step. ops/cuda/lstm_kernel.py::l2_rows mirrors it.
+// K6's walk has a third body for those widths at few rows, the grid walk
+// (grid_plan below), and its own rule, bptt_route.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -110,6 +112,75 @@ inline int l2_rows(int B, int H) {
   for (int R = B >= 1024 ? 16 : 4; R >= 1; R /= 2)
     if (l2_smem(H, R) <= (size_t)kMaxSmemBytes) return R;
   return 0;
+}
+
+// K6's grid walk (lstm_bwd.cu bilstm_bptt_cluster_kernel_grid<UT>), for the
+// widths with no cluster plan at few rows, where the L2 walk would run on
+// 2·ceil(rows / l2_rows) blocks of the card's 132 SMs. Per direction P
+// blocks, one an SM, in clusters of CS = 8; block b owns the units
+// [unit_begin(b, H, P), unit_begin(b+1, H, P)) for every row and keeps the
+// four gate columns of W_h of them in registers (two rows k of W_h a
+// thread; UT units a block, 8, 10 or 12, the fewest that hold the slice),
+// so W_h is read from device memory once a launch. Rows a block: all of
+// them, padded to row groups of 8. A step's partial dz·W_hᵀ [rows x H] of a
+// block is summed first over its cluster (rank c sums the outputs
+// [unit_begin(c, H, CS), unit_begin(c+1, H, CS))), then over the clusters
+// through an exchange in device memory whose words carry the step that
+// wrote them. The shape rule takes P = 64; a card that cannot hold the 2·P/CS
+// clusters at once runs the plan at fewer (lstm_bwd.cu grid_plan_on_card).
+// ops/cuda/lstm_kernel.py::grid_plan mirrors grid_plan.
+constexpr int kGridBlocks = 64;   // blocks a direction: 128 of the card's SMs
+constexpr int kGridCluster = 8;   // blocks a cluster (the portable size)
+constexpr int kGridMaxRows = 64;  // past it the L2 walk has 32 blocks or more
+constexpr int kGridRowGroup = 8;  // rows of a thread's product tile
+constexpr int kGridPairs = 2;     // (unit, row) pairs of the gate math a thread, at most
+
+struct GridPlan {
+  int P, CS, NQ;  // blocks a direction, blocks a cluster, clusters a direction
+  int U, UT;      // units of the largest slice; the instance's units a block
+  int Rp, KC;     // rows padded to kGridRowGroup; outputs of a rank's chunk
+  int threads;    // two rows k of W_h and up to kGridPairs (unit, row) pairs a thread
+  int smem;       // dynamic shared memory a block, bytes (over half an SM's: one block an SM)
+  int work;       // 4-byte words of the exchange in device memory
+};
+
+// K6's grid walk block: dz [4UT][Rp] | received partials [CS][KC][Rp] | dh
+// [UT][Rp] | dc [UT][Rp] | z stage [2][4UT][Rp] | c_prev stage [2][UT][Rp]
+// | dout stage [2][UT][Rp] | mask stage [2][Rp]; every section a multiple of
+// eight floats.
+inline size_t grid_smem(int UT, int CS, int KC, int Rp) {
+  return 4 * (size_t)Rp * (3 * 4 * UT + (size_t)CS * KC + 6 * UT + 2);
+}
+
+// The grid walk's plan for B rows of width H at P blocks a direction; false
+// where a block's slice of W_h needs more than 12 units, the rows exceed
+// kGridMaxRows or the block does not fit.
+inline bool grid_plan(int B, int H, int P, GridPlan* g) {
+  const int CS = kGridCluster;
+  if (B <= 0 || H <= 0 || B > kGridMaxRows || P <= 0 || P % CS || P > H) return false;
+  const int U = units_max(H, P), UT = U <= 8 ? 8 : U <= 10 ? 10 : U <= 12 ? 12 : 0;
+  if (UT == 0) return false;
+  const int Rp = (B + kGridRowGroup - 1) / kGridRowGroup * kGridRowGroup, KC = units_max(H, CS);
+  const int pair_warps = (UT * Rp + 32 * kGridPairs - 1) / (32 * kGridPairs);
+  const int threads = 32 * ((H + 63) / 64 > pair_warps ? (H + 63) / 64 : pair_warps);
+  const size_t smem = grid_smem(UT, CS, KC, Rp);
+  if (threads > 32 * UT || smem > (size_t)kMaxSmemBytes) return false;
+  const int NQ = P / CS;
+  *g = {P, CS, NQ, U, UT, Rp, KC, threads,
+        (int)(smem > (size_t)kMaxSmemBytes / 2 ? smem : (size_t)kMaxSmemBytes / 2 + 16),
+        8 * NQ * H * Rp};
+  return true;
+}
+
+// K6's walk: which body takes B rows of width H (by the shape alone).
+enum BpttRoute { kRouteNone = 0, kRouteCluster = 1, kRouteGrid = 2, kRouteL2 = 3 };
+
+inline int bptt_route(int B, int H) {
+  Plan p;
+  GridPlan g;
+  if (plan(B, H, &p)) return kRouteCluster;
+  if (grid_plan(B, H, kGridBlocks, &g)) return kRouteGrid;
+  return l2_rows(B, H) ? kRouteL2 : kRouteNone;
 }
 
 // The launch configuration of a plan: grid (C, groups, 2 directions),

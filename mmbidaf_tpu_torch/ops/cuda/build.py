@@ -49,8 +49,18 @@ SIGNATURES = {
     # gates, mask, w_h, out, h_last, c_last, h_seq, c_seq, B, T, H, stream
     "mmb_bilstm_forward_train": (P, P, P, P, P, P, P, P, I, I, I, P),
     # gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last, dgates,
-    # dwh_partial, dw_h, num_splits, B, T, H, stream
-    "mmb_bilstm_backward": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, P),
+    # dwh_partial, dw_h, num_splits, B, T, H, route (0: the card's), stream
+    "mmb_bilstm_backward": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    # B, H, card -> K6's walk: 1 cluster, 2 grid, 3 l2, 0 none (card 0: by
+    # the shape alone; 1: the route mmb_bilstm_backward takes on this card)
+    "mmb_lstm_bptt_route": (I, I, I),
+    # B, H, card, out[10] -> K6's grid walk plan (card 0: the shape's; 1: the
+    # one this card runs): P, CS, NQ, U, UT, Rp, KC, threads, dynamic shared
+    # memory a block (bytes), words of device memory
+    "mmb_lstm_grid_plan": (I, I, I, P),
+    # B, H, P -> clusters of K6's grid walk at P blocks a direction the card
+    # holds at once (it needs 2·P/8)
+    "mmb_bilstm_backward_grid_occupancy": (I, I, I),
     # B, T -> the length of the dW_h product's N slices
     "mmb_lstm_dwh_split": (I, I),
     # B, H, out[7] -> K1/K5/K6's cluster plan: C, R, U, clusters a direction,

@@ -35,7 +35,14 @@ c_last)``, which overwrites each step's ``z`` with its ``dz`` and carries
 the block's, with ``dz·W_hᵀ`` read from L2 every step); (c) ``dW_h``,
 summed over rows and steps by a product over the residuals with partials
 summed in a fixed order. (a) and (c) need no cluster plan and are the same
-on both routes. No phase uses atomics.
+on every route. K6's walk has a third route, ``grid``, picked by
+:func:`bptt_route`: at few rows past the cluster plan (at most 64, as in
+the hidden-512 model's 32-row towers) the L2 walk would hold 16 of the
+card's 132 SMs, so the grid walk spreads ``W_h`` over the whole card
+instead, each SM keeping the gate columns of its slice of units in
+registers (:func:`grid_plan`), and sums each step's ``dz·W_hᵀ`` over a
+cluster's shared memory, then over the clusters through device memory in
+words that carry the step's number. No phase uses atomics.
 :class:`BiLSTMTrainableFn` ties them into one ``torch.autograd.Function``
 per layer; ``dx``, ``dW_x`` and ``db`` come from autograd through the
 projection, the plain GEMMs they are on the TPU too. The TPU recomputes
@@ -52,8 +59,9 @@ program launches the same kernel.
 Tolerances of kernel vs plain on the card (``TOLERANCE``, ``BPTT_TOLERANCE``):
 the kernels sum their products in their own order (K6's walk sums
 ``dz @ W_h^T`` per block over its gate columns, then over the cluster's
-partials in rank order) and use CUDA's ``expf``/``tanhf``, so outputs
-differ by f32 rounding that the recurrence carries forward. K1/K5 outputs
+partials in rank order, on the grid walk then over the clusters in order)
+and use CUDA's ``expf``/``tanhf``, so outputs differ by f32 rounding that
+the recurrence carries forward. K1/K5 outputs
 are below 1 in magnitude (``|h|, |c|`` stay small by construction); the
 largest error measured at the five bench-shape towers (up to 512 steps) on
 an H100 was 2.4e-7 (K1) and 3.6e-7 (K5, before and on a cluster), so
@@ -69,7 +77,8 @@ scale); on a cluster, 4.8e-7 on dgates up to 4.9 and 1.3e-5 on dW_h up to
 a 5x margin on dW_h and 50x on dgates. On the L2 routes (``chip_smoke.py``
 16a: H 400–1024, 32–2048 rows, up to 512 steps) the largest errors measured
 on an H100 were 1.5e-7 (K5) and 1.2e-5 on dW_h up to 10 (K6), within the
-same bounds.
+same bounds; on the grid walk (H 452–512, 4–64 rows, up to 512 steps)
+1.1e-5 on dW_h up to 12 and 5.4e-7 on dgates.
 """
 
 from __future__ import annotations
@@ -166,6 +175,76 @@ def l2_rows(rows: int, H: int) -> int:
     return max(R, 0)
 
 
+GRID_BLOCKS, GRID_CLUSTER, GRID_MAX_ROWS, GRID_ROW_GROUP, GRID_PAIRS = 64, 8, 64, 8, 2
+
+
+class GridPlan(NamedTuple):
+    """How K6's grid walk lays ``rows`` rows of width ``H`` over the card
+    (``lstm_cluster.cuh::grid_plan``): ``P`` blocks a direction in ``NQ``
+    clusters of ``CS``, block ``b`` owning the units ``slices[b]`` for every
+    row (``U`` the largest slice, ``UT`` the kernel instance's units), rank
+    ``c`` of a cluster summing the outputs ``chunks[c]`` of the cluster's
+    partials (``KC`` the largest), rows padded to ``Rp``, ``threads`` a block
+    (two rows of ``W_h`` and up to two (unit, row) pairs of the gate math
+    each), its dynamic shared memory ``smem`` in bytes
+    (over half an SM's, so one block an SM) and ``work``, the exchange's
+    4-byte words of device memory."""
+    P: int
+    CS: int
+    NQ: int
+    U: int
+    UT: int
+    Rp: int
+    KC: int
+    threads: int
+    smem: int
+    work: int
+    slices: tuple
+    chunks: tuple
+
+
+def grid_plan(rows: int, H: int, P: int = GRID_BLOCKS) -> GridPlan:
+    """K6's grid walk plan at ``P`` blocks a direction (``lstm_cluster.cuh::
+    grid_plan``; the shape rule's ``P`` is 64, a card that cannot hold
+    them all runs fewer). Raises ``ValueError`` past ``GRID_MAX_ROWS`` rows,
+    where a block's slice needs more than 12 units (H past 768 at 64 blocks)
+    or where the block does not fit."""
+    CS = GRID_CLUSTER
+    if not (0 < rows <= GRID_MAX_ROWS and H > 0 and 0 < P <= H and P % CS == 0):
+        raise ValueError(f"no K6 grid plan for rows={rows}, H={H}")
+    U = -(-H // P)
+    UT = next((ut for ut in (8, 10, 12) if U <= ut), 0)
+    Rp = -(-rows // GRID_ROW_GROUP) * GRID_ROW_GROUP
+    KC = -(-H // CS)
+    threads = 32 * max(-(-H // 64), -(-UT * Rp // (32 * GRID_PAIRS)))
+    smem = 4 * Rp * (3 * 4 * UT + CS * KC + 6 * UT + 2)
+    if UT == 0 or threads > 32 * UT or smem > SMEM_LIMIT:
+        raise ValueError(f"no K6 grid plan for rows={rows}, H={H}: {U} units a block, "
+                         f"{smem} bytes of shared memory")
+    NQ = P // CS
+    return GridPlan(P, CS, NQ, U, UT, Rp, KC, threads, max(smem, SMEM_LIMIT // 2 + 16),
+                    8 * NQ * H * Rp,
+                    tuple((b * H // P, (b + 1) * H // P) for b in range(P)),
+                    tuple((c * H // CS, (c + 1) * H // CS) for c in range(CS)))
+
+
+def bptt_route(rows: int, H: int) -> str:
+    """K6's walk (``lstm_cluster.cuh::bptt_route``): ``"cluster"`` where
+    :func:`cluster_plan` has a plan; ``"grid"`` where :func:`grid_plan` has
+    one (no cluster plan, at most 64 rows, so that the L2 walk would hold at
+    most 32 of the card's SMs); else ``"l2"``. Raises ``ValueError`` where no
+    route takes the shape. On a card that cannot hold the grid walk's blocks
+    at once the launch takes ``"l2"`` instead (``mmb_lstm_bptt_route``)."""
+    route = serving_route(rows, H)
+    if route == "l2":
+        try:
+            grid_plan(rows, H)
+        except ValueError:
+            return "l2"
+        return "grid"
+    return route
+
+
 def serving_route(rows: int, H: int) -> str:
     """K1's route for ``rows`` rows of width ``H`` (``mmb_bilstm_forward``'s
     rule): ``"cluster"`` where :func:`cluster_plan` has a plan, else
@@ -182,22 +261,24 @@ def serving_route(rows: int, H: int) -> str:
 
 
 def train_route(rows: int, H: int) -> str:
-    """K5's and K6's route (``mmb_bilstm_forward_train``'s and
-    ``mmb_bilstm_backward``'s rule, K1's): ``"cluster"`` where
-    :func:`cluster_plan` has a plan, else ``"l2"``; raises where neither
-    takes the shape."""
+    """K5's route (``mmb_bilstm_forward_train``'s rule, K1's): ``"cluster"``
+    where :func:`cluster_plan` has a plan, else ``"l2"``; raises where
+    neither takes the shape. K6's walk follows :func:`bptt_route`."""
     return serving_route(rows, H)
 
 
 _occupancy_checked: set = set()
 
 
-def _check_route(lib, entry: str, rows: int, H: int) -> str:
-    """This shape's route and, once per plan, that the card can hold one of
-    its clusters (``cudaOccupancyMaxActiveClusters > 0``) or, on the L2
-    route, one of its blocks an SM; raises otherwise, before anything is
-    launched."""
-    route = serving_route(rows, H)
+def _check_route(lib, entry: str, rows: int, H: int, route: str | None = None) -> str:
+    """This shape's route (``route``, else :func:`serving_route`'s) and, once
+    per plan, that the card can hold one of its clusters
+    (``cudaOccupancyMaxActiveClusters > 0``) or, on the L2 route, one of its
+    blocks an SM; raises otherwise, before anything is launched. K6's grid
+    walk checks the card itself (``mmb_bilstm_backward``)."""
+    route = route or serving_route(rows, H)
+    if route == "grid":
+        return route
     if route == "cluster":
         plan = cluster_plan(rows, H)
         key = (entry, H, plan.R)  # the plan's only inputs
@@ -403,16 +484,23 @@ bilstm_train_forward.launches = 0
 bilstm_train_forward.routes = {"cluster": 0, "l2": 0}
 
 
-def bilstm_bptt(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last):
+_BPTT_ROUTES = ("none", "cluster", "grid", "l2")  # lstm_cluster.cuh::BpttRoute
+
+
+def bilstm_bptt(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last, route: str | None = None):
     """K6: backward through time (contract of :func:`bilstm_bptt_reference`)
     in three phases: (a) ``z = gates + h_seq[s-1]·W_h`` for every step
     ``s >= 1`` at once, written into ``dgates``, which has the gates' layout
-    and doubles as its scratch; (b) the walk, on the route
-    :func:`train_route` picks (a cluster, or a block a row group by L2),
-    which overwrites each step's ``z`` with its ``dz``; (c) ``dW_h`` over
-    the residuals, in per-slice partials (``partial``) summed in a fixed
-    order. ``bilstm_bptt.launches`` counts calls that launched the three
-    phases, ``bilstm_bptt.routes`` those of each route."""
+    and doubles as its scratch; (b) the walk, which overwrites each step's
+    ``z`` with its ``dz``, on the route :func:`bptt_route` names (a cluster;
+    the whole card, ``W_h`` resident in its registers; or a block a row group
+    by L2), or the L2 walk where the card cannot hold the grid walk's blocks
+    at once; ``route`` names another route that takes the shape, to time or
+    test one against another; (c) ``dW_h`` over the residuals, in per-slice
+    partials (``partial``, which the grid walk borrows for its exchange
+    first) summed in a fixed order. ``bilstm_bptt.launches`` counts calls
+    that launched the three phases, ``bilstm_bptt.routes`` those of each
+    route."""
     if gates.device.type == "cpu":
         return bilstm_bptt_reference(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last)
     if gates.device.type != "cuda":
@@ -423,15 +511,21 @@ def bilstm_bptt(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last):
                            ("dc_last", dc_last, (B, 2 * H))):
         build.check_tensor(t, name, shape, dev)
     lib = build.library()
-    route = _check_route(lib, "mmb_bilstm_backward", B, H)
+    if route is None:
+        bptt_route(B, H)  # raises where no route takes the shape
+        route = _BPTT_ROUTES[lib.mmb_lstm_bptt_route(B, H, 1)]
+    route = _check_route(lib, "mmb_bilstm_backward", B, H, route)
     num_splits = max(1, -(-((T - 1) * B) // lib.mmb_lstm_dwh_split(B, T)))
     dgates = torch.empty_like(gates)
-    partial = torch.empty(num_splits, 2, H, 4 * H, device=dev)
+    words = num_splits * 2 * H * 4 * H
+    if route == "grid":  # the walk's exchange borrows the partials' buffer first
+        words = max(words, grid_plan(B, H).work)
+    partial = torch.empty(words, device=dev)
     dw_h = torch.empty(2, H, 4 * H, device=dev)
     rc = lib.mmb_bilstm_backward(
         gates.data_ptr(), mask.data_ptr(), w_h.data_ptr(), h_seq.data_ptr(), c_seq.data_ptr(),
         dout.data_ptr(), dh_last.data_ptr(), dc_last.data_ptr(), dgates.data_ptr(),
-        partial.data_ptr(), dw_h.data_ptr(), num_splits, B, T, H,
+        partial.data_ptr(), dw_h.data_ptr(), num_splits, B, T, H, _BPTT_ROUTES.index(route),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check_launch(lib, rc, "mmb_bilstm_backward")
@@ -441,13 +535,14 @@ def bilstm_bptt(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last):
 
 
 bilstm_bptt.launches = 0
-bilstm_bptt.routes = {"cluster": 0, "l2": 0}
+bilstm_bptt.routes = {"cluster": 0, "grid": 0, "l2": 0}
 
 
 class BiLSTMTrainableFn(torch.autograd.Function):
-    """One BiLSTM layer's recurrence with its BPTT backward: K5 forward, K6
-    backward, both on the route :func:`train_route` names for the shape (one
-    rule, so the backward takes the forward's route). Inputs f32 ``gates [B, T, 8H]``, ``mask [B, T]``,
+    """One BiLSTM layer's recurrence with its BPTT backward: K5 forward on the
+    route :func:`train_route` names, K6 backward on the one
+    :func:`bptt_route` names (the forward's, but the grid walk for a few
+    rows past the cluster plan). Inputs f32 ``gates [B, T, 8H]``, ``mask [B, T]``,
     ``w_h [2, H, 4H]``; outputs ``(out [B, T, 2H], h_last, c_last [B, 2H])``."""
 
     @staticmethod

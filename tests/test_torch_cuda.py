@@ -731,11 +731,12 @@ def test_lstm_cluster_plan_matches_the_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,H", [(4, 512), (32, 400), (1024, 512), (64, 1024)])
+@pytest.mark.parametrize("rows,H", [(4, 512), (512, 400), (1024, 512), (64, 1024)])
 def test_lstm_train_l2_route_past_the_cluster_plan(cuda_device, rows, H):
-    """Widths with no cluster plan: K5 and K6 take the L2 route (counted),
-    against their plain versions; K1 gives K5's bits; the L2 plan's mirror is
-    the C plan and an SM holds a block of each kernel."""
+    """Widths with no cluster plan: K5 takes the L2 route and K6 the walk
+    ``bptt_route`` names (the grid walk at 4 rows, else L2; counted), against
+    their plain versions; K1 gives K5's bits; the L2 plan's mirror is the C
+    plan and an SM holds a block of each kernel."""
     from mmbidaf_tpu_torch.ops.cuda import build
     from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
     from mmbidaf_tpu_torch.ops.lstm import BiLSTMParams
@@ -769,7 +770,62 @@ def test_lstm_train_l2_route_past_the_cluster_plan(cuda_device, rows, H):
     assert not got[0][1].any()
     assert all(torch.equal(a, b) for a, b in zip(got, lk.bilstm_bptt(*args)))
     assert lk.bilstm_train_forward.routes["l2"] == before[0]["l2"] + 1
-    assert lk.bilstm_bptt.routes["l2"] == before[1]["l2"] + 2
+    route6 = lk.bptt_route(rows, H)
+    assert lk.bilstm_bptt.routes[route6] == before[1][route6] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,H,T", [
+    (4, 512, 7),      # a few rows: one row group
+    (32, 512, 1),     # T=1: no step has an h_prev, no exchange
+    (32, 512, 7),
+    (32, 512, 512),   # the audio tower of the hidden-512 model
+    (64, 512, 33),    # the most rows the grid walk takes
+    (7, 452, 20),     # 452 units: slices of 8 and 9 (of 7 and 8 at 64 blocks), chunks of 56 and 57
+    (64, 1024, 7),    # past 12 units a block: the rule names the L2 walk
+])
+def test_lstm_bptt_grid_route(cuda_device, rows, H, T):
+    """K6 on the route ``bptt_route`` names at few rows past the cluster plan
+    (the grid walk: W_h resident across the card) against its plain version
+    and against the L2 walk, with a ragged mask, an empty row and nonzero
+    dh_last / dc_last; twice the same bits; the route counted; the C rule
+    and plan equal their mirrors and the card runs a plan no larger."""
+    import ctypes
+
+    from mmbidaf_tpu_torch.ops.cuda import build
+    from mmbidaf_tpu_torch.ops.cuda import lstm_kernel as lk
+    from mmbidaf_tpu_torch.ops.lstm import BiLSTMParams
+
+    lib = build.library()
+    route = lk.bptt_route(rows, H)
+    assert lk._BPTT_ROUTES[lib.mmb_lstm_bptt_route(rows, H, 0)] == route
+    assert lk._BPTT_ROUTES[lib.mmb_lstm_bptt_route(rows, H, 1)] == route
+    if route == "grid":
+        shape, card = (ctypes.c_int * 10)(), (ctypes.c_int * 10)()
+        assert lib.mmb_lstm_grid_plan(rows, H, 0, shape) == 0
+        assert tuple(shape) == tuple(lk.grid_plan(rows, H)[:10])
+        assert lib.mmb_lstm_grid_plan(rows, H, 1, card) == 0
+        assert tuple(card) == tuple(lk.grid_plan(rows, H, card[0])[:10]) and card[9] <= shape[9]
+        assert lib.mmb_bilstm_backward_grid_occupancy(rows, H, card[0]) >= 2 * card[2]
+    gen = torch.Generator(device=cuda_device).manual_seed(26)
+    p = BiLSTMParams(6, H, gen, cuda_device)
+    with torch.no_grad():
+        gates = lk._projection(p, torch.randn(rows, T, 6, device=cuda_device, generator=gen))
+    w_h = torch.stack([p.fwd.w_h, p.bwd.w_h]).detach().contiguous()
+    lengths = torch.randint(0, T + 1, (rows,), device=cuda_device, generator=gen)
+    lengths[min(1, rows - 1)] = 0
+    mask = (torch.arange(T, device=cuda_device)[None] < lengths[:, None]).float()
+    fwd = lk.bilstm_train_forward(gates, mask, w_h)
+    cot = [torch.randn(*s, device=cuda_device, generator=gen)
+           for s in ((rows, T, 2 * H), (rows, 2 * H), (rows, 2 * H))]
+    args = (gates, mask, w_h, fwd[3], fwd[4], *cot)
+    before = dict(lk.bilstm_bptt.routes)
+    got = lk.bilstm_bptt(*args)
+    _assert_normwise(got, lk.bilstm_bptt_reference(*args), lk.BPTT_TOLERANCE, "K6")
+    assert all(torch.equal(a, b) for a, b in zip(got, lk.bilstm_bptt(*args)))
+    assert lk.bilstm_bptt.routes[route] == before[route] + 2
+    assert not got[0][min(1, rows - 1)].any()
+    _assert_normwise(got, lk.bilstm_bptt(*args, route="l2"), lk.BPTT_TOLERANCE, "K6 vs L2")
 
 
 @pytest.mark.cuda

@@ -130,6 +130,140 @@ def test_the_bench_widths_keep_the_cluster_route():
                for H in range(1, 385) for rows in (1, 5, 32, 128, 512, 1030))
 
 
+# K6's walk (``bptt_route``) over the width scan at 32, 128, 512 and 2048
+# rows: K5's route, but the grid walk at 32 rows past the cluster plan while
+# a block's slice of W_h holds (H to 768).
+BPTT_SCAN = {
+    100: "cccc", 128: "cccc", 256: "cccc", 384: "cccc",
+    400: "ccll", 448: "clll", 512: "glll", 768: "glll", 1024: "llll",
+}
+
+
+@pytest.mark.parametrize("H", sorted(BPTT_SCAN))
+def test_the_bptt_routes_of_the_width_scan(H):
+    """Every (rows, H) of the scan keeps a route; the grid walk takes only
+    shapes K5 serves on its L2 route, and never the cluster route's."""
+    got = "".join(lk.bptt_route(rows, H)[0] for rows in (32, 128, 512, 2048))
+    assert got == BPTT_SCAN[H]
+    for rows in ROUTE_ROWS:
+        k5, k6 = lk.train_route(rows, H), lk.bptt_route(rows, H)
+        assert k6 == k5 or (k5, k6) == ("l2", "grid")
+
+
+def test_bptt_route_at_the_bench_shapes():
+    """The hidden-512 training towers: the four 32-row towers take the grid
+    walk, the 1024-row word tower keeps the L2 walk; hidden 128 keeps its
+    clusters."""
+    assert lk.bptt_route(32, 512) == "grid"
+    assert lk.bptt_route(1024, 512) == "l2"
+    assert lk.bptt_route(32, 128) == "cluster"
+    assert lk.bptt_route(64, 512) == "grid" and lk.bptt_route(65, 512) == "l2"
+    assert lk.bptt_route(32, 769) == "l2"  # 13 units a block
+    with pytest.raises(ValueError, match="no BiLSTM route"):
+        lk.bptt_route(32, 9686)
+
+
+@pytest.mark.parametrize("rows,H,P", [(32, 512, 64), (32, 512, 56), (1, 512, 64), (64, 512, 56),
+                                      (7, 452, 56), (32, 700, 64), (64, 640, 64), (5, 768, 64)])
+def test_grid_plan_covers_the_width(rows, H, P):
+    """The grid walk's plan (``lstm_cluster.cuh::grid_plan``) at the shape
+    rule's 64 blocks a direction and at the 56 a card with 15 clusters of 8
+    runs: unit slices and the cluster's output chunks each cover H once, a
+    slice fits the instance's units, threads hold two rows of W_h each and
+    at most two (unit, row) pairs, one block an SM, the exchange sized."""
+    g = lk.grid_plan(rows, H, P)
+    assert (g.P, g.CS, g.NQ) == (P, 8, P // 8)
+    for spans, n in ((g.slices, g.P), (g.chunks, g.CS)):
+        assert len(spans) == n and spans[0][0] == 0 and spans[-1][1] == H
+        assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(spans, spans[1:]))
+    assert max(e - b for b, e in g.slices) == g.U <= g.UT and g.UT in (8, 10, 12)
+    assert g.KC == max(e - b for b, e in g.chunks)
+    assert 2 * g.threads >= H and g.threads <= 32 * g.UT and g.UT * g.Rp <= 2 * g.threads
+    assert g.Rp % 8 == 0 and rows <= g.Rp < rows + 8
+    assert SMEM_LIMIT // 2 < g.smem <= SMEM_LIMIT
+    assert g.work == 2 * 2 * g.NQ * H * g.Rp * 2  # parities, directions, 8-byte words
+
+
+def _grid_walk(gates, mask, w_h, h_seq, c_seq, dout, dh_last, dc_last, g):
+    """The grid walk's arithmetic in the kernel's decomposition: each block's
+    partial dz[:, its gate columns]·W_h[:, those columns]ᵀ, summed over a
+    cluster's ranks in rank order, then over the clusters in order, and added
+    to the carried (1-m)·dh."""
+    B, T, _ = gates.shape
+    H = w_h.shape[1]
+    dgates = torch.zeros_like(gates)
+    for d in (0, 1):
+        dh, dc = dh_last[:, d * H:(d + 1) * H].clone(), dc_last[:, d * H:(d + 1) * H].clone()
+        for s in range(T - 1, -1, -1):
+            tt = T - 1 - s if d else s
+            h_prev = h_seq[d, s - 1] if s > 0 else gates.new_zeros(B, H)
+            c_prev = c_seq[d, s - 1] if s > 0 else gates.new_zeros(B, H)
+            z = gates[:, tt, d * 4 * H:(d + 1) * 4 * H] + h_prev @ w_h[d]
+            i, f, gg, o = z.chunk(4, dim=-1)
+            i, f, gg, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(gg), torch.sigmoid(o)
+            tanh_c = torch.tanh(f * c_prev + i * gg)
+            m = mask[:, tt, None]
+            dh_new = m * (dout[:, tt, d * H:(d + 1) * H] + dh)
+            dc_new = dh_new * o * (1.0 - tanh_c * tanh_c) + m * dc
+            dz = torch.cat([dc_new * gg * i * (1.0 - i), dc_new * c_prev * f * (1.0 - f),
+                            dc_new * i * (1.0 - gg * gg), dh_new * tanh_c * o * (1.0 - o)], dim=-1)
+            dgates[:, tt, d * 4 * H:(d + 1) * 4 * H] = dz
+            total = torch.zeros(B, H)
+            for q in range(g.NQ):
+                cluster = torch.zeros(B, H)
+                for rank in range(g.CS):
+                    u0, u1 = g.slices[q * g.CS + rank]
+                    cols = torch.cat([torch.arange(u0, u1) + k * H for k in range(4)])
+                    cluster = cluster + dz[:, cols] @ w_h[d][:, cols].T
+                total = total + cluster
+            dh = (1.0 - m) * dh + total
+            dc = f * dc_new + (1.0 - m) * dc
+    return dgates
+
+
+@pytest.mark.parametrize("rows,H,P,T", [(5, 452, 56, 6), (3, 512, 64, 4)])
+def test_grid_walk_decomposition_matches_the_plain_version(rows, H, P, T):
+    """The grid walk's split of dz·W_hᵀ over the plan's slices, ranks and
+    clusters gives the plain version's dgates (a ragged mask with an empty
+    row, nonzero dh_last / dc_last)."""
+    gen = torch.Generator().manual_seed(26)
+    gates = torch.randn(rows, T, 8 * H, generator=gen)
+    w_h = 0.05 * torch.randn(2, H, 4 * H, generator=gen)
+    mask = torch.ones(rows, T)
+    mask[1] = 0.0
+    mask[2, T // 2:] = 0.0
+    _, _, _, h_seq, c_seq = lk.bilstm_train_forward_reference(gates, mask, w_h)
+    cot = [torch.randn(*shape, generator=gen)
+           for shape in ((rows, T, 2 * H), (rows, 2 * H), (rows, 2 * H))]
+    args = (gates, mask, w_h, h_seq, c_seq, *cot)
+    ref, _ = lk.bilstm_bptt_reference(*args)
+    got = _grid_walk(*args, lk.grid_plan(rows, H, P))
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    assert not got[1].any()
+
+
+def test_the_grid_walk_is_counted_as_k6():
+    """The grid walk's CUDA symbol (read from ``csrc/lstm_bwd.cu``) is one
+    of K6's names in the benchmark's kernel table, so ``lstm_roofline.train``
+    counts its time against K6's bound; K1 and K5 do not claim it."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("pbench_counts", repo / "port_bench" / "pbench" / "counts.py")
+    counts = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(counts)
+    src = (build.CSRC / "lstm_bwd.cu").read_text()
+    names = re.findall(r"__global__ void __launch_bounds__\([^)]*\) (\w+)\(", src)
+    grid = [n for n in names if "grid" in n]
+    assert grid == ["bilstm_bptt_cluster_kernel_grid"]
+    for ut in (8, 10, 12):
+        symbol = f"void (anonymous namespace)::{grid[0]}<{ut}>(float const*, float const*)"
+        assert counts.is_kernel(symbol, "K6")
+        assert not counts.is_kernel(symbol, "K1") and not counts.is_kernel(symbol, "K5")
+
+
 # ---------------------------------------------------------------------------
 # K4 / K3: a block at every window.
 # ---------------------------------------------------------------------------
